@@ -1,0 +1,23 @@
+"""PyTorch / CUDA port of the mjmpc_tpu sampling-MPC framework.
+
+The JAX package `mjmpc_tpu` stays the reference; this package mirrors its
+layout (ops, engine, envs, rollout, solvers) in PyTorch idiom: plain
+functions over tensors, frozen dataclasses holding tensors, an explicit
+`device` on every entry point and explicit `torch.Generator`s. The hot
+rollout runs in a hand-written CUDA kernel (csrc/chain_rollout.cu) built
+by nvcc at first use (kernels/build.py).
+
+This package never imports jax.
+"""
+import torch
+
+# Full-f32 products everywhere on CUDA. The cost-to-go is a discount-matrix
+# product and the MPPI update is an einsum over particles; on the TPU a
+# reduced-precision matmul corrupted the cost-to-go by O(1)
+# (mjmpc_tpu/ops/control.py cost_to_go), and TF32 is the H100's analogue.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from . import envs, ops, solvers  # noqa: E402
+
+__all__ = ["envs", "ops", "solvers"]

@@ -1,0 +1,43 @@
+"""Environment registry.
+
+Counterpart of mjmpc_tpu/envs/__init__.py for the ported envs. Every env
+module is imported directly: an ImportError from an in-repo module is a
+bug and propagates, it is never swallowed.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from . import reacher_7dof
+from .base import Env
+
+_REGISTRY: Dict[str, Callable[..., Env]] = {
+    "reacher_7dof-v0": reacher_7dof.make,
+    "continual_reacher-v0": reacher_7dof.make_continual,
+}
+
+_CACHE: Dict[Tuple[str, str], Env] = {}
+
+
+def make(name: str, device="cpu", **kwargs) -> Env:
+    """Build (or fetch) an env on `device`. Calls without other kwargs are
+    cached per (name, device), so repeated makes reuse one env and its
+    built kernel."""
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown env {name!r}; known: {sorted(_REGISTRY)}")
+    if kwargs:
+        return _REGISTRY[name](device=device, **kwargs)
+    key = (name, str(torch.device(device)))
+    env = _CACHE.get(key)
+    if env is None:
+        env = _CACHE[key] = _REGISTRY[name](device=device)
+    return env
+
+
+def available() -> list:
+    return sorted(_REGISTRY)
+
+
+__all__ = ["Env", "make", "available"]

@@ -1,0 +1,54 @@
+"""Environment protocol: a bundle of plain functions over explicit state.
+
+Counterpart of mjmpc_tpu/envs/base.py. Every function takes leading batch
+dimensions on its state and action tensors, so a rollout advances all N
+particles with one call per step:
+
+    env.init(params, seed)               -> state (episode start)
+    env.step(params, state, action)      -> (next_state, obs, reward, done)
+    env.observe(params, state)           -> obs
+
+`params` is the dynamics model (tensors on the env's device), passed
+explicitly as in the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+StepFn = Callable[[Any, Any, torch.Tensor],
+                  Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class Env:
+    """An environment as a bundle of plain functions plus static metadata.
+
+    `action_lows` / `action_highs` are [dA] tensors on `device`, built
+    once so that clipping an action copies nothing from the host.
+    """
+    name: str
+    d_obs: int
+    d_action: int
+    action_lows: torch.Tensor
+    action_highs: torch.Tensor
+    params: Any
+    init: Callable[[Any, int], Any]
+    step: StepFn
+    observe: Callable[[Any, Any], torch.Tensor]
+    device: torch.device
+    # Optional per-step success predicate: (params, state) -> bool tensor.
+    success: Optional[Callable[[Any, Any], torch.Tensor]] = None
+    max_episode_steps: int = 1000
+    # Optional fused rollout: (params, state, mean [H, dA], noise [N, H, dA])
+    # -> costs [N, H], equal to the costs of rollout_open_loop but computed
+    # by one kernel (ops/chain_rollout.py). Model constants are baked at
+    # build time, so planning against other params must bypass it
+    # (build_solve_fn's `fused` flag).
+    fused_rollout: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
+                                     torch.Tensor]] = None
+
+    def clip_action(self, action: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(action, self.action_lows, self.action_highs)

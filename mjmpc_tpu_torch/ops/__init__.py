@@ -1,0 +1,28 @@
+from .control import (
+    clip_ctrl,
+    cost_to_go,
+    discount_matrix,
+    gamma_sequence,
+    gaussian_entropy,
+    gaussian_kl,
+    gaussian_logprob,
+    gaussian_logprobgrad,
+    scale_ctrl,
+)
+from .noise import ar_filter, colour, filtered_noise, gaussian_noise
+
+__all__ = [
+    "clip_ctrl",
+    "cost_to_go",
+    "discount_matrix",
+    "gamma_sequence",
+    "gaussian_entropy",
+    "gaussian_kl",
+    "gaussian_logprob",
+    "gaussian_logprobgrad",
+    "scale_ctrl",
+    "ar_filter",
+    "colour",
+    "filtered_noise",
+    "gaussian_noise",
+]

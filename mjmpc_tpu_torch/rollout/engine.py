@@ -1,0 +1,59 @@
+"""Batched open-loop rollout: a Python loop over the horizon of one batched
+env.step over all N particles.
+
+Counterpart of mjmpc_tpu/rollout/engine.py, with the same semantics:
+- every particle starts from the same initial state;
+- u[b, t] = mean[t] + noise[b, t];
+- recorded actions are the pre-clip commanded actions (the env clips);
+- costs are negated rewards, taken on the post-step state.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..envs.base import Env
+
+
+class Trajectories(NamedTuple):
+    """Batch of rollout results. The costs-only fused path fills only
+    `actions` and `costs`."""
+    observations: Optional[torch.Tensor]       # [N, H, d_obs]
+    actions: torch.Tensor                      # [N, H, dA]
+    costs: torch.Tensor                        # [N, H]
+    dones: Optional[torch.Tensor]              # [N, H]
+    next_observations: Optional[torch.Tensor]  # [N, H, d_obs]
+    successes: Optional[torch.Tensor]          # [N, H]
+
+
+def _broadcast_state(state, n: int):
+    """Give every tensor field of a state dataclass a leading [n] axis."""
+    fields = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.expand((n,) + tuple(v.shape))
+        fields[f.name] = v
+    return dataclasses.replace(state, **fields)
+
+
+def rollout_open_loop(env: Env, params, state0, mean: torch.Tensor,
+                      noise: torch.Tensor) -> Trajectories:
+    """Open-loop rollout of mean [H, dA] + noise [N, H, dA] from one env
+    state."""
+    n, horizon = noise.shape[0], noise.shape[1]
+    state = _broadcast_state(state0, n)
+    obs = env.observe(params, state)
+    out = dict(observations=[], actions=[], costs=[], dones=[],
+               next_observations=[], successes=[])
+    for t in range(horizon):
+        u = mean[t] + noise[:, t]
+        state, next_obs, reward, done = env.step(params, state, u)
+        succ = (env.success(params, state) if env.success is not None
+                else torch.zeros_like(reward, dtype=torch.bool))
+        for key, val in zip(out, (obs, u, -reward, done, next_obs, succ)):
+            out[key].append(val)
+        obs = next_obs
+    return Trajectories(**{k: torch.stack(v, 1) for k, v in out.items()})

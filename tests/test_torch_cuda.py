@@ -1,0 +1,76 @@
+"""The CUDA chain-rollout kernel on the card: against its plain PyTorch
+version, its launch count on the main path, and the wrapper's checks.
+
+Needs a CUDA card and skips without one (the kernel has no CPU mode). This
+file imports no jax, so it also runs where jax is not installed:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+Tolerance: atol 5e-5 at (N=37, H=5), the JAX kernel's own tolerance; 1e-3
+at the main path's (N=4096, H=32), where the longer horizon accumulates
+f32 reordering on costs of order 1-10.
+"""
+import numpy as np
+import pytest
+import torch
+
+from mjmpc_tpu_torch import envs, solvers
+from mjmpc_tpu_torch.ops.chain_rollout import ChainRollout, build_chain_rollout
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(n, h, seed, device):
+    rng = np.random.default_rng(seed)
+    mean = np.asarray(rng.normal(size=(h, 7)) * 0.3, np.float32)
+    noise = np.asarray(rng.normal(size=(n, h, 7)) * 0.5, np.float32)
+    q0 = np.asarray(rng.normal(size=7) * 0.1, np.float32)
+    qd0 = np.asarray(rng.normal(size=7) * 0.1, np.float32)
+    target = np.array([0.2, -0.1, 0.15], np.float32)
+    return [torch.as_tensor(a, device=device) for a in (q0, qd0, target, mean, noise)]
+
+
+@pytest.mark.parametrize("n,h,tol", [(37, 5, 5e-5), (4096, 32, 1e-3)])
+def test_kernel_matches_plain(device, n, h, tol):
+    roll = build_chain_rollout(envs.make("reacher_7dof-v0", device=device).params.model,
+                               n_substeps=2)
+    args = _inputs(n, h, 0, device)
+    before = ChainRollout.launches
+    got = roll(*args)
+    assert ChainRollout.launches == before + 1
+    torch.testing.assert_close(got, roll.plain(*args), rtol=0, atol=tol)
+
+
+def test_wrapper_rejects_non_contiguous_noise(device):
+    roll = build_chain_rollout(envs.make("reacher_7dof-v0", device=device).params.model,
+                               n_substeps=2)
+    q0, qd0, target, mean, noise = _inputs(8, 4, 1, device)
+    noise = noise.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError):
+        roll(q0, qd0, target, mean, noise)
+
+
+def test_solves_launch_the_kernel_without_host_syncs(device):
+    env = envs.make("reacher_7dof-v0", device=device)
+    solver = solvers.MPPI(d_action=7, horizon=8, num_particles=256, lam=0.01,
+                          init_cov=3.0, step_size=0.55, filter_coeffs=(0.25, 0.8, 0.0),
+                          base_action="repeat", device=device)
+    solve = solvers.make_solve_fn(solver, env)
+    env_state = env.init(env.params, 1)
+    state = solver.init_state(0)
+    before = ChainRollout.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            action, _, state = solve(env.params, env_state, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ChainRollout.launches == before + 3
+    assert bool(torch.isfinite(action).all())
