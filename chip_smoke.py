@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -6,28 +6,48 @@ Phases, one JSON line each; any failure ends the script with a nonzero
 exit and no final line:
 
 1. device   -- the card's name and power limit (nvidia-smi).
-2. build    -- nvcc builds the chain-rollout kernel from csrc/.
-3. kernel   -- the kernel against its plain PyTorch version on the card,
-               at (N=37, H=5) to atol 5e-5 and at the main path's
-               (N=4096, H=32) to max abs error 1e-3 (costs are O(1); the
-               longer horizon accumulates f32 reordering).
+2. build    -- nvcc builds the chain-rollout library (costs-only and
+               obs-emitting entries) and the filtered-noise library from
+               csrc/, both at once; ptxas register and spill lines.
+3. kernel   -- each kernel against its plain PyTorch version on the card:
+               chain and obs rollouts at (N=37, H=5) to atol 5e-5 and at
+               the main path's (N=4096, H=32) to max abs error 1e-3 (costs
+               are O(1); the longer horizon accumulates f32 reordering);
+               the noise kernel at (37, 5, 7) and (4096, 32, 7), filter
+               (0.25, 0.8, 0), cov 3 I, to 1e-4 (identical uniforms; libm
+               ulps and sum order differ, scaled by the filter's gain of
+               about 1.25 and by sqrt(3)).
 4. main     -- envs.make("reacher_7dof-v0") -> solvers.MPPI(...) ->
                solvers.make_solve_fn on device="cuda": 10 chained solves
                under torch.cuda.set_sync_debug_mode("error") (no host sync
                inside a solve), a finite action read once at the end, the
-               kernel's launch count rising by exactly 10; then a 10-step
-               evaluate_episode with finite rewards.
-5. timing   -- read-verified solves/s with the fused kernel and with the
-               plain rollout on the card (each window ends by reading a
-               value that depends on every solve in it), one rollout call
-               of each timed with CUDA events, and a per-stage breakdown.
-               Printed, not asserted.
+               chain kernel's launch count rising by exactly 10; then a
+               10-step evaluate_episode with finite rewards. Run with the
+               plain noise sampler (main) and again with noise_impl="kernel"
+               (main_kernel_noise: the chain and noise counts each rise by
+               exactly 10).
+5. zoo      -- RandomShooting, CEM (diagonal, full), DMD (update_cov),
+               MPPIQ without Q, PFMPC and MPPIQ with a torch q_fn, N=4096
+               H=32, noise_impl="kernel": 3 chained sync-free solves each,
+               a finite action read at the end. MPPIQ with a Q moves only
+               the obs kernel's count, the others only the chain kernel's.
+6. guard    -- solvers.guard_finite around a solve whose rollout returns
+               NaN costs: a zero action and a reset mean, no host sync.
+7. timing   -- read-verified solves/s (each window ends by reading a value
+               that depends on every solve in it) for MPPI with the plain
+               and with the kernel noise, for MPPI with the plain rollout,
+               and for each solver of the zoo; each kernel and its plain
+               version timed with CUDA events; a per-stage breakdown with
+               each noise sampler; a torch.profiler count of kernels and
+               device time per solve. Printed, not asserted.
 
+Every launch count is set to 0 just before a path runs and read just after.
 The last lines are the kernels' summary, the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import re
@@ -41,7 +61,11 @@ import numpy as np
 DEVICE = "cuda"
 HORIZON = 32
 NUM_PARTICLES = 4096
+D_ACTION = 7
 N_SOLVES = 10
+ZOO_SOLVES = 3
+FILTER = (0.25, 0.8, 0.0)
+HOLD_CYCLES = 100_000_000   # about 50 ms of spinning at the H100's clock
 
 
 def emit(phase: str, **fields) -> None:
@@ -62,12 +86,16 @@ def reacher_inputs(n: int, h: int, seed: int, device):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` calls, by CUDA events."""
+    """Mean device time of fn() over `reps` calls, by CUDA events. A spin
+    kernel queued first holds the stream while the host enqueues the calls,
+    so a kernel shorter than its own host-side launch is timed on the
+    device, not at the host's enqueue rate."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -91,18 +119,53 @@ def solves_per_s(solve, env, env_state, state, k: int, windows: int):
     return statistics.median(rates), rates, state
 
 
+def device_time_us(event) -> float:
+    """A profiler kernel event's device time (the attribute's name changed
+    across PyTorch versions)."""
+    t = getattr(event, "device_time_total", None)
+    return float(event.cuda_time_total if t is None else t)
+
+
+def reset_counts(*wrappers) -> None:
+    for w in wrappers:
+        w.launches = 0
+
+
+def sync_free(solve, env, env_state, state, k: int):
+    """k chained solves under set_sync_debug_mode("error"); the action is
+    read once, after the mode is off."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(k):
+            action, _, state = solve(env.params, env_state, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    action_host = action.cpu().numpy()
+    if not np.isfinite(action_host).all():
+        raise RuntimeError("solve produced a non-finite action")
+    return action_host, state
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from mjmpc_tpu_torch import envs, solvers
-        from mjmpc_tpu_torch.ops.chain_rollout import ChainRollout
+        from mjmpc_tpu_torch import bounds, envs, solvers
+        from mjmpc_tpu_torch.ops.chain_rollout import ChainObsRollout, ChainRollout
+        from mjmpc_tpu_torch.ops.noise import FilteredNoise
         from mjmpc_tpu_torch.rollout import Trajectories
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
+    counters = (ChainRollout, ChainObsRollout, FilteredNoise)
+
+    def counts():
+        return {"chain": ChainRollout.launches, "obs": ChainObsRollout.launches,
+                "noise": FilteredNoise.launches}
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -112,116 +175,262 @@ def main() -> int:
     emit("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     device = torch.device(DEVICE)
     env = envs.make("reacher_7dof-v0", device=device)
-    roll = ChainRollout(env.params.model, n_substeps=2)
+    model = env.params.model
+    roll = ChainRollout(model, n_substeps=2)
+    roll_obs = ChainObsRollout(model, n_substeps=2)
+    sampler = FilteredNoise()
     t0 = time.perf_counter()
-    lib = roll.library()
-    ptxas = [ln.strip() for ln in lib.ptxas.splitlines()
-             if re.search(r"registers|spill", ln)]
-    emit("build", seconds=round(time.perf_counter() - t0, 3),
-         nvcc_seconds=round(lib.build_seconds, 3), library=str(lib.path.name),
-         ptxas=ptxas)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(roll.library), pool.submit(sampler.library)]
+        libs = [f.result() for f in futures]
+    roll_obs.library()
+    for lib in libs:
+        emit("build", seconds=round(time.perf_counter() - t0, 3),
+             nvcc_seconds=round(lib.build_seconds, 3), library=str(lib.path.name),
+             ptxas=[ln.strip() for ln in lib.ptxas.splitlines()
+                    if re.search(r"registers|spill|Compiling entry", ln)])
 
-    # 3. kernel against its plain version, on the card
+    # 3. each kernel against its plain version, on the card
     errors = {}
     for n, h, tol, seed in ((37, 5, 5e-5, 1), (NUM_PARTICLES, HORIZON, 1e-3, 0)):
         args = reacher_inputs(n, h, seed, device)
         got = roll(*args)
         want = roll.plain(*args)
+        obs, obs_costs = roll_obs(*args)
+        want_obs, want_obs_costs = roll_obs.plain(*args)
         torch.cuda.synchronize()
         if got.shape != (n, h) or not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"kernel output bad at N={n} H={h}")
+            raise RuntimeError(f"chain kernel output bad at N={n} H={h}")
+        if obs.shape != (n, h, roll_obs.d_obs) or not bool(torch.isfinite(obs).all()):
+            raise RuntimeError(f"obs kernel output bad at N={n} H={h}")
         err = float((got - want).abs().max())
-        errors[(n, h)] = err
+        err_obs = max(float((obs - want_obs).abs().max()),
+                      float((obs_costs - want_obs_costs).abs().max()))
+        errors[("chain", n, h)], errors[("obs", n, h)] = err, err_obs
         emit("kernel", name="chain_rollout", n=n, h=h, max_abs_err=err, atol=tol,
              costs_min=float(want.min()), costs_max=float(want.max()))
-        if not err <= tol:
-            raise RuntimeError(f"kernel disagrees with its plain version at "
-                               f"N={n} H={h}: {err} > {tol}")
+        emit("kernel", name="chain_obs_rollout", n=n, h=h, max_abs_err=err_obs, atol=tol,
+             obs_abs_max=float(want_obs.abs().max()))
+        for which, e in (("chain", err), ("obs", err_obs)):
+            if not e <= tol:
+                raise RuntimeError(f"{which} kernel disagrees with its plain version at "
+                                   f"N={n} H={h}: {e} > {tol}")
+    cov3 = 3.0 * torch.eye(D_ACTION, device=device)
+    for n, h, seed in ((37, 5, 7), (NUM_PARTICLES, HORIZON, 8)):
+        got = sampler(seed, cov3, (n, h), FILTER)
+        want = sampler.plain(seed, cov3, (n, h), FILTER)
+        white = sampler.white(seed, n, h, D_ACTION, FILTER, device)
+        want_white = sampler.white_plain(seed, n, h, D_ACTION, FILTER, device)
+        torch.cuda.synchronize()
+        if got.shape != (n, h, D_ACTION) or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"noise kernel output bad at N={n} H={h}")
+        err = float((got - want).abs().max())
+        err_white = float((white - want_white).abs().max())
+        errors[("noise", n, h)] = err
+        emit("kernel", name="filtered_noise", n=n, h=h, d_action=D_ACTION, max_abs_err=err,
+             max_abs_err_uncoloured=err_white, atol=1e-4, std=float(want.std()))
+        if not max(err, err_white) <= 1e-4:
+            raise RuntimeError(f"noise kernel disagrees with its plain version at "
+                               f"N={n} H={h}: {err} > 1e-4")
 
-    # 4. main path
-    solver = solvers.MPPI(
-        d_action=env.d_action, horizon=HORIZON, num_particles=NUM_PARTICLES,
-        lam=0.01, init_cov=3.0, step_size=0.55, gamma=1.0,
-        filter_coeffs=(0.25, 0.8, 0.0), base_action="repeat", device=device)
-    solve = solvers.make_solve_fn(solver, env)
+    # 4. main path, with the plain and with the kernel noise sampler
+    cfg = dict(d_action=env.d_action, horizon=HORIZON, num_particles=NUM_PARTICLES,
+               init_cov=3.0, filter_coeffs=FILTER, base_action="repeat", device=device)
+    mppi = dict(lam=0.01, step_size=0.55, gamma=1.0)
+    solver = solvers.MPPI(**cfg, **mppi)
+    solver_k = solvers.MPPI(**cfg, **mppi, noise_impl="kernel")
+    solver_k.noise_sampler.library()
     env_state = env.init(env.params, 1)
-    state = solver.init_state(0)
-    torch.cuda.synchronize()
-    ChainRollout.launches = 0
-    torch.cuda.set_sync_debug_mode("error")
-    for _ in range(N_SOLVES):
-        action, _, state = solve(env.params, env_state, state)
-    torch.cuda.set_sync_debug_mode(0)
-    launches = ChainRollout.launches
-    action_host = action.cpu().numpy()
-    emit("main", solves=N_SOLVES, launches=launches, action=action_host.tolist(),
-         step=state.step)
-    if not np.isfinite(action_host).all():
-        raise RuntimeError("main path produced a non-finite action")
-    if launches != N_SOLVES:
-        raise RuntimeError(f"kernel launched {launches} times in {N_SOLVES} solves")
+    main_counts = {}
+    for phase, s in (("main", solver), ("main_kernel_noise", solver_k)):
+        solve = solvers.make_solve_fn(s, env)
+        state = s.init_state(0)
+        reset_counts(*counters)
+        action_host, state = sync_free(solve, env, env_state, state, N_SOLVES)
+        main_counts[phase] = got = counts()
+        emit(phase, solves=N_SOLVES, launches=got, action=action_host.tolist(),
+             step=state.step)
+        want = {"chain": N_SOLVES, "obs": 0,
+                "noise": N_SOLVES if s.noise_impl == "kernel" else 0}
+        if got != want:
+            raise RuntimeError(f"{phase}: launches {got}, expected {want}")
 
-    episode = solvers.evaluate_episode(solver, env, 10)(env.params, 2)
+    episode = solvers.evaluate_episode(solver_k, env, 10)(env.params, 2)
     rewards = episode["reward"].cpu().numpy()
     emit("episode", steps=10, rewards=rewards.tolist())
     if rewards.shape != (10,) or not np.isfinite(rewards).all():
         raise RuntimeError("episode rewards not finite")
 
-    # 5. timing (printed, not asserted)
+    # 5. the zoo, kernel noise
+    zcfg = dict(cfg, noise_impl="kernel")
+    w_obs = torch.full((roll_obs.d_obs,), 0.05, device=device)
+    w_act = torch.full((D_ACTION,), 0.1, device=device)
+
+    def q_fn(obs, acts):
+        return (obs * obs) @ w_obs + (acts * acts) @ w_act
+
+    zoo = {
+        "random_shooting": solvers.RandomShooting(**zcfg, step_size=0.55),
+        "cem_diagonal": solvers.CEM(**zcfg, step_size=0.55, elite_frac=0.1, beta=0.1),
+        "cem_full": solvers.CEM(**zcfg, step_size=0.55, elite_frac=0.1, beta=0.1,
+                                cov_type="full"),
+        "dmd": solvers.DMDMPC(**zcfg, step_size=0.55, lam=0.01, beta=0.1, update_cov=True),
+        "mppiq": solvers.MPPIQ(**zcfg, step_size=0.55, beta=0.01, td_lam=0.9, gamma=0.99),
+        "pfmpc": solvers.PFMPC(d_action=D_ACTION, horizon=HORIZON,
+                               num_particles=NUM_PARTICLES, lam=0.01, cov_shift=0.05,
+                               cov_resample=1.0, filter_coeffs=FILTER,
+                               noise_impl="kernel", device=device),
+        "mppiq_q": solvers.MPPIQ(**zcfg, step_size=0.55, beta=0.01, td_lam=0.9, gamma=0.99,
+                                 q_fn=q_fn),
+    }
+    zoo_solves, zoo_counts = {}, {}
+    for key, s in zoo.items():
+        solve = solvers.make_solve_fn(s, env)
+        state = s.init_state(0)
+        reset_counts(*counters)
+        action_host, state = sync_free(solve, env, env_state, state, ZOO_SOLVES)
+        zoo_counts[key] = got = counts()
+        zoo_solves[key] = (solve, state)
+        emit("zoo", solver=key, solves=ZOO_SOLVES, launches=got, action=action_host.tolist())
+        roll_key = "obs" if key == "mppiq_q" else "chain"
+        want = {"chain": 0, "obs": 0, "noise": ZOO_SOLVES, roll_key: ZOO_SOLVES}
+        if got != want:
+            raise RuntimeError(f"zoo {key}: launches {got}, expected {want}")
+
+    # 6. guard_finite around a solve that goes non-finite
+    nan_env = dataclasses.replace(env, fused_rollout=lambda p, s, mean, noise: torch.full(
+        noise.shape[:2], float("nan"), device=noise.device))
+    guarded = solvers.guard_finite(solvers.make_solve_fn(solver_k, nan_env), solver_k)
+    state = dataclasses.replace(solver_k.init_state(0), step=3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        action, value, state = guarded(env.params, env_state, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fresh = solver_k.init_state(0)
+    ok = (bool((action == 0).all()) and float(value) == 0.0 and state.step == 4
+          and bool(torch.equal(state.mean, fresh.mean))
+          and bool(torch.equal(state.cov, fresh.cov)))
+    emit("guard", action=action.cpu().numpy().tolist(), value=float(value), step=state.step,
+         reset=ok)
+    if not ok:
+        raise RuntimeError("guard_finite did not reset the non-finite solve")
+
+    # 7. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
-    kernel_ms = cuda_ms(lambda: roll(*args), 20)
-    plain_ms = cuda_ms(lambda: roll.plain(*args), 2)
-    emit("rollout_time", kernel_ms=kernel_ms, plain_ms=plain_ms, card=smi)
+    times = {
+        "chain_rollout": (cuda_ms(lambda: roll(*args), 20), cuda_ms(lambda: roll.plain(*args), 2)),
+        "chain_obs_rollout": (cuda_ms(lambda: roll_obs(*args), 20),
+                              cuda_ms(lambda: roll_obs.plain(*args), 2)),
+        "filtered_noise": (
+            cuda_ms(lambda: sampler.white(5, NUM_PARTICLES, HORIZON, D_ACTION, FILTER, device),
+                    50),
+            cuda_ms(lambda: sampler.white_plain(5, NUM_PARTICLES, HORIZON, D_ACTION, FILTER,
+                                                device), 5)),
+    }
+    sampler_ms = (cuda_ms(lambda: sampler(5, cov3, (NUM_PARTICLES, HORIZON), FILTER), 50),
+                  cuda_ms(lambda: solver.sample_noise(solver.init_state(5)), 5))
+    emit("kernel_time", card=smi, sampler_with_colouring_ms=sampler_ms[0],
+         plain_sampler_ms=sampler_ms[1],
+         **{k: {"ms": v[0], "plain_ms": v[1]} for k, v in times.items()})
 
     plain_env = dataclasses.replace(
         env, fused_rollout=lambda p, s, mean, noise: roll.plain(
             s.qpos, s.qvel, s.target, mean, noise))
-    plain_solve = solvers.make_solve_fn(solver, plain_env)
-    rates = {"kernel": [], "plain": []}
-    for order in (("kernel", "plain"), ("plain", "kernel")):
+    variants = {"plain_noise": (solvers.make_solve_fn(solver, env), solver),
+                "kernel_noise": (solvers.make_solve_fn(solver_k, env), solver_k)}
+    rates = {k: [] for k in variants}
+    states = {k: s.init_state(0) for k, (_, s) in variants.items()}
+    for order in (("plain_noise", "kernel_noise"), ("kernel_noise", "plain_noise")):
         for which in order:
-            fn = solve if which == "kernel" else plain_solve
-            k, windows = (20, 5) if which == "kernel" else (2, 2)
-            _, window_rates, state = solves_per_s(fn, env, env_state, state, k, windows)
+            _, window_rates, states[which] = solves_per_s(
+                variants[which][0], env, env_state, states[which], 20, 5)
             rates[which] += window_rates
-    emit("solves_per_s", kernel=statistics.median(rates["kernel"]),
-         plain=statistics.median(rates["plain"]), kernel_windows=rates["kernel"],
-         plain_windows=rates["plain"], n=NUM_PARTICLES, h=HORIZON, card=smi)
+    plain_rate, plain_windows, _ = solves_per_s(
+        solvers.make_solve_fn(solver, plain_env), env, env_state, solver.init_state(0), 2, 2)
+    emit("solves_per_s", card=smi, n=NUM_PARTICLES, h=HORIZON,
+         **{k: statistics.median(v) for k, v in rates.items()},
+         **{k + "_windows": v for k, v in rates.items()},
+         plain_rollout=plain_rate, plain_rollout_windows=plain_windows)
+    zoo_rates = {}
+    for key, (solve, state) in zoo_solves.items():
+        zoo_rates[key], _, _ = solves_per_s(solve, env, env_state, state, 10, 5)
+    emit("zoo_solves_per_s", card=smi, n=NUM_PARTICLES, h=HORIZON, **zoo_rates)
 
     # where a solve's time goes: host clock per stage, synchronised
-    stages = {"noise": [], "rollout": [], "update": [], "act_shift": []}
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        noise = solver.sample_noise(state)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        costs = env.fused_rollout(env.params, env_state, state.mean, noise)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        traj = Trajectories(None, state.mean[None] + noise, costs, None, None, None)
-        s2 = solver.update(state, traj)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        solver.act(s2)
-        state = solver.shift(dataclasses.replace(s2, step=s2.step + 1))
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            stages[key].append(dt * 1e3)
-    emit("breakdown_ms", card=smi,
-         **{k: statistics.median(v) for k, v in stages.items()})
+    for which, s in (("plain_noise", solver), ("kernel_noise", solver_k)):
+        state = s.init_state(0)
+        stages = {"noise": [], "rollout": [], "update": [], "act_shift": []}
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            noise = s.sample_noise(state)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            costs = env.fused_rollout(env.params, env_state, state.mean, noise)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            traj = Trajectories(None, state.mean[None] + noise, costs, None, None, None)
+            s2 = s.update(state, traj)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            s.act(s2)
+            state = s.shift(dataclasses.replace(s2, step=s2.step + 1))
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                stages[key].append(dt * 1e3)
+        emit("breakdown_ms", noise_impl=which, card=smi,
+             **{k: statistics.median(v) for k, v in stages.items()})
 
+    # kernels and device time per solve (torch.profiler over 10 solves)
+    for which, (solve, s) in variants.items():
+        state = s.init_state(0)
+        for _ in range(3):
+            _, _, state = solve(env.params, env_state, state)
+        torch.cuda.synchronize()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(N_SOLVES):
+                _, _, state = solve(env.params, env_state, state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(device_time_us(e) for e in kernels)
+        emit("profile", noise_impl=which, card=smi, solves=N_SOLVES,
+             device_kernels_per_solve=len(kernels) / N_SOLVES,
+             device_ms_per_solve=device_us / 1e3 / N_SOLVES,
+             wall_ms_per_solve=wall * 1e3 / N_SOLVES,
+             device_busy_share=(device_us / 1e6) / wall if wall > 0 else None)
+
+    # the kernels' summary: launches from the paths' runs, bounds from
+    # this run's shapes (the work does not depend on the data)
+    n, h = NUM_PARTICLES, HORIZON
+    bound = {r["number"]: (r["bound_ms"], r["bound_by"])
+             for r in bounds.kernel_table(model, n, h)}
+    rows = [
+        ("chain_rollout", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
+         "mjmpc_tpu/ops/pallas_chain.py:381", main_counts["main_kernel_noise"]["chain"],
+         errors[("chain", n, h)], bound[1]),
+        ("filtered_noise", "mjmpc_tpu_torch/csrc/filtered_noise.cu",
+         "mjmpc_tpu/ops/pallas_kernels.py:73", main_counts["main_kernel_noise"]["noise"],
+         errors[("noise", n, h)], bound[2]),
+        ("chain_obs_rollout", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
+         "mjmpc_tpu/ops/pallas_chain.py:572", zoo_counts["mppiq_q"]["obs"],
+         errors[("obs", n, h)], bound[3]),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "chain_rollout", "route": "cuda",
-        "source": "mjmpc_tpu_torch/csrc/chain_rollout.cu",
-        "replaces": "mjmpc_tpu/ops/pallas_chain.py:381",
-        "launches": launches,
-        "max_abs_err": errors[(NUM_PARTICLES, HORIZON)],
-        "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
+        "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": times[kname][0],
+        "plain_ms": times[kname][1], "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": None} for kname, source, replaces, launches, err, bound in rows]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

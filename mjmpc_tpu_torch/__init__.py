@@ -1,11 +1,12 @@
 """PyTorch / CUDA port of the mjmpc_tpu sampling-MPC framework.
 
 The JAX package `mjmpc_tpu` stays the reference; this package mirrors its
-layout (ops, engine, envs, rollout, solvers) in PyTorch idiom: plain
-functions over tensors, frozen dataclasses holding tensors, an explicit
-`device` on every entry point and explicit `torch.Generator`s. The hot
-rollout runs in a hand-written CUDA kernel (csrc/chain_rollout.cu) built
-by nvcc at first use (kernels/build.py).
+layout (ops, engine, envs, rollout, solvers, policies) in PyTorch idiom:
+plain functions over tensors, frozen dataclasses holding tensors, a
+`device` on every entry point (the CUDA card unless the caller asks for
+the CPU) and explicit `torch.Generator`s. The hot rollouts and the
+filtered-noise sampler run in hand-written CUDA kernels (csrc/) built by
+nvcc at first use (kernels/build.py).
 
 This package never imports jax.
 """
@@ -18,6 +19,6 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from . import envs, ops, solvers  # noqa: E402
+from . import envs, ops, policies, solvers  # noqa: E402
 
-__all__ = ["envs", "ops", "solvers"]
+__all__ = ["envs", "ops", "policies", "solvers"]

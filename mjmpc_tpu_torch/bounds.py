@@ -1,0 +1,96 @@
+"""The least time one H100 could take for each TPU kernel's work.
+
+    python -m mjmpc_tpu_torch.bounds        # one JSON line per TPU kernel
+
+A bound is the larger of two times: the bytes the function must move
+(each input read once, each output written once) over the card's memory
+rate, and the operations it does over the card's f32 rate (NVIDIA's data
+sheet for the H100 SXM at 700 W: 3.35 TB/s HBM3, 67 TFLOP/s f32 outside
+the tensor cores). Operations are counted from the kernels' sources (a
+multiply, an add, a compare or a transcendental is one). For the kernels
+not ported yet, the count is of the JAX package's Pallas source, or, where
+the port lacks the model (locomotion, hand suite), bytes only: a lower
+bound all the same. This is arithmetic on shapes, not a measurement; it
+runs anywhere. chip_smoke.py reports the same bounds for the ported
+kernels beside their measured times.
+"""
+from __future__ import annotations
+
+import json
+
+from .ops.chain_rollout import rollout_flops
+from .ops.noise import noise_flops
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+F32 = 4
+
+
+def bound_ms(n_bytes: int, n_ops=None):
+    """(least ms, "bytes" or "operations"): the larger of the two times;
+    bytes alone when the operations are not counted."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = 0.0 if n_ops is None else n_ops / PEAK_F32_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def chain_bytes(n: int, h: int, nv: int, d_obs: int = 0) -> int:
+    """Chain rollout: q0, qd0, target, mean and noise in; costs (and obs)
+    out."""
+    return F32 * (2 * nv + 3 + h * nv + n * h * nv + n * h * (1 + d_obs))
+
+
+def kernel_table(model, n: int = 4096, h: int = 32, n_substeps: int = 2):
+    """Bounds of the eight TPU kernels at N particles and H steps; #1-#4 on
+    `model` (the reacher's ChainModel), the others at their envs' widths."""
+    nv = model.nv
+    d_obs = 2 * nv + 6
+    nh = n * h
+    rows = []
+
+    def row(number, kernel, widths, n_bytes, n_ops, ops_from):
+        ms, by = bound_ms(n_bytes, n_ops)
+        rows.append(dict(number=number, kernel=kernel, n=n, h=h, widths=widths,
+                         bytes=n_bytes, operations=n_ops, operations_from=ops_from,
+                         bound_ms=ms, bound_by=by))
+
+    row(1, "_chain_kernel", f"reacher nv={nv}", chain_bytes(n, h, nv),
+        rollout_flops(model, n_substeps, n, h), "csrc/chain_rollout.cuh")
+    row(2, "_noise_kernel", f"dA={nv}", F32 * nh * nv, noise_flops(n, h, nv),
+        "csrc/filtered_noise.cuh")
+    row(3, "_chain_obs_kernel", f"reacher nv={nv} d_obs={d_obs}",
+        chain_bytes(n, h, nv, d_obs), rollout_flops(model, n_substeps, n, h, emit_obs=True),
+        "csrc/chain_rollout.cuh")
+    # #4: the obs rollout's work plus u = W^T [obs; 1] + eps and its clip
+    # per step; W [d_obs + 1, nv] and noise in, obs, actions and costs out
+    row(4, "_chain_cl_kernel", f"reacher nv={nv} d_obs={d_obs}",
+        F32 * (2 * nv + 3 + (d_obs + 1) * nv + nh * nv + nh * (d_obs + nv + 1)),
+        rollout_flops(model, n_substeps, n, h, emit_obs=True) + nh * nv * (2 * d_obs + 2),
+        "chain_rollout.cuh + pallas_chain.py:520-570")
+    # #5 and #6: noise [N, H, nu] and mean in, costs out
+    for number, kernel, nq, nu, widths in (
+            (5, "_chain_ext_kernel", 9, 6, "half_cheetah nq=9 nu=6"),
+            (6, "build_forest_rollout kernel", 24, 24, "pen hand nu=24")):
+        row(number, kernel, widths, F32 * (2 * nq + h * nu + nh * nu + nh), None,
+            "not counted: the port has no model yet")
+    # #7: per step the clip (3), angle wrap (3), cost (7), velocity update
+    # with sin (7), position (2) and speed clamp (2): pallas_kernels.py:130-144
+    row(7, "_pendulum_kernel", "pendulum nu=1", F32 * (2 + h + 2 * nh), 24 * nh,
+        "pallas_kernels.py:130-144")
+    # #8: per particle-step two uniforms and Box-Muller (14), the AR(2)
+    # filter (5), sigma (1), the rollout step (24), the cost-to-go (2) and
+    # the weighted mean (3); per particle the softmax (4): :201-247
+    row(8, "_mppi_solve_kernel", "pendulum nu=1", F32 * (1 + 2 + 2 * h), 49 * nh + 4 * n,
+        "pallas_kernels.py:201-247")
+    return rows
+
+
+def main() -> None:
+    from . import envs
+    model = envs.make("reacher_7dof-v0", device="cpu").params.model
+    for r in kernel_table(model):
+        print(json.dumps(r))
+
+
+if __name__ == "__main__":
+    main()

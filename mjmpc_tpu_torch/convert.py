@@ -23,7 +23,7 @@ def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, np.float32), device=device)
 
 
-def chain_model_from_reference(model, device="cpu") -> ChainModel:
+def chain_model_from_reference(model, device="cuda") -> ChainModel:
     """A reference ChainModel (array leaves plus static topology) as the
     port's ChainModel on `device`."""
     tensors = {k: _t(getattr(model, k), device) for k in _MODEL_TENSORS}
@@ -34,7 +34,7 @@ def chain_model_from_reference(model, device="cpu") -> ChainModel:
 
 
 def gaussian_state_from_reference(state, seed: int = 0,
-                                  device="cpu") -> GaussianState:
+                                  device="cuda") -> GaussianState:
     """A reference GaussianState (mean, cov, step, key) as the port's.
     The reference PRNG key has no torch counterpart: the port's streams
     start from `seed`."""
@@ -43,7 +43,7 @@ def gaussian_state_from_reference(state, seed: int = 0,
 
 
 def reacher_state_from_reference(state, seed: int = 0,
-                                 device="cpu") -> ReacherState:
+                                 device="cuda") -> ReacherState:
     """A reference ReacherState (qpos, qvel, target, timestep, key) as the
     port's; continual target events draw from `seed`."""
     return ReacherState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),

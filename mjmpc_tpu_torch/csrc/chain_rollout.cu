@@ -1,9 +1,14 @@
 // Open-loop rollout of a scalar-joint (hinge/slide) kinematic chain over N
 // particles and H control steps, one CUDA thread per particle.
 //
-// Replaces the TPU kernel mjmpc_tpu/ops/pallas_chain.py `_chain_kernel`
-// (built by `build_chain_rollout`). It computes what that kernel computes,
-// not its TPU layout: no (sublane, 128) lane panels and no padding of N.
+// Replaces two TPU kernels of mjmpc_tpu/ops/pallas_chain.py:
+// `_chain_kernel` (built by `build_chain_rollout`; entry
+// chain_rollout_launch) and `_chain_obs_kernel` (built by
+// `build_chain_obs_rollout`; entry chain_obs_rollout_launch), which also
+// writes obs[b, t] = [q, qd, site, site - target] of the state entering
+// step t. One source, one template: the obs stores are compiled out of
+// the costs-only kernel. It computes what those kernels compute, not their
+// TPU layout: no (sublane, 128) lane panels and no padding of N.
 //
 //   for t in 0..H-1:
 //     u = clip(mean[t] + noise[b, t], ULOW, UHIGH), held for N_SUBSTEPS
@@ -21,12 +26,14 @@
 // over bodies unroll into straight-line code with the topology resolved at
 // compile time. q and qd stay in registers across
 // all H * N_SUBSTEPS substeps; the only device-memory traffic is the noise
-// read and the costs write. The FK of the state after step t serves both
+// read and the costs (and obs) writes. The FK of the state after step t serves both
 // step t's cost and step t+1's first substep.
 //
-// What bounds it on an H100: compute, roughly 5 KFLOP per particle-substep
-// in f32 (FK, the 7x7 mass matrix, RNEA, Cholesky) against 16 bytes read
-// per particle-substep. Known limits of this first version, left to later
+// What bounds it on an H100: compute, roughly 6 KFLOP per particle-substep
+// in f32 (FK, the 7x7 mass matrix, RNEA, Cholesky; counted from this
+// source by ops/chain_rollout.py substep_flops) against 14 bytes read per
+// particle-substep, plus 80 bytes of obs written per particle-step by the
+// obs kernel. Known limits of this first version, left to later
 // work:
 //   - at N = 4096 one thread per particle fills only 32 blocks of 128
 //     threads on the card's 132 SMs;
@@ -44,14 +51,22 @@
 
 namespace {
 
+template <bool EMIT_OBS>
 __global__ void chain_rollout_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
                                      const float* __restrict__ target,
                                      const float* __restrict__ mean,
                                      const float* __restrict__ noise,
-                                     float* __restrict__ costs, int n, int horizon) {
+                                     float* __restrict__ costs, float* __restrict__ obs, int n,
+                                     int horizon) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b < n) chain_rollout::rollout_particle(q0, qd0, target, mean, noise, costs, b, horizon);
+    if (b < n)
+        chain_rollout::rollout_particle<EMIT_OBS>(q0, qd0, target, mean, noise, costs, b,
+                                                  horizon, obs);
 }
+
+constexpr int kBlock = 128;
+
+int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
 
 }  // namespace
 
@@ -62,10 +77,18 @@ extern "C" {
 int chain_rollout_launch(const float* q0, const float* qd0, const float* target,
                          const float* mean, const float* noise, float* costs, int n,
                          int horizon, void* stream) {
-    constexpr int kBlock = 128;
-    const int grid = (n + kBlock - 1) / kBlock;
-    chain_rollout_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, target, mean, noise, costs, n, horizon);
+    chain_rollout_kernel<false><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, target, mean, noise, costs, nullptr, n, horizon);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The same rollout that also writes obs [n, horizon, D_OBS] (replaces the
+// TPU kernel `_chain_obs_kernel`, built by `build_chain_obs_rollout`).
+int chain_obs_rollout_launch(const float* q0, const float* qd0, const float* target,
+                             const float* mean, const float* noise, float* costs, float* obs,
+                             int n, int horizon, void* stream) {
+    chain_rollout_kernel<true><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, target, mean, noise, costs, obs, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
 

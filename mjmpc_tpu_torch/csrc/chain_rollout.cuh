@@ -1,7 +1,8 @@
 // Per-particle arithmetic of the chain-rollout kernel (chain_rollout.cu):
 // straight-line code over the compile-time model of chain_model.h. The
 // functions are host-and-device, so the same source also compiles as plain
-// C++ (tests/test_torch_chain_rollout.py checks it on the CPU that way).
+// C++ (tests/test_torch_chain_rollout.py and tests/test_torch_obs_rollout.py
+// check it on the CPU that way).
 
 #pragma once
 
@@ -265,22 +266,51 @@ CHAIN_FN void substep(float (&q)[N], float (&qd)[N], const float (&u)[N],
     }
 }
 
-CHAIN_FN float site_cost(const Frames& f, V3 target) {
+// World position of the site (model::SITE_BODY, offset site_pos).
+CHAIN_FN V3 site_of(const Frames& f) {
     constexpr int sb = model::SITE_BODY;
     const V3 sp = {model::site_pos(0), model::site_pos(1), model::site_pos(2)};
-    const V3 d = sub(add(f.P[sb], mv(f.R[sb], sp)), target);
+    return add(f.P[sb], mv(f.R[sb], sp));
+}
+
+CHAIN_FN float site_cost(const Frames& f, V3 target) {
+    const V3 d = sub(site_of(f), target);
     const float l1 = fabsf(d.x) + fabsf(d.y) + fabsf(d.z);
     const float l2 = sqrtf(d.x * d.x + d.y * d.y + d.z * d.z + 1e-12f);
     return l1 + 5.0f * l2;
 }
 
+// Reacher-family observation [q, qd, site, site - target] of the state
+// whose frames are f (envs/reacher_7dof.py _observe).
+constexpr int D_OBS = 2 * N + 6;
+
+CHAIN_FN void write_obs(const Frames& f, const float (&q)[N], const float (&qd)[N], V3 target,
+                        float* __restrict__ o) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        o[i] = q[i];
+        o[N + i] = qd[i];
+    }
+    const V3 s = site_of(f);
+    o[2 * N + 0] = s.x;
+    o[2 * N + 1] = s.y;
+    o[2 * N + 2] = s.z;
+    o[2 * N + 3] = s.x - target.x;
+    o[2 * N + 4] = s.y - target.y;
+    o[2 * N + 5] = s.z - target.z;
+}
+
 // Roll out particle b: noise [n, horizon, N] and costs [n, horizon] are
 // contiguous f32; q0, qd0 [N], target [3] and mean [horizon, N] are shared.
+// With EMIT_OBS, obs [n, horizon, D_OBS] also receives the observation of
+// the state entering each step (the pre-step state, as rollout_open_loop
+// records it), from the same frames that serve that step's first substep.
+template <bool EMIT_OBS = false>
 CHAIN_FN void rollout_particle(const float* __restrict__ q0, const float* __restrict__ qd0,
                                const float* __restrict__ target,
                                const float* __restrict__ mean,
                                const float* __restrict__ noise, float* __restrict__ costs,
-                               int b, int horizon) {
+                               int b, int horizon, float* __restrict__ obs = nullptr) {
     float q[N], qd[N], u[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -293,6 +323,8 @@ CHAIN_FN void rollout_particle(const float* __restrict__ q0, const float* __rest
     Frames f;
     fk(q, f);
     for (int t = 0; t < horizon; ++t) {
+        if constexpr (EMIT_OBS)
+            write_obs(f, q, qd, tgt, obs + (static_cast<size_t>(b) * horizon + t) * D_OBS);
 #pragma unroll
         for (int j = 0; j < N; ++j)
             u[j] = fminf(fmaxf(mean[t * N + j] + nz[t * N + j], model::ULOW), model::UHIGH);

@@ -320,7 +320,7 @@ def combine_geoms(geoms: Sequence[dict]):
 
 
 def build_chain(bodies: Sequence[dict], dt: float, site_body: int,
-                site_pos, gravity=(0.0, 0.0, 0.0), device="cpu") -> ChainModel:
+                site_pos, gravity=(0.0, 0.0, 0.0), device="cuda") -> ChainModel:
     """Assemble a ChainModel on `device` from per-body dicts
     {pos, axis, geoms, damping, armature, gear, frictionloss, stiffness,
     range, type, parent}; type 'hinge' (default) or 'slide', parent

@@ -21,10 +21,10 @@ _REGISTRY: Dict[str, Callable[..., Env]] = {
 _CACHE: Dict[Tuple[str, str], Env] = {}
 
 
-def make(name: str, device="cpu", **kwargs) -> Env:
-    """Build (or fetch) an env on `device`. Calls without other kwargs are
-    cached per (name, device), so repeated makes reuse one env and its
-    built kernel."""
+def make(name: str, device="cuda", **kwargs) -> Env:
+    """Build (or fetch) an env on `device` (the card unless the caller asks
+    for the CPU). Calls without other kwargs are cached per (name, device),
+    so repeated makes reuse one env and its built kernels."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown env {name!r}; known: {sorted(_REGISTRY)}")
     if kwargs:

@@ -49,6 +49,13 @@ class Env:
     # (build_solve_fn's `fused` flag).
     fused_rollout: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
                                      torch.Tensor]] = None
+    # Optional fused rollout with observations: (params, state, mean [H, dA],
+    # noise [N, H, dA]) -> (obs [N, H, d_obs], costs [N, H]), obs taken at
+    # the pre-step state as rollout_open_loop records them: the path of
+    # solvers that read observations (MPPIQ with a plugged Q). Actions are
+    # mean + noise, built by the caller.
+    fused_obs_rollout: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
+                                         Tuple[torch.Tensor, torch.Tensor]]] = None
 
     def clip_action(self, action: torch.Tensor) -> torch.Tensor:
         return torch.clamp(action, self.action_lows, self.action_highs)

@@ -24,7 +24,7 @@ import torch
 
 from .. import rng
 from ..engine import chain as rb
-from ..ops.chain_rollout import build_chain_rollout
+from ..ops.chain_rollout import build_chain_obs_rollout, build_chain_rollout
 from .base import Env
 
 _FRAME_SKIP = 2
@@ -93,7 +93,7 @@ class ReacherState:
     seed: int              # seeds the continual target events
 
 
-def build_model(device="cpu") -> rb.ChainModel:
+def build_model(device="cuda") -> rb.ChainModel:
     return rb.build_chain(_BODIES, dt=_DT, site_body=6,
                           site_pos=(0.0, 0.0, 0.0), device=device)
 
@@ -155,15 +155,20 @@ def _make(continual_period: int, name: str, device) -> Env:
         target_low=torch.as_tensor(_TARGET_LOW, device=device),
         target_high=torch.as_tensor(_TARGET_HIGH, device=device))
 
-    # Fused rollout kernel, plain reacher only: the continual variant's
-    # target can move within a planning rollout, which the costs-only
-    # kernel does not model.
-    fused = None
+    # Fused rollout kernels, plain reacher only: the continual variant's
+    # target can move within a planning rollout, which the kernels do not
+    # model. The obs kernel's observation is exactly _observe's
+    # [qpos, qvel, hand, hand - target].
+    fused = fused_obs = None
     if continual_period == 0:
         roll = build_chain_rollout(params.model, n_substeps=_FRAME_SKIP)
+        roll_obs = build_chain_obs_rollout(params.model, n_substeps=_FRAME_SKIP)
 
         def fused(p, state, mean, noise):
             return roll(state.qpos, state.qvel, state.target, mean, noise)
+
+        def fused_obs(p, state, mean, noise):
+            return roll_obs(state.qpos, state.qvel, state.target, mean, noise)
 
     return Env(
         name=name, d_obs=D_OBS, d_action=N_JOINTS,
@@ -171,14 +176,14 @@ def _make(continual_period: int, name: str, device) -> Env:
         action_highs=torch.full((N_JOINTS,), 1.0, device=device),
         params=params, init=_init, step=_step, observe=_observe,
         device=device, success=_success, max_episode_steps=75,
-        fused_rollout=fused)
+        fused_rollout=fused, fused_obs_rollout=fused_obs)
 
 
-def make(device="cpu") -> Env:
+def make(device="cuda") -> Env:
     """reacher_7dof-v0 (max 75 steps)."""
     return _make(0, "reacher_7dof-v0", device)
 
 
-def make_continual(device="cpu") -> Env:
+def make_continual(device="cuda") -> Env:
     """continual_reacher-v0: the target moves every 50 steps."""
     return _make(50, "continual_reacher-v0", device)

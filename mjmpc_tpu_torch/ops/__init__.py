@@ -9,7 +9,7 @@ from .control import (
     gaussian_logprobgrad,
     scale_ctrl,
 )
-from .noise import ar_filter, colour, filtered_noise, gaussian_noise
+from .noise import FilteredNoise, ar_filter, colour, filtered_noise, gaussian_noise
 
 __all__ = [
     "clip_ctrl",
@@ -21,6 +21,7 @@ __all__ = [
     "gaussian_logprob",
     "gaussian_logprobgrad",
     "scale_ctrl",
+    "FilteredNoise",
     "ar_filter",
     "colour",
     "filtered_noise",

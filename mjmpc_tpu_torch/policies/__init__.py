@@ -1,0 +1,7 @@
+"""Policy API (counterpart of mjmpc_tpu/policies/ for the ported
+controllers)."""
+from .base import Policy
+from .mpc_policy import MPCPolicy
+from .random_policy import RandomPolicy
+
+__all__ = ["Policy", "MPCPolicy", "RandomPolicy"]

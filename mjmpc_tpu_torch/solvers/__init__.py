@@ -1,19 +1,52 @@
-"""Solvers (ported family: GaussianMPC / MPPI)."""
+"""Solvers: the open-loop family (GaussianMPC: MPPI, MPPIQ, RandomShooting,
+CEM, DMD) and PFMPC, with the registry of mjmpc_tpu/solvers/__init__.py
+for the ported names."""
 from .base import (GaussianMPC, GaussianState, build_optimal_value_fn,
-                   build_solve_fn, evaluate_episode)
+                   build_solve_fn, evaluate_episode, guard_finite)
+from .cem import CEM
+from .dmd import DMDMPC
 from .mppi import MPPI
+from .mppiq import MPPIQ
+from .pfmpc import PFMPC, PFState
+from .pfmpc import build_solve_fn as build_pf_solve_fn
+from .random_shooting import RandomShooting
+
+REGISTRY = {
+    "mppi": MPPI,
+    "mppiq": MPPIQ,
+    "random_shooting": RandomShooting,
+    "cem": CEM,
+    "dmd": DMDMPC,
+    "gaussian_dmd": DMDMPC,
+    "pfmpc": PFMPC,
+}
+
+# Controllers of the JAX package's registry that the port lacks so far.
+NOT_PORTED = ("reinforce", "softqmpc", "softq", "random_shooting_nn", "ilqr")
+
+
+def make_solver(name: str, **params):
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"controller {name!r} is not ported to PyTorch yet; "
+                                  f"ported: {sorted(REGISTRY)}")
+    if name not in REGISTRY:
+        raise ValueError(f"unknown controller {name!r}; known: {sorted(REGISTRY)}")
+    return REGISTRY[name](**params)
 
 
 def make_solve_fn(solver, env, **kwargs):
-    """Dispatch to the solve builder of the solver's family (only the
-    GaussianMPC family is ported)."""
+    """Dispatch to the solve builder of the solver's family."""
+    if isinstance(solver, PFMPC):
+        kwargs.pop("calc_val", None)
+        return build_pf_solve_fn(solver, env, **kwargs)
     if isinstance(solver, GaussianMPC):
         return build_solve_fn(solver, env, **kwargs)
-    raise NotImplementedError(
-        f"no solve builder ported for {type(solver).__name__}")
+    raise NotImplementedError(f"no solve builder ported for {type(solver).__name__}")
 
 
 __all__ = [
     "GaussianMPC", "GaussianState", "build_solve_fn", "evaluate_episode",
-    "build_optimal_value_fn", "MPPI", "make_solve_fn",
+    "build_optimal_value_fn", "guard_finite", "MPPI", "MPPIQ", "RandomShooting",
+    "CEM", "DMDMPC", "PFMPC", "PFState", "REGISTRY", "NOT_PORTED", "make_solver",
+    "make_solve_fn",
 ]

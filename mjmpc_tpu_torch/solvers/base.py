@@ -7,9 +7,11 @@ operations with no host round trips: no .item(), .cpu() or float() on a
 tensor, no host-to-device copy (constants are built once, on the solver's
 device), and no linalg call that checks its info on the host.
 
-Seeding: each consumer draws from a generator seeded with
+Seeding: each consumer draws from a stream keyed by
 derive_seed(seed, tag, step), with `step` a host integer, so the same
-solver state gives the same noise and seeding never reads the device.
+solver state gives the same noise and seeding never reads the device. The
+stream is a torch.Generator (noise_impl "plain") or the Philox counter of
+the filtered-noise kernel (noise_impl "kernel", ops.FilteredNoise).
 """
 from __future__ import annotations
 
@@ -44,6 +46,22 @@ def _stream(state: GaussianState, tag: int) -> torch.Generator:
                          state.mean.device)
 
 
+NOISE_IMPLS = ("plain", "kernel")
+
+
+def sample_filtered_noise(noise_impl: str, sampler: ops.FilteredNoise, seed: int,
+                          cov: torch.Tensor, shape: tuple,
+                          filter_coeffs) -> torch.Tensor:
+    """AR(2)-filtered N(0, cov) noise [*shape, dA] from the stream `seed`:
+    torch.randn with a generator ("plain", the JAX package's "xla") or the
+    filtered-noise kernel `sampler` ("kernel", JAX's "pallas"; its plain
+    version on CPU tensors)."""
+    if noise_impl == "kernel":
+        return sampler(seed, cov, shape, filter_coeffs)
+    return ops.filtered_noise(rng.generator(seed, cov.device), cov, shape,
+                              filter_coeffs)
+
+
 @dataclasses.dataclass(frozen=True)
 class GaussianMPC:
     """Base open-loop Gaussian MPC solver. Subclasses override
@@ -57,9 +75,20 @@ class GaussianMPC:
     init_cov: float = 1.0
     filter_coeffs: Tuple[float, float, float] = (1.0, 0.0, 0.0)
     base_action: str = "null"            # random | null | repeat
+    cov_type: str = "diagonal"           # diagonal | full (CEM, DMD)
     use_zero_control_seq: bool = False
     sample_mode: str = "mean"            # mean | sample
-    device: Union[str, torch.device] = "cpu"
+    noise_impl: str = "plain"            # plain | kernel (ops.FilteredNoise)
+    # Action bounds, as the JAX config carries them; these solvers do not
+    # read them (the env clips).
+    action_lows: Optional[Any] = None
+    action_highs: Optional[Any] = None
+    device: Union[str, torch.device] = "cuda"
+
+    def __post_init__(self):
+        if self.noise_impl not in NOISE_IMPLS:
+            raise ValueError(f"noise_impl must be one of {NOISE_IMPLS}, got "
+                             f"{self.noise_impl!r}")
 
     # ---- derived constants ----------------------------------------------
     @property
@@ -70,6 +99,16 @@ class GaussianMPC:
     def discount(self) -> torch.Tensor:
         """The [H, H] discount matrix on the solver's device, built once."""
         return ops.discount_matrix(self.gamma_seq, device=self.device)
+
+    @functools.cached_property
+    def noise_sampler(self) -> ops.FilteredNoise:
+        """The filtered-noise kernel's wrapper (noise_impl "kernel")."""
+        return ops.FilteredNoise()
+
+    def build_constants(self) -> None:
+        """Build the solve's device constants now, outside any solve, so
+        that a solve copies nothing from the host."""
+        self.discount
 
     @property
     def uses_observations(self) -> bool:
@@ -88,10 +127,12 @@ class GaussianMPC:
 
     # ---- sampling --------------------------------------------------------
     def sample_noise(self, state: GaussianState) -> torch.Tensor:
-        """AR(2)-filtered Gaussian noise [N, H, dA]."""
-        delta = ops.filtered_noise(_stream(state, _TAG_ROLLOUT), state.cov,
-                                   (self.num_particles, self.horizon),
-                                   self.filter_coeffs)
+        """AR(2)-filtered Gaussian noise [N, H, dA] from the noise_impl's
+        stream (JAX base.py sample_noise)."""
+        delta = sample_filtered_noise(
+            self.noise_impl, self.noise_sampler,
+            rng.derive_seed(state.seed, _TAG_ROLLOUT, state.step), state.cov,
+            (self.num_particles, self.horizon), self.filter_coeffs)
         if self.use_zero_control_seq:
             # the last particle probes the zero-action sequence
             delta[-1] = -state.mean
@@ -140,6 +181,34 @@ class GaussianMPC:
         return (1.0 - self.step_size) * mean + self.step_size * target
 
 
+def open_loop_rollout(env: Env, uses_observations: bool, fused: Any = "auto"):
+    """The rollout of an open-loop solve: rollout(env_params, env_state,
+    mean [H, dA], noise [N, H, dA]) -> Trajectories.
+
+    fused: use the env's fused rollout kernel. "auto" = yes when the env
+    has the one the solver needs: `fused_obs_rollout` for a solver that
+    reads observations (MPPIQ with a q_fn), `fused_rollout` for the rest.
+    Pass False to plan against params other than the env's build-time
+    params (the kernels bake the model constants).
+    """
+    kernel = env.fused_obs_rollout if uses_observations else env.fused_rollout
+    if fused == "auto":
+        fused = kernel is not None
+    if not fused:
+        return functools.partial(rollout_open_loop, env)
+    if kernel is None:
+        kind = "obs rollout" if uses_observations else "rollout"
+        raise ValueError(f"env {env.name!r} has no fused {kind}")
+
+    def rollout(env_params, env_state, mean, noise):
+        out = kernel(env_params, env_state, mean, noise)
+        obs, costs = out if uses_observations else (None, out)
+        return Trajectories(observations=obs, actions=mean[None] + noise, costs=costs,
+                            dones=None, next_observations=None, successes=None)
+
+    return rollout
+
+
 def build_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False,
                    hotstart: bool = True, fused: Any = "auto"):
     """One full MPC solve.
@@ -147,24 +216,10 @@ def build_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False,
     Returns solve(env_params, env_state, solver_state) ->
     (action [dA], value scalar tensor, new solver_state).
 
-    fused: use the env's fused rollout kernel. "auto" = yes when the env
-    has one and the solver reads only costs. Pass False to plan against
-    params other than the env's build-time params (the kernel bakes the
-    model constants).
+    fused: as for open_loop_rollout ("auto", True or False).
     """
-    if fused == "auto":
-        fused = env.fused_rollout is not None and not solver.uses_observations
-    if fused and env.fused_rollout is None:
-        raise ValueError(f"env {env.name!r} has no fused rollout")
-    solver.discount  # build the device constants now, outside any solve
-
-    def do_rollout(env_params, env_state, mean, noise):
-        if fused:
-            costs = env.fused_rollout(env_params, env_state, mean, noise)
-            return Trajectories(observations=None, actions=mean[None] + noise,
-                                costs=costs, dones=None,
-                                next_observations=None, successes=None)
-        return rollout_open_loop(env, env_params, env_state, mean, noise)
+    do_rollout = open_loop_rollout(env, solver.uses_observations, fused)
+    solver.build_constants()
 
     def solve(env_params, env_state, solver_state: GaussianState):
         s = solver_state
@@ -187,6 +242,38 @@ def build_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False,
         return action, value, s
 
     return solve
+
+
+def guard_finite(solve, solver):
+    """Failure-recovery wrapper (JAX base.py guard_finite): when a solve
+    gives a non-finite action, value or state tensor (a diverged rollout, a
+    collapsed covariance), play a zero action with value 0 and reset the
+    control distribution to init_state's; `step` advances in every case.
+
+    The check is one device-side boolean and the choice a torch.where per
+    tensor, so the guard reads nothing back to the host. The JAX version
+    draws the fresh state from fold_in(key, step); a host-integer seed
+    cannot be chosen on the device without a sync, so the reset state keeps
+    the solver state's `seed`. Noise streams are keyed by (seed, tag, step)
+    and step advances anyway, so the next solve's noise is still fresh.
+    """
+    def guarded(env_params, env_state, solver_state):
+        action, value, new_state = solve(env_params, env_state, solver_state)
+        ok = torch.isfinite(action).all() & torch.isfinite(value).all()
+        tensors = {f.name: getattr(new_state, f.name)
+                   for f in dataclasses.fields(new_state)
+                   if isinstance(getattr(new_state, f.name), torch.Tensor)}
+        for x in tensors.values():
+            if x.is_floating_point():
+                ok = ok & torch.isfinite(x).all()
+        fresh = solver.init_state(solver_state.seed)
+        recovered = dataclasses.replace(
+            new_state, step=solver_state.step + 1,
+            **{k: torch.where(ok, x, getattr(fresh, k)) for k, x in tensors.items()})
+        return (torch.where(ok, action, torch.zeros_like(action)),
+                torch.where(ok, value, torch.zeros_like(value)), recovered)
+
+    return guarded
 
 
 def build_optimal_value_fn(solver: GaussianMPC, env: Env):

@@ -26,6 +26,7 @@ from mjmpc_tpu_torch.ops.chain_rollout import ChainRollout, build_chain_rollout
 from mjmpc_tpu_torch.rollout import rollout_open_loop
 
 ATOL = 5e-5
+DEVICE = "cpu"   # the port defaults to the card; these tests run on the CPU
 
 
 def _setup(n, h, seed):
@@ -48,7 +49,7 @@ def _oracle_costs(args):
 
 @pytest.fixture(scope="module")
 def rollout():
-    return build_chain_rollout(envs.make("reacher_7dof-v0").params.model, n_substeps=2)
+    return build_chain_rollout(envs.make("reacher_7dof-v0", device=DEVICE).params.model, n_substeps=2)
 
 
 def _plain(rollout, args):
@@ -74,7 +75,7 @@ def test_plain_matches_cpp_oracle_at_ragged_n(rollout):
 def test_plain_matches_general_rollout(rollout):
     """The kernel's hand RNEA against the engine's Lagrangian-derived bias,
     through the general rollout (costs on the post-step state)."""
-    env = envs.make("reacher_7dof-v0")
+    env = envs.make("reacher_7dof-v0", device=DEVICE)
     q0, qd0, target, mean, noise = (torch.as_tensor(a) for a in _setup(24, 6, seed=2))
     state = env.init(env.params, 0)
     state = type(state)(qpos=q0, qvel=qd0, target=target, timestep=0, seed=0)

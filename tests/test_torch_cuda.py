@@ -1,5 +1,6 @@
-"""The CUDA chain-rollout kernel on the card: against its plain PyTorch
-version, its launch count on the main path, and the wrapper's checks.
+"""The CUDA kernels on the card (chain rollout, chain rollout with
+observations, filtered noise): each against its plain PyTorch version,
+their launch counts on sync-free solves, and the wrappers' checks.
 
 Needs a CUDA card and skips without one (the kernel has no CPU mode). This
 file imports no jax, so it also runs where jax is not installed:
@@ -8,14 +9,18 @@ file imports no jax, so it also runs where jax is not installed:
 
 Tolerance: atol 5e-5 at (N=37, H=5), the JAX kernel's own tolerance; 1e-3
 at the main path's (N=4096, H=32), where the longer horizon accumulates
-f32 reordering on costs of order 1-10.
+f32 reordering on costs of order 1-10. Noise: atol 1e-4 (identical
+uniforms; libm ulps and the order of sums differ, scaled by the filter's
+gain of about 1.25 and by sqrt(3) for cov 3 I).
 """
 import numpy as np
 import pytest
 import torch
 
 from mjmpc_tpu_torch import envs, solvers
-from mjmpc_tpu_torch.ops.chain_rollout import ChainRollout, build_chain_rollout
+from mjmpc_tpu_torch.ops.chain_rollout import (ChainObsRollout, ChainRollout,
+                                               build_chain_obs_rollout, build_chain_rollout)
+from mjmpc_tpu_torch.ops.noise import FilteredNoise
 
 pytestmark = pytest.mark.cuda
 
@@ -73,4 +78,48 @@ def test_solves_launch_the_kernel_without_host_syncs(device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert ChainRollout.launches == before + 3
+    assert bool(torch.isfinite(action).all())
+
+
+@pytest.mark.parametrize("n,h,tol", [(37, 5, 5e-5), (4096, 32, 1e-3)])
+def test_obs_kernel_matches_plain(device, n, h, tol):
+    roll = build_chain_obs_rollout(envs.make("reacher_7dof-v0", device=device).params.model,
+                                   n_substeps=2)
+    args = _inputs(n, h, 2, device)
+    before = ChainObsRollout.launches
+    obs, costs = roll(*args)
+    assert ChainObsRollout.launches == before + 1
+    want_obs, want_costs = roll.plain(*args)
+    torch.testing.assert_close(obs, want_obs, rtol=0, atol=tol)
+    torch.testing.assert_close(costs, want_costs, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("n,h", [(37, 5), (4096, 32)])
+def test_noise_kernel_matches_plain(device, n, h):
+    sampler = FilteredNoise()
+    cov = 3.0 * torch.eye(7, device=device)
+    before = FilteredNoise.launches
+    got = sampler(12345, cov, (n, h), (0.25, 0.8, 0.0))
+    assert FilteredNoise.launches == before + 1
+    torch.testing.assert_close(got, sampler.plain(12345, cov, (n, h), (0.25, 0.8, 0.0)),
+                               rtol=0, atol=1e-4)
+
+
+def test_kernel_noise_solves_without_host_syncs(device):
+    env = envs.make("reacher_7dof-v0", device=device)
+    solver = solvers.MPPI(d_action=7, horizon=8, num_particles=256, lam=0.01,
+                          init_cov=3.0, step_size=0.55, filter_coeffs=(0.25, 0.8, 0.0),
+                          base_action="repeat", noise_impl="kernel", device=device)
+    solve = solvers.make_solve_fn(solver, env)
+    env_state = env.init(env.params, 1)
+    state = solver.init_state(0)
+    solver.noise_sampler.library()
+    before = (ChainRollout.launches, FilteredNoise.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            action, _, state = solve(env.params, env_state, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (ChainRollout.launches, FilteredNoise.launches) == (before[0] + 3, before[1] + 3)
     assert bool(torch.isfinite(action).all())

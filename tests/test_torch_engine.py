@@ -19,13 +19,15 @@ from mjmpc_tpu_torch import convert, envs
 from mjmpc_tpu_torch.convert import _MODEL_TENSORS
 from mjmpc_tpu_torch.engine import chain as rb
 
+DEVICE = "cpu"   # the port defaults to the card; these tests run on the CPU
+
 ATOL = 1e-5
 
 
 @pytest.fixture(scope="module")
 def models():
     jmodel = jenvs.make("reacher_7dof-v0").params.model
-    return jmodel, convert.chain_model_from_reference(jmodel)
+    return jmodel, convert.chain_model_from_reference(jmodel, device=DEVICE)
 
 
 def _states(n, seed):
@@ -39,7 +41,7 @@ def test_reacher_body_table_equals_the_jax_model(models):
     """The port carries the sawyer body table over as-is: its model is the
     JAX model, field for field."""
     _, converted = models
-    own = envs.make("reacher_7dof-v0").params.model
+    own = envs.make("reacher_7dof-v0", device=DEVICE).params.model
     for name in _MODEL_TENSORS:
         torch.testing.assert_close(getattr(own, name), getattr(converted, name),
                                    rtol=0, atol=0)
@@ -102,8 +104,8 @@ def test_ball_and_free_joints_are_not_ported():
     for jt in ("ball", "free"):
         with pytest.raises(NotImplementedError):
             rb.build_chain([dict(body, type=jt)], dt=0.01, site_body=0,
-                           site_pos=(0, 0, 0))
+                           site_pos=(0, 0, 0), device=DEVICE)
     jmodel = jrb.build_chain([dict(body, type="ball")], dt=0.01, site_body=0,
                              site_pos=(0, 0, 0))
     with pytest.raises(NotImplementedError):
-        convert.chain_model_from_reference(jmodel)
+        convert.chain_model_from_reference(jmodel, device=DEVICE)

@@ -16,11 +16,12 @@ from mjmpc_tpu.oracle import cpp_oracle, numpy_ref
 from mjmpc_tpu_torch import ops
 
 ATOL = 1e-6
+DEVICE = "cpu"   # the port defaults to the card; these tests run on the CPU
 
 
 def _ctg(costs, gamma):
     gamma_seq = ops.gamma_sequence(gamma, costs.shape[1])
-    got = ops.cost_to_go(torch.as_tensor(costs), ops.discount_matrix(gamma_seq))
+    got = ops.cost_to_go(torch.as_tensor(costs), ops.discount_matrix(gamma_seq, device=DEVICE))
     return gamma_seq, got.numpy()
 
 

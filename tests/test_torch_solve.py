@@ -28,6 +28,7 @@ from mjmpc_tpu_torch import convert, envs, solvers
 from mjmpc_tpu_torch.rollout import Trajectories
 
 SOLVE_ATOL = 2e-5
+DEVICE = "cpu"   # the port defaults to the card; these tests run on the CPU
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,11 +50,11 @@ def _jax_state(seed):
 
 
 def test_env_step_and_observe_match_jax():
-    jenv, env = jenvs.make("reacher_7dof-v0"), envs.make("reacher_7dof-v0")
+    jenv, env = jenvs.make("reacher_7dof-v0"), envs.make("reacher_7dof-v0", device=DEVICE)
     js = _jax_state(0)
     action = np.linspace(-1.5, 1.5, 7).astype(np.float32)   # clipped inside
     jn, jobs, jrew, _ = jax.jit(jenv.step)(jenv.params, js, jnp.asarray(action))
-    state = convert.reacher_state_from_reference(js)
+    state = convert.reacher_state_from_reference(js, device=DEVICE)
     ns, obs, rew, done = env.step(env.params, state, torch.as_tensor(action))
     np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), rtol=0, atol=1e-5)
     np.testing.assert_allclose(float(rew), float(jrew), rtol=0, atol=1e-5)
@@ -64,7 +65,7 @@ def test_env_step_and_observe_match_jax():
 
 
 def test_continual_reacher_moves_its_target_every_50_steps():
-    env = envs.make("continual_reacher-v0")
+    env = envs.make("continual_reacher-v0", device=DEVICE)
     assert env.fused_rollout is None
     state = env.init(env.params, 0)
     action = torch.zeros(7)
@@ -92,12 +93,12 @@ def test_mppi_update_and_value_match_jax_and_oracle(alpha):
     n, h, da = actions.shape
     cfg = dict(d_action=da, horizon=h, num_particles=n, lam=0.5, gamma=0.95,
                step_size=0.55, alpha=alpha)
-    jsolver, solver = jsolvers.MPPI(**cfg), solvers.MPPI(**cfg)
+    jsolver, solver = jsolvers.MPPI(**cfg), solvers.MPPI(**cfg, device=DEVICE)
     jstate = jsolvers.GaussianState(mean=jnp.asarray(mean), cov=jnp.asarray(cov),
                                     step=jnp.array(0, jnp.int32),
                                     key=jax.random.PRNGKey(0))
     jtraj = JTrajectories(None, jnp.asarray(actions), jnp.asarray(costs), None, None, None)
-    state = convert.gaussian_state_from_reference(jstate)
+    state = convert.gaussian_state_from_reference(jstate, device=DEVICE)
     traj = Trajectories(None, torch.as_tensor(actions), torch.as_tensor(costs),
                         None, None, None)
 
@@ -122,7 +123,7 @@ def test_solve_matches_jax_general_solve(base_action, alpha):
     """One whole solve (fused rollout in the port, general rollout in JAX)
     on the JAX solve's own noise. Two cases cover both base actions and
     both alphas; each case compiles one JAX solve (~5-15 s on the CPU)."""
-    jenv, env = jenvs.make("reacher_7dof-v0"), envs.make("reacher_7dof-v0")
+    jenv, env = jenvs.make("reacher_7dof-v0"), envs.make("reacher_7dof-v0", device=DEVICE)
     cfg = dict(d_action=7, horizon=8, num_particles=32, lam=0.2, init_cov=0.5,
                step_size=0.55, gamma=1.0, alpha=alpha, base_action=base_action,
                filter_coeffs=(0.25, 0.8, 0.0))
@@ -133,10 +134,10 @@ def test_solve_matches_jax_general_solve(base_action, alpha):
     a_j, _, s_j = jax.jit(jsolvers.build_solve_fn(jsolver, jenv, fused=False))(
         jenv.params, es, s0)
 
-    solver = InjectedMPPI(**cfg, noise=torch.as_tensor(noise))
+    solver = InjectedMPPI(**cfg, noise=torch.as_tensor(noise), device=DEVICE)
     solve = solvers.make_solve_fn(solver, env)
-    a, value, s = solve(env.params, convert.reacher_state_from_reference(es),
-                        convert.gaussian_state_from_reference(s0))
+    a, value, s = solve(env.params, convert.reacher_state_from_reference(es, device=DEVICE),
+                        convert.gaussian_state_from_reference(s0, device=DEVICE))
     np.testing.assert_allclose(a.numpy(), np.asarray(a_j), rtol=0, atol=SOLVE_ATOL)
     np.testing.assert_allclose(s.mean.numpy(), np.asarray(s_j.mean), rtol=0,
                                atol=SOLVE_ATOL)
@@ -146,7 +147,7 @@ def test_solve_matches_jax_general_solve(base_action, alpha):
 
 def test_noise_streams_follow_seed_and_step():
     solver = solvers.MPPI(d_action=7, horizon=5, num_particles=4,
-                          filter_coeffs=(0.25, 0.8, 0.0))
+                          filter_coeffs=(0.25, 0.8, 0.0), device=DEVICE)
     s = solver.init_state(3)
     n0 = solver.sample_noise(s)
     torch.testing.assert_close(solver.sample_noise(solver.init_state(3)), n0,
@@ -156,10 +157,10 @@ def test_noise_streams_follow_seed_and_step():
 
 
 def test_evaluate_episode_runs_and_is_reproducible():
-    env = envs.make("reacher_7dof-v0")
+    env = envs.make("reacher_7dof-v0", device=DEVICE)
     solver = solvers.MPPI(d_action=7, horizon=6, num_particles=16, lam=0.01,
                           init_cov=3.0, step_size=0.55, filter_coeffs=(0.25, 0.8, 0.0),
-                          base_action="repeat")
+                          base_action="repeat", device=DEVICE)
     episode = solvers.evaluate_episode(solver, env, 3)
     out = episode(env.params, 0)
     assert out["reward"].shape == (3,) and out["action"].shape == (3, 7)
@@ -170,8 +171,9 @@ def test_evaluate_episode_runs_and_is_reproducible():
 
 
 def test_optimal_value_is_finite():
-    env = envs.make("reacher_7dof-v0")
-    solver = solvers.MPPI(d_action=7, horizon=4, num_particles=8, lam=0.5)
+    env = envs.make("reacher_7dof-v0", device=DEVICE)
+    solver = solvers.MPPI(d_action=7, horizon=4, num_particles=8, lam=0.5,
+                          device=DEVICE)
     value = solvers.build_optimal_value_fn(solver, env)(
         env.params, env.init(env.params, 0), 5)
     assert value.shape == () and bool(torch.isfinite(value))
@@ -179,15 +181,16 @@ def test_optimal_value_is_finite():
 
 def test_registry():
     with pytest.raises(ValueError):
-        envs.make("no_such_env-v0")
-    assert envs.make("reacher_7dof-v0") is envs.make("reacher_7dof-v0")
+        envs.make("no_such_env-v0", device=DEVICE)
+    assert envs.make("reacher_7dof-v0", device=DEVICE) is envs.make("reacher_7dof-v0", device=DEVICE)
     assert envs.available() == ["continual_reacher-v0", "reacher_7dof-v0"]
     with pytest.raises(NotImplementedError):
-        solvers.make_solve_fn(object(), envs.make("reacher_7dof-v0"))
+        solvers.make_solve_fn(object(), envs.make("reacher_7dof-v0", device=DEVICE))
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, mjmpc_tpu_torch, mjmpc_tpu_torch.convert, "
-            "mjmpc_tpu_torch.kernels.build, mjmpc_tpu_torch.ops.chain_rollout; "
+            "mjmpc_tpu_torch.kernels.build, mjmpc_tpu_torch.ops.chain_rollout, "
+            "mjmpc_tpu_torch.ops.noise, mjmpc_tpu_torch.policies, mjmpc_tpu_torch.bounds; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], check=True)
