@@ -6,17 +6,22 @@ Phases, one JSON line each; any failure ends the script with a nonzero
 exit and no final line:
 
 1. device   -- the card's name and power limit (nvidia-smi).
-2. build    -- nvcc builds the chain-rollout library (costs-only and
-               obs-emitting entries) and the filtered-noise library from
-               csrc/, both at once; ptxas register and spill lines.
+2. build    -- nvcc builds, all at once, the reacher's chain-rollout
+               library (costs-only, obs-emitting and closed-loop entries),
+               the peg task's (the same three entries, peg's site and
+               obs/cost) and the filtered-noise library from csrc/; ptxas
+               register and spill lines.
 3. kernel   -- each kernel against its plain PyTorch version on the card:
                chain and obs rollouts at (N=37, H=5) to atol 5e-5 and at
                the main path's (N=4096, H=32) to max abs error 1e-3 (costs
                are O(1); the longer horizon accumulates f32 reordering);
-               the noise kernel at (37, 5, 7) and (4096, 32, 7), filter
-               (0.25, 0.8, 0), cov 3 I, to 1e-4 (identical uniforms; libm
-               ulps and sum order differ, scaled by the filter's gain of
-               about 1.25 and by sqrt(3)).
+               the closed-loop rollout (obs, actions, costs) for the
+               reacher at (37, 5) to 5e-5 and (4096, 32) to 1e-3, for the
+               peg at (37, 5) to 5e-5 and at its config's (64, 32) to 1e-3;
+               peg's obs rollout at (37, 5) to 5e-5; the noise kernel at
+               (37, 5, 7) and (4096, 32, 7), filter (0.25, 0.8, 0), cov 3 I,
+               to 1e-4 (identical uniforms; libm ulps and sum order differ,
+               scaled by the filter's gain of about 1.25 and by sqrt(3)).
 4. main     -- envs.make("reacher_7dof-v0") -> solvers.MPPI(...) ->
                solvers.make_solve_fn on device="cuda": 10 chained solves
                under torch.cuda.set_sync_debug_mode("error") (no host sync
@@ -33,13 +38,24 @@ exit and no final line:
                the obs kernel's count, the others only the chain kernel's.
 6. guard    -- solvers.guard_finite around a solve whose rollout returns
                NaN costs: a zero action and a reset mean, no host sync.
-7. timing   -- read-verified solves/s (each window ends by reading a value
+7. closed_loop -- Reinforce (quadratic baseline, KL line search) on the
+               reacher at N=4096, H=32, one iteration: 3 chained sync-free
+               solves, the closed-loop count rising by exactly 3 and the
+               chain and obs counts by 0, and the line search shown to
+               halve; make_solver("reinforce") with the closed-loop peg
+               config (PEG_CL) on sawyer_peg_insertion-v0: 3 sync-free
+               solves, the count rising by exactly 12 (4 iterations); then
+               a 10-step peg closed loop (solve, env.clip_action, env.step)
+               with finite rewards and a finite baseline fit error.
+8. timing   -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
-               and for each solver of the zoo; each kernel and its plain
-               version timed with CUDA events; a per-stage breakdown with
-               each noise sampler; a torch.profiler count of kernels and
-               device time per solve. Printed, not asserted.
+               for each solver of the zoo and for Reinforce on the reacher
+               and the peg; each kernel and its plain version timed with
+               CUDA events; a per-stage breakdown with each noise sampler
+               and of the Reinforce solves; a torch.profiler count of
+               kernels and device time per solve, with the six kernels
+               that take the most device time. Printed, not asserted.
 
 Every launch count is set to 0 just before a path runs and read just after.
 The last lines are the kernels' summary, the nvidia-smi line and
@@ -65,6 +81,14 @@ D_ACTION = 7
 N_SOLVES = 10
 ZOO_SOLVES = 3
 FILTER = (0.25, 0.8, 0.0)
+# The closed-loop peg config, configs/sawyer/sawyer_peg_insertion-v0_cl.yml,
+# as mjmpc_tpu/harness/run_mpc_cl.py maps it onto Reinforce: num_cpu x
+# particles_per_cpu = 8 x 8 particles, init_cov = exp(2 init_log_std), the
+# critic as the baseline (held against the YAML by tests/test_torch_reinforce.py).
+RF_DELTA_KL = 1e-3   # small enough that the reacher's first step halves lr
+PEG_CL = dict(horizon=32, gamma=1.0, n_iters=4, lr=1.0, beta=0.0, filter_coeffs=FILTER,
+              num_particles=64, delta_kl=15.0, delta_reg=0.001, baseline_type="quadratic",
+              init_cov=1.0)
 HOLD_CYCLES = 100_000_000   # about 50 ms of spinning at the H100's clock
 
 
@@ -83,6 +107,20 @@ def reacher_inputs(n: int, h: int, seed: int, device):
     target = np.array([0.2, -0.1, 0.15], np.float32)
     return [torch.as_tensor(a, device=device)
             for a in (q0, qd0, target, mean, noise)]
+
+
+def cl_inputs(d_obs: int, extras, n: int, h: int, seed: int, device):
+    """Closed-loop inputs: q0, qd0 as reacher_inputs draws them, the task's
+    extras, W [d_obs + 1, 7] * 0.05 and noise * 0.3, as
+    tests/test_pallas_cl.py draws them."""
+    import torch
+    rng = np.random.default_rng(seed)
+    q0 = np.asarray(rng.normal(size=7) * 0.1, np.float32)
+    qd0 = np.asarray(rng.normal(size=7) * 0.1, np.float32)
+    w = np.asarray(rng.normal(size=(d_obs + 1, 7)) * 0.05, np.float32)
+    noise = np.asarray(rng.normal(size=(n, h, 7)) * 0.3, np.float32)
+    q0, qd0, w, noise = (torch.as_tensor(a, device=device) for a in (q0, qd0, w, noise))
+    return q0, qd0, extras, w, noise
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -154,18 +192,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from mjmpc_tpu_torch import bounds, envs, solvers
-        from mjmpc_tpu_torch.ops.chain_rollout import ChainObsRollout, ChainRollout
+        from mjmpc_tpu_torch import bounds, envs, ops, solvers
+        from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
+        from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainObsRollout,
+                                                       ChainRollout)
         from mjmpc_tpu_torch.ops.noise import FilteredNoise
         from mjmpc_tpu_torch.rollout import Trajectories
+        from mjmpc_tpu_torch.solvers.reinforce import closed_loop_rollout
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
-    counters = (ChainRollout, ChainObsRollout, FilteredNoise)
+    counters = (ChainRollout, ChainObsRollout, ChainClRollout, FilteredNoise)
 
     def counts():
         return {"chain": ChainRollout.launches, "obs": ChainObsRollout.launches,
-                "noise": FilteredNoise.launches}
+                "cl": ChainClRollout.launches, "noise": FilteredNoise.launches}
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -181,14 +222,21 @@ def main() -> int:
     model = env.params.model
     roll = ChainRollout(model, n_substeps=2)
     roll_obs = ChainObsRollout(model, n_substeps=2)
+    roll_cl = ChainClRollout(model, n_substeps=2)
+    peg_env = envs.make("sawyer_peg_insertion-v0", device=device)
+    peg_model = peg_env.params.model
+    peg_cl = ChainClRollout(peg_model, n_substeps=2, task="peg")
+    peg_obs = ChainObsRollout(peg_model, n_substeps=2, task="peg")
     sampler = FilteredNoise()
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        futures = [pool.submit(roll.library), pool.submit(sampler.library)]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(roll.library), pool.submit(peg_cl.library),
+                   pool.submit(sampler.library)]
         libs = [f.result() for f in futures]
-    roll_obs.library()
-    for lib in libs:
-        emit("build", seconds=round(time.perf_counter() - t0, 3),
+    for r in (roll_obs, roll_cl, peg_obs):
+        r.library()     # the same libraries, loaded
+    for lib, task in zip(libs, ("reacher", "peg", None)):
+        emit("build", task=task, seconds=round(time.perf_counter() - t0, 3),
              nvcc_seconds=round(lib.build_seconds, 3), library=str(lib.path.name),
              ptxas=[ln.strip() for ln in lib.ptxas.splitlines()
                     if re.search(r"registers|spill|Compiling entry", ln)])
@@ -218,6 +266,40 @@ def main() -> int:
             if not e <= tol:
                 raise RuntimeError(f"{which} kernel disagrees with its plain version at "
                                    f"N={n} H={h}: {e} > {tol}")
+    reacher_target = reacher_inputs(1, 1, 0, device)[2]
+    cl_args = {}
+    for task, r, extras, n, h, tol, seed in (
+            ("reacher", roll_cl, reacher_target, 37, 5, 5e-5, 3),
+            ("reacher", roll_cl, reacher_target, NUM_PARTICLES, HORIZON, 1e-3, 4),
+            ("peg", peg_cl, peg_extras(peg_env.params), 37, 5, 5e-5, 5),
+            ("peg", peg_cl, peg_extras(peg_env.params), PEG_CL["num_particles"],
+             PEG_CL["horizon"], 1e-3, 6)):
+        args = cl_args[(task, n, h)] = cl_inputs(r.d_obs, extras, n, h, seed, device)
+        got, want = r(*args), r.plain(*args)
+        torch.cuda.synchronize()
+        shapes = ((n, h, r.d_obs), (n, h, D_ACTION), (n, h))
+        if tuple(tuple(x.shape) for x in got) != shapes or not all(
+                bool(torch.isfinite(x).all()) for x in got):
+            raise RuntimeError(f"closed-loop kernel output bad for {task} at N={n} H={h}")
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        errors[("cl", task, n, h)] = err
+        emit("kernel", name="chain_cl_rollout", task=task, n=n, h=h, max_abs_err=err, atol=tol,
+             max_abs_err_obs_actions_costs=[float((x - y).abs().max())
+                                            for x, y in zip(got, want)],
+             actions_abs_max=float(want[1].abs().max()),
+             costs_min=float(want[2].min()), costs_max=float(want[2].max()))
+        if not err <= tol:
+            raise RuntimeError(f"closed-loop kernel disagrees with its plain version for "
+                               f"{task} at N={n} H={h}: {err} > {tol}")
+    q0, qd0, _, mean, noise = reacher_inputs(37, 5, 9, device)
+    args = (q0, qd0, peg_extras(peg_env.params), mean, noise)
+    got, want = peg_obs(*args), peg_obs.plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    emit("kernel", name="chain_obs_rollout", task="peg", n=37, h=5, max_abs_err=err, atol=5e-5)
+    if not err <= 5e-5:
+        raise RuntimeError(f"peg obs kernel disagrees with its plain version: {err} > 5e-5")
+
     cov3 = 3.0 * torch.eye(D_ACTION, device=device)
     for n, h, seed in ((37, 5, 7), (NUM_PARTICLES, HORIZON, 8)):
         got = sampler(seed, cov3, (n, h), FILTER)
@@ -253,7 +335,7 @@ def main() -> int:
         main_counts[phase] = got = counts()
         emit(phase, solves=N_SOLVES, launches=got, action=action_host.tolist(),
              step=state.step)
-        want = {"chain": N_SOLVES, "obs": 0,
+        want = {"chain": N_SOLVES, "obs": 0, "cl": 0,
                 "noise": N_SOLVES if s.noise_impl == "kernel" else 0}
         if got != want:
             raise RuntimeError(f"{phase}: launches {got}, expected {want}")
@@ -296,7 +378,7 @@ def main() -> int:
         zoo_solves[key] = (solve, state)
         emit("zoo", solver=key, solves=ZOO_SOLVES, launches=got, action=action_host.tolist())
         roll_key = "obs" if key == "mppiq_q" else "chain"
-        want = {"chain": 0, "obs": 0, "noise": ZOO_SOLVES, roll_key: ZOO_SOLVES}
+        want = {"chain": 0, "obs": 0, "cl": 0, "noise": ZOO_SOLVES, roll_key: ZOO_SOLVES}
         if got != want:
             raise RuntimeError(f"zoo {key}: launches {got}, expected {want}")
 
@@ -320,7 +402,49 @@ def main() -> int:
     if not ok:
         raise RuntimeError("guard_finite did not reset the non-finite solve")
 
-    # 7. timing (printed, not asserted)
+    # 7. the closed loop: Reinforce on the reacher and with the peg config
+    rf = solvers.Reinforce(d_obs=env.d_obs, d_action=D_ACTION, horizon=HORIZON,
+                           num_particles=NUM_PARTICLES, lr=1.0, n_iters=1, init_cov=1.0,
+                           baseline_type="quadratic", delta_reg=1e-3, delta_kl=RF_DELTA_KL,
+                           filter_coeffs=FILTER, device=device)
+    rf_peg = solvers.make_solver("reinforce", d_obs=peg_env.d_obs, d_action=D_ACTION,
+                                 device=device, **PEG_CL)
+    cl_runs, cl_counts = {}, {}
+    for key, s, e in (("reacher", rf, env), ("peg", rf_peg, peg_env)):
+        es = e.init(e.params, 1)
+        solve = solvers.make_solve_fn(s, e)
+        reset_counts(*counters)
+        action_host, state = sync_free(solve, e, es, s.init_state(0), ZOO_SOLVES)
+        cl_counts[key] = got = counts()
+        cl_runs[key] = (solve, s, e, es, state)
+        emit("closed_loop", env=e.name, n=s.num_particles, h=s.horizon, n_iters=s.n_iters,
+             baseline=s.baseline_type, solves=ZOO_SOLVES, launches=got,
+             action=action_host.tolist(), fit_error=float(state.fit_error), step=state.step)
+        want = {"chain": 0, "obs": 0, "cl": ZOO_SOLVES * s.n_iters, "noise": 0}
+        if got != want:
+            raise RuntimeError(f"closed_loop {key}: launches {got}, expected {want}")
+    s0 = rf.init_state(0)       # the first reacher solve's step, re-derived
+    traj = closed_loop_rollout(env)(env.params, cl_runs["reacher"][3], s0.mean_weights,
+                                    rf.sample_noise(s0))
+    returns = ops.cost_to_go(traj.costs, rf.discount)
+    obs_cat, grad = rf.gradient(s0, traj, returns - rf.baseline(s0, traj, returns)[0])
+    lr = float(rf.step_size(s0, obs_cat, grad))
+    emit("closed_loop_linesearch", env=env.name, lr0=rf.lr, delta_kl=rf.delta_kl, lr=lr,
+         halvings=int(round(np.log2(rf.lr / lr))))
+    if not lr < rf.lr:
+        raise RuntimeError(f"the KL line search did not halve: lr {lr}")
+    solve_peg = cl_runs["peg"][0]
+    es, state, rewards = peg_env.init(peg_env.params, 2), rf_peg.init_state(5), []
+    for _ in range(10):
+        action, _, state = solve_peg(peg_env.params, es, state)
+        es, _, reward, _ = peg_env.step(peg_env.params, es, peg_env.clip_action(action))
+        rewards.append(reward)
+    rewards, fit_error = torch.stack(rewards).cpu().numpy(), float(state.fit_error)
+    emit("peg_episode", steps=10, rewards=rewards.tolist(), fit_error=fit_error)
+    if rewards.shape != (10,) or not np.isfinite(rewards).all() or not np.isfinite(fit_error):
+        raise RuntimeError("peg closed loop: rewards or fit error not finite")
+
+    # 8. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
     times = {
         "chain_rollout": (cuda_ms(lambda: roll(*args), 20), cuda_ms(lambda: roll.plain(*args), 2)),
@@ -332,6 +456,11 @@ def main() -> int:
             cuda_ms(lambda: sampler.white_plain(5, NUM_PARTICLES, HORIZON, D_ACTION, FILTER,
                                                 device), 5)),
     }
+    for kname, r, key in (("chain_cl_rollout", roll_cl, ("reacher", NUM_PARTICLES, HORIZON)),
+                          ("chain_cl_rollout_peg", peg_cl,
+                           ("peg", PEG_CL["num_particles"], PEG_CL["horizon"]))):
+        times[kname] = (cuda_ms(lambda: r(*cl_args[key]), 20),
+                        cuda_ms(lambda: r.plain(*cl_args[key]), 2))
     sampler_ms = (cuda_ms(lambda: sampler(5, cov3, (NUM_PARTICLES, HORIZON), FILTER), 50),
                   cuda_ms(lambda: solver.sample_noise(solver.init_state(5)), 5))
     emit("kernel_time", card=smi, sampler_with_colouring_ms=sampler_ms[0],
@@ -360,6 +489,10 @@ def main() -> int:
     for key, (solve, state) in zoo_solves.items():
         zoo_rates[key], _, _ = solves_per_s(solve, env, env_state, state, 10, 5)
     emit("zoo_solves_per_s", card=smi, n=NUM_PARTICLES, h=HORIZON, **zoo_rates)
+    for key, (solve, s, e, es, state) in cl_runs.items():
+        rate, windows, _ = solves_per_s(solve, e, es, state, 10, 5)
+        emit("reinforce_solves_per_s", card=smi, env=e.name, n=s.num_particles, h=s.horizon,
+             n_iters=s.n_iters, solves_per_s=rate, windows=windows)
 
     # where a solve's time goes: host clock per stage, synchronised
     for which, s in (("plain_noise", solver), ("kernel_noise", solver_k)):
@@ -387,27 +520,78 @@ def main() -> int:
         emit("breakdown_ms", noise_impl=which, card=smi,
              **{k: statistics.median(v) for k, v in stages.items()})
 
-    # kernels and device time per solve (torch.profiler over 10 solves)
-    for which, (solve, s) in variants.items():
+    # the Reinforce solves' stages per solve (summed over its iterations)
+    for key, (_, s, e, es, _) in cl_runs.items():
+        roll_fn = closed_loop_rollout(e)
         state = s.init_state(0)
+        stages = {"noise": [], "rollout": [], "baseline_fit": [], "gradient_linesearch": [],
+                  "act": []}
+        for _ in range(10):
+            spent = dict.fromkeys(stages, 0.0)
+            for _ in range(s.n_iters):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                noise = s.sample_noise(state)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                traj = roll_fn(e.params, es, state.mean_weights, noise)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                returns = ops.cost_to_go(traj.costs, s.discount)
+                baselines, vw, vb, fit_err = s.baseline(state, traj, returns)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                obs_cat, grad = s.gradient(state, traj, returns - baselines)
+                lr = s.step_size(state, obs_cat, grad)
+                state = dataclasses.replace(state, mean_weights=state.mean_weights - lr * grad,
+                                            vf_weights=vw, vf_bias=vb, fit_error=fit_err)
+                torch.cuda.synchronize()
+                t4 = time.perf_counter()
+                for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                    spent[k] += dt * 1e3
+            t0 = time.perf_counter()
+            s.act(state, e.observe(e.params, es))
+            state = dataclasses.replace(state, step=state.step + 1)
+            torch.cuda.synchronize()
+            spent["act"] = (time.perf_counter() - t0) * 1e3
+            for k, v in spent.items():
+                stages[k].append(v)
+        emit("breakdown_ms", solver="reinforce", env=e.name, n_iters=s.n_iters, card=smi,
+             **{k: statistics.median(v) for k, v in stages.items()})
+
+    # kernels and device time per solve (torch.profiler over 10 solves)
+    def profile(solve, e, es, state, **labels):
         for _ in range(3):
-            _, _, state = solve(env.params, env_state, state)
+            _, _, state = solve(e.params, es, state)
         torch.cuda.synchronize()
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(N_SOLVES):
-                _, _, state = solve(env.params, env_state, state)
+                _, _, state = solve(e.params, es, state)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_us = sum(device_time_us(e) for e in kernels)
-        emit("profile", noise_impl=which, card=smi, solves=N_SOLVES,
+        kernels = [ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(device_time_us(ev) for ev in kernels)
+        by_name = {}
+        for ev in kernels:
+            us, count = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (us + device_time_us(ev), count + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        emit("profile", **labels, card=smi, solves=N_SOLVES,
+             top_kernels=[{"kernel": k[:90], "ms_per_solve": us / 1e3 / N_SOLVES,
+                           "launches_per_solve": count / N_SOLVES}
+                          for k, (us, count) in top],
              device_kernels_per_solve=len(kernels) / N_SOLVES,
              device_ms_per_solve=device_us / 1e3 / N_SOLVES,
              wall_ms_per_solve=wall * 1e3 / N_SOLVES,
              device_busy_share=(device_us / 1e6) / wall if wall > 0 else None)
+
+    for which, (solve, s) in variants.items():
+        profile(solve, env, env_state, s.init_state(0), noise_impl=which)
+    for key, (solve, s, e, es, _) in cl_runs.items():
+        profile(solve, e, es, s.init_state(0), solver="reinforce", env=e.name)
 
     # the kernels' summary: launches from the paths' runs, bounds from
     # this run's shapes (the work does not depend on the data)
@@ -424,7 +608,16 @@ def main() -> int:
         ("chain_obs_rollout", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
          "mjmpc_tpu/ops/pallas_chain.py:572", zoo_counts["mppiq_q"]["obs"],
          errors[("obs", n, h)], bound[3]),
+        ("chain_cl_rollout", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
+         "mjmpc_tpu/ops/pallas_chain.py:520", cl_counts["reacher"]["cl"],
+         errors[("cl", "reacher", n, h)], bound[4]),
     ]
+    peg = bounds.peg_instance(peg_model, PEG_CL["num_particles"], PEG_CL["horizon"])
+    emit("kernel_peg", name="chain_cl_rollout", task="peg", n=peg["n"], h=peg["h"],
+         launches_per_solve=cl_counts["peg"]["cl"] / ZOO_SOLVES,
+         max_abs_err=errors[("cl", "peg", peg["n"], peg["h"])],
+         ms=times["chain_cl_rollout_peg"][0], plain_ms=times["chain_cl_rollout_peg"][1],
+         bound_ms=peg["bound_ms"], bound_by=peg["bound_by"], card=smi)
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times[kname][0],

@@ -12,13 +12,14 @@ not ported yet, the count is of the JAX package's Pallas source, or, where
 the port lacks the model (locomotion, hand suite), bytes only: a lower
 bound all the same. This is arithmetic on shapes, not a measurement; it
 runs anywhere. chip_smoke.py reports the same bounds for the ported
-kernels beside their measured times.
+kernels beside their measured times, and kernel #4's peg instance at
+the closed-loop peg config's size.
 """
 from __future__ import annotations
 
 import json
 
-from .ops.chain_rollout import rollout_flops
+from .ops.chain_rollout import PEG, REACHER, rollout_bytes, rollout_flops
 from .ops.noise import noise_flops
 
 PEAK_BYTES_PER_S = 3.35e12
@@ -34,17 +35,19 @@ def bound_ms(n_bytes: int, n_ops=None):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def chain_bytes(n: int, h: int, nv: int, d_obs: int = 0) -> int:
-    """Chain rollout: q0, qd0, target, mean and noise in; costs (and obs)
-    out."""
-    return F32 * (2 * nv + 3 + h * nv + n * h * nv + n * h * (1 + d_obs))
+def chain_work(model, n: int, h: int, mode: str, task=REACHER, n_substeps: int = 2):
+    """(bytes, operations) of one chain-kernel call in `mode` ("costs",
+    "obs", "cl") for `task`: its d_obs and extras, and the operations
+    counted from csrc/chain_rollout.cuh (ops/chain_rollout.py)."""
+    return (rollout_bytes(model.nv, n, h, mode, task),
+            rollout_flops(model, n_substeps, n, h, mode, task))
 
 
 def kernel_table(model, n: int = 4096, h: int = 32, n_substeps: int = 2):
     """Bounds of the eight TPU kernels at N particles and H steps; #1-#4 on
     `model` (the reacher's ChainModel), the others at their envs' widths."""
     nv = model.nv
-    d_obs = 2 * nv + 6
+    d_obs = REACHER.d_obs(nv)
     nh = n * h
     rows = []
 
@@ -54,19 +57,14 @@ def kernel_table(model, n: int = 4096, h: int = 32, n_substeps: int = 2):
                          bytes=n_bytes, operations=n_ops, operations_from=ops_from,
                          bound_ms=ms, bound_by=by))
 
-    row(1, "_chain_kernel", f"reacher nv={nv}", chain_bytes(n, h, nv),
-        rollout_flops(model, n_substeps, n, h), "csrc/chain_rollout.cuh")
+    row(1, "_chain_kernel", f"reacher nv={nv}",
+        *chain_work(model, n, h, "costs", n_substeps=n_substeps), "csrc/chain_rollout.cuh")
     row(2, "_noise_kernel", f"dA={nv}", F32 * nh * nv, noise_flops(n, h, nv),
         "csrc/filtered_noise.cuh")
     row(3, "_chain_obs_kernel", f"reacher nv={nv} d_obs={d_obs}",
-        chain_bytes(n, h, nv, d_obs), rollout_flops(model, n_substeps, n, h, emit_obs=True),
-        "csrc/chain_rollout.cuh")
-    # #4: the obs rollout's work plus u = W^T [obs; 1] + eps and its clip
-    # per step; W [d_obs + 1, nv] and noise in, obs, actions and costs out
+        *chain_work(model, n, h, "obs", n_substeps=n_substeps), "csrc/chain_rollout.cuh")
     row(4, "_chain_cl_kernel", f"reacher nv={nv} d_obs={d_obs}",
-        F32 * (2 * nv + 3 + (d_obs + 1) * nv + nh * nv + nh * (d_obs + nv + 1)),
-        rollout_flops(model, n_substeps, n, h, emit_obs=True) + nh * nv * (2 * d_obs + 2),
-        "chain_rollout.cuh + pallas_chain.py:520-570")
+        *chain_work(model, n, h, "cl", n_substeps=n_substeps), "csrc/chain_rollout.cuh")
     # #5 and #6: noise [N, H, nu] and mean in, costs out
     for number, kernel, nq, nu, widths in (
             (5, "_chain_ext_kernel", 9, 6, "half_cheetah nq=9 nu=6"),
@@ -85,11 +83,24 @@ def kernel_table(model, n: int = 4096, h: int = 32, n_substeps: int = 2):
     return rows
 
 
+def peg_instance(peg_model, n: int = 64, h: int = 32, n_substeps: int = 2) -> dict:
+    """Kernel #4 with the peg task at the closed-loop peg config's
+    N = 64 (8 x 8 particles), H = 32."""
+    n_bytes, n_ops = chain_work(peg_model, n, h, "cl", PEG, n_substeps)
+    ms, by = bound_ms(n_bytes, n_ops)
+    return dict(number=4, kernel="_chain_cl_kernel", n=n, h=h,
+                widths=f"peg nv={peg_model.nv} d_obs={PEG.d_obs(peg_model.nv)}",
+                bytes=n_bytes, operations=n_ops, operations_from="csrc/chain_rollout.cuh",
+                bound_ms=ms, bound_by=by)
+
+
 def main() -> None:
     from . import envs
     model = envs.make("reacher_7dof-v0", device="cpu").params.model
     for r in kernel_table(model):
         print(json.dumps(r))
+    print(json.dumps(peg_instance(envs.make("sawyer_peg_insertion-v0", device="cpu")
+                                  .params.model)))
 
 
 if __name__ == "__main__":

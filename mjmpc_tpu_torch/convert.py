@@ -1,7 +1,8 @@
 """The one bridge from the JAX package's data to the port's.
 
 Plain functions over numpy arrays, or objects whose fields convert with
-np.asarray (a JAX ChainModel, GaussianState or ReacherState does). This
+np.asarray (a JAX ChainModel, GaussianState, ReacherState, PegParams,
+PegState, ReinforceState, VFParams or LGPolicyParams does). This
 module never imports jax; tests use it so that both packages compute on
 the same model and state.
 """
@@ -12,7 +13,11 @@ import torch
 
 from .engine.chain import ChainModel
 from .envs.reacher_7dof import ReacherState
+from .envs.sawyer_tasks import PegParams, PegState
+from .policies.linear_gaussian import LGPolicyParams
 from .solvers.base import GaussianState
+from .solvers.reinforce import ReinforceState
+from .value_functions import VFParams
 
 _MODEL_TENSORS = ("joint_axis", "body_pos", "mass", "com", "inertia",
                   "armature", "damping", "frictionloss", "stiffness", "gear",
@@ -49,3 +54,39 @@ def reacher_state_from_reference(state, seed: int = 0,
     return ReacherState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
                         target=_t(state.target, device),
                         timestep=int(np.asarray(state.timestep)), seed=int(seed))
+
+
+def peg_params_from_reference(params, device="cuda") -> PegParams:
+    """A reference PegParams (model, hole entry, axis, depth, sensor bias)
+    as the port's."""
+    return PegParams(model=chain_model_from_reference(params.model, device),
+                     hole_entry=_t(params.hole_entry, device),
+                     hole_axis=_t(params.hole_axis, device),
+                     hole_depth=_t(params.hole_depth, device),
+                     sensor_bias=_t(params.sensor_bias, device))
+
+
+def peg_state_from_reference(state, device="cuda") -> PegState:
+    """A reference PegState (qpos, qvel, timestep) as the port's."""
+    return PegState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
+                    timestep=int(np.asarray(state.timestep)))
+
+
+def reinforce_state_from_reference(state, seed: int = 0, device="cuda") -> ReinforceState:
+    """A reference ReinforceState as the port's; the port's streams start
+    from `seed` (the reference PRNG key has no torch counterpart)."""
+    return ReinforceState(mean_weights=_t(state.mean_weights, device),
+                          cov_diag=_t(state.cov_diag, device),
+                          vf_weights=_t(state.vf_weights, device),
+                          vf_bias=_t(state.vf_bias, device),
+                          fit_error=_t(state.fit_error, device),
+                          step=int(np.asarray(state.step)), seed=int(seed))
+
+
+def vf_params_from_reference(params, device="cuda") -> VFParams:
+    return VFParams(weights=_t(params.weights, device), bias=_t(params.bias, device))
+
+
+def lg_policy_params_from_reference(params, device="cuda") -> LGPolicyParams:
+    return LGPolicyParams(weight=_t(params.weight, device), bias=_t(params.bias, device),
+                          log_std=_t(params.log_std, device))

@@ -1,44 +1,57 @@
-// Open-loop rollout of a scalar-joint (hinge/slide) kinematic chain over N
-// particles and H control steps, one CUDA thread per particle.
+// Rollouts of a scalar-joint (hinge/slide) kinematic chain over N particles
+// and H control steps, one CUDA thread per particle.
 //
-// Replaces two TPU kernels of mjmpc_tpu/ops/pallas_chain.py:
-// `_chain_kernel` (built by `build_chain_rollout`; entry
-// chain_rollout_launch) and `_chain_obs_kernel` (built by
-// `build_chain_obs_rollout`; entry chain_obs_rollout_launch), which also
-// writes obs[b, t] = [q, qd, site, site - target] of the state entering
-// step t. One source, one template: the obs stores are compiled out of
-// the costs-only kernel. It computes what those kernels compute, not their
-// TPU layout: no (sublane, 128) lane panels and no padding of N.
+// Replaces three TPU kernels of mjmpc_tpu/ops/pallas_chain.py:
+//   - `_chain_kernel` (built by `build_chain_rollout`; entry
+//     chain_rollout_launch): costs only, open loop;
+//   - `_chain_obs_kernel` (built by `build_chain_obs_rollout`; entry
+//     chain_obs_rollout_launch): also writes obs[b, t] of the state
+//     entering step t;
+//   - `_chain_cl_kernel` (built by `build_chain_cl_rollout`; entry
+//     chain_cl_rollout_launch): closed-loop-linear, a = W^T [obs; 1] +
+//     eps computed in the kernel from the observation of the state
+//     entering the step, stored before the clip, then u = clip(a); writes
+//     obs, actions and costs.
+// One source, one template (chain_rollout.cuh rollout_particle<MODE, Task>):
+// the stores a mode does not need are compiled out. The task (observation,
+// cost, extras) is the generated header's model::TASK: Reacher (extras =
+// target [3]) or Peg (extras = hole entry, axis, depth, sensor bias [10]).
+// It computes what those kernels compute, not their TPU layout: no
+// (sublane, 128) lane panels, no padding of N, and no cap on the panel
+// (the closed-loop kernel's VMEM limit on the TPU has no counterpart here).
 //
 //   for t in 0..H-1:
-//     u = clip(mean[t] + noise[b, t], ULOW, UHIGH), held for N_SUBSTEPS
-//     substep: FK, Jacobian-composed mass matrix (+ armature + dt*damping
-//              on the diagonal), zero-qdd RNEA bias, unrolled Cholesky
-//              solve of M qdd = gear*u - bias - damping*qd - stiffness*q
-//              - frictionloss*tanh(50 qd), semi-implicit Euler, joint-limit
-//              clamp with qd zeroed where clamped
-//     costs[b, t] = l1 + 5*sqrt(|d|^2 + 1e-12), d = site - target, on the
-//                   post-step state
+//     u = clip(mean[t] + noise[b, t], ULOW, UHIGH)             (costs, obs)
+//     a = W^T [obs_b(t); 1] + noise[b, t], u = clip(a)         (closed loop)
+//     held for N_SUBSTEPS substeps: FK, Jacobian-composed mass matrix
+//       (+ armature + dt*damping on the diagonal), zero-qdd RNEA bias,
+//       unrolled Cholesky solve of M qdd = gear*u - bias - damping*qd -
+//       stiffness*q - frictionloss*tanh(50 qd), semi-implicit Euler,
+//       joint-limit clamp with qd zeroed where clamped
+//     costs[b, t] = the task's cost of the post-step state
 //
-// The per-thread code is in chain_rollout.cuh. The model constants come
-// from the generated header chain_model.h (mjmpc_tpu_torch/ops/
-// chain_rollout.py model_header) as compile-time constants, so the loops
-// over bodies unroll into straight-line code with the topology resolved at
-// compile time. q and qd stay in registers across
-// all H * N_SUBSTEPS substeps; the only device-memory traffic is the noise
-// read and the costs (and obs) writes. The FK of the state after step t serves both
-// step t's cost and step t+1's first substep.
+// The model constants come from the generated header chain_model.h
+// (mjmpc_tpu_torch/ops/chain_rollout.py model_header) as compile-time
+// constants, so the loops over bodies unroll into straight-line code with
+// the topology resolved at compile time. q and qd stay in registers across
+// all H * N_SUBSTEPS substeps. The FK of the state after step t serves both
+// step t's cost and step t+1's observation and first substep. In the
+// closed-loop kernel W ([D_OBS + 1, N], at most 21 x 7 floats) is staged
+// once per block in shared memory and read as a broadcast; the seven
+// action sums grow while each observation element is produced and stored,
+// so the observation never lives whole in registers.
 //
 // What bounds it on an H100: compute, roughly 6 KFLOP per particle-substep
 // in f32 (FK, the 7x7 mass matrix, RNEA, Cholesky; counted from this
-// source by ops/chain_rollout.py substep_flops) against 14 bytes read per
-// particle-substep, plus 80 bytes of obs written per particle-step by the
-// obs kernel. Known limits of this first version, left to later
+// source by ops/chain_rollout.py rollout_flops) against 14 bytes read per
+// particle-substep, plus per particle-step the obs stores (80 bytes) and,
+// closed loop, 7 x (2 D_OBS + 3) operations of the policy product and 28
+// bytes of actions. Known limits of this first version, left to later
 // work:
 //   - at N = 4096 one thread per particle fills only 32 blocks of 128
 //     threads on the card's 132 SMs;
-//   - per-thread noise reads are strided by H * nv floats, so a warp's
-//     loads are not coalesced;
+//   - per-thread noise reads and obs/action stores are strided by the row
+//     length, so a warp's accesses are not coalesced;
 //   - register pressure: the per-thread frames, mass matrix and Cholesky
 //     factor need many registers (the ptxas -v count and spills are
 //     recorded in PERF.md).
@@ -51,17 +64,30 @@
 
 namespace {
 
-template <bool EMIT_OBS>
+using chain_rollout::BuildTask;
+using chain_rollout::CL;
+using chain_rollout::COSTS;
+using chain_rollout::OBS;
+
+template <int MODE>
 __global__ void chain_rollout_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
-                                     const float* __restrict__ target,
-                                     const float* __restrict__ mean,
+                                     const float* __restrict__ extras,
+                                     const float* __restrict__ ctrl,
                                      const float* __restrict__ noise,
-                                     float* __restrict__ costs, float* __restrict__ obs, int n,
-                                     int horizon) {
+                                     float* __restrict__ costs, float* __restrict__ obs,
+                                     float* __restrict__ acts, int n, int horizon) {
+    const float* c = ctrl;
+    if constexpr (MODE == CL) {
+        constexpr int kW = (BuildTask::D_OBS + 1) * model::N;
+        __shared__ float w_s[kW];
+        for (int k = threadIdx.x; k < kW; k += blockDim.x) w_s[k] = ctrl[k];
+        __syncthreads();
+        c = w_s;
+    }
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b < n)
-        chain_rollout::rollout_particle<EMIT_OBS>(q0, qd0, target, mean, noise, costs, b,
-                                                  horizon, obs);
+        chain_rollout::rollout_particle<MODE, BuildTask>(q0, qd0, extras, c, noise, costs, obs,
+                                                         acts, b, horizon);
 }
 
 constexpr int kBlock = 128;
@@ -74,23 +100,40 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t); returns cudaGetLastError() after the
 // launch (0 on success). Does not synchronise.
-int chain_rollout_launch(const float* q0, const float* qd0, const float* target,
+int chain_rollout_launch(const float* q0, const float* qd0, const float* extras,
                          const float* mean, const float* noise, float* costs, int n,
                          int horizon, void* stream) {
-    chain_rollout_kernel<false><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, target, mean, noise, costs, nullptr, n, horizon);
+    chain_rollout_kernel<COSTS><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, extras, mean, noise, costs, nullptr, nullptr, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
 
 // The same rollout that also writes obs [n, horizon, D_OBS] (replaces the
 // TPU kernel `_chain_obs_kernel`, built by `build_chain_obs_rollout`).
-int chain_obs_rollout_launch(const float* q0, const float* qd0, const float* target,
+int chain_obs_rollout_launch(const float* q0, const float* qd0, const float* extras,
                              const float* mean, const float* noise, float* costs, float* obs,
                              int n, int horizon, void* stream) {
-    chain_rollout_kernel<true><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, target, mean, noise, costs, obs, n, horizon);
+    chain_rollout_kernel<OBS><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, extras, mean, noise, costs, obs, nullptr, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
+
+// The closed-loop-linear rollout under W [D_OBS + 1, N]: writes obs
+// [n, horizon, D_OBS], the pre-clip actions [n, horizon, N] and costs
+// (replaces the TPU kernel `_chain_cl_kernel`, built by
+// `build_chain_cl_rollout`).
+int chain_cl_rollout_launch(const float* q0, const float* qd0, const float* extras,
+                            const float* w, const float* noise, float* costs, float* obs,
+                            float* acts, int n, int horizon, void* stream) {
+    chain_rollout_kernel<CL><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, extras, w, noise, costs, obs, acts, n, horizon);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The build's task layout, checked by the wrapper against its own.
+int chain_rollout_d_obs() { return BuildTask::D_OBS; }
+
+int chain_rollout_n_extras() { return BuildTask::N_EXTRAS; }
 
 const char* chain_rollout_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,8 +1,12 @@
-// Per-particle arithmetic of the chain-rollout kernel (chain_rollout.cu):
+// Per-particle arithmetic of the chain-rollout kernels (chain_rollout.cu):
 // straight-line code over the compile-time model of chain_model.h. The
 // functions are host-and-device, so the same source also compiles as plain
-// C++ (tests/test_torch_chain_rollout.py and tests/test_torch_obs_rollout.py
-// check it on the CPU that way).
+// C++ (tests/test_torch_chain_rollout.py, tests/test_torch_obs_rollout.py
+// and tests/test_torch_cl_rollout.py check it on the CPU that way).
+//
+// One template serves three modes (costs only; costs and observations;
+// closed-loop-linear) and two tasks (Reacher, Peg), the task chosen by the
+// generated header's model::TASK.
 
 #pragma once
 
@@ -273,68 +277,204 @@ CHAIN_FN V3 site_of(const Frames& f) {
     return add(f.P[sb], mv(f.R[sb], sp));
 }
 
-CHAIN_FN float site_cost(const Frames& f, V3 target) {
-    const V3 d = sub(site_of(f), target);
-    const float l1 = fabsf(d.x) + fabsf(d.y) + fabsf(d.z);
-    const float l2 = sqrtf(d.x * d.x + d.y * d.y + d.z * d.z + 1e-12f);
-    return l1 + 5.0f * l2;
-}
+// ---------------------------------------------------------------------------
+// Tasks. A task gives N_EXTRAS (the floats of `extras`), D_OBS, load() of
+// its extras, obs(), which hands the observation of a state to a sink one
+// element at a time (sink(j, value) for j = 0 .. D_OBS - 1, in order), and
+// cost() of the state whose frames are f.
+// ---------------------------------------------------------------------------
 
-// Reacher-family observation [q, qd, site, site - target] of the state
-// whose frames are f (envs/reacher_7dof.py _observe).
-constexpr int D_OBS = 2 * N + 6;
+// Reacher family (envs/reacher_7dof.py): extras = target [3];
+// obs = [q, qd, site, site - target]; cost = l1 + 5 * sqrt(|d|^2 + 1e-12) of
+// d = site - target.
+struct Reacher {
+    static constexpr int N_EXTRAS = 3;
+    static constexpr int D_OBS = 2 * N + 6;
 
-CHAIN_FN void write_obs(const Frames& f, const float (&q)[N], const float (&qd)[N], V3 target,
-                        float* __restrict__ o) {
+    struct Extras {
+        V3 target;
+    };
+
+    static CHAIN_FN Extras load(const float* __restrict__ e) { return {{e[0], e[1], e[2]}}; }
+
+    template <class Sink>
+    static CHAIN_FN void obs(const Frames& f, const float (&q)[N], const float (&qd)[N],
+                             const Extras& ex, Sink& sink) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-        o[i] = q[i];
-        o[N + i] = qd[i];
+        for (int i = 0; i < N; ++i) sink(i, q[i]);
+#pragma unroll
+        for (int i = 0; i < N; ++i) sink(N + i, qd[i]);
+        const V3 s = site_of(f);
+        sink(2 * N + 0, s.x);
+        sink(2 * N + 1, s.y);
+        sink(2 * N + 2, s.z);
+        sink(2 * N + 3, s.x - ex.target.x);
+        sink(2 * N + 4, s.y - ex.target.y);
+        sink(2 * N + 5, s.z - ex.target.z);
     }
-    const V3 s = site_of(f);
-    o[2 * N + 0] = s.x;
-    o[2 * N + 1] = s.y;
-    o[2 * N + 2] = s.z;
-    o[2 * N + 3] = s.x - target.x;
-    o[2 * N + 4] = s.y - target.y;
-    o[2 * N + 5] = s.z - target.z;
-}
 
-// Roll out particle b: noise [n, horizon, N] and costs [n, horizon] are
-// contiguous f32; q0, qd0 [N], target [3] and mean [horizon, N] are shared.
-// With EMIT_OBS, obs [n, horizon, D_OBS] also receives the observation of
-// the state entering each step (the pre-step state, as rollout_open_loop
-// records it), from the same frames that serve that step's first substep.
-template <bool EMIT_OBS = false>
+    static CHAIN_FN float cost(const Frames& f, const Extras& ex) {
+        const V3 d = sub(site_of(f), ex.target);
+        const float l1 = fabsf(d.x) + fabsf(d.y) + fabsf(d.z);
+        const float l2 = sqrtf(d.x * d.x + d.y * d.y + d.z * d.z + 1e-12f);
+        return l1 + 5.0f * l2;
+    }
+};
+
+// Peg insertion (envs/sawyer_tasks.py): the site is the peg's tip; extras =
+// [hole entry 3, hole axis 3 (unit, into the hole), hole depth, sensor bias
+// 3]. Depth and lateral offset are taken from the sensed entry (entry +
+// bias); obs = [q, qd, tip - entry, depth, lateral] with the UNbiased entry
+// in the third block; cost = the depth-progress insertion cost, |tip -
+// bottom| + 5 * lateral * inserted - inserted.
+struct Peg {
+    static constexpr int N_EXTRAS = 10;
+    static constexpr int D_OBS = 2 * N + 5;
+
+    struct Extras {
+        V3 entry, axis;
+        float depth;
+        V3 bias;
+    };
+
+    static CHAIN_FN Extras load(const float* __restrict__ e) {
+        return {{e[0], e[1], e[2]}, {e[3], e[4], e[5]}, e[6], {e[7], e[8], e[9]}};
+    }
+
+    static CHAIN_FN void sensed(V3 tip, const Extras& ex, float& depth, float& lateral) {
+        const V3 rel = sub(tip, add(ex.entry, ex.bias));
+        depth = dot(rel, ex.axis);
+        const V3 off = sub(rel, scale(depth, ex.axis));
+        lateral = sqrtf(dot(off, off) + 1e-12f);
+    }
+
+    template <class Sink>
+    static CHAIN_FN void obs(const Frames& f, const float (&q)[N], const float (&qd)[N],
+                             const Extras& ex, Sink& sink) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) sink(i, q[i]);
+#pragma unroll
+        for (int i = 0; i < N; ++i) sink(N + i, qd[i]);
+        const V3 tip = site_of(f);
+        float depth, lateral;
+        sensed(tip, ex, depth, lateral);
+        sink(2 * N + 0, tip.x - ex.entry.x);
+        sink(2 * N + 1, tip.y - ex.entry.y);
+        sink(2 * N + 2, tip.z - ex.entry.z);
+        sink(2 * N + 3, depth);
+        sink(2 * N + 4, lateral);
+    }
+
+    static CHAIN_FN float cost(const Frames& f, const Extras& ex) {
+        const V3 tip = site_of(f);
+        float depth, lateral;
+        sensed(tip, ex, depth, lateral);
+        const V3 d = sub(tip, add(ex.entry, scale(ex.depth, ex.axis)));
+        const float inserted = fminf(fmaxf(depth, 0.0f), ex.depth) / fmaxf(ex.depth, 1e-6f);
+        return sqrtf(dot(d, d) + 1e-12f) + 5.0f * lateral * inserted - inserted;
+    }
+};
+
+template <int TASK>
+struct TaskOf;
+template <>
+struct TaskOf<0> {
+    using type = Reacher;
+};
+template <>
+struct TaskOf<1> {
+    using type = Peg;
+};
+
+// The task of this build (model::TASK of the generated header).
+using BuildTask = TaskOf<model::TASK>::type;
+
+// ---------------------------------------------------------------------------
+// Rollout
+// ---------------------------------------------------------------------------
+
+enum Mode : int {
+    COSTS = 0,  // costs only (_chain_kernel)
+    OBS = 1,    // costs and pre-step observations (_chain_obs_kernel)
+    CL = 2,     // closed-loop-linear: obs, u = W^T [obs; 1] + eps, costs (_chain_cl_kernel)
+};
+
+// Takes the observation one element at a time: stores it and, in CL mode,
+// adds its terms W[j][i] * obs_j to the action sums, so the observation is
+// never held whole in registers.
+template <int MODE>
+struct ObsSink {
+    float* __restrict__ o;        // this step's obs row
+    const float* __restrict__ w;  // W [D_OBS + 1, N] (CL)
+    float acc[N];                 // action sums (CL)
+
+    CHAIN_FN void operator()(int j, float v) {
+        o[j] = v;
+        if constexpr (MODE == CL) {
+#pragma unroll
+            for (int i = 0; i < N; ++i) acc[i] = acc[i] + w[j * N + i] * v;
+        }
+    }
+};
+
+// Roll out particle b. noise [n, horizon, N], costs [n, horizon], obs
+// [n, horizon, D_OBS] (OBS, CL) and acts [n, horizon, N] (CL) are contiguous
+// f32; q0, qd0 [N] and extras [N_EXTRAS] are shared; ctrl is the mean
+// [horizon, N] (COSTS, OBS: u = clip(mean[t] + eps)) or the policy W
+// [D_OBS + 1, N] (CL: a = W^T [obs; 1] + eps, stored before the clip,
+// u = clip(a)). Observations are of the state entering each step, from the
+// frames that serve that step's first substep; costs of the state after it.
+template <int MODE, class Task>
 CHAIN_FN void rollout_particle(const float* __restrict__ q0, const float* __restrict__ qd0,
-                               const float* __restrict__ target,
-                               const float* __restrict__ mean,
+                               const float* __restrict__ extras,
+                               const float* __restrict__ ctrl,
                                const float* __restrict__ noise, float* __restrict__ costs,
-                               int b, int horizon, float* __restrict__ obs = nullptr) {
+                               float* __restrict__ obs, float* __restrict__ acts, int b,
+                               int horizon) {
     float q[N], qd[N], u[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
         q[i] = q0[i];
         qd[i] = qd0[i];
     }
-    const V3 tgt = {target[0], target[1], target[2]};
+    const typename Task::Extras ex = Task::load(extras);
     const float* nz = noise + static_cast<size_t>(b) * horizon * N;
     float* out = costs + static_cast<size_t>(b) * horizon;
     Frames f;
     fk(q, f);
     for (int t = 0; t < horizon; ++t) {
-        if constexpr (EMIT_OBS)
-            write_obs(f, q, qd, tgt, obs + (static_cast<size_t>(b) * horizon + t) * D_OBS);
+        const float* eps = nz + t * N;
+        if constexpr (MODE == COSTS) {
 #pragma unroll
-        for (int j = 0; j < N; ++j)
-            u[j] = fminf(fmaxf(mean[t * N + j] + nz[t * N + j], model::ULOW), model::UHIGH);
+            for (int j = 0; j < N; ++j)
+                u[j] = fminf(fmaxf(ctrl[t * N + j] + eps[j], model::ULOW), model::UHIGH);
+        } else {
+            const size_t row = static_cast<size_t>(b) * horizon + t;
+            ObsSink<MODE> sink{obs + row * Task::D_OBS, ctrl, {}};
+            if constexpr (MODE == CL) {
+#pragma unroll
+                for (int i = 0; i < N; ++i) sink.acc[i] = ctrl[Task::D_OBS * N + i] + eps[i];
+            }
+            Task::obs(f, q, qd, ex, sink);
+#pragma unroll
+            for (int j = 0; j < N; ++j) {
+                float a;
+                if constexpr (MODE == CL) {
+                    a = sink.acc[j];
+                    acts[row * N + j] = a;
+                } else {
+                    a = ctrl[t * N + j] + eps[j];
+                }
+                u[j] = fminf(fmaxf(a, model::ULOW), model::UHIGH);
+            }
+        }
         substep(q, qd, u, f);
         for (int s = 1; s < model::N_SUBSTEPS; ++s) {
             fk(q, f);
             substep(q, qd, u, f);
         }
         fk(q, f);
-        out[t] = site_cost(f, tgt);
+        out[t] = Task::cost(f, ex);
     }
 }
 

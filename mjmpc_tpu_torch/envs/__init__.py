@@ -10,12 +10,14 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from . import reacher_7dof
+from . import reacher_7dof, sawyer_tasks
 from .base import Env
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {
     "reacher_7dof-v0": reacher_7dof.make,
     "continual_reacher-v0": reacher_7dof.make_continual,
+    "sawyer_peg_insertion-v0": sawyer_tasks.make_peg_insertion,
+    "sawyer_peg_insertion-v1": sawyer_tasks.make_peg_insertion_v1,
 }
 
 _CACHE: Dict[Tuple[str, str], Env] = {}

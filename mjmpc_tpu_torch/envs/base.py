@@ -56,6 +56,13 @@ class Env:
     # mean + noise, built by the caller.
     fused_obs_rollout: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
                                          Tuple[torch.Tensor, torch.Tensor]]] = None
+    # Optional fused closed-loop-linear rollout: (params, state, weights
+    # [d_obs + 1, dA], noise [N, H, dA]) -> (obs [N, H, d_obs], actions
+    # [N, H, dA], costs [N, H]), the records of rollout_closed_loop_linear
+    # (pre-step obs, pre-clip actions, post-step costs): Reinforce's path.
+    fused_cl_rollout: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
+                                        Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]]] = None
 
     def clip_action(self, action: torch.Tensor) -> torch.Tensor:
         return torch.clamp(action, self.action_lows, self.action_highs)

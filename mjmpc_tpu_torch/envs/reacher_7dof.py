@@ -24,7 +24,8 @@ import torch
 
 from .. import rng
 from ..engine import chain as rb
-from ..ops.chain_rollout import build_chain_obs_rollout, build_chain_rollout
+from ..ops.chain_rollout import (build_chain_cl_rollout, build_chain_obs_rollout,
+                                 build_chain_rollout)
 from .base import Env
 
 _FRAME_SKIP = 2
@@ -157,12 +158,13 @@ def _make(continual_period: int, name: str, device) -> Env:
 
     # Fused rollout kernels, plain reacher only: the continual variant's
     # target can move within a planning rollout, which the kernels do not
-    # model. The obs kernel's observation is exactly _observe's
-    # [qpos, qvel, hand, hand - target].
-    fused = fused_obs = None
+    # model. The obs and closed-loop kernels' observation is exactly
+    # _observe's [qpos, qvel, hand, hand - target].
+    fused = fused_obs = fused_cl = None
     if continual_period == 0:
         roll = build_chain_rollout(params.model, n_substeps=_FRAME_SKIP)
         roll_obs = build_chain_obs_rollout(params.model, n_substeps=_FRAME_SKIP)
+        roll_cl = build_chain_cl_rollout(params.model, n_substeps=_FRAME_SKIP)
 
         def fused(p, state, mean, noise):
             return roll(state.qpos, state.qvel, state.target, mean, noise)
@@ -170,13 +172,16 @@ def _make(continual_period: int, name: str, device) -> Env:
         def fused_obs(p, state, mean, noise):
             return roll_obs(state.qpos, state.qvel, state.target, mean, noise)
 
+        def fused_cl(p, state, weights, noise):
+            return roll_cl(state.qpos, state.qvel, state.target, weights, noise)
+
     return Env(
         name=name, d_obs=D_OBS, d_action=N_JOINTS,
         action_lows=torch.full((N_JOINTS,), -1.0, device=device),
         action_highs=torch.full((N_JOINTS,), 1.0, device=device),
         params=params, init=_init, step=_step, observe=_observe,
         device=device, success=_success, max_episode_steps=75,
-        fused_rollout=fused, fused_obs_rollout=fused_obs)
+        fused_rollout=fused, fused_obs_rollout=fused_obs, fused_cl_rollout=fused_cl)
 
 
 def make(device="cuda") -> Env:

@@ -1,22 +1,33 @@
-"""Fused open-loop rollout of a scalar-joint chain: kernel wrappers and
-their plain PyTorch version.
+"""Fused rollouts of a scalar-joint chain: kernel wrappers and their plain
+PyTorch version.
 
 Counterpart of mjmpc_tpu/ops/pallas_chain.py build_chain_rollout (costs
-only) and build_chain_obs_rollout (costs and per-step observations). The
-kernels (csrc/chain_rollout.cu, one template with two entries) run one
-thread per particle with q and qd in registers across all H * n_substeps
-substeps; the model constants are compile-time constants in a header
-generated here from the ChainModel.
+only), build_chain_obs_rollout (costs and per-step observations) and
+build_chain_cl_rollout (closed-loop-linear: observations, the policy
+product u = W^T [obs; 1] + eps, actions and costs). The kernels
+(csrc/chain_rollout.cu, one template with three entries) run one thread
+per particle with q and qd in registers across all H * n_substeps
+substeps; the model constants and the task are compile-time constants in
+a header generated here from the ChainModel.
 
-Semantics (identical to the Pallas builder): for every particle b and step
-t, u = clip(mean[t] + noise[b, t], ulow, uhigh) is held for n_substeps
-semi-implicit Euler substeps (FK, Jacobian-composed mass matrix with
-armature + dt*damping on the diagonal, zero-qdd RNEA bias, Cholesky solve
-of M qdd = gear*u - bias - damping*qd - stiffness*q - frictionloss*
-tanh(50 qd), then the joint-limit clamp with qd zeroed where clamped), and
-cost[b, t] = l1 + 5*sqrt(|d|^2 + 1e-12) of d = site - target on the
-post-step state. The obs rollout also gives obs[b, t] = [q, qd, site,
-site - target] of the pre-step state (the state entering step t).
+Semantics (identical to the Pallas builders): for every particle b and
+step t, the action is held for n_substeps semi-implicit Euler substeps
+(FK, Jacobian-composed mass matrix with armature + dt*damping on the
+diagonal, zero-qdd RNEA bias, Cholesky solve of M qdd = gear*u - bias -
+damping*qd - stiffness*q - frictionloss*tanh(50 qd), then the joint-limit
+clamp with qd zeroed where clamped), and cost[b, t] is the task's cost of
+the post-step state. Open loop, u = clip(mean[t] + noise[b, t]); closed
+loop, a = W^T [obs_b(t); 1] + noise[b, t] is recorded before the clip and
+u = clip(a). obs[b, t] is the observation of the pre-step state (the
+state entering step t).
+
+Tasks (chosen when a wrapper is built; `extras` carries their data):
+- reacher: extras = target [3]; obs [q, qd, site, site - target],
+  d_obs = 2 nv + 6; cost l1 + 5 * sqrt(|d|^2 + 1e-12), d = site - target.
+- peg: extras = [hole entry 3, hole axis 3, hole depth, sensor bias 3];
+  obs [q, qd, tip - entry, depth, lateral], d_obs = 2 nv + 5, with depth
+  and lateral taken from the sensed (biased) entry; cost the depth-progress
+  insertion cost (envs/sawyer_tasks.py).
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
@@ -24,6 +35,8 @@ it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Callable, Union
 
 import numpy as np
 import torch
@@ -108,52 +121,136 @@ def _site(model: ChainModel, fk):
     return poss[..., sb, :] + rots[..., sb, :, :] @ model.site_pos
 
 
-def _site_cost(model: ChainModel, fk, target):
-    """Reacher-family cost l1 + 5 * l2 of (site - target), l2 smoothed by
-    1e-12 under the square root."""
-    diff = _site(model, fk) - target
+def _reacher_obs(model: ChainModel, fk, q, qd, extras):
+    """[q, qd, site, site - target] (envs/reacher_7dof.py _observe)."""
+    site = _site(model, fk)
+    return torch.cat([q, qd, site, site - extras], -1)
+
+
+def _reacher_cost(model: ChainModel, fk, extras):
+    """l1 + 5 * l2 of (site - target), l2 smoothed by 1e-12 under the
+    square root."""
+    diff = _site(model, fk) - extras
     l2 = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
     return torch.sum(torch.abs(diff), dim=-1) + 5.0 * l2
 
 
-def _reacher_obs(model: ChainModel, fk, q, qd, target):
-    """[q, qd, site, site - target], d_obs = 2 nv + 6 (envs/reacher_7dof.py
-    _observe)."""
-    site = _site(model, fk)
-    return torch.cat([q, qd, site, site - target], -1)
+def _peg_sensed(tip, extras):
+    """Depth along the hole axis and lateral offset [N] of the tip from the
+    sensed entry (entry + bias)."""
+    entry, axis, bias = extras[0:3], extras[3:6], extras[7:10]
+    rel = tip - (entry + bias)
+    depth = torch.sum(rel * axis, dim=-1)
+    off = rel - depth[..., None] * axis
+    return depth, torch.sqrt(torch.sum(off * off, dim=-1) + 1e-12)
+
+
+def _peg_obs(model: ChainModel, fk, q, qd, extras):
+    """[q, qd, tip - entry, depth, lateral] (envs/sawyer_tasks.py _peg_obs;
+    the third block uses the unbiased entry)."""
+    tip = _site(model, fk)
+    depth, lateral = _peg_sensed(tip, extras)
+    return torch.cat([q, qd, tip - extras[0:3], depth[..., None], lateral[..., None]], -1)
+
+
+def _peg_cost(model: ChainModel, fk, extras):
+    """The depth-progress insertion cost, _peg_step's reward negated:
+    |tip - bottom| + 5 * lateral * inserted - inserted."""
+    tip = _site(model, fk)
+    depth, lateral = _peg_sensed(tip, extras)
+    entry, axis, hole_depth = extras[0:3], extras[3:6], extras[6]
+    d = tip - (entry + hole_depth * axis)
+    inserted = (torch.minimum(torch.clamp(depth, min=0.0), hole_depth)
+                / torch.clamp(hole_depth, min=1e-6))
+    return torch.sqrt(torch.sum(d * d, dim=-1) + 1e-12) + 5.0 * lateral * inserted - inserted
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainTask:
+    """A chain task: its observation and cost in the plain version, the
+    kernel's task type (model::TASK selects csrc/chain_rollout.cuh's
+    Reacher or Peg) and its operation counts, taken from that source as
+    written (a multiply, an add, a compare or a transcendental is one)."""
+    name: str
+    index: int          # model::TASK in the generated header
+    n_extras: int
+    obs_extra: int      # d_obs = 2 nv + obs_extra
+    obs: Callable       # (model, fk, q, qd, extras) -> [N, d_obs]
+    cost: Callable      # (model, fk, extras) -> [N]
+    obs_ops: int        # per observation
+    cost_ops: int       # per cost
+
+    def d_obs(self, nv: int) -> int:
+        return 2 * nv + self.obs_extra
+
+
+# site_of: a 3x3 matrix-vector product (15) and an add (3) = 18.
+# Reacher obs: site + site - target (3) = 21; cost: site, d (3), l1 (5),
+# l2 (7), l1 + 5 l2 (2) = 35. Peg: sensed = entry + bias, rel, depth (5),
+# off (6), lateral (7) = 24; obs: tip + sensed + tip - entry (3) = 45;
+# cost: tip + sensed + bottom (6) + d (3) + its norm (7) + inserted (4) +
+# the sum (4) = 66.
+REACHER = ChainTask("reacher", 0, 3, 6, _reacher_obs, _reacher_cost, 21, 35)
+PEG = ChainTask("peg", 1, 10, 5, _peg_obs, _peg_cost, 45, 66)
+TASKS = {t.name: t for t in (REACHER, PEG)}
+
+
+def _task(task: Union[str, ChainTask]) -> ChainTask:
+    if isinstance(task, ChainTask):
+        return task
+    if task not in TASKS:
+        raise ValueError(f"unknown chain task {task!r}; known: {sorted(TASKS)}")
+    return TASKS[task]
 
 
 def rollout_plain(model: ChainModel, n_substeps: int, ulow: float, uhigh: float,
-                  q0, qd0, target, mean, noise, emit_obs: bool = False):
-    """Plain PyTorch rollout -> costs [N, H], or (obs [N, H, 2 nv + 6],
-    costs) with emit_obs. The state after step t is the state before step
-    t + 1, so one FK serves that step's cost, the next step's obs and the
-    next step's first substep (as in the kernel)."""
+                  q0, qd0, extras, ctrl, noise, mode: str = "costs",
+                  task: Union[str, ChainTask] = REACHER):
+    """Plain PyTorch rollout. ctrl is the mean [H, nv] ("costs", "obs") or
+    the policy W [d_obs + 1, nv] ("cl"). Returns costs [N, H] ("costs"),
+    (obs [N, H, d_obs], costs) ("obs") or (obs, pre-clip actions
+    [N, H, nv], costs) ("cl"). The state after step t is the state before
+    step t + 1, so one FK serves that step's cost, the next step's obs and
+    the next step's first substep (as in the kernel)."""
+    task = _task(task)
     n, horizon, nv = noise.shape
     q = q0.expand(n, nv)
     qd = qd0.expand(n, nv)
     fk = chain.fk_dofs(model, q)
-    costs, obs = [], []
+    costs, obs, acts = [], [], []
     for t in range(horizon):
-        if emit_obs:
-            obs.append(_reacher_obs(model, fk, q, qd, target))
-        u = torch.clamp(mean[t] + noise[:, t], ulow, uhigh)
+        if mode == "costs":
+            a = ctrl[t] + noise[:, t]
+        else:
+            o = task.obs(model, fk, q, qd, extras)
+            obs.append(o)
+            if mode == "cl":
+                a = o @ ctrl[:-1] + ctrl[-1] + noise[:, t]
+                acts.append(a)
+            else:
+                a = ctrl[t] + noise[:, t]
+        u = torch.clamp(a, ulow, uhigh)
         q, qd = _substep(model, q, qd, u, fk)
         for _ in range(n_substeps - 1):
             q, qd = _substep(model, q, qd, u, chain.fk_dofs(model, q))
         fk = chain.fk_dofs(model, q)
-        costs.append(_site_cost(model, fk, target))
-    if emit_obs:
-        return torch.stack(obs, 1), torch.stack(costs, 1)
-    return torch.stack(costs, 1)
+        costs.append(task.cost(model, fk, extras))
+    costs = torch.stack(costs, 1)
+    if mode == "costs":
+        return costs
+    if mode == "obs":
+        return torch.stack(obs, 1), costs
+    return torch.stack(obs, 1), torch.stack(acts, 1), costs
 
 
 def rollout_flops(model: ChainModel, n_substeps: int, n: int, horizon: int,
-                  emit_obs: bool = False) -> int:
+                  mode: str = "costs", task: Union[str, ChainTask] = REACHER) -> int:
     """Floating-point operations of one kernel call, counted from
     csrc/chain_rollout.cuh as written (a multiply, an add, a compare or a
-    transcendental is one; the chain's topology as the header bakes it).
-    Used for the card-time bound: the work is the same for every input."""
+    transcendental is one; the chain's topology as the header bakes it;
+    the task's d_obs and its obs and cost counts). Used for the card-time
+    bound: the work is the same for every input."""
+    task = _task(task)
     add, dot, cross, mv, mm = 3, 5, 9, 15, 45
     rodrigues = 2 + 1 + 3 * 3 + 6 * 4        # sin, cos, 1-c, 9 entries
     world_inertia = mm + 9 * 5
@@ -184,15 +281,29 @@ def rollout_flops(model: ChainModel, n_substeps: int, n: int, horizon: int,
     rest = nb * (1 + 6 + 7) + 4 * friction
     chol = nb * (nb + 1) * (2 * nb + 1) // 6 + 2 * nb * nb
     substep = mass + bias_fwd + bias_bwd + rest + chol
-    site = mv + add
-    cost = site + add + 5 + 7 + 2
-    step = (n_substeps * (substep + fk) + cost + 3 * nb
-            + ((site + add) if emit_obs else 0))
+    if mode == "cl":    # per action: bias + eps, d_obs products and sums, clip
+        act = nb * (1 + 2 * task.d_obs(nb) + 2)
+    else:               # per action: mean + eps, clip
+        act = 3 * nb
+    obs = 0 if mode == "costs" else task.obs_ops
+    step = n_substeps * (substep + fk) + task.cost_ops + act + obs
     return n * (fk + horizon * step)
 
 
+def rollout_bytes(nv: int, n: int, horizon: int, mode: str = "costs",
+                  task: Union[str, ChainTask] = REACHER) -> int:
+    """Bytes one kernel call must move: q0, qd0, extras, the mean (or W)
+    and the noise in; costs (and obs, and actions) out, f32."""
+    task = _task(task)
+    d_obs = task.d_obs(nv)
+    nh = n * horizon
+    ctrl = (d_obs + 1) * nv if mode == "cl" else horizon * nv
+    out = nh * (1 + (0 if mode == "costs" else d_obs) + (nv if mode == "cl" else 0))
+    return 4 * (2 * nv + task.n_extras + ctrl + nh * nv + out)
+
+
 # ---------------------------------------------------------------------------
-# Kernel wrapper
+# Kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _f(x) -> str:
@@ -216,8 +327,9 @@ def _array(name: str, ctype: str, values, fmt) -> str:
 
 
 def model_header(model: ChainModel, n_substeps: int, ulow: float,
-                 uhigh: float) -> str:
-    """C++ header of the model's constants for csrc/chain_rollout.cu."""
+                 uhigh: float, task: Union[str, ChainTask] = REACHER) -> str:
+    """C++ header of the model's constants and the task for
+    csrc/chain_rollout.cu."""
     npf = lambda t: t.detach().cpu().numpy().astype(np.float32)
     n = model.n_joints
     i = lambda v: str(int(v))
@@ -247,6 +359,7 @@ def model_header(model: ChainModel, n_substeps: int, ulow: float,
         f"constexpr int N = {n};",
         f"constexpr int N_SUBSTEPS = {int(n_substeps)};",
         f"constexpr int SITE_BODY = {int(model.site_body)};",
+        f"constexpr int TASK = {_task(task).index};  // {_task(task).name}",
         f"constexpr float DT = {_f(model.dt)};",
         f"constexpr float ULOW = {_f(ulow)};",
         f"constexpr float UHIGH = {_f(uhigh)};",
@@ -261,44 +374,59 @@ def _vp(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 class ChainRollout:
-    """rollout(q0 [nv], qd0 [nv], target [3], mean [H, nv],
-    noise [N, H, nv]) -> costs [N, H], all float32 on one device.
+    """rollout(q0 [nv], qd0 [nv], extras [n_extras], mean [H, nv],
+    noise [N, H, nv]) -> costs [N, H], all float32 on one device; extras
+    is the task's (the reacher's target [3]).
 
     `ChainRollout.launches` counts kernel launches over all instances; it
     rises by one per launch and nowhere else (the plain version on CPU
     tensors does not count).
     """
     launches = 0
-    emit_obs = False
+    mode = "costs"
 
     def __init__(self, model: ChainModel, n_substeps: int,
-                 ulow: float = -1.0, uhigh: float = 1.0):
+                 ulow: float = -1.0, uhigh: float = 1.0,
+                 task: Union[str, ChainTask] = REACHER):
         self.model = model
         self.n_substeps = int(n_substeps)
         self.ulow = float(ulow)
         self.uhigh = float(uhigh)
-        self.d_obs = 2 * model.nv + 6
-        self.header = model_header(model, n_substeps, ulow, uhigh)
+        self.task = _task(task)
+        self.d_obs = self.task.d_obs(model.nv)
+        self.header = model_header(model, n_substeps, ulow, uhigh, self.task)
         self._lib = None
 
     def library(self) -> build.KernelLibrary:
-        """Build (at first use) and load the kernels for this model."""
+        """Build (at first use) and load the kernels for this model and
+        task (one library holds the three entries)."""
         if self._lib is None:
             lib = build.load("chain_rollout", "chain_rollout.cu",
                              {"chain_model.h": self.header})
             tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            lib.lib.chain_rollout_launch.argtypes = [ctypes.c_void_p] * 6 + tail
-            lib.lib.chain_obs_rollout_launch.argtypes = [ctypes.c_void_p] * 7 + tail
-            lib.lib.chain_rollout_launch.restype = ctypes.c_int
-            lib.lib.chain_obs_rollout_launch.restype = ctypes.c_int
+            for entry, n_ptrs in (("chain_rollout_launch", 6),
+                                  ("chain_obs_rollout_launch", 7),
+                                  ("chain_cl_rollout_launch", 8)):
+                getattr(lib.lib, entry).argtypes = [ctypes.c_void_p] * n_ptrs + tail
+                getattr(lib.lib, entry).restype = ctypes.c_int
             lib.lib.chain_rollout_error_string.argtypes = [ctypes.c_int]
             lib.lib.chain_rollout_error_string.restype = ctypes.c_char_p
+            for entry in (lib.lib.chain_rollout_d_obs, lib.lib.chain_rollout_n_extras):
+                entry.argtypes, entry.restype = [], ctypes.c_int
+            layout = (lib.lib.chain_rollout_d_obs(), lib.lib.chain_rollout_n_extras())
+            if layout != (self.d_obs, self.task.n_extras):
+                raise RuntimeError(f"{lib.path} was built for (d_obs, n_extras) = {layout}, "
+                                   f"not {(self.d_obs, self.task.n_extras)}")
             self._lib = lib
         return self._lib
 
-    def _check(self, q0, qd0, target, mean, noise):
+    def _ctrl_shape(self, horizon: int) -> tuple:
+        return (horizon, self.model.nv)
+
+    def _check(self, q0, qd0, extras, ctrl, noise):
         nv = self.model.nv
-        args = dict(q0=q0, qd0=qd0, target=target, mean=mean, noise=noise)
+        ctrl_name = "weights" if self.mode == "cl" else "mean"
+        args = {"q0": q0, "qd0": qd0, "extras": extras, ctrl_name: ctrl, "noise": noise}
         for name, x in args.items():
             if not isinstance(x, torch.Tensor):
                 raise TypeError(f"{name} must be a torch.Tensor")
@@ -310,69 +438,99 @@ class ChainRollout:
                 or noise.shape[1] < 1:
             raise ValueError(f"noise must be [N>=1, H>=1, {nv}], got "
                              f"{tuple(noise.shape)}")
-        horizon = noise.shape[1]
-        want = dict(q0=(nv,), qd0=(nv,), target=(3,), mean=(horizon, nv))
+        want = {"q0": (nv,), "qd0": (nv,), "extras": (self.task.n_extras,),
+                ctrl_name: self._ctrl_shape(noise.shape[1])}
         for name, shape in want.items():
             if tuple(args[name].shape) != shape:
                 raise ValueError(f"{name} must have shape {shape}, got "
                                  f"{tuple(args[name].shape)}")
+        return args
 
-    def plain(self, q0, qd0, target, mean, noise):
+    def plain(self, q0, qd0, extras, ctrl, noise):
         """The plain PyTorch version (any device)."""
-        self._check(q0, qd0, target, mean, noise)
-        return rollout_plain(self.model, self.n_substeps, self.ulow,
-                             self.uhigh, q0, qd0, target, mean, noise,
-                             emit_obs=self.emit_obs)
+        self._check(q0, qd0, extras, ctrl, noise)
+        return rollout_plain(self.model, self.n_substeps, self.ulow, self.uhigh,
+                             q0, qd0, extras, ctrl, noise, self.mode, self.task)
 
-    def __call__(self, q0, qd0, target, mean, noise):
-        self._check(q0, qd0, target, mean, noise)
+    def __call__(self, q0, qd0, extras, ctrl, noise):
+        args = self._check(q0, qd0, extras, ctrl, noise)
         device = noise.device
         if device.type == "cpu":
-            return rollout_plain(self.model, self.n_substeps, self.ulow,
-                                 self.uhigh, q0, qd0, target, mean, noise,
-                                 emit_obs=self.emit_obs)
+            return rollout_plain(self.model, self.n_substeps, self.ulow, self.uhigh,
+                                 q0, qd0, extras, ctrl, noise, self.mode, self.task)
         if device.type != "cuda":
             raise ValueError(f"no chain-rollout kernel for device {device}")
-        for name, x in dict(q0=q0, qd0=qd0, target=target, mean=mean,
-                            noise=noise).items():
+        for name, x in args.items():
             if not x.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        n, horizon, _ = noise.shape
+        n, horizon, nv = noise.shape
         lib = self.library().lib
         with torch.cuda.device(device):
-            costs = torch.empty((n, horizon), dtype=torch.float32, device=device)
-            ptrs = [_vp(q0), _vp(qd0), _vp(target), _vp(mean), _vp(noise), _vp(costs)]
-            if self.emit_obs:
-                obs = torch.empty((n, horizon, self.d_obs), dtype=torch.float32,
-                                  device=device)
-                launch = lib.chain_obs_rollout_launch
+            empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
+            costs = empty(n, horizon)
+            ptrs = [_vp(q0), _vp(qd0), _vp(extras), _vp(ctrl), _vp(noise), _vp(costs)]
+            outs = (costs,)
+            if self.mode == "costs":
+                launch = lib.chain_rollout_launch
+            elif self.mode == "obs":
+                obs = empty(n, horizon, self.d_obs)
+                launch, outs = lib.chain_obs_rollout_launch, (obs, costs)
                 ptrs.append(_vp(obs))
             else:
-                launch = lib.chain_rollout_launch
+                obs, acts = empty(n, horizon, self.d_obs), empty(n, horizon, nv)
+                launch, outs = lib.chain_cl_rollout_launch, (obs, acts, costs)
+                ptrs += [_vp(obs), _vp(acts)]
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = launch(*ptrs, n, horizon, ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"{type(self).__name__} kernel launch failed: "
                                + lib.chain_rollout_error_string(rc).decode())
         type(self).launches += 1
-        return (obs, costs) if self.emit_obs else costs
+        return outs[0] if self.mode == "costs" else outs
 
 
 class ChainObsRollout(ChainRollout):
-    """rollout(q0, qd0, target, mean, noise) -> (obs [N, H, 2 nv + 6],
+    """rollout(q0, qd0, extras, mean, noise) -> (obs [N, H, d_obs],
     costs [N, H]): ChainRollout's costs plus the observation of the state
     entering every step. Counts its own `ChainObsRollout.launches`."""
     launches = 0
-    emit_obs = True
+    mode = "obs"
+
+
+class ChainClRollout(ChainRollout):
+    """rollout(q0, qd0, extras, weights [d_obs + 1, nv], noise [N, H, nv])
+    -> (obs [N, H, d_obs], actions [N, H, nv], costs [N, H]): the
+    closed-loop-linear rollout, a = W^T [obs; 1] + noise recorded before
+    the clip (rollout_closed_loop_linear's records). Counts its own
+    `ChainClRollout.launches`."""
+    launches = 0
+    mode = "cl"
+
+    def _ctrl_shape(self, horizon: int) -> tuple:
+        return (self.d_obs + 1, self.model.nv)
 
 
 def build_chain_rollout(model: ChainModel, n_substeps: int, ulow: float = -1.0,
-                        uhigh: float = 1.0) -> ChainRollout:
+                        uhigh: float = 1.0, task="reacher") -> ChainRollout:
     """Fused rollout for a scalar-joint ChainModel (see ChainRollout)."""
-    return ChainRollout(model, n_substeps, ulow, uhigh)
+    return ChainRollout(model, n_substeps, ulow, uhigh, task)
 
 
 def build_chain_obs_rollout(model: ChainModel, n_substeps: int, ulow: float = -1.0,
-                            uhigh: float = 1.0) -> ChainObsRollout:
+                            uhigh: float = 1.0, task="reacher") -> ChainObsRollout:
     """Fused rollout that also emits observations (see ChainObsRollout)."""
-    return ChainObsRollout(model, n_substeps, ulow, uhigh)
+    return ChainObsRollout(model, n_substeps, ulow, uhigh, task)
+
+
+def build_chain_cl_rollout(model: ChainModel, n_substeps: int, ulow: float = -1.0,
+                           uhigh: float = 1.0, task="reacher") -> ChainClRollout:
+    """Fused closed-loop-linear rollout (see ChainClRollout)."""
+    return ChainClRollout(model, n_substeps, ulow, uhigh, task)
+
+
+def rollout_cl_plain(model: ChainModel, n_substeps: int, ulow: float, uhigh: float,
+                     q0, qd0, extras, weights, noise, task="reacher"):
+    """The closed-loop kernel's plain version: (obs, pre-clip actions,
+    costs) under the policy weights [d_obs + 1, nv]."""
+    return rollout_plain(model, n_substeps, ulow, uhigh, q0, qd0, extras, weights,
+                         noise, "cl", task)

@@ -1,9 +1,11 @@
-"""Batched open-loop rollout: a Python loop over the horizon of one batched
-env.step over all N particles.
+"""Batched rollouts: a Python loop over the horizon of one batched env.step
+over all N particles.
 
 Counterpart of mjmpc_tpu/rollout/engine.py, with the same semantics:
 - every particle starts from the same initial state;
-- u[b, t] = mean[t] + noise[b, t];
+- open loop, u[b, t] = mean[t] + noise[b, t];
+- closed-loop-linear, u[b, t] = W^T [obs_b(t); 1] + noise[b, t], with
+  obs_b(t) the observation of the state entering step t;
 - recorded actions are the pre-clip commanded actions (the env clips);
 - costs are negated rewards, taken on the post-step state.
 """
@@ -39,17 +41,16 @@ def _broadcast_state(state, n: int):
     return dataclasses.replace(state, **fields)
 
 
-def rollout_open_loop(env: Env, params, state0, mean: torch.Tensor,
-                      noise: torch.Tensor) -> Trajectories:
-    """Open-loop rollout of mean [H, dA] + noise [N, H, dA] from one env
-    state."""
+def _scan_rollout(env: Env, params, state0, noise: torch.Tensor, action_fn) -> Trajectories:
+    """The common loop: action_fn(t, obs [N, d_obs]) -> [N, dA] plus
+    noise[:, t] is the step's commanded action."""
     n, horizon = noise.shape[0], noise.shape[1]
     state = _broadcast_state(state0, n)
     obs = env.observe(params, state)
     out = dict(observations=[], actions=[], costs=[], dones=[],
                next_observations=[], successes=[])
     for t in range(horizon):
-        u = mean[t] + noise[:, t]
+        u = action_fn(t, obs) + noise[:, t]
         state, next_obs, reward, done = env.step(params, state, u)
         succ = (env.success(params, state) if env.success is not None
                 else torch.zeros_like(reward, dtype=torch.bool))
@@ -57,3 +58,18 @@ def rollout_open_loop(env: Env, params, state0, mean: torch.Tensor,
             out[key].append(val)
         obs = next_obs
     return Trajectories(**{k: torch.stack(v, 1) for k, v in out.items()})
+
+
+def rollout_open_loop(env: Env, params, state0, mean: torch.Tensor,
+                      noise: torch.Tensor) -> Trajectories:
+    """Open-loop rollout of mean [H, dA] + noise [N, H, dA] from one env
+    state."""
+    return _scan_rollout(env, params, state0, noise, lambda t, obs: mean[t])
+
+
+def rollout_closed_loop_linear(env: Env, params, state0, weights: torch.Tensor,
+                               noise: torch.Tensor) -> Trajectories:
+    """Closed-loop-linear rollout under weights [d_obs + 1, dA]:
+    u = [obs; 1] @ weights + noise."""
+    return _scan_rollout(env, params, state0, noise,
+                         lambda t, obs: obs @ weights[:-1] + weights[-1])

@@ -1,6 +1,6 @@
 """Solvers: the open-loop family (GaussianMPC: MPPI, MPPIQ, RandomShooting,
-CEM, DMD) and PFMPC, with the registry of mjmpc_tpu/solvers/__init__.py
-for the ported names."""
+CEM, DMD), PFMPC and the closed-loop Reinforce, with the registry of
+mjmpc_tpu/solvers/__init__.py for the ported names."""
 from .base import (GaussianMPC, GaussianState, build_optimal_value_fn,
                    build_solve_fn, evaluate_episode, guard_finite)
 from .cem import CEM
@@ -10,6 +10,8 @@ from .mppiq import MPPIQ
 from .pfmpc import PFMPC, PFState
 from .pfmpc import build_solve_fn as build_pf_solve_fn
 from .random_shooting import RandomShooting
+from .reinforce import Reinforce, ReinforceState
+from .reinforce import build_solve_fn as build_reinforce_solve_fn
 
 REGISTRY = {
     "mppi": MPPI,
@@ -19,10 +21,11 @@ REGISTRY = {
     "dmd": DMDMPC,
     "gaussian_dmd": DMDMPC,
     "pfmpc": PFMPC,
+    "reinforce": Reinforce,
 }
 
 # Controllers of the JAX package's registry that the port lacks so far.
-NOT_PORTED = ("reinforce", "softqmpc", "softq", "random_shooting_nn", "ilqr")
+NOT_PORTED = ("softqmpc", "softq", "random_shooting_nn", "ilqr")
 
 
 def make_solver(name: str, **params):
@@ -39,6 +42,10 @@ def make_solve_fn(solver, env, **kwargs):
     if isinstance(solver, PFMPC):
         kwargs.pop("calc_val", None)
         return build_pf_solve_fn(solver, env, **kwargs)
+    if isinstance(solver, Reinforce):
+        kwargs.pop("calc_val", None)
+        kwargs.pop("hotstart", None)   # the reference's shift is a no-op
+        return build_reinforce_solve_fn(solver, env, **kwargs)
     if isinstance(solver, GaussianMPC):
         return build_solve_fn(solver, env, **kwargs)
     raise NotImplementedError(f"no solve builder ported for {type(solver).__name__}")
@@ -47,6 +54,6 @@ def make_solve_fn(solver, env, **kwargs):
 __all__ = [
     "GaussianMPC", "GaussianState", "build_solve_fn", "evaluate_episode",
     "build_optimal_value_fn", "guard_finite", "MPPI", "MPPIQ", "RandomShooting",
-    "CEM", "DMDMPC", "PFMPC", "PFState", "REGISTRY", "NOT_PORTED", "make_solver",
-    "make_solve_fn",
+    "CEM", "DMDMPC", "PFMPC", "PFState", "Reinforce", "ReinforceState", "REGISTRY",
+    "NOT_PORTED", "make_solver", "make_solve_fn",
 ]

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card (chain rollout, chain rollout with
-observations, filtered noise): each against its plain PyTorch version,
-their launch counts on sync-free solves, and the wrappers' checks.
+observations, closed-loop chain rollout for the reacher and peg tasks,
+filtered noise): each against its plain PyTorch version, their launch
+counts on sync-free solves, and the wrappers' checks.
 
 Needs a CUDA card and skips without one (the kernel has no CPU mode). This
 file imports no jax, so it also runs where jax is not installed:
@@ -18,8 +19,10 @@ import pytest
 import torch
 
 from mjmpc_tpu_torch import envs, solvers
-from mjmpc_tpu_torch.ops.chain_rollout import (ChainObsRollout, ChainRollout,
-                                               build_chain_obs_rollout, build_chain_rollout)
+from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
+from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainObsRollout, ChainRollout,
+                                               build_chain_cl_rollout, build_chain_obs_rollout,
+                                               build_chain_rollout)
 from mjmpc_tpu_torch.ops.noise import FilteredNoise
 
 pytestmark = pytest.mark.cuda
@@ -123,3 +126,49 @@ def test_kernel_noise_solves_without_host_syncs(device):
         torch.cuda.set_sync_debug_mode(0)
     assert (ChainRollout.launches, FilteredNoise.launches) == (before[0] + 3, before[1] + 3)
     assert bool(torch.isfinite(action).all())
+
+
+@pytest.mark.parametrize("name,n,h,tol", [("reacher_7dof-v0", 37, 5, 5e-5),
+                                          ("reacher_7dof-v0", 4096, 32, 1e-3),
+                                          ("sawyer_peg_insertion-v0", 37, 5, 5e-5),
+                                          ("sawyer_peg_insertion-v0", 64, 32, 1e-3)])
+def test_cl_kernel_matches_plain(device, name, n, h, tol):
+    env = envs.make(name, device=device)
+    peg = name.startswith("sawyer_peg")
+    roll = build_chain_cl_rollout(env.params.model, n_substeps=2,
+                                  task="peg" if peg else "reacher")
+    rng = np.random.default_rng(3)
+    q0, qd0, target, _, _ = _inputs(1, 1, 4, device)
+    extras = peg_extras(env.params) if peg else target
+    w = torch.as_tensor(np.asarray(rng.normal(size=(roll.d_obs + 1, 7)) * 0.05, np.float32),
+                        device=device)
+    noise = torch.as_tensor(np.asarray(rng.normal(size=(n, h, 7)) * 0.3, np.float32),
+                            device=device)
+    before = ChainClRollout.launches
+    got = roll(q0, qd0, extras, w, noise)
+    assert ChainClRollout.launches == before + 1
+    for x, y in zip(got, roll.plain(q0, qd0, extras, w, noise)):
+        torch.testing.assert_close(x, y, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("name,baseline", [("reacher_7dof-v0", "quadratic"),
+                                           ("sawyer_peg_insertion-v0", "linear")])
+def test_reinforce_solves_launch_the_cl_kernel_without_host_syncs(device, name, baseline):
+    env = envs.make(name, device=device)
+    solver = solvers.Reinforce(d_obs=env.d_obs, d_action=7, horizon=8, num_particles=256,
+                               lr=0.5, n_iters=2, baseline_type=baseline, delta_reg=1e-3,
+                               delta_kl=1e-3, filter_coeffs=(0.25, 0.8, 0.0), device=device)
+    solve = solvers.make_solve_fn(solver, env)
+    env_state = env.init(env.params, 1)
+    state = solver.init_state(0)
+    before = (ChainClRollout.launches, ChainRollout.launches, ChainObsRollout.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            action, _, state = solve(env.params, env_state, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = (ChainClRollout.launches, ChainRollout.launches, ChainObsRollout.launches)
+    assert after == (before[0] + 6, before[1], before[2])
+    assert bool(torch.isfinite(action).all()) and bool(torch.isfinite(state.fit_error))

@@ -1,7 +1,7 @@
 """The obs-emitting chain rollout (mjmpc_tpu_torch/ops/chain_rollout.py
 ChainObsRollout, reacher's fused_obs_rollout) in its plain version against
 the JAX package's general rollout, the port's general rollout and the
-kernel source's EMIT_OBS path compiled as host C++. The kernel itself runs
+kernel source's OBS mode compiled as host C++. The kernel itself runs
 only on a CUDA card (tests/test_torch_cuda.py).
 
 Tolerances: against JAX rollout_open_loop, obs atol 2e-5 and costs atol
@@ -89,7 +89,7 @@ def test_plain_matches_port_general_rollout_and_costs_kernel(env, rollout):
 
 
 def test_kernel_source_compiled_for_the_host_matches_plain(rollout, tmp_path):
-    """The EMIT_OBS instantiation of csrc/chain_rollout.cuh, built with g++."""
+    """The OBS-mode instantiation of csrc/chain_rollout.cuh, built with g++."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to build the host copy of the kernel source"
     (tmp_path / "chain_model.h").write_text(rollout.header)
@@ -99,8 +99,8 @@ def test_kernel_source_compiled_for_the_host_matches_plain(rollout, tmp_path):
         '    const float* target, const float* mean, const float* noise,\n'
         '    float* costs, float* obs, int n, int horizon) {\n'
         '  for (int b = 0; b < n; ++b)\n'
-        '    chain_rollout::rollout_particle<true>(q0, qd0, target, mean, noise,\n'
-        '                                          costs, b, horizon, obs);\n'
+        '    chain_rollout::rollout_particle<chain_rollout::OBS, chain_rollout::BuildTask>(\n'
+        '        q0, qd0, target, mean, noise, costs, obs, nullptr, b, horizon);\n'
         '}\n')
     lib_path = tmp_path / "libobshost.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
@@ -159,7 +159,7 @@ def test_op_counts_and_bounds(env):
     assert rollout_flops(model, 2, 4096, 32) == 4096 * per_particle
     per_step = rollout_flops(model, 2, 1, 2) - rollout_flops(model, 2, 1, 1)
     assert per_particle == rollout_flops(model, 2, 1, 0) + 32 * per_step
-    assert rollout_flops(model, 2, 5, 3, emit_obs=True) - rollout_flops(model, 2, 5, 3) == 5 * 3 * 21
+    assert rollout_flops(model, 2, 5, 3, "obs") - rollout_flops(model, 2, 5, 3) == 5 * 3 * 21
     rows = bounds.kernel_table(model, 4096, 32)
     assert [r["number"] for r in rows] == list(range(1, 9))
     noise = rows[1]

@@ -183,7 +183,8 @@ def test_registry():
     with pytest.raises(ValueError):
         envs.make("no_such_env-v0", device=DEVICE)
     assert envs.make("reacher_7dof-v0", device=DEVICE) is envs.make("reacher_7dof-v0", device=DEVICE)
-    assert envs.available() == ["continual_reacher-v0", "reacher_7dof-v0"]
+    assert envs.available() == ["continual_reacher-v0", "reacher_7dof-v0",
+                                "sawyer_peg_insertion-v0", "sawyer_peg_insertion-v1"]
     with pytest.raises(NotImplementedError):
         solvers.make_solve_fn(object(), envs.make("reacher_7dof-v0", device=DEVICE))
 
@@ -191,6 +192,8 @@ def test_registry():
 def test_import_leaves_jax_out():
     code = ("import sys, mjmpc_tpu_torch, mjmpc_tpu_torch.convert, "
             "mjmpc_tpu_torch.kernels.build, mjmpc_tpu_torch.ops.chain_rollout, "
-            "mjmpc_tpu_torch.ops.noise, mjmpc_tpu_torch.policies, mjmpc_tpu_torch.bounds; "
+            "mjmpc_tpu_torch.ops.noise, mjmpc_tpu_torch.policies, mjmpc_tpu_torch.bounds, "
+            "mjmpc_tpu_torch.value_functions, mjmpc_tpu_torch.solvers.reinforce, "
+            "mjmpc_tpu_torch.envs.sawyer_tasks; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], check=True)

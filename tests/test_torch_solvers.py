@@ -305,10 +305,15 @@ def test_registry_dispatch_and_errors(env):
     assert isinstance(solvers.make_solver("cem", **cfg), solvers.CEM)
     assert solvers.make_solver("gaussian_dmd", **cfg) == solvers.make_solver("dmd", **cfg)
     assert sorted(solvers.REGISTRY) == sorted(["mppi", "mppiq", "random_shooting", "cem",
-                                               "dmd", "gaussian_dmd", "pfmpc"])
+                                               "dmd", "gaussian_dmd", "pfmpc", "reinforce"])
     assert set(jsolvers.REGISTRY) == set(solvers.REGISTRY) | set(solvers.NOT_PORTED)
-    with pytest.raises(NotImplementedError, match="reinforce"):
-        solvers.make_solver("reinforce", **cfg)
+    with pytest.raises(NotImplementedError, match="softqmpc"):
+        solvers.make_solver("softqmpc", **cfg)
+    rf = solvers.make_solver("reinforce", d_obs=env.d_obs, **cfg)
+    assert isinstance(rf, solvers.Reinforce)
+    action, value, s = solvers.make_solve_fn(rf, env, calc_val=True, hotstart=False)(
+        env.params, env.init(env.params, 0), rf.init_state(0))
+    assert action.shape == (7,) and float(value) == 0.0 and s.step == 1
     with pytest.raises(ValueError):
         solvers.make_solver("no_such_controller", **cfg)
     pf = solvers.make_solver("pfmpc", **cfg)
