@@ -9,8 +9,9 @@ exit and no final line:
 2. build    -- nvcc builds, all at once, the reacher's chain-rollout
                library (costs-only, obs-emitting and closed-loop entries),
                the peg task's (the same three entries, peg's site and
-               obs/cost) and the filtered-noise library from csrc/; ptxas
-               register and spill lines.
+               obs/cost), the swimmer's and the half cheetah's (the
+               external-force entry) and the filtered-noise library from
+               csrc/; ptxas register and spill lines.
 3. kernel   -- each kernel against its plain PyTorch version on the card:
                chain and obs rollouts at (N=37, H=5) to atol 5e-5 and at
                the main path's (N=4096, H=32) to max abs error 1e-3 (costs
@@ -47,19 +48,34 @@ exit and no final line:
                solves, the count rising by exactly 12 (4 iterations); then
                a 10-step peg closed loop (solve, env.clip_action, env.step)
                with finite rewards and a finite baseline fit error.
-8. timing   -- read-verified solves/s (each window ends by reading a value
+8. loco_kernel -- the external-force rollout (kernel #5) against its plain
+               version for the swimmer (atol 5e-5 at N=37 H=5, 1e-3 at its
+               config's N=512 H=32) and the half cheetah (5e-4 and 1e-2 of
+               max(1, |cost|) at N=37 H=5 and its config's N=512 H=16).
+9. loco     -- configs/Swimmer-v0.yml and configs/HalfCheetah-v0.yml through
+               harness.config.make_solver_for_env at their full sizes: 3
+               chained sync-free MPPI solves each, kernel #5's count rising
+               by exactly 3 and every other count by 0, finite actions.
+10. harness -- harness.episode.run_episodes with each locomotion config's
+               own solver and with every controller of
+               configs/reacher_7dof-v0.yml, one episode of 10 steps
+               (overridden in memory): finite rewards.
+11. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
-               for each solver of the zoo and for Reinforce on the reacher
-               and the peg; each kernel and its plain version timed with
-               CUDA events; a per-stage breakdown with each noise sampler
-               and of the Reinforce solves; a torch.profiler count of
-               kernels and device time per solve, with the six kernels
-               that take the most device time. Printed, not asserted.
+               for each solver of the zoo, for Reinforce on the reacher
+               and the peg and for MPPI on both locomotion configs; the
+               real env step's ms per control step on both; each kernel
+               and its plain version timed with CUDA events; a per-stage
+               breakdown with each noise sampler and of the Reinforce
+               solves; a torch.profiler count of kernels and device time
+               per solve, with the six kernels that take the most device
+               time. Printed, not asserted.
 
 Every launch count is set to 0 just before a path runs and read just after.
-The last lines are the kernels' summary, the nvidia-smi line and
-{"ok": true, "device": {...}}.
+The last lines are the kernels' summary (kernel #5 with the swimmer's
+numbers; its cheetah instance on the `kernel_loco` line before it), the
+nvidia-smi line and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -90,6 +106,13 @@ PEG_CL = dict(horizon=32, gamma=1.0, n_iters=4, lr=1.0, beta=0.0, filter_coeffs=
               num_particles=64, delta_kl=15.0, delta_reg=0.001, baseline_type="quadratic",
               init_cov=1.0)
 HOLD_CYCLES = 100_000_000   # about 50 ms of spinning at the H100's clock
+# The locomotion configs, run as written, at full size.
+LOCO_CONFIGS = {"Swimmer-v0": "configs/Swimmer-v0.yml",
+                "HalfCheetah-v0": "configs/HalfCheetah-v0.yml"}
+# kernel #5 against its plain version: (N, H, atol, scaled by max(1, |cost|))
+LOCO_CHECKS = {"Swimmer-v0": ((37, 5, 5e-5, False), (512, 32, 1e-3, False)),
+               "HalfCheetah-v0": ((37, 5, 5e-4, True), (512, 16, 1e-2, True))}
+HARNESS_STEPS = 10
 
 
 def emit(phase: str, **fields) -> None:
@@ -121,6 +144,18 @@ def cl_inputs(d_obs: int, extras, n: int, h: int, seed: int, device):
     noise = np.asarray(rng.normal(size=(n, h, 7)) * 0.3, np.float32)
     q0, qd0, w, noise = (torch.as_tensor(a, device=device) for a in (q0, qd0, w, noise))
     return q0, qd0, extras, w, noise
+
+
+def loco_inputs(nv: int, n: int, h: int, seed: int, device):
+    """q0, qd0 * 0.1, mean * 0.3 and noise * 0.5 with the three unactuated
+    base dofs zero, as the locomotion envs pad them (tests/test_torch_cuda.py)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    q0, qd0 = (np.asarray(rng.normal(size=nv) * 0.1, np.float32) for _ in range(2))
+    mean = np.asarray(rng.normal(size=(h, nv)) * 0.3, np.float32)
+    noise = np.asarray(rng.normal(size=(n, h, nv)) * 0.5, np.float32)
+    mean[:, :3], noise[..., :3] = 0.0, 0.0
+    return [torch.as_tensor(a, device=device) for a in (q0, qd0, mean, noise)]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -193,27 +228,31 @@ def main() -> int:
         return 1
     try:
         from mjmpc_tpu_torch import bounds, envs, ops, solvers
+        from mjmpc_tpu_torch.envs import half_cheetah, swimmer
         from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
-        from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainObsRollout,
-                                                       ChainRollout)
+        from mjmpc_tpu_torch.harness import config as hconfig
+        from mjmpc_tpu_torch.harness.episode import run_episodes
+        from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout,
+                                                       ChainObsRollout, ChainRollout)
         from mjmpc_tpu_torch.ops.noise import FilteredNoise
         from mjmpc_tpu_torch.rollout import Trajectories
         from mjmpc_tpu_torch.solvers.reinforce import closed_loop_rollout
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
-    counters = (ChainRollout, ChainObsRollout, ChainClRollout, FilteredNoise)
+    counters = (ChainRollout, ChainObsRollout, ChainClRollout, ChainExtRollout, FilteredNoise)
 
     def counts():
         return {"chain": ChainRollout.launches, "obs": ChainObsRollout.launches,
-                "cl": ChainClRollout.launches, "noise": FilteredNoise.launches}
+                "cl": ChainClRollout.launches, "ext": ChainExtRollout.launches,
+                "noise": FilteredNoise.launches}
 
     # 1. device
-    name = torch.cuda.get_device_name(0)
+    card_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    emit("device", name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
+    emit("device", name=card_name, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # 2. build: one nvcc per source, started together
@@ -228,14 +267,18 @@ def main() -> int:
     peg_cl = ChainClRollout(peg_model, n_substeps=2, task="peg")
     peg_obs = ChainObsRollout(peg_model, n_substeps=2, task="peg")
     sampler = FilteredNoise()
+    loco_envs = {name: envs.make(name, device=device) for name in LOCO_CONFIGS}
+    loco_rolls = {name: module.build_rollout(loco_envs[name].params)
+                  for name, module in (("Swimmer-v0", swimmer),
+                                       ("HalfCheetah-v0", half_cheetah))}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        futures = [pool.submit(roll.library), pool.submit(peg_cl.library),
-                   pool.submit(sampler.library)]
+    wrappers = [roll, peg_cl, sampler, *loco_rolls.values()]
+    with concurrent.futures.ThreadPoolExecutor(len(wrappers)) as pool:
+        futures = [pool.submit(w.library) for w in wrappers]
         libs = [f.result() for f in futures]
     for r in (roll_obs, roll_cl, peg_obs):
         r.library()     # the same libraries, loaded
-    for lib, task in zip(libs, ("reacher", "peg", None)):
+    for lib, task in zip(libs, ("reacher", "peg", None, "swimmer", "cheetah")):
         emit("build", task=task, seconds=round(time.perf_counter() - t0, 3),
              nvcc_seconds=round(lib.build_seconds, 3), library=str(lib.path.name),
              ptxas=[ln.strip() for ln in lib.ptxas.splitlines()
@@ -335,7 +378,7 @@ def main() -> int:
         main_counts[phase] = got = counts()
         emit(phase, solves=N_SOLVES, launches=got, action=action_host.tolist(),
              step=state.step)
-        want = {"chain": N_SOLVES, "obs": 0, "cl": 0,
+        want = {"chain": N_SOLVES, "obs": 0, "cl": 0, "ext": 0,
                 "noise": N_SOLVES if s.noise_impl == "kernel" else 0}
         if got != want:
             raise RuntimeError(f"{phase}: launches {got}, expected {want}")
@@ -378,7 +421,8 @@ def main() -> int:
         zoo_solves[key] = (solve, state)
         emit("zoo", solver=key, solves=ZOO_SOLVES, launches=got, action=action_host.tolist())
         roll_key = "obs" if key == "mppiq_q" else "chain"
-        want = {"chain": 0, "obs": 0, "cl": 0, "noise": ZOO_SOLVES, roll_key: ZOO_SOLVES}
+        want = {"chain": 0, "obs": 0, "cl": 0, "ext": 0, "noise": ZOO_SOLVES,
+                roll_key: ZOO_SOLVES}
         if got != want:
             raise RuntimeError(f"zoo {key}: launches {got}, expected {want}")
 
@@ -420,7 +464,7 @@ def main() -> int:
         emit("closed_loop", env=e.name, n=s.num_particles, h=s.horizon, n_iters=s.n_iters,
              baseline=s.baseline_type, solves=ZOO_SOLVES, launches=got,
              action=action_host.tolist(), fit_error=float(state.fit_error), step=state.step)
-        want = {"chain": 0, "obs": 0, "cl": ZOO_SOLVES * s.n_iters, "noise": 0}
+        want = {"chain": 0, "obs": 0, "cl": ZOO_SOLVES * s.n_iters, "ext": 0, "noise": 0}
         if got != want:
             raise RuntimeError(f"closed_loop {key}: launches {got}, expected {want}")
     s0 = rf.init_state(0)       # the first reacher solve's step, re-derived
@@ -444,7 +488,62 @@ def main() -> int:
     if rewards.shape != (10,) or not np.isfinite(rewards).all() or not np.isfinite(fit_error):
         raise RuntimeError("peg closed loop: rewards or fit error not finite")
 
-    # 8. timing (printed, not asserted)
+    # 8. kernel #5 against its plain version, both tasks
+    loco_args = {}
+    for name, checks in LOCO_CHECKS.items():
+        r = loco_rolls[name]
+        for seed, (n, h, tol, scaled) in enumerate(checks):
+            args = loco_args[(name, n, h)] = loco_inputs(r.model.nv, n, h, 10 + seed, device)
+            got, want = r(*args), r.plain(*args)
+            torch.cuda.synchronize()
+            if got.shape != (n, h) or not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"ext kernel output bad for {name} at N={n} H={h}")
+            scale = torch.clamp(want.abs(), min=1.0) if scaled else 1.0
+            err = float(((got - want) / scale).abs().max())
+            errors[("ext", name, n, h)] = err
+            emit("loco_kernel", env=name, n=n, h=h, max_abs_err=err, atol=tol,
+                 scaled_by_cost=scaled, max_abs_err_unscaled=float((got - want).abs().max()),
+                 costs_min=float(want.min()), costs_max=float(want.max()))
+            if not err <= tol:
+                raise RuntimeError(f"ext kernel disagrees with its plain version for {name} "
+                                   f"at N={n} H={h}: {err} > {tol}")
+
+    # 9. the locomotion configs through harness.config, full size
+    loco_runs, loco_counts = {}, {}
+    for name, path in LOCO_CONFIGS.items():
+        exp = hconfig.load_config(path)
+        e = loco_envs[name]
+        s = hconfig.make_solver_for_env(exp, "mppi", e)
+        es = e.init(e.params, 1)
+        solve = solvers.make_solve_fn(s, e)
+        reset_counts(*counters)
+        action_host, state = sync_free(solve, e, es, s.init_state(0), ZOO_SOLVES)
+        loco_counts[name] = got = counts()
+        loco_runs[name] = (solve, s, e, es, state, exp)
+        emit("loco", env=name, config=path, n=s.num_particles, h=s.horizon,
+             solves=ZOO_SOLVES, launches=got, action=action_host.tolist(), step=state.step)
+        want = {"chain": 0, "obs": 0, "cl": 0, "ext": ZOO_SOLVES, "noise": 0}
+        if got != want or action_host.shape != (e.d_action,):
+            raise RuntimeError(f"loco {name}: launches {got}, expected {want}")
+
+    # 10. the episode runner with each config's own solver(s), 10 steps
+    reacher_exp = hconfig.load_config("configs/reacher_7dof-v0.yml")
+    harness_runs = [(name, "mppi", run[5], run[2]) for name, run in loco_runs.items()]
+    harness_runs += [("reacher_7dof-v0", c, reacher_exp, env)
+                     for c in ("mppi", "random_shooting", "cem", "dmd", "pfmpc")]
+    for name, controller, exp, e in harness_runs:
+        s = hconfig.make_solver_for_env(exp, controller, e)
+        t0 = time.perf_counter()
+        out = run_episodes(s, e, n_episodes=1, episode_length=HARNESS_STEPS,
+                           base_seed=exp["seed"])
+        seconds = time.perf_counter() - t0
+        emit("harness", env=name, controller=controller, n=s.num_particles, h=s.horizon,
+             steps=HARNESS_STEPS, rewards=out["rewards"][0].tolist(),
+             ep_reward=float(out["ep_rewards"][0]), seconds=seconds)
+        if out["rewards"].shape != (1, HARNESS_STEPS) or not np.isfinite(out["rewards"]).all():
+            raise RuntimeError(f"harness {name} {controller}: rewards not finite")
+
+    # 11. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
     times = {
         "chain_rollout": (cuda_ms(lambda: roll(*args), 20), cuda_ms(lambda: roll.plain(*args), 2)),
@@ -493,6 +592,25 @@ def main() -> int:
         rate, windows, _ = solves_per_s(solve, e, es, state, 10, 5)
         emit("reinforce_solves_per_s", card=smi, env=e.name, n=s.num_particles, h=s.horizon,
              n_iters=s.n_iters, solves_per_s=rate, windows=windows)
+
+    # the locomotion configs: kernel #5 per call, solves/s, the real env step
+    loco_times = {}
+    for name, (solve, s, e, es, state, _) in loco_runs.items():
+        r = loco_rolls[name]
+        args = loco_args[(name, s.num_particles, s.horizon)]
+        loco_times[name] = (cuda_ms(lambda: r(*args), 10), cuda_ms(lambda: r.plain(*args), 1))
+        rate, windows, _ = solves_per_s(solve, e, es, state, 10, 5)
+        step_ms, st = [], es
+        zero = torch.zeros(e.d_action, device=device)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _, _, _ = e.step(e.params, st, zero)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        emit("loco_time", env=name, card=smi, n=s.num_particles, h=s.horizon,
+             kernel_ms=loco_times[name][0], plain_ms=loco_times[name][1], solves_per_s=rate,
+             windows=windows, env_step_ms=statistics.median(step_ms), env_step_ms_all=step_ms)
 
     # where a solve's time goes: host clock per stage, synchronised
     for which, s in (("plain_noise", solver), ("kernel_noise", solver_k)):
@@ -592,6 +710,8 @@ def main() -> int:
         profile(solve, env, env_state, s.init_state(0), noise_impl=which)
     for key, (solve, s, e, es, _) in cl_runs.items():
         profile(solve, e, es, s.init_state(0), solver="reinforce", env=e.name)
+    for name, (solve, s, e, es, _, _) in loco_runs.items():
+        profile(solve, e, es, s.init_state(0), solver="mppi", env=name)
 
     # the kernels' summary: launches from the paths' runs, bounds from
     # this run's shapes (the work does not depend on the data)
@@ -618,6 +738,22 @@ def main() -> int:
          max_abs_err=errors[("cl", "peg", peg["n"], peg["h"])],
          ms=times["chain_cl_rollout_peg"][0], plain_ms=times["chain_cl_rollout_peg"][1],
          bound_ms=peg["bound_ms"], bound_by=peg["bound_by"], card=smi)
+    for name, r in loco_rolls.items():
+        n, h = bounds.LOCO_SIZES[name]
+        inst = bounds.ext_instance(r, n, h)
+        ptxas = [ln.strip() for ln in r.library().ptxas.splitlines()
+                 if re.search(r"registers|spill", ln)]
+        emit("kernel_loco", name="chain_ext_rollout", env=name, n=n, h=h,
+             launches_per_solve=loco_counts[name]["ext"] / ZOO_SOLVES,
+             max_abs_err=errors[("ext", name, n, h)], ms=loco_times[name][0],
+             plain_ms=loco_times[name][1], bound_ms=inst["bound_ms"], bound_by=inst["bound_by"],
+             operations=inst["operations"], bytes=inst["bytes"], ptxas=ptxas, card=smi)
+    swim = bounds.ext_instance(loco_rolls["Swimmer-v0"], *bounds.LOCO_SIZES["Swimmer-v0"])
+    rows.append(("chain_ext_rollout", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
+                 "mjmpc_tpu/ops/pallas_chain.py:872", loco_counts["Swimmer-v0"]["ext"],
+                 errors[("ext", "Swimmer-v0", *bounds.LOCO_SIZES["Swimmer-v0"])],
+                 (swim["bound_ms"], swim["bound_by"])))
+    times["chain_ext_rollout"] = loco_times["Swimmer-v0"]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times[kname][0],
@@ -626,7 +762,7 @@ def main() -> int:
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        "platform": "gpu", "kind": card_name, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
 

@@ -9,17 +9,19 @@ sheet for the H100 SXM at 700 W: 3.35 TB/s HBM3, 67 TFLOP/s f32 outside
 the tensor cores). Operations are counted from the kernels' sources (a
 multiply, an add, a compare or a transcendental is one). For the kernels
 not ported yet, the count is of the JAX package's Pallas source, or, where
-the port lacks the model (locomotion, hand suite), bytes only: a lower
-bound all the same. This is arithmetic on shapes, not a measurement; it
-runs anywhere. chip_smoke.py reports the same bounds for the ported
-kernels beside their measured times, and kernel #4's peg instance at
-the closed-loop peg config's size.
+the port lacks the model (the hand suite), bytes only: a lower bound all
+the same. This is arithmetic on shapes, not a measurement; it runs
+anywhere. chip_smoke.py reports the same bounds for the ported kernels
+beside their measured times, kernel #4's peg instance at the closed-loop
+peg config's size and kernel #5 at the swimmer's and the half cheetah's
+config sizes.
 """
 from __future__ import annotations
 
 import json
 
-from .ops.chain_rollout import PEG, REACHER, rollout_bytes, rollout_flops
+from .ops.chain_rollout import (PEG, REACHER, ChainExtRollout, ext_rollout_bytes,
+                                 ext_rollout_flops, rollout_bytes, rollout_flops)
 from .ops.noise import noise_flops
 
 PEAK_BYTES_PER_S = 3.35e12
@@ -65,12 +67,15 @@ def kernel_table(model, n: int = 4096, h: int = 32, n_substeps: int = 2):
         *chain_work(model, n, h, "obs", n_substeps=n_substeps), "csrc/chain_rollout.cuh")
     row(4, "_chain_cl_kernel", f"reacher nv={nv} d_obs={d_obs}",
         *chain_work(model, n, h, "cl", n_substeps=n_substeps), "csrc/chain_rollout.cuh")
-    # #5 and #6: noise [N, H, nu] and mean in, costs out
-    for number, kernel, nq, nu, widths in (
-            (5, "_chain_ext_kernel", 9, 6, "half_cheetah nq=9 nu=6"),
-            (6, "build_forest_rollout kernel", 24, 24, "pen hand nu=24")):
-        row(number, kernel, widths, F32 * (2 * nq + h * nu + nh * nu + nh), None,
-            "not counted: the port has no model yet")
+    # #5 with the half cheetah's task (ext_instance gives both tasks at
+    # their configs' sizes)
+    r5 = ext_instance(_loco_rollout("HalfCheetah-v0"), n, h)
+    row(5, "_chain_ext_kernel", r5["widths"], r5["bytes"], r5["operations"],
+        r5["operations_from"])
+    # #6: noise [N, H, nu] and mean in, costs out
+    nq = nu = 24
+    row(6, "build_forest_rollout kernel", "pen hand nu=24",
+        F32 * (2 * nq + h * nu + nh * nu + nh), None, "not counted: the port has no model yet")
     # #7: per step the clip (3), angle wrap (3), cost (7), velocity update
     # with sin (7), position (2) and speed clamp (2): pallas_kernels.py:130-144
     row(7, "_pendulum_kernel", "pendulum nu=1", F32 * (2 + h + 2 * nh), 24 * nh,
@@ -94,6 +99,34 @@ def peg_instance(peg_model, n: int = 64, h: int = 32, n_substeps: int = 2) -> di
                 bound_ms=ms, bound_by=by)
 
 
+# Kernel #5's calls on the locomotion configs (N = num_cpu x
+# particles_per_cpu, H = horizon): configs/Swimmer-v0.yml and
+# configs/HalfCheetah-v0.yml.
+LOCO_SIZES = {"Swimmer-v0": (512, 32), "HalfCheetah-v0": (512, 16)}
+
+
+def _loco_rollout(name: str) -> ChainExtRollout:
+    """Kernel #5's wrapper for a locomotion env's task, on the CPU."""
+    from . import envs
+    from .envs import half_cheetah, swimmer
+    module = swimmer if name == "Swimmer-v0" else half_cheetah
+    return module.build_rollout(envs.make(name, device="cpu").params)
+
+
+def ext_instance(roll: ChainExtRollout, n: int, h: int) -> dict:
+    """Kernel #5 for the task of `roll` (its model, substeps, force law and
+    velocity limit) at N particles and H steps."""
+    model = roll.model
+    n_bytes = ext_rollout_bytes(model.nv, n, h)
+    n_ops = ext_rollout_flops(model, roll.n_substeps, n, h, roll.task,
+                              roll.vel_limit is not None)
+    ms, by = bound_ms(n_bytes, n_ops)
+    return dict(number=5, kernel="_chain_ext_kernel", task=roll.task.name, n=n, h=h,
+                widths=f"{roll.task.name} nv={model.nv} substeps={roll.n_substeps}",
+                bytes=n_bytes, operations=n_ops, operations_from="csrc/chain_rollout.cuh",
+                bound_ms=ms, bound_by=by)
+
+
 def main() -> None:
     from . import envs
     model = envs.make("reacher_7dof-v0", device="cpu").params.model
@@ -101,6 +134,8 @@ def main() -> None:
         print(json.dumps(r))
     print(json.dumps(peg_instance(envs.make("sawyer_peg_insertion-v0", device="cpu")
                                   .params.model)))
+    for name, size in LOCO_SIZES.items():
+        print(json.dumps(ext_instance(_loco_rollout(name), *size)))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 Plain functions over numpy arrays, or objects whose fields convert with
 np.asarray (a JAX ChainModel, GaussianState, ReacherState, PegParams,
-PegState, ReinforceState, VFParams or LGPolicyParams does). This
+PegState, ReinforceState, VFParams, LGPolicyParams, SwimmerParams,
+CheetahParams, SwimmerState or CheetahState does). This
 module never imports jax; tests use it so that both packages compute on
 the same model and state.
 """
@@ -12,8 +13,10 @@ import numpy as np
 import torch
 
 from .engine.chain import ChainModel
+from .envs.half_cheetah import CheetahParams, CheetahState
 from .envs.reacher_7dof import ReacherState
 from .envs.sawyer_tasks import PegParams, PegState
+from .envs.swimmer import _VEL_LIMIT, SwimmerParams, SwimmerState
 from .policies.linear_gaussian import LGPolicyParams
 from .solvers.base import GaussianState
 from .solvers.reinforce import ReinforceState
@@ -90,3 +93,27 @@ def vf_params_from_reference(params, device="cuda") -> VFParams:
 def lg_policy_params_from_reference(params, device="cuda") -> LGPolicyParams:
     return LGPolicyParams(weight=_t(params.weight, device), bias=_t(params.bias, device),
                           log_std=_t(params.log_std, device))
+
+
+def swimmer_params_from_reference(params, device="cuda") -> SwimmerParams:
+    """A reference SwimmerParams (model, drag_perp, drag_par) as the
+    port's; the velocity limit is the env's constant."""
+    return SwimmerParams(model=chain_model_from_reference(params.model, device),
+                         drag_perp=_t(params.drag_perp, device),
+                         drag_par=_t(params.drag_par, device),
+                         vel_limit=_t(_VEL_LIMIT, device))
+
+
+def cheetah_params_from_reference(params, device="cuda") -> CheetahParams:
+    """A reference CheetahParams (model, kp, kd, mu) as the port's."""
+    return CheetahParams(model=chain_model_from_reference(params.model, device),
+                         kp=_t(params.kp, device), kd=_t(params.kd, device),
+                         mu=_t(params.mu, device))
+
+
+def loco_state_from_reference(state, device="cuda"):
+    """A reference SwimmerState or CheetahState (qpos, qvel) as the port's
+    state of the same env (told apart by the number of dofs: 7 or 9)."""
+    qpos, qvel = _t(state.qpos, device), _t(state.qvel, device)
+    cls = SwimmerState if qpos.shape[-1] == 7 else CheetahState
+    return cls(qpos=qpos, qvel=qvel)

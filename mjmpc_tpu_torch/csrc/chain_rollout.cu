@@ -1,7 +1,7 @@
 // Rollouts of a scalar-joint (hinge/slide) kinematic chain over N particles
 // and H control steps, one CUDA thread per particle.
 //
-// Replaces three TPU kernels of mjmpc_tpu/ops/pallas_chain.py:
+// Replaces four TPU kernels of mjmpc_tpu/ops/pallas_chain.py:
 //   - `_chain_kernel` (built by `build_chain_rollout`; entry
 //     chain_rollout_launch): costs only, open loop;
 //   - `_chain_obs_kernel` (built by `build_chain_obs_rollout`; entry
@@ -12,6 +12,16 @@
 //     eps computed in the kernel from the observation of the state
 //     entering the step, stored before the clip, then u = clip(a); writes
 //     obs, actions and costs.
+//   - `_chain_ext_kernel` (built by `build_chain_ext_rollout`, with
+//     `make_capsule_drag` or `make_ground_contact`; entry
+//     chain_ext_rollout_launch): the locomotion rollout. Every substep
+//     adds the task's external generalized forces (the swimmer's capsule
+//     drag or the cheetah's ground contact, through analytic point
+//     Jacobians) to the right-hand side; after a control step's substeps
+//     the swimmer's |qd| limit; costs[b, t] = the task's step cost of
+//     (state in, state out, u). A locomotion header (CHAIN_EXT_TASK)
+//     builds this entry only: the JAX package has no costs, obs or
+//     closed-loop kernel for those tasks.
 // One source, one template (chain_rollout.cuh rollout_particle<MODE, Task>):
 // the stores a mode does not need are compiled out. The task (observation,
 // cost, extras) is the generated header's model::TASK: Reacher (extras =
@@ -41,6 +51,14 @@
 // action sums grow while each observation element is produced and stored,
 // so the observation never lives whole in registers.
 //
+// The locomotion rollout keeps its substep loop rolled (the cheetah's 25
+// substeps per control step would multiply the code), unrolls the loops
+// over dofs, links and contact points, and computes the contact force as a
+// select on depth > 0, so no particle of a warp branches apart. Its work
+// per particle-substep is FK, the mass matrix, RNEA and Cholesky as above
+// plus the task's forces (ops/chain_rollout.py ext_rollout_flops counts
+// them); it reads the mean and the noise and writes one cost per step.
+//
 // What bounds it on an H100: compute, roughly 6 KFLOP per particle-substep
 // in f32 (FK, the 7x7 mass matrix, RNEA, Cholesky; counted from this
 // source by ops/chain_rollout.py rollout_flops) against 14 bytes read per
@@ -67,6 +85,7 @@ namespace {
 using chain_rollout::BuildTask;
 using chain_rollout::CL;
 using chain_rollout::COSTS;
+using chain_rollout::EXT;
 using chain_rollout::OBS;
 
 template <int MODE>
@@ -97,6 +116,25 @@ int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
 }  // namespace
 
 extern "C" {
+
+#ifdef CHAIN_EXT_TASK
+
+// The locomotion rollout of mean [horizon, N] + noise [n, horizon, N] from
+// (q0, qd0): costs [n, horizon] (replaces the TPU kernel `_chain_ext_kernel`,
+// built by `build_chain_ext_rollout`). Launch on `stream` (a cudaStream_t);
+// returns cudaGetLastError() after the launch. Does not synchronise.
+int chain_ext_rollout_launch(const float* q0, const float* qd0, const float* mean,
+                             const float* noise, float* costs, int n, int horizon,
+                             void* stream) {
+    chain_rollout_kernel<EXT><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, nullptr, mean, noise, costs, nullptr, nullptr, n, horizon);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The build's task (model::TASK), checked by the wrapper against its own.
+int chain_rollout_task() { return model::TASK; }
+
+#else
 
 // Launch on `stream` (a cudaStream_t); returns cudaGetLastError() after the
 // launch (0 on success). Does not synchronise.
@@ -134,6 +172,8 @@ int chain_cl_rollout_launch(const float* q0, const float* qd0, const float* extr
 int chain_rollout_d_obs() { return BuildTask::D_OBS; }
 
 int chain_rollout_n_extras() { return BuildTask::N_EXTRAS; }
+
+#endif  // CHAIN_EXT_TASK
 
 const char* chain_rollout_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));

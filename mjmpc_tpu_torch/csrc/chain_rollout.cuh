@@ -4,9 +4,13 @@
 // C++ (tests/test_torch_chain_rollout.py, tests/test_torch_obs_rollout.py
 // and tests/test_torch_cl_rollout.py check it on the CPU that way).
 //
-// One template serves three modes (costs only; costs and observations;
-// closed-loop-linear) and two tasks (Reacher, Peg), the task chosen by the
-// generated header's model::TASK.
+// One template serves four modes (costs only; costs and observations;
+// closed-loop-linear; external forces) and four tasks: Reacher and Peg for
+// the first three modes, Swimmer and Cheetah (capsule drag, ground contact)
+// for the external-force mode. The generated header's model::TASK picks
+// the task; a locomotion header also defines CHAIN_EXT_TASK and its
+// constants (namespace loco), and only such a header builds Swimmer or
+// Cheetah (tests/test_torch_loco.py checks them on the CPU).
 
 #pragma once
 
@@ -245,9 +249,11 @@ CHAIN_FN void chol_solve(const float (&M)[N][N], float (&x)[N]) {
     }
 }
 
-// One semi-implicit Euler substep from the frames f of q.
-CHAIN_FN void substep(float (&q)[N], float (&qd)[N], const float (&u)[N],
-                                        const Frames& f) {
+// One semi-implicit Euler substep from the frames f of q; with HAS_EXT the
+// generalized forces tau_ext are added to the right-hand side.
+template <bool HAS_EXT>
+CHAIN_FN void substep_impl(float (&q)[N], float (&qd)[N], const float (&u)[N],
+                           const Frames& f, const float (&tau_ext)[N]) {
     float M[N][N], bias[N], acc[N];
     mass_and_bias(f, qd, M, bias);
 #pragma unroll
@@ -257,6 +263,7 @@ CHAIN_FN void substep(float (&q)[N], float (&qd)[N], const float (&u)[N],
                 - model::stiffness(i) * q[i];
         if (model::frictionloss(i) != 0.0f)  // smooth Coulomb friction
             r = r - model::frictionloss(i) * tanhf(qd[i] * 50.0f);
+        if constexpr (HAS_EXT) r = r + tau_ext[i];
         acc[i] = r;
     }
     chol_solve(M, acc);
@@ -268,6 +275,15 @@ CHAIN_FN void substep(float (&q)[N], float (&qd)[N], const float (&u)[N],
         qd[i] = clamped == qn ? qdn : 0.0f;
         q[i] = clamped;
     }
+}
+
+CHAIN_FN void substep(float (&q)[N], float (&qd)[N], const float (&u)[N], const Frames& f) {
+    substep_impl<false>(q, qd, u, f, u);
+}
+
+CHAIN_FN void substep(float (&q)[N], float (&qd)[N], const float (&u)[N], const Frames& f,
+                      const float (&tau_ext)[N]) {
+    substep_impl<true>(q, qd, u, f, tau_ext);
 }
 
 // World position of the site (model::SITE_BODY, offset site_pos).
@@ -386,6 +402,135 @@ struct TaskOf<1> {
     using type = Peg;
 };
 
+#ifdef CHAIN_EXT_TASK
+static_assert(CHAIN_EXT_TASK == model::TASK, "the header's task and CHAIN_EXT_TASK differ");
+
+// Columns of the translational Jacobian of world point p on body b: for
+// each joint d that moves b, a_d x (p - o_d) for a hinge and a_d for a
+// slide (the analytic form of engine/chain.py point_state's jvp, exact for
+// scalar joints); the other columns are left unset and never read.
+CHAIN_FN void point_jacobian(const Frames& f, int b, V3 p, V3 (&col)[N]) {
+#pragma unroll
+    for (int d = 0; d < N; ++d)
+        if (model::ancestor(b, d))
+            col[d] = model::jtype(d) == 0 ? cross(f.A[d], sub(p, f.P[d])) : f.A[d];
+}
+
+// World velocity sum_d qd_d col_d of a point on body b, root to leaf.
+CHAIN_FN V3 point_velocity(const float (&qd)[N], int b, const V3 (&col)[N]) {
+    V3 v = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int d = 0; d < N; ++d)
+        if (model::ancestor(b, d)) v = add(v, scale(qd[d], col[d]));
+    return v;
+}
+
+// The locomotion tasks' shared part: no extras, and the step cost of
+// (state in, state out, clipped action), -reward of the env's step:
+// CTRL_WEIGHT * sum of u_j^2 over the actuated dofs j >= U0 minus the
+// forward progress (x_out - x_in) / control dt.
+struct Loco {
+    static constexpr int N_EXTRAS = 0;
+    static constexpr int D_OBS = 0;
+
+    struct Extras {};
+
+    static CHAIN_FN Extras load(const float* __restrict__) { return {}; }
+
+    // |qd_i| <= vel_limit(i) after a control step's substeps, when the
+    // header has a limit (the swimmer's _VEL_LIMIT).
+    static CHAIN_FN void limit_velocity(float (&qd)[N]) {
+        if constexpr (loco::HAS_VEL_LIMIT) {
+#pragma unroll
+            for (int i = 0; i < N; ++i)
+                qd[i] = fminf(fmaxf(qd[i], -loco::vel_limit(i)), loco::vel_limit(i));
+        }
+    }
+
+    static CHAIN_FN float step_cost(const float (&q_in)[N], const float (&q)[N],
+                                    const float (&qd)[N], const float (&u)[N]) {
+        float ctrl = 0.0f;
+#pragma unroll
+        for (int j = loco::U0; j < N; ++j) ctrl = ctrl + u[j] * u[j];
+        return loco::CTRL_WEIGHT * ctrl - (q[0] - q_in[0]) * loco::INV_DT;
+    }
+};
+
+#if CHAIN_EXT_TASK == 2
+// Swimmer (envs/swimmer.py): anisotropic quadratic drag on x-aligned
+// capsule links, sampled at N_SAMPLES points along each link's axis:
+// F = -c_perp/2 min(|v_n|, VCAP) v_n - c_par/2 min(|v_t|, VCAP) v_t
+// (drag_perp / drag_par hold the halved coefficients).
+struct Swimmer : Loco {
+    static CHAIN_FN void ext(const Frames& f, const float (&qd)[N], float (&tau)[N]) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) tau[i] = 0.0f;
+#pragma unroll
+        for (int li = 0; li < loco::N_LINKS; ++li) {
+            const int b = loco::link_body(li);
+            const V3 ax = {f.R[b].m[0], f.R[b].m[3], f.R[b].m[6]};  // R e_x
+#pragma unroll
+            for (int k = 0; k < loco::N_SAMPLES; ++k) {
+                const V3 p = add(f.P[b], scale(loco::sample(k), ax));
+                V3 col[N];
+                point_jacobian(f, b, p, col);
+                const V3 v = point_velocity(qd, b, col);
+                const float v_ax = dot(v, ax);
+                const V3 v_par = scale(v_ax, ax);
+                const V3 v_perp = sub(v, v_par);
+                const float n_perp = sqrtf(dot(v_perp, v_perp));
+                const float n_par = fabsf(v_ax);
+                const V3 force =
+                    add(scale(-loco::drag_perp(li) * fminf(n_perp, loco::VCAP), v_perp),
+                        scale(-loco::drag_par(li) * fminf(n_par, loco::VCAP), v_par));
+#pragma unroll
+                for (int d = 0; d < N; ++d)
+                    if (model::ancestor(b, d)) tau[d] = tau[d] + dot(col[d], force);
+            }
+        }
+    }
+};
+
+template <>
+struct TaskOf<2> {
+    using type = Swimmer;
+};
+#elif CHAIN_EXT_TASK == 3
+// Half cheetah (envs/half_cheetah.py): compliant ground contact at
+// body-local points, a spring-damper normal force below z = RADIUS and
+// saturated Coulomb friction -MU f_n tanh(v_x * INV_SLIP) along x. The
+// branch on depth is a select: every particle does the same work.
+struct Cheetah : Loco {
+    static CHAIN_FN void ext(const Frames& f, const float (&qd)[N], float (&tau)[N]) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) tau[i] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < loco::N_CONTACTS; ++c) {
+            const int b = loco::contact_body(c);
+            const V3 pt = {loco::contact_point(c, 0), loco::contact_point(c, 1),
+                           loco::contact_point(c, 2)};
+            const V3 p = add(f.P[b], mv(f.R[b], pt));
+            V3 col[N];
+            point_jacobian(f, b, p, col);
+            const V3 v = point_velocity(qd, b, col);
+            const float depth = loco::RADIUS - p.z;
+            const float push = fmaxf(loco::KP * depth - loco::KD * v.z, 0.0f);
+            const float fn = depth > 0.0f ? push : 0.0f;
+            const float ft = -loco::MU * fn * tanhf(v.x * loco::INV_SLIP);
+#pragma unroll
+            for (int d = 0; d < N; ++d)
+                if (model::ancestor(b, d)) tau[d] = tau[d] + col[d].x * ft + col[d].z * fn;
+        }
+    }
+};
+
+template <>
+struct TaskOf<3> {
+    using type = Cheetah;
+};
+#endif
+#endif  // CHAIN_EXT_TASK
+
 // The task of this build (model::TASK of the generated header).
 using BuildTask = TaskOf<model::TASK>::type;
 
@@ -397,6 +542,7 @@ enum Mode : int {
     COSTS = 0,  // costs only (_chain_kernel)
     OBS = 1,    // costs and pre-step observations (_chain_obs_kernel)
     CL = 2,     // closed-loop-linear: obs, u = W^T [obs; 1] + eps, costs (_chain_cl_kernel)
+    EXT = 3,    // external forces per substep, a step cost per control step (_chain_ext_kernel)
 };
 
 // Takes the observation one element at a time: stores it and, in CL mode,
@@ -420,10 +566,14 @@ struct ObsSink {
 // Roll out particle b. noise [n, horizon, N], costs [n, horizon], obs
 // [n, horizon, D_OBS] (OBS, CL) and acts [n, horizon, N] (CL) are contiguous
 // f32; q0, qd0 [N] and extras [N_EXTRAS] are shared; ctrl is the mean
-// [horizon, N] (COSTS, OBS: u = clip(mean[t] + eps)) or the policy W
+// [horizon, N] (COSTS, OBS, EXT: u = clip(mean[t] + eps)) or the policy W
 // [D_OBS + 1, N] (CL: a = W^T [obs; 1] + eps, stored before the clip,
 // u = clip(a)). Observations are of the state entering each step, from the
 // frames that serve that step's first substep; costs of the state after it.
+// EXT evaluates FK and the task's external forces at the start of every
+// substep, applies the task's velocity limit after the step's substeps and
+// takes the task's step cost of (state in, state out, u). Its substep loop
+// stays rolled: the cheetah runs 25.
 template <int MODE, class Task>
 CHAIN_FN void rollout_particle(const float* __restrict__ q0, const float* __restrict__ qd0,
                                const float* __restrict__ extras,
@@ -441,10 +591,10 @@ CHAIN_FN void rollout_particle(const float* __restrict__ q0, const float* __rest
     const float* nz = noise + static_cast<size_t>(b) * horizon * N;
     float* out = costs + static_cast<size_t>(b) * horizon;
     Frames f;
-    fk(q, f);
+    if constexpr (MODE != EXT) fk(q, f);
     for (int t = 0; t < horizon; ++t) {
         const float* eps = nz + t * N;
-        if constexpr (MODE == COSTS) {
+        if constexpr (MODE == COSTS || MODE == EXT) {
 #pragma unroll
             for (int j = 0; j < N; ++j)
                 u[j] = fminf(fmaxf(ctrl[t * N + j] + eps[j], model::ULOW), model::UHIGH);
@@ -468,13 +618,28 @@ CHAIN_FN void rollout_particle(const float* __restrict__ q0, const float* __rest
                 u[j] = fminf(fmaxf(a, model::ULOW), model::UHIGH);
             }
         }
-        substep(q, qd, u, f);
-        for (int s = 1; s < model::N_SUBSTEPS; ++s) {
-            fk(q, f);
+        if constexpr (MODE == EXT) {
+            float q_in[N];
+#pragma unroll
+            for (int i = 0; i < N; ++i) q_in[i] = q[i];
+#pragma unroll 1
+            for (int s = 0; s < model::N_SUBSTEPS; ++s) {
+                float tau[N];
+                fk(q, f);
+                Task::ext(f, qd, tau);
+                substep(q, qd, u, f, tau);
+            }
+            Task::limit_velocity(qd);
+            out[t] = Task::step_cost(q_in, q, qd, u);
+        } else {
             substep(q, qd, u, f);
+            for (int s = 1; s < model::N_SUBSTEPS; ++s) {
+                fk(q, f);
+                substep(q, qd, u, f);
+            }
+            fk(q, f);
+            out[t] = Task::cost(f, ex);
         }
-        fk(q, f);
-        out[t] = Task::cost(f, ex);
     }
 }
 

@@ -1,8 +1,8 @@
 """Rigid-body dynamics for scalar-joint kinematic trees, in PyTorch.
 
 Counterpart of mjmpc_tpu/engine/chain.py for hinge and slide joints (the
-reacher / sawyer-arm family). Ball and free joints raise
-NotImplementedError for now.
+reacher / sawyer-arm family, the swimmer and the half cheetah). Ball and
+free joints raise NotImplementedError for now.
 
 Every function takes leading batch dimensions: q [..., nv] gives
 rots [..., n, 3, 3] and so on, so one call advances N particles.
@@ -233,10 +233,58 @@ def _project_limits(model: ChainModel, q, qd):
     return clamped, qd
 
 
+def _world_points(model: ChainModel, q, delta, bodies, points_local):
+    """World positions [..., K, 3] of body-local points [K, 3] on `bodies`
+    (K body indices) at q + delta."""
+    rots, poss, _, _ = fk_dofs(model, q, delta)
+    idx = list(bodies)
+    return poss[..., idx, :] + torch.einsum("...kij,kj->...ki", rots[..., idx, :, :],
+                                            points_local)
+
+
+def _as_points(body, point_local):
+    """(bodies, points [K, 3], single): one body and point [3], or K bodies
+    and points [K, 3]."""
+    if isinstance(body, int):
+        return (body,), point_local[None], True
+    return tuple(int(b) for b in body), point_local, False
+
+
+def point_state(model: ChainModel, q: torch.Tensor, qd: torch.Tensor, body,
+                point_local: torch.Tensor):
+    """(world position, world velocity) of a body-local point: the
+    velocity is a jvp of the point's world position over the tangent
+    `delta` along qd. `body` is one index with point_local [3] (results
+    [..., 3]) or K indices with point_local [K, 3] (results [..., K, 3]),
+    so that K contact or drag points cost one jvp."""
+    bodies, pts, single = _as_points(body, point_local)
+    zero = torch.zeros_like(qd)
+    pos, vel = torch.func.jvp(lambda d: _world_points(model, q, d, bodies, pts),
+                              (zero,), (qd,))
+    return (pos[..., 0, :], vel[..., 0, :]) if single else (pos, vel)
+
+
+def point_force_to_generalized(model: ChainModel, q: torch.Tensor, body,
+                               point_local: torch.Tensor,
+                               force_world: torch.Tensor) -> torch.Tensor:
+    """Generalized force J^T f [..., nv] of world-frame forces applied at
+    body-local points: a vjp of the points' world positions over the
+    tangent `delta`. `body`/`point_local` as for point_state, force_world
+    [..., 3] or [..., K, 3] (the K forces summed)."""
+    bodies, pts, single = _as_points(body, point_local)
+    if single:
+        force_world = force_world[..., None, :]
+    zero = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    _, vjp = torch.func.vjp(lambda d: _world_points(model, q, d, bodies, pts), zero)
+    return vjp(force_world)[0]
+
+
 def step(model: ChainModel, q: torch.Tensor, qd: torch.Tensor,
-         ctrl: torch.Tensor, n_substeps: int = 1):
+         ctrl: torch.Tensor, n_substeps: int = 1, ext_force_fn=None):
     """Advance (q [..., nv], qd [..., nv]) by n_substeps of dt under motor
-    controls ctrl [..., nv] (tau = gear * ctrl, held for every substep)."""
+    controls ctrl [..., nv] (tau = gear * ctrl, held for every substep).
+    ext_force_fn(model, q, qd) -> generalized force [..., nv] adds
+    environment forces (fluid drag, contact) in every substep."""
     tau = model.gear * ctrl
     diag = torch.diag(model.armature + model.dt * model.damping)
     for _ in range(n_substeps):
@@ -244,6 +292,8 @@ def step(model: ChainModel, q: torch.Tensor, qd: torch.Tensor,
         rhs = (tau - bias_forces(model, q, qd) - model.damping * qd
                - model.frictionloss * torch.tanh(qd / 0.02)
                - model.stiffness * q)
+        if ext_force_fn is not None:
+            rhs = rhs + ext_force_fn(model, q, qd)
         chol = torch.linalg.cholesky_ex(m).L
         qacc = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
         qd = qd + model.dt * qacc

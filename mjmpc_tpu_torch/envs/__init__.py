@@ -10,7 +10,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from . import reacher_7dof, sawyer_tasks
+from . import half_cheetah, reacher_7dof, sawyer_tasks, swimmer
 from .base import Env
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {
@@ -18,6 +18,8 @@ _REGISTRY: Dict[str, Callable[..., Env]] = {
     "continual_reacher-v0": reacher_7dof.make_continual,
     "sawyer_peg_insertion-v0": sawyer_tasks.make_peg_insertion,
     "sawyer_peg_insertion-v1": sawyer_tasks.make_peg_insertion_v1,
+    "Swimmer-v0": swimmer.make,
+    "HalfCheetah-v0": half_cheetah.make,
 }
 
 _CACHE: Dict[Tuple[str, str], Env] = {}

@@ -1,0 +1,115 @@
+"""Open-loop MPC experiment entry point (counterpart of
+mjmpc_tpu/harness/run_mpc.py, reference examples/example_mpc.py).
+
+Usage:
+    python -m mjmpc_tpu_torch.harness.run_mpc --config configs/Swimmer-v0.yml \
+        --controller mppi [--save_dir DIR] [--save_trajectories] [--device cuda]
+
+The same flags and YAML schema as the JAX run_mpc, plus --device (the
+card unless the caller asks for the CPU). The config's episodes run one
+after another (harness/episode.py run_episodes); each controller's log
+(.log and .csv) goes to <save_dir>/<env>/<date>/<controller>/.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+from datetime import datetime
+
+import numpy as np
+
+from .. import envs
+from ..utils import get_logger, timeit
+from . import config as cfg
+from .episode import run_episodes
+
+# Options of the JAX run_mpc whose modules are not ported yet, and the
+# ROADMAP slice that brings them.
+_NOT_PORTED = {
+    "dyn_randomize_config": "dynamics randomization needs envs/randomize.py (ROADMAP slice 8)",
+    "dump_vids": "videos need render/ (ROADMAP slice 8)",
+    "checkpoint": "solver-state checkpoints need harness/checkpoint.py (ROADMAP slice 3)",
+}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Run MPC algorithm on given environment")
+    parser.add_argument("--config", type=str, required=True,
+                        help="yaml file with experiment parameters")
+    parser.add_argument("--dyn_randomize_config", type=str, default=None,
+                        help="yaml file with dynamics randomization parameters "
+                             "(not ported yet: raises NotImplementedError)")
+    parser.add_argument("--save_dir", type=str, default=tempfile.gettempdir(),
+                        help="folder to save data in")
+    parser.add_argument("--controller", type=str, default="mppi",
+                        help="controller(s) to run, comma separated")
+    parser.add_argument("--save_trajectories", action="store_true",
+                        help="dump episode arrays to npz")
+    parser.add_argument("--checkpoint", action="store_true",
+                        help="save final solver state (not ported yet: raises "
+                             "NotImplementedError)")
+    parser.add_argument("--dump_vids", action="store_true",
+                        help="render episode videos (not ported yet: raises "
+                             "NotImplementedError)")
+    parser.add_argument("--chunk_size", type=int, default=None,
+                        help="accepted for the JAX run_mpc's command lines and has no "
+                             "effect: it splits the JAX episode program into compile "
+                             "units, and this entry point runs a host loop")
+    parser.add_argument("--no_guard", action="store_true",
+                        help="disable the NaN/Inf solve guard (failure recovery is ON "
+                             "by default: a diverged solve re-initializes the control "
+                             "distribution)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device of the envs and solvers")
+    args = parser.parse_args(argv)
+    for flag, why in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag}: {why}")
+
+    exp_params = cfg.load_config(args.config)
+    env = envs.make(exp_params["env_name"], device=args.device)
+    sim_env = envs.make(exp_params.get("sim_env_name", exp_params["env_name"]),
+                        device=args.device)
+
+    date_time = datetime.now().strftime("%m_%d_%Y_%H_%M_%S")
+    results = {}
+    for controller_name in args.controller.split(","):
+        controller_name = controller_name.strip()
+        log_dir = os.path.join(args.save_dir, exp_params["env_name"], date_time,
+                               controller_name)
+        os.makedirs(log_dir, exist_ok=True)
+        logger = get_logger(f"{controller_name}_{exp_params['env_name']}", log_dir)
+
+        solver = cfg.make_solver_for_env(exp_params, controller_name, env)
+        logger.info("%s", exp_params[controller_name])
+
+        timeit.start("start_" + controller_name)
+        out = run_episodes(
+            solver, env, n_episodes=exp_params["n_episodes"],
+            episode_length=exp_params["max_ep_length"], base_seed=exp_params["seed"],
+            sim_env=sim_env if sim_env.name != env.name else None, guard=not args.no_guard)
+        timeit.stop("start_" + controller_name)
+
+        logger.info("Avg. reward = %s, Std. Reward = %s, Success Metric = %s",
+                    out["average_reward"], out["reward_std"], out["success_metric"])
+        logger.record_tabular("EpisodeReward", out["ep_rewards"].tolist())
+        logger.record_tabular("Horizon", solver.horizon)
+        logger.record_tabular("AverageReward", out["average_reward"])
+        logger.record_tabular("StdReward", out["reward_std"])
+        logger.record_tabular("SuccessMetric", out["success_metric"])
+        logger.record_tabular("NumEpisodes", exp_params["n_episodes"])
+        logger.record_tabular("NumParticles", solver.num_particles)
+        logger.dump_tabular()
+        logger.info("\n%s", timeit.report())
+
+        if args.save_trajectories:
+            np.savez(os.path.join(log_dir, "trajectories.npz"), rewards=out["rewards"],
+                     actions=out["actions"], successes=out["successes"])
+        out["log_dir"] = log_dir
+        results[controller_name] = out
+    return results
+
+
+if __name__ == "__main__":
+    main()

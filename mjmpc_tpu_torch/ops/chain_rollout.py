@@ -2,10 +2,12 @@
 PyTorch version.
 
 Counterpart of mjmpc_tpu/ops/pallas_chain.py build_chain_rollout (costs
-only), build_chain_obs_rollout (costs and per-step observations) and
+only), build_chain_obs_rollout (costs and per-step observations),
 build_chain_cl_rollout (closed-loop-linear: observations, the policy
-product u = W^T [obs; 1] + eps, actions and costs). The kernels
-(csrc/chain_rollout.cu, one template with three entries) run one thread
+product u = W^T [obs; 1] + eps, actions and costs) and
+build_chain_ext_rollout (the locomotion rollout: external forces in every
+substep, a velocity limit and a step cost per control step). The kernels
+(csrc/chain_rollout.cu, one template with four entries) run one thread
 per particle with q and qd in registers across all H * n_substeps
 substeps; the model constants and the task are compile-time constants in
 a header generated here from the ChainModel.
@@ -29,6 +31,15 @@ Tasks (chosen when a wrapper is built; `extras` carries their data):
   and lateral taken from the sensed (biased) entry; cost the depth-progress
   insertion cost (envs/sawyer_tasks.py).
 
+Locomotion tasks (ExtTask, external-force mode; mean and noise carry all
+nv dofs, the unactuated base dofs as zeros):
+- capsule drag (the swimmer): anisotropic quadratic drag at sample points
+  along x-aligned capsule links, |qd| clamped per dof after each control
+  step; cost 1e-4 sum u^2 - (x_out - x_in) / control dt.
+- ground contact (the half cheetah): spring-damper normal force below
+  z = radius and tanh-saturated Coulomb friction at body-local points;
+  cost 0.1 sum u^2 - (x_out - x_in) / control dt.
+
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
 """
@@ -36,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Union
+from typing import Callable, ClassVar, Tuple, Union
 
 import numpy as np
 import torch
@@ -102,12 +113,15 @@ def _chol_solve(m, rhs):
     return torch.cholesky_solve(rhs[..., None], chol)[..., 0]
 
 
-def _substep(model: ChainModel, q, qd, u, fk):
-    """One semi-implicit Euler substep from fk = chain.fk_dofs(model, q)."""
+def _substep(model: ChainModel, q, qd, u, fk, ext=None):
+    """One semi-implicit Euler substep from fk = chain.fk_dofs(model, q);
+    `ext` [N, nv] are external generalized forces added to the rhs."""
     m, bias = _mass_and_bias(model, fk, qd)
     m = m + torch.diag(model.armature + model.dt * model.damping)
     rhs = (model.gear * u - bias - model.damping * qd - model.stiffness * q
            - model.frictionloss * torch.tanh(qd * 50.0))
+    if ext is not None:
+        rhs = rhs + ext
     qd_new = qd + model.dt * _chol_solve(m, rhs)
     q_new = q + model.dt * qd_new
     clamped = torch.clamp(q_new, model.qpos_low, model.qpos_high)
@@ -243,14 +257,10 @@ def rollout_plain(model: ChainModel, n_substeps: int, ulow: float, uhigh: float,
     return torch.stack(obs, 1), torch.stack(acts, 1), costs
 
 
-def rollout_flops(model: ChainModel, n_substeps: int, n: int, horizon: int,
-                  mode: str = "costs", task: Union[str, ChainTask] = REACHER) -> int:
-    """Floating-point operations of one kernel call, counted from
+def _physics_flops(model: ChainModel):
+    """(fk, substep) operations of one particle, counted from
     csrc/chain_rollout.cuh as written (a multiply, an add, a compare or a
-    transcendental is one; the chain's topology as the header bakes it;
-    the task's d_obs and its obs and cost counts). Used for the card-time
-    bound: the work is the same for every input."""
-    task = _task(task)
+    transcendental is one; the chain's topology as the header bakes it)."""
     add, dot, cross, mv, mm = 3, 5, 9, 15, 45
     rodrigues = 2 + 1 + 3 * 3 + 6 * 4        # sin, cos, 1-c, 9 entries
     world_inertia = mm + 9 * 5
@@ -280,7 +290,19 @@ def rollout_flops(model: ChainModel, n_substeps: int, n: int, horizon: int,
     friction = int((model.frictionloss.detach().cpu().numpy() != 0).sum())
     rest = nb * (1 + 6 + 7) + 4 * friction
     chol = nb * (nb + 1) * (2 * nb + 1) // 6 + 2 * nb * nb
-    substep = mass + bias_fwd + bias_bwd + rest + chol
+    return fk, mass + bias_fwd + bias_bwd + rest + chol
+
+
+def rollout_flops(model: ChainModel, n_substeps: int, n: int, horizon: int,
+                  mode: str = "costs", task: Union[str, ChainTask] = REACHER) -> int:
+    """Floating-point operations of one kernel call, counted from
+    csrc/chain_rollout.cuh as written (a multiply, an add, a compare or a
+    transcendental is one; the chain's topology as the header bakes it;
+    the task's d_obs and its obs and cost counts). Used for the card-time
+    bound: the work is the same for every input."""
+    task = _task(task)
+    fk, substep = _physics_flops(model)
+    nb = model.n_joints
     if mode == "cl":    # per action: bias + eps, d_obs products and sums, clip
         act = nb * (1 + 2 * task.d_obs(nb) + 2)
     else:               # per action: mean + eps, clip
@@ -300,6 +322,190 @@ def rollout_bytes(nv: int, n: int, horizon: int, mode: str = "costs",
     ctrl = (d_obs + 1) * nv if mode == "cl" else horizon * nv
     out = nh * (1 + (0 if mode == "costs" else d_obs) + (nv if mode == "cl" else 0))
     return 4 * (2 * nv + task.n_extras + ctrl + nh * nv + out)
+
+
+# ---------------------------------------------------------------------------
+# The locomotion (external-force) rollout's plain version and work counts
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CapsuleDrag:
+    """Slender-body quadratic drag on x-aligned capsule links (the swimmer,
+    pallas_chain.py make_capsule_drag): at each sample point s along link
+    l's axis, F = -c_perp/2 min(|v_n|, vcap) v_n - c_par/2 min(|v_t|, vcap) v_t."""
+    link_bodies: Tuple[int, ...]
+    sample_offsets: Tuple[float, ...]
+    drag_perp: Tuple[float, ...]    # per link
+    drag_par: Tuple[float, ...]     # per link
+    vcap: float = 4.0
+
+    def points(self):
+        """(bodies, offsets, halved perpendicular and parallel coefficients)
+        per sample point, link-major, as f32 numpy."""
+        ns = len(self.sample_offsets)
+        half = lambda c: [np.float32(0.5 * np.float32(x)) for x in c for _ in range(ns)]
+        return ([b for b in self.link_bodies for _ in range(ns)],
+                np.asarray(list(self.sample_offsets) * len(self.link_bodies), np.float32),
+                np.asarray(half(self.drag_perp), np.float32),
+                np.asarray(half(self.drag_par), np.float32))
+
+
+@dataclasses.dataclass(frozen=True)
+class GroundContact:
+    """Planar compliant ground contact at body-local points (the half
+    cheetah, pallas_chain.py make_ground_contact): below z = radius a normal
+    force max(kp depth - kd v_z, 0) and friction -mu f_n tanh(v_x / slip_vel)."""
+    bodies: Tuple[int, ...]
+    points: Tuple[Tuple[float, float, float], ...]   # body-local
+    radius: float
+    kp: float
+    kd: float
+    mu: float
+    slip_vel: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtTask:
+    """A locomotion task of the external-force kernel: its force law, and
+    the step cost ctrl_weight * sum_{j >= U0} u_j^2 - (x_out - x_in) *
+    inv_dt (the env's negated reward; x is dof 0)."""
+    name: str
+    force: Union[CapsuleDrag, GroundContact]
+    ctrl_weight: float
+    inv_dt: float
+    U0: ClassVar[int] = 3     # the first actuated dof, after the planar base's three
+
+    @property
+    def index(self) -> int:
+        """model::TASK and CHAIN_EXT_TASK of the generated header: 2 builds
+        csrc/chain_rollout.cuh's Swimmer (capsule drag), 3 its Cheetah
+        (ground contact)."""
+        return 2 if isinstance(self.force, CapsuleDrag) else 3
+
+
+def _point_jac_cols(model: ChainModel, fk, bodies, pts):
+    """Translational point-Jacobian columns [N, K, nv, 3] of world points
+    pts [N, K, 3] on `bodies` (K indices): a_d x (p - o_d) for a hinge d,
+    a_d for a slide, zero for joints that do not move the body
+    (pallas_chain.py _point_jac_cols)."""
+    _, _, axes, origins = fk
+    anc, rot = model._masks
+    mask = anc[list(bodies)]                                   # [K, nv, 1]
+    arm = pts[..., :, None, :] - origins[..., None, :, :]     # [N, K, nv, 3]
+    ax = axes[..., None, :, :].expand(arm.shape)
+    return (rot * torch.linalg.cross(ax, arm, dim=-1) + (1.0 - rot) * ax) * mask
+
+
+def capsule_drag(model: ChainModel, fk, qd, law: CapsuleDrag):
+    """Generalized drag forces [N, nv] of the swimmer's capsule links."""
+    rots, poss, _, _ = fk
+    bodies, offsets, c_perp, c_par = law.points()
+    t = lambda a: torch.as_tensor(a, device=qd.device)
+    axis = rots[..., bodies, :, 0]                            # R e_x  [N, K, 3]
+    pts = poss[..., bodies, :] + t(offsets)[:, None] * axis
+    cols = _point_jac_cols(model, fk, bodies, pts)
+    v = torch.einsum("...d,...kdc->...kc", qd, cols)
+    v_ax = torch.sum(v * axis, dim=-1)
+    v_par = v_ax[..., None] * axis
+    v_perp = v - v_par
+    n_perp = torch.sqrt(torch.sum(v_perp * v_perp, dim=-1))
+    force = ((-t(c_perp) * torch.clamp(n_perp, max=law.vcap))[..., None] * v_perp
+             + (-t(c_par) * torch.clamp(torch.abs(v_ax), max=law.vcap))[..., None] * v_par)
+    return torch.einsum("...kdc,...kc->...d", cols, force)
+
+
+def ground_contact(model: ChainModel, fk, qd, law: GroundContact):
+    """Generalized contact forces [N, nv] of the cheetah's contact points."""
+    rots, poss, _, _ = fk
+    bodies = list(law.bodies)
+    pts_local = torch.as_tensor(np.asarray(law.points, np.float32), device=qd.device)
+    pts = poss[..., bodies, :] + torch.einsum("...kij,kj->...ki", rots[..., bodies, :, :],
+                                              pts_local)
+    cols = _point_jac_cols(model, fk, bodies, pts)
+    v = torch.einsum("...d,...kdc->...kc", qd, cols)
+    f32 = lambda x: float(np.float32(x))
+    depth = f32(law.radius) - pts[..., 2]
+    push = torch.clamp(f32(law.kp) * depth - f32(law.kd) * v[..., 2], min=0.0)
+    fn = torch.where(depth > 0.0, push, torch.zeros_like(push))
+    ft = -f32(law.mu) * fn * torch.tanh(v[..., 0] * f32(1.0 / law.slip_vel))
+    return torch.einsum("...kd,...k->...d", cols[..., 0], ft) + torch.einsum(
+        "...kd,...k->...d", cols[..., 2], fn)
+
+
+def _ext_forces(model: ChainModel, fk, qd, task: ExtTask):
+    law = task.force
+    if isinstance(law, CapsuleDrag):
+        return capsule_drag(model, fk, qd, law)
+    return ground_contact(model, fk, qd, law)
+
+
+def loco_step_cost(task: ExtTask, q_in, q_out, u):
+    """The step cost [N] of (state in, state out, clipped action [N, nv])."""
+    ctrl = torch.sum(u[..., task.U0:] * u[..., task.U0:], dim=-1)
+    fwd = (q_out[..., 0] - q_in[..., 0]) * float(np.float32(task.inv_dt))
+    return float(np.float32(task.ctrl_weight)) * ctrl - fwd
+
+
+def rollout_ext_plain(model: ChainModel, n_substeps: int, task: ExtTask, vel_limit,
+                      ulow: float, uhigh: float, q0, qd0, mean, noise):
+    """Plain PyTorch locomotion rollout: costs [N, H] of mean [H, nv] +
+    noise [N, H, nv] from (q0, qd0). Every substep takes FK, the task's
+    external forces at that substep's state, then the semi-implicit Euler
+    step; after a control step's substeps |qd| <= vel_limit [nv] (None: no
+    limit); costs of (state in, state out, u)."""
+    n, horizon, nv = noise.shape
+    q = q0.expand(n, nv)
+    qd = qd0.expand(n, nv)
+    costs = []
+    for t in range(horizon):
+        u = torch.clamp(mean[t] + noise[:, t], ulow, uhigh)
+        q_in = q
+        for _ in range(n_substeps):
+            fk = chain.fk_dofs(model, q)
+            q, qd = _substep(model, q, qd, u, fk, _ext_forces(model, fk, qd, task))
+        if vel_limit is not None:
+            qd = torch.minimum(torch.maximum(qd, -vel_limit), vel_limit)
+        costs.append(loco_step_cost(task, q_in, q, u))
+    return torch.stack(costs, 1)
+
+
+def ext_force_flops(model: ChainModel, task: ExtTask) -> int:
+    """Operations of one particle's Task::ext in csrc/chain_rollout.cuh as
+    written: per point its world position, the Jacobian columns (12 per
+    hinge ancestor), the velocity (6 per ancestor), the force law and the
+    scatter (6 per ancestor for drag: a dot and an add; 4 for contact)."""
+    anc = model.ancestor_mask()
+    hinge = np.array([t == "hinge" for t in model.joint_types])
+    law = task.force
+    if isinstance(law, CapsuleDrag):
+        bodies = law.points()[0]
+        per_point, per_anc = 6 + 31, 6 + 6      # p; v_ax, v_par, v_perp, norms, force
+    else:
+        bodies = list(law.bodies)
+        per_point, per_anc = 18 + 1 + 4 + 2 + 4, 6 + 4   # p; depth, push, fn, ft
+    total = 0
+    for b in bodies:
+        total += per_point + 12 * int((anc[b] * hinge).sum()) + per_anc * int(anc[b].sum())
+    return total
+
+
+def ext_rollout_flops(model: ChainModel, n_substeps: int, n: int, horizon: int,
+                      task: ExtTask, vel_limit: bool) -> int:
+    """Operations of one external-force kernel call: per control step the
+    action (3 per dof), n_substeps of FK, forces, their addition to the rhs
+    and the substep, the velocity limit (2 per dof) and the step cost."""
+    fk, substep = _physics_flops(model)
+    nb = model.n_joints
+    sub = fk + ext_force_flops(model, task) + nb + substep
+    cost = 2 * (nb - task.U0) + 4
+    step = 3 * nb + n_substeps * sub + (2 * nb if vel_limit else 0) + cost
+    return n * horizon * step
+
+
+def ext_rollout_bytes(nv: int, n: int, horizon: int) -> int:
+    """Bytes one external-force kernel call must move: q0, qd0, the mean
+    and the noise in, costs out, f32."""
+    return 4 * (2 * nv + horizon * nv + n * horizon * nv + n * horizon)
 
 
 # ---------------------------------------------------------------------------
@@ -326,11 +532,54 @@ def _array(name: str, ctype: str, values, fmt) -> str:
             f"    return v{sub};\n}}\n")
 
 
+def _loco_header(task: ExtTask, vel_limit, nv: int) -> list:
+    """The locomotion constants (namespace loco) of an ExtTask's header."""
+    i = lambda v: str(int(v))
+    law = task.force
+    limit = np.zeros(nv, np.float32) if vel_limit is None else np.asarray(vel_limit, np.float32)
+    lines = [
+        "namespace loco {",
+        f"constexpr int U0 = {int(task.U0)};",
+        f"constexpr float CTRL_WEIGHT = {_f(task.ctrl_weight)};",
+        f"constexpr float INV_DT = {_f(task.inv_dt)};",
+        f"constexpr bool HAS_VEL_LIMIT = {'false' if vel_limit is None else 'true'};",
+        _array("vel_limit", "float", limit, _f),
+    ]
+    if isinstance(law, CapsuleDrag):
+        lines += [
+            f"constexpr int N_LINKS = {len(law.link_bodies)};",
+            f"constexpr int N_SAMPLES = {len(law.sample_offsets)};",
+            f"constexpr float VCAP = {_f(law.vcap)};",
+            _array("link_body", "int", list(law.link_bodies), i),
+            _array("sample", "float", np.asarray(law.sample_offsets, np.float32), _f),
+            _array("drag_perp", "float",   # halved, as the force law uses them
+                   [np.float32(0.5 * np.float32(c)) for c in law.drag_perp], _f),
+            _array("drag_par", "float",
+                   [np.float32(0.5 * np.float32(c)) for c in law.drag_par], _f),
+        ]
+    else:
+        lines += [
+            f"constexpr int N_CONTACTS = {len(law.bodies)};",
+            f"constexpr float RADIUS = {_f(law.radius)};",
+            f"constexpr float KP = {_f(law.kp)};",
+            f"constexpr float KD = {_f(law.kd)};",
+            f"constexpr float MU = {_f(law.mu)};",
+            f"constexpr float INV_SLIP = {_f(1.0 / law.slip_vel)};",
+            _array("contact_body", "int", list(law.bodies), i),
+            _array("contact_point", "float", np.asarray(law.points, np.float32), _f),
+        ]
+    return lines + ["}  // namespace loco"]
+
+
 def model_header(model: ChainModel, n_substeps: int, ulow: float,
-                 uhigh: float, task: Union[str, ChainTask] = REACHER) -> str:
+                 uhigh: float, task: Union[str, ChainTask, ExtTask] = REACHER,
+                 vel_limit=None) -> str:
     """C++ header of the model's constants and the task for
-    csrc/chain_rollout.cu."""
+    csrc/chain_rollout.cu; an ExtTask adds CHAIN_EXT_TASK and its
+    constants (force law, step cost, the per-dof velocity limit
+    `vel_limit`, None for none)."""
     npf = lambda t: t.detach().cpu().numpy().astype(np.float32)
+    task = task if isinstance(task, ExtTask) else _task(task)
     n = model.n_joints
     i = lambda v: str(int(v))
     arrays = [
@@ -355,22 +604,48 @@ def model_header(model: ChainModel, n_substeps: int, ulow: float,
     lines = [
         "// Generated by mjmpc_tpu_torch/ops/chain_rollout.py from a ChainModel.",
         "#pragma once",
+    ]
+    if isinstance(task, ExtTask):
+        lines.append(f"#define CHAIN_EXT_TASK {task.index}")
+    lines += [
         "namespace model {",
         f"constexpr int N = {n};",
         f"constexpr int N_SUBSTEPS = {int(n_substeps)};",
         f"constexpr int SITE_BODY = {int(model.site_body)};",
-        f"constexpr int TASK = {_task(task).index};  // {_task(task).name}",
+        f"constexpr int TASK = {task.index};  // {task.name}",
         f"constexpr float DT = {_f(model.dt)};",
         f"constexpr float ULOW = {_f(ulow)};",
         f"constexpr float UHIGH = {_f(uhigh)};",
     ]
     lines += [_array(*a) for a in arrays]
     lines.append("}  // namespace model")
+    if isinstance(task, ExtTask):
+        lines += _loco_header(task, vel_limit, n)
     return "\n".join(lines) + "\n"
 
 
 def _vp(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _check_args(args: dict, nv: int, shapes) -> dict:
+    """Raise unless every argument is a float32 tensor on the noise's
+    device, the noise is [N>=1, H>=1, nv] and the others have the shapes
+    that shapes(H) gives by name."""
+    noise = args["noise"]
+    for name, x in args.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.device != noise.device:
+            raise ValueError(f"{name} is on {x.device}, noise on {noise.device}")
+    if noise.dim() != 3 or noise.shape[2] != nv or noise.shape[0] < 1 or noise.shape[1] < 1:
+        raise ValueError(f"noise must be [N>=1, H>=1, {nv}], got {tuple(noise.shape)}")
+    for name, shape in shapes(noise.shape[1]).items():
+        if tuple(args[name].shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(args[name].shape)}")
+    return args
 
 
 class ChainRollout:
@@ -427,24 +702,9 @@ class ChainRollout:
         nv = self.model.nv
         ctrl_name = "weights" if self.mode == "cl" else "mean"
         args = {"q0": q0, "qd0": qd0, "extras": extras, ctrl_name: ctrl, "noise": noise}
-        for name, x in args.items():
-            if not isinstance(x, torch.Tensor):
-                raise TypeError(f"{name} must be a torch.Tensor")
-            if x.dtype != torch.float32:
-                raise TypeError(f"{name} must be float32, got {x.dtype}")
-            if x.device != noise.device:
-                raise ValueError(f"{name} is on {x.device}, noise on {noise.device}")
-        if noise.dim() != 3 or noise.shape[2] != nv or noise.shape[0] < 1 \
-                or noise.shape[1] < 1:
-            raise ValueError(f"noise must be [N>=1, H>=1, {nv}], got "
-                             f"{tuple(noise.shape)}")
-        want = {"q0": (nv,), "qd0": (nv,), "extras": (self.task.n_extras,),
-                ctrl_name: self._ctrl_shape(noise.shape[1])}
-        for name, shape in want.items():
-            if tuple(args[name].shape) != shape:
-                raise ValueError(f"{name} must have shape {shape}, got "
-                                 f"{tuple(args[name].shape)}")
-        return args
+        return _check_args(args, nv, lambda h: {"q0": (nv,), "qd0": (nv,),
+                                                "extras": (self.task.n_extras,),
+                                                ctrl_name: self._ctrl_shape(h)})
 
     def plain(self, q0, qd0, extras, ctrl, noise):
         """The plain PyTorch version (any device)."""
@@ -534,3 +794,92 @@ def rollout_cl_plain(model: ChainModel, n_substeps: int, ulow: float, uhigh: flo
     costs) under the policy weights [d_obs + 1, nv]."""
     return rollout_plain(model, n_substeps, ulow, uhigh, q0, qd0, extras, weights,
                          noise, "cl", task)
+
+
+class ChainExtRollout:
+    """rollout(q0 [nv], qd0 [nv], mean [H, nv], noise [N, H, nv]) -> costs
+    [N, H], all float32 on one device: the locomotion rollout of an ExtTask
+    (external forces every substep, the velocity limit, the step cost).
+
+    `ChainExtRollout.launches` counts kernel launches over all instances;
+    it rises by one per launch and nowhere else (the plain version on CPU
+    tensors does not count).
+    """
+    launches = 0
+
+    def __init__(self, model: ChainModel, n_substeps: int, task: ExtTask, vel_limit=None,
+                 ulow: float = -1.0, uhigh: float = 1.0):
+        self.model = model
+        self.n_substeps = int(n_substeps)
+        self.task = task
+        self.ulow = float(ulow)
+        self.uhigh = float(uhigh)
+        self.vel_limit = (None if vel_limit is None else torch.as_tensor(
+            np.asarray(vel_limit, np.float32), device=model.device))
+        self.header = model_header(model, n_substeps, ulow, uhigh, task, vel_limit)
+        self._lib = None
+
+    def library(self) -> build.KernelLibrary:
+        """Build (at first use) and load the external-force kernel for this
+        model and task."""
+        if self._lib is None:
+            lib = build.load("chain_rollout", "chain_rollout.cu",
+                             {"chain_model.h": self.header})
+            entry = lib.lib.chain_ext_rollout_launch
+            entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                                      ctypes.c_void_p]
+            entry.restype = ctypes.c_int
+            lib.lib.chain_rollout_error_string.argtypes = [ctypes.c_int]
+            lib.lib.chain_rollout_error_string.restype = ctypes.c_char_p
+            lib.lib.chain_rollout_task.argtypes, lib.lib.chain_rollout_task.restype = [], \
+                ctypes.c_int
+            if lib.lib.chain_rollout_task() != self.task.index:
+                raise RuntimeError(f"{lib.path} was built for task "
+                                   f"{lib.lib.chain_rollout_task()}, not {self.task.index}")
+            self._lib = lib
+        return self._lib
+
+    def _check(self, q0, qd0, mean, noise):
+        nv = self.model.nv
+        args = {"q0": q0, "qd0": qd0, "mean": mean, "noise": noise}
+        return _check_args(args, nv, lambda h: {"q0": (nv,), "qd0": (nv,), "mean": (h, nv)})
+
+    def plain(self, q0, qd0, mean, noise):
+        """The plain PyTorch version (any device)."""
+        self._check(q0, qd0, mean, noise)
+        return rollout_ext_plain(self.model, self.n_substeps, self.task, self.vel_limit,
+                                 self.ulow, self.uhigh, q0, qd0, mean, noise)
+
+    def __call__(self, q0, qd0, mean, noise):
+        args = self._check(q0, qd0, mean, noise)
+        device = noise.device
+        if device.type == "cpu":
+            return rollout_ext_plain(self.model, self.n_substeps, self.task, self.vel_limit,
+                                     self.ulow, self.uhigh, q0, qd0, mean, noise)
+        if device.type != "cuda":
+            raise ValueError(f"no chain-rollout kernel for device {device}")
+        for name, x in args.items():
+            if not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        n, horizon, _ = noise.shape
+        lib = self.library().lib
+        with torch.cuda.device(device):
+            costs = torch.empty((n, horizon), dtype=torch.float32, device=device)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.chain_ext_rollout_launch(_vp(q0), _vp(qd0), _vp(mean), _vp(noise),
+                                              _vp(costs), n, horizon, ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError("ChainExtRollout kernel launch failed: "
+                               + lib.chain_rollout_error_string(rc).decode())
+        type(self).launches += 1
+        return costs
+
+
+def build_chain_ext_rollout(model: ChainModel, n_substeps: int, task: ExtTask,
+                            vel_limit=None, ulow: float = -1.0,
+                            uhigh: float = 1.0) -> ChainExtRollout:
+    """Fused locomotion rollout (see ChainExtRollout): external forces of
+    `task` in every substep, |qd| <= vel_limit [nv] after each control step
+    (None: no limit), the task's step cost. Unactuated dofs take zero mean
+    and noise (gear * 0 = 0, the env's zero-padded control)."""
+    return ChainExtRollout(model, n_substeps, task, vel_limit, ulow, uhigh)

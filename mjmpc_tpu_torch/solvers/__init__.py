@@ -28,13 +28,20 @@ REGISTRY = {
 NOT_PORTED = ("softqmpc", "softq", "random_shooting_nn", "ilqr")
 
 
-def make_solver(name: str, **params):
+def solver_class(name: str):
+    """The registry's class for `name`; NotImplementedError for a
+    controller of the JAX package not ported yet, ValueError for an
+    unknown one."""
     if name in NOT_PORTED:
         raise NotImplementedError(f"controller {name!r} is not ported to PyTorch yet; "
                                   f"ported: {sorted(REGISTRY)}")
     if name not in REGISTRY:
         raise ValueError(f"unknown controller {name!r}; known: {sorted(REGISTRY)}")
-    return REGISTRY[name](**params)
+    return REGISTRY[name]
+
+
+def make_solver(name: str, **params):
+    return solver_class(name)(**params)
 
 
 def make_solve_fn(solver, env, **kwargs):
@@ -55,5 +62,5 @@ __all__ = [
     "GaussianMPC", "GaussianState", "build_solve_fn", "evaluate_episode",
     "build_optimal_value_fn", "guard_finite", "MPPI", "MPPIQ", "RandomShooting",
     "CEM", "DMDMPC", "PFMPC", "PFState", "Reinforce", "ReinforceState", "REGISTRY",
-    "NOT_PORTED", "make_solver", "make_solve_fn",
+    "NOT_PORTED", "solver_class", "make_solver", "make_solve_fn",
 ]

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card (chain rollout, chain rollout with
 observations, closed-loop chain rollout for the reacher and peg tasks,
-filtered noise): each against its plain PyTorch version, their launch
-counts on sync-free solves, and the wrappers' checks.
+filtered noise, the locomotion rollout for the swimmer and the half
+cheetah): each against its plain PyTorch version, their launch counts on
+sync-free solves, and the wrappers' checks.
 
 Needs a CUDA card and skips without one (the kernel has no CPU mode). This
 file imports no jax, so it also runs where jax is not installed:
@@ -12,7 +13,10 @@ Tolerance: atol 5e-5 at (N=37, H=5), the JAX kernel's own tolerance; 1e-3
 at the main path's (N=4096, H=32), where the longer horizon accumulates
 f32 reordering on costs of order 1-10. Noise: atol 1e-4 (identical
 uniforms; libm ulps and the order of sums differ, scaled by the filter's
-gain of about 1.25 and by sqrt(3) for cov 3 I).
+gain of about 1.25 and by sqrt(3) for cov 3 I). Locomotion: the swimmer
+atol 5e-5 at (37, 5) and 1e-3 at its config's (512, 32); the cheetah, whose
+stiff contact (kp 6000, 25 substeps per step) amplifies f32 reordering,
+5e-4 and 1e-2 of max(1, |cost|) at (37, 5) and its config's (512, 16).
 """
 import numpy as np
 import pytest
@@ -20,9 +24,10 @@ import torch
 
 from mjmpc_tpu_torch import envs, solvers
 from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
-from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainObsRollout, ChainRollout,
-                                               build_chain_cl_rollout, build_chain_obs_rollout,
-                                               build_chain_rollout)
+from mjmpc_tpu_torch.envs import half_cheetah, swimmer
+from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout, ChainObsRollout,
+                                               ChainRollout, build_chain_cl_rollout,
+                                               build_chain_obs_rollout, build_chain_rollout)
 from mjmpc_tpu_torch.ops.noise import FilteredNoise
 
 pytestmark = pytest.mark.cuda
@@ -172,3 +177,54 @@ def test_reinforce_solves_launch_the_cl_kernel_without_host_syncs(device, name, 
     after = (ChainClRollout.launches, ChainRollout.launches, ChainObsRollout.launches)
     assert after == (before[0] + 6, before[1], before[2])
     assert bool(torch.isfinite(action).all()) and bool(torch.isfinite(state.fit_error))
+
+
+_LOCO = {"Swimmer-v0": swimmer, "HalfCheetah-v0": half_cheetah}
+
+
+def _loco_inputs(nv, n, h, seed, device):
+    """q0, qd0 * 0.1, mean * 0.3 and noise * 0.5 with the three unactuated
+    base dofs zero, as the envs' fused rollouts pad them."""
+    rng = np.random.default_rng(seed)
+    q0, qd0 = (np.asarray(rng.normal(size=nv) * 0.1, np.float32) for _ in range(2))
+    mean = np.asarray(rng.normal(size=(h, nv)) * 0.3, np.float32)
+    noise = np.asarray(rng.normal(size=(n, h, nv)) * 0.5, np.float32)
+    mean[:, :3], noise[..., :3] = 0.0, 0.0
+    return [torch.as_tensor(a, device=device) for a in (q0, qd0, mean, noise)]
+
+
+@pytest.mark.parametrize("name,n,h,tol", [("Swimmer-v0", 37, 5, 5e-5),
+                                          ("Swimmer-v0", 512, 32, 1e-3),
+                                          ("HalfCheetah-v0", 37, 5, 5e-4),
+                                          ("HalfCheetah-v0", 512, 16, 1e-2)])
+def test_ext_kernel_matches_plain(device, name, n, h, tol):
+    env = envs.make(name, device=device)
+    roll = _LOCO[name].build_rollout(env.params)
+    args = _loco_inputs(env.params.model.nv, n, h, 5, device)
+    before = ChainExtRollout.launches
+    got = roll(*args)
+    assert ChainExtRollout.launches == before + 1
+    want = roll.plain(*args)
+    scale = torch.clamp(want.abs(), min=1.0) if name == "HalfCheetah-v0" else 1.0
+    torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("name", sorted(_LOCO))
+def test_loco_solves_launch_the_ext_kernel_without_host_syncs(device, name):
+    env = envs.make(name, device=device)
+    solver = solvers.MPPI(d_action=env.d_action, horizon=8, num_particles=256, lam=0.01,
+                          init_cov=0.5, step_size=0.55, alpha=1,
+                          filter_coeffs=(0.25, 0.8, 0.0), base_action="repeat", device=device)
+    solve = solvers.make_solve_fn(solver, env)
+    env_state = env.init(env.params, 1)
+    state = solver.init_state(0)
+    before = (ChainExtRollout.launches, ChainRollout.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            action, _, state = solve(env.params, env_state, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (ChainExtRollout.launches, ChainRollout.launches) == (before[0] + 3, before[1])
+    assert bool(torch.isfinite(action).all())
