@@ -10,8 +10,9 @@ exit and no final line:
                library (costs-only, obs-emitting and closed-loop entries),
                the peg task's (the same three entries, peg's site and
                obs/cost), the swimmer's and the half cheetah's (the
-               external-force entry) and the filtered-noise library from
-               csrc/; ptxas register and spill lines.
+               external-force entry), the filtered-noise library and the
+               forest-rollout libraries of pen-v0 and the sawyer peg from
+               csrc/; ptxas register, stack and spill lines.
 3. kernel   -- each kernel against its plain PyTorch version on the card:
                chain and obs rollouts at (N=37, H=5) to atol 5e-5 and at
                the main path's (N=4096, H=32) to max abs error 1e-3 (costs
@@ -56,16 +57,38 @@ exit and no final line:
                harness.config.make_solver_for_env at their full sizes: 3
                chained sync-free MPPI solves each, kernel #5's count rising
                by exactly 3 and every other count by 0, finite actions.
-10. harness -- harness.episode.run_episodes with each locomotion config's
+10. forest_kernel -- the forest rollout (kernel #6) against its plain
+               version: the peg to atol 5e-5 at N=37 H=5 and 1e-3 at its
+               config's N=256 H=16; pen-v0 from a pinch in which every
+               fingertip presses on the pen (so that the costs follow the
+               hand's dynamics through contact) to 1e-4 at N=37 H=5 and,
+               at its mppi block's N=256 H=16 (80 substeps of contact), at
+               least 99% of the costs within 1e-3 and every other one off
+               by a bonus step of the gated pen cost (a signed sum of 5, 10
+               and 50) to within 1e-3; the count of such entries is
+               printed. The plain version with the actions zeroed must
+               fail both pen checks, at N=37 H=5 by more than 10x the
+               tolerance (the check's power against a kernel that ignores
+               the actions).
+11. hand    -- configs/hand/pen-v0.yml and
+               configs/sawyer/sawyer_peg_insertion-v0.yml (mppi) through
+               harness.config.make_solver_for_env at their full sizes: 3
+               chained sync-free solves each, kernel #6's count rising by
+               exactly 3 and every other count by 0, finite actions.
+12. harness -- harness.episode.run_episodes with each locomotion config's
                own solver and with every controller of
-               configs/reacher_7dof-v0.yml, one episode of 10 steps
-               (overridden in memory): finite rewards.
-11. timing  -- read-verified solves/s (each window ends by reading a value
+               configs/reacher_7dof-v0.yml, one episode of 10 steps, and
+               with every controller of configs/hand/pen-v0.yml and the peg
+               config's mppi, one episode of 3 steps (the real pen step is
+               the eager AD engine), all overridden in memory: finite
+               rewards.
+13. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
                for each solver of the zoo, for Reinforce on the reacher
-               and the peg and for MPPI on both locomotion configs; the
-               real env step's ms per control step on both; each kernel
+               and the peg and for MPPI on both locomotion configs and both
+               forest configs; the real env step's ms per control step on
+               the locomotion configs and on pen-v0; each kernel
                and its plain version timed with CUDA events; a per-stage
                breakdown with each noise sampler and of the Reinforce
                solves; a torch.profiler count of kernels and device time
@@ -74,7 +97,8 @@ exit and no final line:
 
 Every launch count is set to 0 just before a path runs and read just after.
 The last lines are the kernels' summary (kernel #5 with the swimmer's
-numbers; its cheetah instance on the `kernel_loco` line before it), the
+numbers, its cheetah instance on the `kernel_loco` line before it; kernel
+#6 with pen-v0's, its peg instance on the `kernel_forest` line), the
 nvidia-smi line and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -113,6 +137,12 @@ LOCO_CONFIGS = {"Swimmer-v0": "configs/Swimmer-v0.yml",
 LOCO_CHECKS = {"Swimmer-v0": ((37, 5, 5e-5, False), (512, 32, 1e-3, False)),
                "HalfCheetah-v0": ((37, 5, 5e-4, True), (512, 16, 1e-2, True))}
 HARNESS_STEPS = 10
+# The forest configs, run as written, at full size (mppi blocks: 8 x 32
+# particles, H=16), and the pen's controllers for the harness phase.
+FOREST_CONFIGS = {"pen-v0": "configs/hand/pen-v0.yml",
+                  "sawyer_peg_insertion-v0": "configs/sawyer/sawyer_peg_insertion-v0.yml"}
+PEN_CONTROLLERS = ("mppi", "mppiq", "pfmpc", "random_shooting", "cem", "dmd")
+PEN_STEPS = 3
 
 
 def emit(phase: str, **fields) -> None:
@@ -156,6 +186,29 @@ def loco_inputs(nv: int, n: int, h: int, seed: int, device):
     noise = np.asarray(rng.normal(size=(n, h, nv)) * 0.5, np.float32)
     mean[:, :3], noise[..., :3] = 0.0, 0.0
     return [torch.as_tensor(a, device=device) for a in (q0, qd0, mean, noise)]
+
+
+def forest_inputs(env, roll, n: int, h: int, seed: int, device):
+    """Kernel #6's inputs: mean * 0.2 and noise * 0.3 as
+    tests/test_pallas_forest.py draws them; for pen-v0 the pinch (every
+    fingertip pressing on the resting pen) with the hand's joints
+    perturbed by U(-0.05, 0.05), for the peg q0, qd0 * 0.1."""
+    import torch
+    from mjmpc_tpu_torch.envs import pen, sawyer_tasks
+    rng = np.random.default_rng(seed)
+    if env.name == "pen-v0":
+        st = env.init(env.params, seed)
+        q0 = pen.pinch_qpos(st.qpos)
+        q0[:24] += torch.as_tensor(rng.uniform(-0.05, 0.05, 24), dtype=torch.float32,
+                                   device=device)
+        head = [q0, st.qvel, pen.pen_extras(env.params, st)]
+    else:
+        head = [torch.as_tensor(np.asarray(rng.normal(size=7) * 0.1, np.float32), device=device)
+                for _ in range(2)] + [sawyer_tasks.peg_extras(env.params)]
+    d = len(roll.act_bodies)
+    return head + [torch.as_tensor(np.asarray(rng.normal(size=shape) * scale, np.float32),
+                                   device=device)
+                   for shape, scale in (((h, d), 0.2), ((n, h, d), 0.3))]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -228,24 +281,26 @@ def main() -> int:
         return 1
     try:
         from mjmpc_tpu_torch import bounds, envs, ops, solvers
-        from mjmpc_tpu_torch.envs import half_cheetah, swimmer
+        from mjmpc_tpu_torch.envs import half_cheetah, pen, sawyer_tasks, swimmer
         from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
         from mjmpc_tpu_torch.harness import config as hconfig
         from mjmpc_tpu_torch.harness.episode import run_episodes
         from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout,
                                                        ChainObsRollout, ChainRollout)
+        from mjmpc_tpu_torch.ops.forest_rollout import ForestRollout, gated_cost_agreement
         from mjmpc_tpu_torch.ops.noise import FilteredNoise
         from mjmpc_tpu_torch.rollout import Trajectories
         from mjmpc_tpu_torch.solvers.reinforce import closed_loop_rollout
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
-    counters = (ChainRollout, ChainObsRollout, ChainClRollout, ChainExtRollout, FilteredNoise)
+    counters = (ChainRollout, ChainObsRollout, ChainClRollout, ChainExtRollout, FilteredNoise,
+                ForestRollout)
 
     def counts():
         return {"chain": ChainRollout.launches, "obs": ChainObsRollout.launches,
                 "cl": ChainClRollout.launches, "ext": ChainExtRollout.launches,
-                "noise": FilteredNoise.launches}
+                "noise": FilteredNoise.launches, "forest": ForestRollout.launches}
 
     # 1. device
     card_name = torch.cuda.get_device_name(0)
@@ -271,18 +326,22 @@ def main() -> int:
     loco_rolls = {name: module.build_rollout(loco_envs[name].params)
                   for name, module in (("Swimmer-v0", swimmer),
                                        ("HalfCheetah-v0", half_cheetah))}
+    forest_envs = {"pen-v0": envs.make("pen-v0", device=device), "sawyer_peg_insertion-v0": peg_env}
+    forest_rolls = {"pen-v0": pen.build_rollout(forest_envs["pen-v0"].params.model),
+                    "sawyer_peg_insertion-v0": sawyer_tasks.build_rollout(peg_model)}
     t0 = time.perf_counter()
-    wrappers = [roll, peg_cl, sampler, *loco_rolls.values()]
+    wrappers = [roll, peg_cl, sampler, *loco_rolls.values(), *forest_rolls.values()]
     with concurrent.futures.ThreadPoolExecutor(len(wrappers)) as pool:
         futures = [pool.submit(w.library) for w in wrappers]
         libs = [f.result() for f in futures]
     for r in (roll_obs, roll_cl, peg_obs):
         r.library()     # the same libraries, loaded
-    for lib, task in zip(libs, ("reacher", "peg", None, "swimmer", "cheetah")):
+    for lib, task in zip(libs, ("reacher", "peg", None, "swimmer", "cheetah", "forest_pen",
+                                "forest_peg")):
         emit("build", task=task, seconds=round(time.perf_counter() - t0, 3),
              nvcc_seconds=round(lib.build_seconds, 3), library=str(lib.path.name),
              ptxas=[ln.strip() for ln in lib.ptxas.splitlines()
-                    if re.search(r"registers|spill|Compiling entry", ln)])
+                    if re.search(r"registers|spill|stack|Compiling entry", ln)])
 
     # 3. each kernel against its plain version, on the card
     errors = {}
@@ -379,7 +438,7 @@ def main() -> int:
         emit(phase, solves=N_SOLVES, launches=got, action=action_host.tolist(),
              step=state.step)
         want = {"chain": N_SOLVES, "obs": 0, "cl": 0, "ext": 0,
-                "noise": N_SOLVES if s.noise_impl == "kernel" else 0}
+                "noise": N_SOLVES if s.noise_impl == "kernel" else 0, "forest": 0}
         if got != want:
             raise RuntimeError(f"{phase}: launches {got}, expected {want}")
 
@@ -421,7 +480,7 @@ def main() -> int:
         zoo_solves[key] = (solve, state)
         emit("zoo", solver=key, solves=ZOO_SOLVES, launches=got, action=action_host.tolist())
         roll_key = "obs" if key == "mppiq_q" else "chain"
-        want = {"chain": 0, "obs": 0, "cl": 0, "ext": 0, "noise": ZOO_SOLVES,
+        want = {"chain": 0, "obs": 0, "cl": 0, "ext": 0, "noise": ZOO_SOLVES, "forest": 0,
                 roll_key: ZOO_SOLVES}
         if got != want:
             raise RuntimeError(f"zoo {key}: launches {got}, expected {want}")
@@ -464,7 +523,8 @@ def main() -> int:
         emit("closed_loop", env=e.name, n=s.num_particles, h=s.horizon, n_iters=s.n_iters,
              baseline=s.baseline_type, solves=ZOO_SOLVES, launches=got,
              action=action_host.tolist(), fit_error=float(state.fit_error), step=state.step)
-        want = {"chain": 0, "obs": 0, "cl": ZOO_SOLVES * s.n_iters, "ext": 0, "noise": 0}
+        want = {"chain": 0, "obs": 0, "cl": ZOO_SOLVES * s.n_iters, "ext": 0, "noise": 0,
+                "forest": 0}
         if got != want:
             raise RuntimeError(f"closed_loop {key}: launches {got}, expected {want}")
     s0 = rf.init_state(0)       # the first reacher solve's step, re-derived
@@ -522,28 +582,91 @@ def main() -> int:
         loco_runs[name] = (solve, s, e, es, state, exp)
         emit("loco", env=name, config=path, n=s.num_particles, h=s.horizon,
              solves=ZOO_SOLVES, launches=got, action=action_host.tolist(), step=state.step)
-        want = {"chain": 0, "obs": 0, "cl": 0, "ext": ZOO_SOLVES, "noise": 0}
+        want = {"chain": 0, "obs": 0, "cl": 0, "ext": ZOO_SOLVES, "noise": 0, "forest": 0}
         if got != want or action_host.shape != (e.d_action,):
             raise RuntimeError(f"loco {name}: launches {got}, expected {want}")
 
-    # 10. the episode runner with each config's own solver(s), 10 steps
+    # 10. kernel #6 against its plain version, both tasks
+    forest_args = {}
+    for name, n, h, tol, seed in (("sawyer_peg_insertion-v0", 37, 5, 5e-5, 20),
+                                  ("sawyer_peg_insertion-v0", 256, 16, 1e-3, 21),
+                                  ("pen-v0", 37, 5, 1e-4, 22), ("pen-v0", 256, 16, None, 23)):
+        r = forest_rolls[name]
+        args = forest_args[(name, n, h)] = forest_inputs(forest_envs[name], r, n, h, seed, device)
+        got, want = r(*args), r.plain(*args)
+        torch.cuda.synchronize()
+        if got.shape != (n, h) or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"forest kernel output bad for {name} at N={n} H={h}")
+        err = float((got - want).abs().max())
+        errors[("forest", name, n, h)] = err
+        fields = dict(env=name, n=n, h=h, max_abs_err=err, costs_min=float(want.min()),
+                      costs_max=float(want.max()))
+
+        def check(costs):
+            """(passes, fields): tol at (37, 5), the gated-cost rule at the
+            config's size."""
+            if tol is not None:
+                return float((costs - want).abs().max()) <= tol, dict(atol=tol)
+            agree = gated_cost_agreement(costs, want, 1e-3)
+            return agree["share_within"] >= 0.99 and agree["other"] == 0, dict(
+                atol=1e-3, share_within=agree["share_within"],
+                entries_off_by_a_bonus_step=agree["bonus_steps"],
+                entries_off_otherwise=agree["other"])
+
+        ok, more = check(got)
+        if name == "pen-v0":     # the check's power: a kernel that ignores the actions fails it
+            zeroed = r.plain(*args[:3], torch.zeros_like(args[3]), torch.zeros_like(args[4]))
+            zeroed_ok, zeroed_fields = check(zeroed)
+            fields.update(zeroed_actions_err=float((zeroed - want).abs().max()),
+                          zeroed_actions=zeroed_fields)
+            if zeroed_ok or (tol is not None and not fields["zeroed_actions_err"] > 10 * tol):
+                raise RuntimeError(f"pen check too weak at N={n} H={h}: {fields}")
+        emit("forest_kernel", **fields, **more)
+        if not ok:
+            raise RuntimeError(f"forest kernel disagrees with its plain version for {name} "
+                               f"at N={n} H={h}: {err}, {more}")
+
+    # 11. the forest configs through harness.config, full size
+    hand_runs, hand_counts = {}, {}
+    for name, path in FOREST_CONFIGS.items():
+        exp = hconfig.load_config(path)
+        e = forest_envs[name]
+        s = hconfig.make_solver_for_env(exp, "mppi", e)
+        es = e.init(e.params, 1)
+        solve = solvers.make_solve_fn(s, e)
+        reset_counts(*counters)
+        action_host, state = sync_free(solve, e, es, s.init_state(0), ZOO_SOLVES)
+        hand_counts[name] = got = counts()
+        hand_runs[name] = (solve, s, e, es, state, exp)
+        emit("hand", env=name, config=path, n=s.num_particles, h=s.horizon, solves=ZOO_SOLVES,
+             launches=got, action=action_host.tolist(), step=state.step)
+        want = {"chain": 0, "obs": 0, "cl": 0, "ext": 0, "noise": 0, "forest": ZOO_SOLVES}
+        if got != want or action_host.shape != (e.d_action,):
+            raise RuntimeError(f"hand {name}: launches {got}, expected {want}")
+
+    # 12. the episode runner with each config's own solver(s)
     reacher_exp = hconfig.load_config("configs/reacher_7dof-v0.yml")
     harness_runs = [(name, "mppi", run[5], run[2]) for name, run in loco_runs.items()]
     harness_runs += [("reacher_7dof-v0", c, reacher_exp, env)
                      for c in ("mppi", "random_shooting", "cem", "dmd", "pfmpc")]
-    for name, controller, exp, e in harness_runs:
+    harness_runs = [run + (HARNESS_STEPS,) for run in harness_runs]
+    pen_exp = hand_runs["pen-v0"][5]
+    harness_runs += [("pen-v0", c, pen_exp, forest_envs["pen-v0"], PEN_STEPS)
+                     for c in PEN_CONTROLLERS]
+    harness_runs.append(("sawyer_peg_insertion-v0", "mppi", hand_runs["sawyer_peg_insertion-v0"][5],
+                         peg_env, PEN_STEPS))
+    for name, controller, exp, e, steps in harness_runs:
         s = hconfig.make_solver_for_env(exp, controller, e)
         t0 = time.perf_counter()
-        out = run_episodes(s, e, n_episodes=1, episode_length=HARNESS_STEPS,
-                           base_seed=exp["seed"])
+        out = run_episodes(s, e, n_episodes=1, episode_length=steps, base_seed=exp["seed"])
         seconds = time.perf_counter() - t0
         emit("harness", env=name, controller=controller, n=s.num_particles, h=s.horizon,
-             steps=HARNESS_STEPS, rewards=out["rewards"][0].tolist(),
+             steps=steps, rewards=out["rewards"][0].tolist(),
              ep_reward=float(out["ep_rewards"][0]), seconds=seconds)
-        if out["rewards"].shape != (1, HARNESS_STEPS) or not np.isfinite(out["rewards"]).all():
+        if out["rewards"].shape != (1, steps) or not np.isfinite(out["rewards"]).all():
             raise RuntimeError(f"harness {name} {controller}: rewards not finite")
 
-    # 11. timing (printed, not asserted)
+    # 13. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
     times = {
         "chain_rollout": (cuda_ms(lambda: roll(*args), 20), cuda_ms(lambda: roll.plain(*args), 2)),
@@ -611,6 +734,28 @@ def main() -> int:
         emit("loco_time", env=name, card=smi, n=s.num_particles, h=s.horizon,
              kernel_ms=loco_times[name][0], plain_ms=loco_times[name][1], solves_per_s=rate,
              windows=windows, env_step_ms=statistics.median(step_ms), env_step_ms_all=step_ms)
+
+    # the forest configs: kernel #6 per call, solves/s, pen's real env step
+    forest_times = {}
+    for name, (solve, s, e, es, state, _) in hand_runs.items():
+        r = forest_rolls[name]
+        args = forest_args[(name, s.num_particles, s.horizon)]
+        forest_times[name] = (cuda_ms(lambda: r(*args), 10), cuda_ms(lambda: r.plain(*args), 1))
+        rate, windows, _ = solves_per_s(solve, e, es, state, 10, 5)
+        fields = {}
+        if name == "pen-v0":
+            step_ms, st = [], es
+            zero = torch.zeros(e.d_action, device=device)
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _, _, _ = e.step(e.params, st, zero)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            fields = dict(env_step_ms=statistics.median(step_ms), env_step_ms_all=step_ms)
+        emit("forest_time", env=name, card=smi, n=s.num_particles, h=s.horizon,
+             kernel_ms=forest_times[name][0], plain_ms=forest_times[name][1], solves_per_s=rate,
+             windows=windows, **fields)
 
     # where a solve's time goes: host clock per stage, synchronised
     for which, s in (("plain_noise", solver), ("kernel_noise", solver_k)):
@@ -712,6 +857,8 @@ def main() -> int:
         profile(solve, e, es, s.init_state(0), solver="reinforce", env=e.name)
     for name, (solve, s, e, es, _, _) in loco_runs.items():
         profile(solve, e, es, s.init_state(0), solver="mppi", env=name)
+    for name, (solve, s, e, es, _, _) in hand_runs.items():
+        profile(solve, e, es, s.init_state(0), solver="mppi", env=name)
 
     # the kernels' summary: launches from the paths' runs, bounds from
     # this run's shapes (the work does not depend on the data)
@@ -754,6 +901,22 @@ def main() -> int:
                  errors[("ext", "Swimmer-v0", *bounds.LOCO_SIZES["Swimmer-v0"])],
                  (swim["bound_ms"], swim["bound_by"])))
     times["chain_ext_rollout"] = loco_times["Swimmer-v0"]
+    for name, r in forest_rolls.items():
+        n, h = bounds.FOREST_SIZES[name]
+        inst = bounds.forest_instance(r, n, h)
+        ptxas = [ln.strip() for ln in r.library().ptxas.splitlines()
+                 if re.search(r"registers|spill|stack", ln)]
+        emit("kernel_forest", name="forest_rollout", env=name, n=n, h=h,
+             launches_per_solve=hand_counts[name]["forest"] / ZOO_SOLVES,
+             max_abs_err=errors[("forest", name, n, h)], ms=forest_times[name][0],
+             plain_ms=forest_times[name][1], bound_ms=inst["bound_ms"], bound_by=inst["bound_by"],
+             operations=inst["operations"], bytes=inst["bytes"], ptxas=ptxas, card=smi)
+    pen_inst = bounds.forest_instance(forest_rolls["pen-v0"], *bounds.FOREST_SIZES["pen-v0"])
+    rows.append(("forest_rollout", "mjmpc_tpu_torch/csrc/forest_rollout.cu",
+                 "mjmpc_tpu/ops/pallas_forest.py:667", hand_counts["pen-v0"]["forest"],
+                 errors[("forest", "pen-v0", *bounds.FOREST_SIZES["pen-v0"])],
+                 (pen_inst["bound_ms"], pen_inst["bound_by"])))
+    times["forest_rollout"] = forest_times["pen-v0"]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times[kname][0],

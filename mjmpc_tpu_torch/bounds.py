@@ -8,13 +8,12 @@ rate, and the operations it does over the card's f32 rate (NVIDIA's data
 sheet for the H100 SXM at 700 W: 3.35 TB/s HBM3, 67 TFLOP/s f32 outside
 the tensor cores). Operations are counted from the kernels' sources (a
 multiply, an add, a compare or a transcendental is one). For the kernels
-not ported yet, the count is of the JAX package's Pallas source, or, where
-the port lacks the model (the hand suite), bytes only: a lower bound all
-the same. This is arithmetic on shapes, not a measurement; it runs
-anywhere. chip_smoke.py reports the same bounds for the ported kernels
-beside their measured times, kernel #4's peg instance at the closed-loop
-peg config's size and kernel #5 at the swimmer's and the half cheetah's
-config sizes.
+not ported yet, the count is of the JAX package's Pallas source. This is
+arithmetic on shapes, not a measurement; it runs anywhere. chip_smoke.py
+reports the same bounds for the ported kernels beside their measured
+times, kernel #4's peg instance at the closed-loop peg config's size,
+kernel #5 at the swimmer's and the half cheetah's config sizes and kernel
+#6 at pen-v0's and the sawyer peg's (N=256, H=16 each).
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ import json
 
 from .ops.chain_rollout import (PEG, REACHER, ChainExtRollout, ext_rollout_bytes,
                                  ext_rollout_flops, rollout_bytes, rollout_flops)
+from .ops.forest_rollout import ForestRollout, forest_rollout_bytes, forest_rollout_flops
 from .ops.noise import noise_flops
 
 PEAK_BYTES_PER_S = 3.35e12
@@ -47,7 +47,8 @@ def chain_work(model, n: int, h: int, mode: str, task=REACHER, n_substeps: int =
 
 def kernel_table(model, n: int = 4096, h: int = 32, n_substeps: int = 2):
     """Bounds of the eight TPU kernels at N particles and H steps; #1-#4 on
-    `model` (the reacher's ChainModel), the others at their envs' widths."""
+    `model` (the reacher's ChainModel), the others at their envs' widths;
+    #6 with pen-v0's task at its config's size (FOREST_SIZES)."""
     nv = model.nv
     d_obs = REACHER.d_obs(nv)
     nh = n * h
@@ -72,10 +73,8 @@ def kernel_table(model, n: int = 4096, h: int = 32, n_substeps: int = 2):
     r5 = ext_instance(_loco_rollout("HalfCheetah-v0"), n, h)
     row(5, "_chain_ext_kernel", r5["widths"], r5["bytes"], r5["operations"],
         r5["operations_from"])
-    # #6: noise [N, H, nu] and mean in, costs out
-    nq = nu = 24
-    row(6, "build_forest_rollout kernel", "pen hand nu=24",
-        F32 * (2 * nq + h * nu + nh * nu + nh), None, "not counted: the port has no model yet")
+    r6 = forest_instance(_forest_rollout("pen-v0"), *FOREST_SIZES["pen-v0"])
+    rows.append(dict(r6, number=6, kernel="build_forest_rollout kernel"))
     # #7: per step the clip (3), angle wrap (3), cost (7), velocity update
     # with sin (7), position (2) and speed clamp (2): pallas_kernels.py:130-144
     row(7, "_pendulum_kernel", "pendulum nu=1", F32 * (2 + h + 2 * nh), 24 * nh,
@@ -127,6 +126,34 @@ def ext_instance(roll: ChainExtRollout, n: int, h: int) -> dict:
                 bound_ms=ms, bound_by=by)
 
 
+# Kernel #6's calls at the configs' sizes: configs/hand/pen-v0.yml's mppi
+# block (8 x 32 particles, H=16; 5 substeps) and
+# configs/sawyer/sawyer_peg_insertion-v0.yml's (8 x 32, H=16; 2 substeps).
+FOREST_SIZES = {"pen-v0": (256, 16), "sawyer_peg_insertion-v0": (256, 16)}
+
+
+def _forest_rollout(name: str) -> ForestRollout:
+    """Kernel #6's wrapper for pen-v0 or the sawyer peg, on the CPU."""
+    from . import envs
+    from .envs import pen, sawyer_tasks
+    module = pen if name == "pen-v0" else sawyer_tasks
+    return module.build_rollout(envs.make(name, device="cpu").params.model)
+
+
+def forest_instance(roll: ForestRollout, n: int, h: int) -> dict:
+    """Kernel #6 for the model and task of `roll` at N particles and H
+    steps, counted by operations from csrc/forest_rollout.cuh."""
+    model, d_act = roll.model, len(roll.act_bodies)
+    n_bytes = forest_rollout_bytes(model, n, h, d_act, roll.task)
+    n_ops = forest_rollout_flops(model, roll.n_substeps, n, h, roll.act_bodies, roll.task)
+    ms, by = bound_ms(n_bytes, n_ops)
+    return dict(number=6, kernel="build_forest_rollout kernel", task=roll.task.name, n=n, h=h,
+                widths=f"{roll.task.name} nq={model.nq} nv={model.nv} dA={d_act} "
+                       f"points={len(roll.task.points)} substeps={roll.n_substeps}",
+                bytes=n_bytes, operations=n_ops, operations_from="csrc/forest_rollout.cuh",
+                bound_ms=ms, bound_by=by)
+
+
 def main() -> None:
     from . import envs
     model = envs.make("reacher_7dof-v0", device="cpu").params.model
@@ -136,6 +163,8 @@ def main() -> None:
                                   .params.model)))
     for name, size in LOCO_SIZES.items():
         print(json.dumps(ext_instance(_loco_rollout(name), *size)))
+    for name, size in FOREST_SIZES.items():
+        print(json.dumps(forest_instance(_forest_rollout(name), *size)))
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@
 Plain functions over numpy arrays, or objects whose fields convert with
 np.asarray (a JAX ChainModel, GaussianState, ReacherState, PegParams,
 PegState, ReinforceState, VFParams, LGPolicyParams, SwimmerParams,
-CheetahParams, SwimmerState or CheetahState does). This
-module never imports jax; tests use it so that both packages compute on
-the same model and state.
+CheetahParams, SwimmerState, CheetahState, PenParams or PenState does;
+models with ball and free joints keep the JAX layout: qpos [nq] with
+quaternions in wxyz order, per-DOF arrays [nv], limits [nq]). This module
+never imports jax; tests use it so that both packages compute on the same
+model and state.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from .engine.chain import ChainModel
 from .envs.half_cheetah import CheetahParams, CheetahState
+from .envs.pen import PenParams, PenState
 from .envs.reacher_7dof import ReacherState
 from .envs.sawyer_tasks import PegParams, PegState
 from .envs.swimmer import _VEL_LIMIT, SwimmerParams, SwimmerState
@@ -117,3 +120,19 @@ def loco_state_from_reference(state, device="cuda"):
     qpos, qvel = _t(state.qpos, device), _t(state.qvel, device)
     cls = SwimmerState if qpos.shape[-1] == 7 else CheetahState
     return cls(qpos=qpos, qvel=qvel)
+
+
+def pen_params_from_reference(params, device="cuda") -> PenParams:
+    """A reference PenParams (the hand and free-pen model, kp, kd, mu, pen
+    radius) as the port's."""
+    return PenParams(model=chain_model_from_reference(params.model, device),
+                     kp=_t(params.kp, device), kd=_t(params.kd, device),
+                     mu=_t(params.mu, device), pen_r=_t(params.pen_r, device))
+
+
+def pen_state_from_reference(state, device="cuda") -> PenState:
+    """A reference PenState (qpos [31] with the pen's quaternion in wxyz
+    order, qvel [30], desired [3], timestep) as the port's."""
+    return PenState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
+                    desired=_t(state.desired, device),
+                    timestep=int(np.asarray(state.timestep)))

@@ -18,6 +18,8 @@
 #include <stddef.h>
 
 #include "chain_model.h"
+#include "peg_cost.cuh"
+#include "vec3.cuh"
 
 #define CHAIN_FN __host__ __device__ __forceinline__
 
@@ -25,39 +27,7 @@ namespace chain_rollout {
 
 using model::N;
 
-struct V3 {
-    float x, y, z;
-};
-
-struct M3 {
-    float m[9];  // row-major
-};
-
-CHAIN_FN V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-CHAIN_FN V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-CHAIN_FN V3 scale(float s, V3 a) { return {s * a.x, s * a.y, s * a.z}; }
-CHAIN_FN float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-
-CHAIN_FN V3 cross(V3 a, V3 b) {
-    return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-
-CHAIN_FN V3 mv(const M3& r, V3 v) {
-    return {r.m[0] * v.x + r.m[1] * v.y + r.m[2] * v.z,
-            r.m[3] * v.x + r.m[4] * v.y + r.m[5] * v.z,
-            r.m[6] * v.x + r.m[7] * v.y + r.m[8] * v.z};
-}
-
-CHAIN_FN M3 mm(const M3& a, const M3& b) {
-    M3 out;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-            out.m[3 * i + j] = a.m[3 * i] * b.m[j] + a.m[3 * i + 1] * b.m[3 + j]
-                             + a.m[3 * i + 2] * b.m[6 + j];
-    return out;
-}
+using namespace vec3;
 
 CHAIN_FN V3 axis_of(int i) {
     return {model::axis(i, 0), model::axis(i, 1), model::axis(i, 2)};
@@ -82,15 +52,7 @@ CHAIN_FN M3 world_inertia(const M3& r, int i) {
     M3 inertia;
 #pragma unroll
     for (int k = 0; k < 9; ++k) inertia.m[k] = model::inertia(i, k);
-    const M3 ri = mm(r, inertia);
-    M3 out;
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int b = 0; b < 3; ++b)
-            out.m[3 * a + b] = ri.m[3 * a] * r.m[3 * b] + ri.m[3 * a + 1] * r.m[3 * b + 1]
-                             + ri.m[3 * a + 2] * r.m[3 * b + 2];
-    return out;
+    return rotate_inertia(r, inertia);
 }
 
 // Body frames (rotation, origin) and world DOF axes. A scalar joint's DOF
@@ -347,22 +309,9 @@ struct Peg {
     static constexpr int N_EXTRAS = 10;
     static constexpr int D_OBS = 2 * N + 5;
 
-    struct Extras {
-        V3 entry, axis;
-        float depth;
-        V3 bias;
-    };
+    using Extras = peg::Extras;
 
-    static CHAIN_FN Extras load(const float* __restrict__ e) {
-        return {{e[0], e[1], e[2]}, {e[3], e[4], e[5]}, e[6], {e[7], e[8], e[9]}};
-    }
-
-    static CHAIN_FN void sensed(V3 tip, const Extras& ex, float& depth, float& lateral) {
-        const V3 rel = sub(tip, add(ex.entry, ex.bias));
-        depth = dot(rel, ex.axis);
-        const V3 off = sub(rel, scale(depth, ex.axis));
-        lateral = sqrtf(dot(off, off) + 1e-12f);
-    }
+    static CHAIN_FN Extras load(const float* __restrict__ e) { return peg::load(e); }
 
     template <class Sink>
     static CHAIN_FN void obs(const Frames& f, const float (&q)[N], const float (&qd)[N],
@@ -373,7 +322,7 @@ struct Peg {
         for (int i = 0; i < N; ++i) sink(N + i, qd[i]);
         const V3 tip = site_of(f);
         float depth, lateral;
-        sensed(tip, ex, depth, lateral);
+        peg::sensed(tip, ex, depth, lateral);
         sink(2 * N + 0, tip.x - ex.entry.x);
         sink(2 * N + 1, tip.y - ex.entry.y);
         sink(2 * N + 2, tip.z - ex.entry.z);
@@ -382,12 +331,7 @@ struct Peg {
     }
 
     static CHAIN_FN float cost(const Frames& f, const Extras& ex) {
-        const V3 tip = site_of(f);
-        float depth, lateral;
-        sensed(tip, ex, depth, lateral);
-        const V3 d = sub(tip, add(ex.entry, scale(ex.depth, ex.axis)));
-        const float inserted = fminf(fmaxf(depth, 0.0f), ex.depth) / fmaxf(ex.depth, 1e-6f);
-        return sqrtf(dot(d, d) + 1e-12f) + 5.0f * lateral * inserted - inserted;
+        return peg::cost(site_of(f), ex);
     }
 };
 

@@ -10,7 +10,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from . import half_cheetah, reacher_7dof, sawyer_tasks, swimmer
+from . import half_cheetah, pen, reacher_7dof, sawyer_tasks, swimmer
 from .base import Env
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {
@@ -20,6 +20,7 @@ _REGISTRY: Dict[str, Callable[..., Env]] = {
     "sawyer_peg_insertion-v1": sawyer_tasks.make_peg_insertion_v1,
     "Swimmer-v0": swimmer.make,
     "HalfCheetah-v0": half_cheetah.make,
+    "pen-v0": pen.make,
 }
 
 _CACHE: Dict[Tuple[str, str], Env] = {}

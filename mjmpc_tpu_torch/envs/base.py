@@ -44,9 +44,11 @@ class Env:
     max_episode_steps: int = 1000
     # Optional fused rollout: (params, state, mean [H, dA], noise [N, H, dA])
     # -> costs [N, H], equal to the costs of rollout_open_loop but computed
-    # by one kernel (ops/chain_rollout.py). Model constants are baked at
-    # build time, so planning against other params must bypass it
-    # (build_solve_fn's `fused` flag).
+    # by one kernel (ops/chain_rollout.py, ops/forest_rollout.py). Model
+    # constants are baked at build time, so planning against other params
+    # must bypass it (build_solve_fn's `fused` flag), except params the
+    # kernel lists in its `dynamic_fields` attribute, which it reads at
+    # call time (harness/episode.py _fused_mode).
     fused_rollout: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
                                      torch.Tensor]] = None
     # Optional fused rollout with observations: (params, state, mean [H, dA],

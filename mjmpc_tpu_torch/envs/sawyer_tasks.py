@@ -16,10 +16,10 @@ arm with the site moved to the tip of a wrist-mounted peg
 
 Fused rollouts: the closed-loop-linear kernel (Reinforce) and the
 open-loop kernel with observations, both with the peg task
-(ops/chain_rollout.py). The costs-only open-loop slot stays empty: in the
-JAX package it is the forest kernel (ops/pallas_forest.py), which the port
-does not have yet (ROADMAP Queue 2 #6). The pusher and door tasks need
-contact and wait for the same kernel.
+(ops/chain_rollout.py); the costs-only open-loop slot is the forest kernel
+(ops/forest_rollout.py, kernel #6) with the peg task: the arm alone, no
+contact, the same peg cost. The pusher and door tasks need contact and
+wait for further tasks of the forest kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import torch
 
 from ..engine import chain as rb
 from ..ops.chain_rollout import build_chain_cl_rollout, build_chain_obs_rollout
+from ..ops.forest_rollout import ForestRollout, build_forest_rollout, peg_task
 from .base import Env
 from .reacher_7dof import _BODIES as _ARM_BODIES
 from .reacher_7dof import _DT, _FRAME_SKIP
@@ -107,6 +108,12 @@ def peg_extras(params: PegParams) -> torch.Tensor:
                       params.sensor_bias])
 
 
+def build_rollout(model: rb.ChainModel) -> ForestRollout:
+    """Kernel #6 with the peg task: the 7-joint arm, actions on every
+    joint, 2 substeps per control step, the peg cost of the site."""
+    return build_forest_rollout(model, _FRAME_SKIP, list(range(_N_ARM)), peg_task())
+
+
 def make_peg_insertion(device="cuda") -> Env:
     """sawyer_peg_insertion-v0 (max 100 steps)."""
     device = torch.device(device)
@@ -116,6 +123,10 @@ def make_peg_insertion(device="cuda") -> Env:
                        hole_depth=t(_HOLE_DEPTH), sensor_bias=torch.zeros(3, device=device))
     roll_cl = build_chain_cl_rollout(model, n_substeps=_FRAME_SKIP, task="peg")
     roll_obs = build_chain_obs_rollout(model, n_substeps=_FRAME_SKIP, task="peg")
+    roll = build_rollout(model)
+
+    def fused(p: PegParams, state: PegState, mean, noise):
+        return roll(state.qpos, state.qvel, peg_extras(p), mean, noise)
 
     def fused_cl(p: PegParams, state: PegState, weights, noise):
         return roll_cl(state.qpos, state.qvel, peg_extras(p), weights, noise)
@@ -129,7 +140,7 @@ def make_peg_insertion(device="cuda") -> Env:
         action_highs=torch.full((_N_ARM,), 1.0, device=device),
         params=params, init=_peg_init, step=_step, observe=_observe,
         device=device, success=_success, max_episode_steps=100,
-        fused_rollout=None,   # the forest kernel, ROADMAP Queue 2 #6
+        fused_rollout=fused,
         fused_cl_rollout=fused_cl, fused_obs_rollout=fused_obs)
 
 

@@ -74,13 +74,24 @@ def build_episode_fn(solver, env: Env, episode_length: int, sim_env: Optional[En
 
 
 def _fused_mode(plan_env: Env, sim_params):
-    """Whether the fused rollout may plan against `sim_params`: the kernels
-    bake the env's build-time model constants, so only the env's own params
-    keep the fused path ("auto"); any other params take the general rollout
-    (False). The JAX package also keeps the fused path for params that
-    differ only in a kernel's `dynamic_fields`; no ported kernel has any
-    (they come with envs/randomize.py)."""
-    return "auto" if sim_params is plan_env.params else False
+    """Whether the fused rollout may plan against `sim_params`. A kernel
+    bakes the env's build-time model constants, but the params a kernel
+    declares in its `dynamic_fields` it reads at call time (through its
+    extras): planning against params that differ from the env's own only
+    in those fields (pen's contact gains and radius) keeps the fused path
+    ("auto"); any other difference (a perturbed model, other drag
+    coefficients) takes the general rollout (False)."""
+    base = plan_env.params
+    if sim_params is base:
+        return "auto"
+    kernel = plan_env.fused_rollout
+    dynamic = getattr(kernel, "dynamic_fields", ()) if kernel is not None else ()
+    if not dynamic or type(sim_params) is not type(base) or not dataclasses.is_dataclass(base):
+        return False
+    for f in dataclasses.fields(base):
+        if f.name not in dynamic and getattr(sim_params, f.name) is not getattr(base, f.name):
+            return False
+    return "auto"
 
 
 def _stack_states(states):

@@ -1,0 +1,897 @@
+"""The fused rollout of a forest with contact: kernel wrapper and its plain
+PyTorch version.
+
+Counterpart of mjmpc_tpu/ops/pallas_forest.py build_forest_rollout: a
+kinematic FOREST of hinge/slide trees (the hand's digits hanging from the
+wrist, an arm) plus free rigid bodies (the pen) whose only coupling to
+the trees is the explicit contact force, rolled out over N particles and
+H control steps in one kernel (csrc/forest_rollout.cu, one thread per
+particle; model, topology and task baked into a header generated here).
+
+Semantics, for every particle b and step t (identical to the Pallas
+builder):
+- u = clip(mean[t] + noise[b, t]) on the bodies `act_bodies` (the action
+  layout), zero on every other dof;
+- n_substeps semi-implicit Euler substeps, each:
+  * FK over the forest;
+  * every contact point's world position and velocity (scalar joints:
+    v = sum_d qd_d a_d x (p - o_d) for a hinge, qd_d a_d for a slide;
+    free body: v + R (w x l)); the task's force law gives a world force
+    per point; the forces scatter through the same point Jacobians
+    (free body: f onto the linear dofs and l x R^T f onto the angular);
+  * each scalar tree: Jacobian-composed mass matrix with armature +
+    dt*damping on the diagonal, the zero-qdd RNEA bias, the
+    ancestor-sparse Cholesky solve of M qdd = gear*u - bias - damping*qd -
+    stiffness*q + tau - frictionloss*tanh(50 qd), then qd += dt qdd,
+    q += dt qd and the joint-limit clamp (qd zeroed where clamped);
+  * each free body: the Euler equations in (world-linear, body-angular)
+    coordinates, a decoupled 3x3 solve when its com is at the joint
+    origin, the coupled symmetric 6x6 solve otherwise (an offset com);
+    then v += dt a, w += dt alpha, p += dt v, quat <- quat exp(dt w / 2),
+    renormalised;
+- cost[b, t] = the task's cost of the post-step state.
+
+The mass matrix of a forest is block-diagonal (one block per tree, a free
+body's block constant in body coordinates), and a tree's block ordered
+ancestors-first factorises with no fill-in outside ancestor pairs, so the
+solve costs O(sum of path lengths squared), not O(nv^3).
+
+Tasks (ForestTask; `extras` carries their call-time data):
+- pen (envs/pen.py): extras = [desired axis 3, kp, kd, mu, pen radius];
+  12 contact points; cost = -the pen reward.
+- peg (envs/sawyer_tasks.py): extras = [hole entry 3, hole axis 3, hole
+  depth, sensor bias 3]; no contact; cost = the depth-progress insertion
+  cost, ops/chain_rollout.py's _peg_cost (shared with the chain kernels'
+  peg task, so the three peg planners cannot drift apart).
+- ground spheres: spheres on bodies against the plane z = 0, extras = [kp,
+  kd, mu, target 3]; cost = |site - target|. A small general task (the
+  tests' forest with a coupled free body).
+
+The wrapper runs the plain version for CPU tensors only; for CUDA tensors
+it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..engine import chain
+from ..engine.chain import ChainModel
+from ..envs import contact
+from ..kernels import build
+from .chain_rollout import _check_args, _f, _peg_cost, _vp
+
+HINGE, SLIDE, FREE = 0, 1, 2
+_F32 = np.float32
+
+
+# ---------------------------------------------------------------------------
+# Model constants: the forest's topology and the per-body data, in f32
+# ---------------------------------------------------------------------------
+
+def forest_consts(model: ChainModel) -> dict:
+    """The model's constants as the kernel bakes them, with the forest's
+    topology: trees of scalar bodies and free roots. Raises ValueError for
+    what the kernel does not take: ball joints, a free body that is not a
+    root or has children, a parent listed after its child."""
+    types = list(model.joint_types)
+    parent = [int(p) for p in model.parent]
+    n = len(types)
+    jtype = []
+    for i, t in enumerate(types):
+        if parent[i] >= i:
+            raise ValueError(f"body {i}'s parent {parent[i]} must come before it")
+        if t == "hinge":
+            jtype.append(HINGE)
+        elif t == "slide":
+            jtype.append(SLIDE)
+        elif t == "free":
+            if parent[i] >= 0:
+                raise ValueError("free bodies must be forest roots")
+            if any(parent[k] == i for k in range(n)):
+                raise ValueError("free bodies must be childless")
+            jtype.append(FREE)
+        else:
+            raise ValueError(f"forest rollout: unsupported joint type {t!r}")
+    trees: List[List[int]] = []
+    tree_of = [-1] * n
+    for i in range(n):
+        if jtype[i] == FREE:
+            continue
+        if parent[i] < 0:
+            tree_of[i] = len(trees)
+            trees.append([i])
+        else:
+            tree_of[i] = tree_of[parent[i]]
+            trees[tree_of[i]].append(i)
+    npf = lambda x: x.detach().cpu().numpy().astype(_F32)
+    c = dict(n=n, parent=parent, jtype=jtype, trees=trees, nq=model.nq, nv=model.nv,
+             qoff=list(model.q_offsets), voff=list(model.v_offsets),
+             free=[i for i in range(n) if jtype[i] == FREE],
+             axis=npf(model.joint_axis), body_pos=npf(model.body_pos), mass=npf(model.mass),
+             com=npf(model.com), inertia=npf(model.inertia).reshape(n, 9),
+             armature=npf(model.armature), damping=npf(model.damping),
+             frictionloss=npf(model.frictionloss), stiffness=npf(model.stiffness),
+             gear=npf(model.gear), qlow=npf(model.qpos_low), qhigh=npf(model.qpos_high),
+             gravity=npf(model.gravity), site_pos=npf(model.site_pos),
+             site_body=int(model.site_body), dt=_F32(model.dt))
+    # anc[i, j]: body j is on body i's root path (i included)
+    c["anc"] = np.asarray(model.ancestor_mask())[:, list(model.v_offsets)] > 0
+    dt = c["dt"]
+    # per scalar body (indexed by body): armature + dt*damping, in f32 as the
+    # kernel's constant folding computes it
+    c["reg"] = np.zeros(n, _F32)
+    for i in range(n):
+        if jtype[i] != FREE:
+            vi = c["voff"][i]
+            c["reg"][i] = c["armature"][vi] + dt * c["damping"][vi]
+    c["free_consts"] = {i: _free_body_consts(c, i) for i in c["free"]}
+    return c
+
+
+def _free_body_consts(c: dict, i: int) -> dict:
+    """A free body's constants in f32: regularisers, mass * g, the
+    decoupled branch's 1/(m + reg) and the Cholesky factor of I_c + reg I,
+    the coupled branch's I_o = I_c - m [c]x [c]x and -m [c]x."""
+    vi = c["voff"][i]
+    dt, mass = c["dt"], c["mass"][i]
+    reg_l = c["armature"][vi] + dt * c["damping"][vi]
+    reg_a = c["armature"][vi + 3] + dt * c["damping"][vi + 3]
+    i_c = c["inertia"][i].reshape(3, 3)
+    com = c["com"][i]
+    out = dict(reg_l=reg_l, reg_a=reg_a, damp_l=c["damping"][vi], damp_a=c["damping"][vi + 3],
+               mg=(mass * c["gravity"]).astype(_F32), inv_ml=_F32(1.0) / (mass + reg_l),
+               m_reg_l=_F32(mass + reg_l), coupled=bool(np.abs(com.astype(np.float64)).max() >= 1e-9))
+    m = i_c.copy()
+    for k in range(3):
+        m[k, k] = m[k, k] + reg_a
+    l00 = np.sqrt(m[0, 0])
+    l10, l20 = m[1, 0] / l00, m[2, 0] / l00
+    l11 = np.sqrt(m[1, 1] - l10 * l10)
+    l21 = (m[2, 1] - l20 * l10) / l11
+    l22 = np.sqrt(m[2, 2] - l20 * l20 - l21 * l21)
+    out["chol3"] = np.asarray([l00, l10, l20, l11, l21, l22], _F32)
+    c64 = com.astype(np.float64)
+    skew = np.array([[0, -c64[2], c64[1]], [c64[2], 0, -c64[0]], [-c64[1], c64[0], 0]])
+    out["i_o"] = np.asarray(i_c.astype(np.float64) - float(mass) * skew @ skew, _F32)
+    out["mskew"] = np.asarray(-float(mass) * skew, _F32)
+    return out
+
+
+def _ancestors(c: dict, i: int) -> List[int]:
+    """Body i's ancestors, root first, i excluded."""
+    out, k = [], c["parent"][i]
+    while k >= 0:
+        out.append(k)
+        k = c["parent"][k]
+    return out[::-1]
+
+
+def _table(name: str, ctype: str, values, fmt=None) -> str:
+    """A table of the generated header: a __constant__ copy for the card,
+    a constexpr copy for the host, and the accessor name(i, ...) that reads
+    the right one (FOREST_T), so the kernel can index it at run time."""
+    fmt = fmt or ((lambda v: str(int(v))) if ctype == "int" else _f)
+    arr = np.asarray(values)
+    dims = "".join(f"[{d}]" for d in arr.shape)
+    idx = ", ".join(f"int i{k}" for k in range(arr.ndim))
+    sub = "".join(f"[i{k}]" for k in range(arr.ndim))
+
+    def init(a):
+        return fmt(a) if a.ndim == 0 else "{" + ", ".join(init(x) for x in a) + "}"
+
+    return (f"__constant__ {ctype} d_{name}{dims} = {init(arr)};\n"
+            f"constexpr {ctype} h_{name}{dims} = {init(arr)};\n"
+            f"__host__ __device__ inline {ctype} {name}({idx}) "
+            f"{{ return FOREST_T({name}){sub}; }}\n")
+
+
+# ---------------------------------------------------------------------------
+# Tasks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ForestTask:
+    """A task of the forest kernel: its contact points, force law, cost and
+    extras layout (plain version), the header's TASK and constants, and
+    its operation counts as csrc/forest_rollout.cuh computes them."""
+    name: str
+    index: int                        # TASK in the generated header
+    n_extras: int
+    points: Tuple[Tuple[int, Tuple[float, float, float]], ...]   # (body, local point)
+    forces: Optional[Callable]        # (pos [N, K, 3], vel [N, K, 3], extras) -> [N, K, 3]
+    cost: Callable                    # (model, q, qd, rots, poss, extras) -> [N]
+    header: Tuple[str, ...] = ()      # lines of the task's namespace
+    force_ops: int = 0                # per substep
+    cost_ops: int = 0                 # per control step
+    # the optional joint-torque hook, (q, qd, extras, (rots, poss, axes)) ->
+    # {scalar body: [N]} added to the joints' generalized forces each
+    # substep (no task of the port has one yet)
+    joint_torque: Optional[Callable] = None
+
+
+def pen_task() -> ForestTask:
+    """pen-v0's task: the 12 contact points and force law of envs/pen.py's
+    pen_forces, extras [desired 3, kp, kd, mu, pen radius], cost = -pen
+    reward of the pen body's centre and long axis."""
+    from ..envs import pen
+
+    def forces(pos, vel, extras):
+        return pen.pen_forces(pos, vel, extras[3], extras[4], extras[5], extras[6])
+
+    def cost(model, q, qd, rots, poss, extras):
+        return -pen.pen_reward(poss[:, pen.PEN_BODY], rots[:, pen.PEN_BODY, :, 0], extras[0:3])
+
+    header = (
+        f"constexpr int PEN_BODY = {pen.PEN_BODY};",
+        f"constexpr int N_TIPS = {pen.N_TIPS};",
+        f"constexpr float RIDGE_R = {_f(pen.RIDGE_R)};",
+        _table("ridge_a", "float", pen.RIDGE_A),
+        _table("ridge_b", "float", pen.RIDGE_B),
+        _table("desired_pos", "float", pen.DESIRED_POS),
+        _table("tip_radius", "float", pen.C_RADII),
+    )
+    points = tuple((int(b), tuple(float(x) for x in p))
+                   for b, p in zip(pen.C_BODIES, pen.C_POINTS))
+    # counted from forest_rollout.cuh as written: a sphere-plane force per
+    # capsule end, the ridge's capsule force and its split (13); per tip a
+    # sphere-segment force, its split onto the ends (13) and a sphere-plane
+    # force with the sum (3). The cost: |diff| (9), orien (5), the
+    # horizontal norm (5), the compares and the reward (11).
+    force_ops = (2 * _FORCE_PLANE + _CAPSULE + 13
+                 + pen.N_TIPS * (_SPHERE_SEG + 13 + _FORCE_PLANE + 3))
+    return ForestTask("pen", 0, 7, points, forces, cost, header, force_ops, 30)
+
+
+def peg_task() -> ForestTask:
+    """The peg-insertion task: no contact, extras [hole entry 3, hole axis
+    3, hole depth, sensor bias 3], the chain kernels' peg cost of the site
+    (the peg's tip)."""
+    def cost(model, q, qd, rots, poss, extras):
+        return _peg_cost(model, (rots, poss, None, None), extras)
+
+    # site (18) and the peg cost of csrc/peg_cost.cuh (48)
+    return ForestTask("peg", 1, 10, (), None, cost, (), 0, 66)
+
+
+def ground_spheres_task(points: Sequence[Tuple[int, Sequence[float]]],
+                        radii: Sequence[float]) -> ForestTask:
+    """Spheres of `radii` at body-local `points` against the plane z = 0,
+    extras [kp, kd, mu, target 3]; cost = |site - target|."""
+    radii_f32 = np.asarray(radii, _F32)
+
+    def forces(pos, vel, extras):
+        r = torch.as_tensor(radii_f32, device=pos.device)
+        return contact.sphere_plane_force(pos, vel, r, extras[0], extras[1], extras[2])
+
+    def cost(model, q, qd, rots, poss, extras):
+        sb = model.site_body
+        site = poss[:, sb] + rots[:, sb] @ model.site_pos
+        return torch.linalg.vector_norm(site - extras[3:6], dim=-1)
+
+    pts = tuple((int(b), tuple(float(x) for x in p)) for b, p in points)
+    header = (_table("sphere_radius", "float", radii_f32),)
+    # a sphere-plane force per point; the cost: the site (18) and |d| (9)
+    return ForestTask("ground_spheres", 2, 6, pts, forces, cost, header,
+                      len(pts) * _FORCE_PLANE, 27)
+
+
+# Operation counts of csrc/forest_rollout.cuh's contact primitives as
+# written (a multiply, an add, a compare, a division or a transcendental is
+# one): force_along, penalty_force, sphere_plane_force, sphere_segment_force
+# (with closest_on_segment) and capsule_capsule_force (with
+# segment_segment_closest).
+_FORCE_ALONG = 37
+_PENALTY = 10 + _FORCE_ALONG
+_FORCE_PLANE = 2 + _FORCE_ALONG
+_SPHERE_SEG = 26 + 24 + _PENALTY
+_CAPSULE = 68 + 21 + _PENALTY
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version, batched over particles: q [N, nq], qd [N, nv]
+# ---------------------------------------------------------------------------
+
+def _cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def _dot(a, b):
+    return torch.sum(a * b, -1)
+
+
+def _mv(r, v):
+    return (r @ v[..., None])[..., 0]
+
+
+def _rodrigues(axis, ang):
+    """Rotation [N, 3, 3] about the constant unit axis (3 floats) by ang
+    [N], the kernel's closed form."""
+    c, s = torch.cos(ang), torch.sin(ang)
+    x, y, z = (float(a) for a in axis)
+    one_c = 1.0 - c
+    return torch.stack([c + x * x * one_c, x * y * one_c - z * s, x * z * one_c + y * s,
+                        y * x * one_c + z * s, c + y * y * one_c, y * z * one_c - x * s,
+                        z * x * one_c - y * s, z * y * one_c + x * s, c + z * z * one_c],
+                       -1).reshape(ang.shape + (3, 3))
+
+
+def _quat_to_mat(w, x, y, z):
+    """Rotations [N, 3, 3] of unit quaternions (no renormalisation: the
+    integrator keeps them unit)."""
+    return torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                       -1).reshape(w.shape + (3, 3))
+
+
+def _fk(c: dict, q):
+    """(rots [N, n, 3, 3], poss [N, n, 3], axes): FK over the forest; axes[i]
+    [N, 3] is scalar body i's world DOF axis (None for free bodies)."""
+    n = q.shape[0]
+    rots, poss, axes = [], [], []
+    for i in range(c["n"]):
+        pi, jt = c["parent"][i], c["jtype"][i]
+        bp = torch.as_tensor(c["body_pos"][i], device=q.device)
+        axis = c["axis"][i]
+        if jt == FREE:
+            qi = c["qoff"][i]
+            p = bp + q[:, qi:qi + 3]
+            r = _quat_to_mat(*(q[:, qi + 3 + k] for k in range(4)))
+            a = None
+        else:
+            qs = q[:, c["qoff"][i]]
+            if pi < 0:
+                base, r_p = bp.expand(n, 3), None
+            else:
+                base, r_p = poss[pi] + _mv(rots[pi], bp), rots[pi]
+            ax = torch.as_tensor(axis, device=q.device)
+            if jt == HINGE:
+                rod = _rodrigues(axis, qs)
+                r = rod if r_p is None else r_p @ rod
+                p = base
+                a = _mv(r, ax)
+            else:
+                a = ax.expand(n, 3) if r_p is None else _mv(r_p, ax)
+                r = torch.eye(3, device=q.device).expand(n, 3, 3) if r_p is None else r_p
+                p = base + qs[:, None] * a
+        rots.append(r)
+        poss.append(p)
+        axes.append(a)
+    return torch.stack(rots, 1), torch.stack(poss, 1), axes
+
+
+def _point_jacobian(c: dict, b: int, p, rots_l, poss_l, axes):
+    """{d: column [N, 3]} of the world point p [N, 3] on scalar body b:
+    a_d x (p - o_d) for a hinge ancestor d, a_d for a slide."""
+    cols = {}
+    for d in _ancestors(c, b) + [b]:
+        cols[d] = _cross(axes[d], p - poss_l[d]) if c["jtype"][d] == HINGE else axes[d]
+    return cols
+
+
+def _contact(c: dict, task: ForestTask, q, qd, rots, poss, axes, extras, tau):
+    """Adds the generalized contact forces of the task's points to tau
+    [N, nv]."""
+    dev = q.device
+    rots_l, poss_l = rots.unbind(1), poss.unbind(1)
+    pos, vel, jacs = [], [], []
+    for b, local in task.points:
+        l = torch.as_tensor(np.asarray(local, _F32), device=dev)
+        p = poss_l[b] + _mv(rots_l[b], l)
+        if c["jtype"][b] == FREE:
+            vi = c["voff"][b]
+            v = qd[:, vi:vi + 3] + _mv(rots_l[b], _cross(qd[:, vi + 3:vi + 6], l.expand_as(p)))
+            jacs.append(None)
+        else:
+            cols = _point_jacobian(c, b, p, rots_l, poss_l, axes)
+            v = torch.zeros_like(p)
+            for d, col in cols.items():
+                v = v + qd[:, c["voff"][d], None] * col
+            jacs.append(cols)
+        pos.append(p)
+        vel.append(v)
+    forces = task.forces(torch.stack(pos, 1), torch.stack(vel, 1), extras).unbind(1)
+    for (b, local), f, cols in zip(task.points, forces, jacs):
+        if cols is None:
+            vi = c["voff"][b]
+            l = torch.as_tensor(np.asarray(local, _F32), device=dev).expand_as(f)
+            rtf = (rots_l[b].transpose(-1, -2) @ f[..., None])[..., 0]
+            tau[:, vi:vi + 3] = tau[:, vi:vi + 3] + f
+            tau[:, vi + 3:vi + 6] = tau[:, vi + 3:vi + 6] + _cross(l, rtf)
+        else:
+            for d, col in cols.items():
+                vd = c["voff"][d]
+                tau[:, vd] = tau[:, vd] + _dot(col, f)
+
+
+def _tree_mass_and_bias(c: dict, tree, rots_l, poss_l, axes, qd):
+    """({(a, b): [N]} upper-triangle mass entries over ancestor pairs, a <=
+    b, and {i: [N]} RNEA bias at zero qdd) of one scalar tree."""
+    dev = qd.device
+    g = torch.as_tensor(c["gravity"], device=dev)
+    m_out, iws, rcs = {}, {}, {}
+    for i in tree:
+        com = torch.as_tensor(c["com"][i], device=dev)
+        inertia = torch.as_tensor(c["inertia"][i].reshape(3, 3), device=dev)
+        rcs[i] = _mv(rots_l[i], com)
+        ci = poss_l[i] + rcs[i]
+        iw = rots_l[i] @ inertia @ rots_l[i].transpose(-1, -2)
+        iws[i] = iw
+        dofs = _ancestors(c, i) + [i]
+        hinge = [c["jtype"][d] == HINGE for d in dofs]
+        jv = torch.stack([_cross(axes[d], ci - poss_l[d]) if h else axes[d]
+                          for d, h in zip(dofs, hinge)], 1)                  # [N, k, 3]
+        mass = float(c["mass"][i])
+        block = jv @ (mass * jv).transpose(-1, -2)                           # [N, k, k]
+        if any(hinge):
+            jw = torch.stack([axes[d] if h else torch.zeros_like(axes[d])
+                              for d, h in zip(dofs, hinge)], 1)
+            block = block + jw @ (iw @ jw.transpose(-1, -2))
+        for ai, a in enumerate(dofs):
+            for bi in range(ai, len(dofs)):
+                key = (a, dofs[bi])
+                m_out[key] = m_out[key] + block[:, ai, bi] if key in m_out else block[:, ai, bi]
+    zero = torch.zeros_like(poss_l[tree[0]])
+    w, dw, ao, fc, nc = {}, {}, {}, {}, {}
+    for i in tree:
+        pi = c["parent"][i]
+        wp, dwp, ap = (w[pi], dw[pi], ao[pi]) if pi >= 0 else (zero, zero, zero)
+        r = poss_l[i] - (poss_l[pi] if pi >= 0 else 0.0)
+        a = qd[:, c["voff"][i], None] * axes[i]
+        wj, vj = (a, zero) if c["jtype"][i] == HINGE else (zero, a)
+        w[i] = wp + wj
+        dw[i] = dwp + _cross(wp, wj)
+        ao[i] = (ap + _cross(dwp, r)) + (_cross(wp, _cross(wp, r)) + 2.0 * _cross(wp, vj))
+        acc_c = ao[i] + (_cross(dw[i], rcs[i]) + _cross(w[i], _cross(w[i], rcs[i])))
+        fc[i] = float(c["mass"][i]) * (acc_c - g)
+        nc[i] = _mv(iws[i], dw[i]) + _cross(w[i], _mv(iws[i], w[i]))
+    bias = {}
+    fa = {i: zero for i in tree}
+    na = {i: zero for i in tree}
+    for i in reversed(tree):
+        pi = c["parent"][i]
+        f = fc[i] + fa[i]
+        nmom = (nc[i] + _cross(rcs[i], fc[i])) + na[i]
+        bias[i] = _dot(axes[i], nmom) if c["jtype"][i] == HINGE else _dot(axes[i], f)
+        if pi >= 0:
+            fa[pi] = fa[pi] + f
+            na[pi] = na[pi] + (nmom + _cross(poss_l[i] - poss_l[pi], f))
+    return m_out, bias
+
+
+def _chol_solve(idx, m_out, rhs, anc):
+    """Cholesky solve of one SPD block given by its upper-triangle entries
+    m_out {(a, b): [N]} over the bodies idx (ordered ancestors-first);
+    anc[i] lists i's ancestors in idx, root first (no fill-in outside
+    them: the ancestor-sparse factor); x = M^-1 rhs as {i: [N]}."""
+    low, y, x = {}, {}, {}
+    for i in idx:
+        for j in anc[i]:
+            s = m_out[(j, i)]
+            for k in anc[j]:
+                s = s - low[(i, k)] * low[(j, k)]
+            low[(i, j)] = s / low[(j, j)]
+        s = m_out[(i, i)]
+        for k in anc[i]:
+            s = s - low[(i, k)] * low[(i, k)]
+        low[(i, i)] = torch.sqrt(s)
+    for i in idx:
+        s = rhs[i]
+        for k in anc[i]:
+            s = s - low[(i, k)] * y[k]
+        y[i] = s / low[(i, i)]
+    for a in range(len(idx) - 1, -1, -1):
+        i = idx[a]
+        s = y[i]
+        for k in idx[a + 1:]:
+            if (k, i) in low:
+                s = s - low[(k, i)] * x[k]
+        x[i] = s / low[(i, i)]
+    return x
+
+
+def _free_step(c: dict, i: int, q, qd, rot, tau):
+    """A free body's substep: (q block [N, 7], qd block [N, 6])."""
+    fcst = c["free_consts"][i]
+    qi, vi = c["qoff"][i], c["voff"][i]
+    dev = q.device
+    pos, quat = q[:, qi:qi + 3], q[:, qi + 3:qi + 7]
+    v_lin, w_b = qd[:, vi:vi + 3], qd[:, vi + 3:vi + 6]
+    f_lin, tau_b = tau[:, vi:vi + 3], tau[:, vi + 3:vi + 6]
+    i_b = torch.as_tensor(c["inertia"][i].reshape(3, 3), device=dev)
+    mg = torch.as_tensor(fcst["mg"], device=dev)
+    damp_l, damp_a = float(fcst["damp_l"]), float(fcst["damp_a"])
+    if not fcst["coupled"]:
+        # (m + reg) a = f + m g - damp v;  (I_c + reg I) alpha = tau - w x I_c w - damp w
+        acc_l = (f_lin + mg - damp_l * v_lin) * float(fcst["inv_ml"])
+        rhs = (tau_b - _cross(w_b, _mv(i_b, w_b))) - damp_a * w_b
+        l00, l10, l20, l11, l21, l22 = (float(x) for x in fcst["chol3"])
+        y0 = rhs[:, 0] / l00
+        y1 = (rhs[:, 1] - l10 * y0) / l11
+        y2 = (rhs[:, 2] - l20 * y0 - l21 * y1) / l22
+        x2 = y2 / l22
+        x1 = (y1 - l21 * x2) / l11
+        x0 = (y0 - l10 * x1 - l20 * x2) / l00
+        acc_a = torch.stack([x0, x1, x2], -1)
+    else:
+        cv = torch.as_tensor(c["com"][i], device=dev)
+        q_v = f_lin + mg - damp_l * v_lin
+        rtg = (rot.transpose(-1, -2) @ mg[:, None])[..., 0]
+        q_w = (tau_b - damp_a * w_b) + _cross(cv.expand_as(rtg), rtg)
+        wwc = _cross(w_b, _cross(w_b, cv.expand_as(w_b)))
+        mass = float(c["mass"][i])
+        rhs_v = q_v - mass * _mv(rot, wwc)
+        rhs_w = (q_w - mass * _cross(cv.expand_as(wwc), wwc)) - _cross(w_b, _mv(i_b, w_b))
+        b_blk = rot @ torch.as_tensor(fcst["mskew"], device=dev)              # -m R [c]x
+        m_out, rhs = {}, {}
+        n = q.shape[0]
+        for a in range(3):
+            for bb in range(a, 3):
+                m_out[(a, bb)] = torch.full((n,), float(fcst["m_reg_l"]) if a == bb else 0.0,
+                                            device=dev)
+                m_out[(3 + a, 3 + bb)] = torch.full(
+                    (n,), float(fcst["i_o"][a, bb] + (fcst["reg_a"] if a == bb else 0.0)),
+                    device=dev)
+            for bb in range(3):
+                m_out[(a, 3 + bb)] = b_blk[:, a, bb]
+            rhs[a], rhs[3 + a] = rhs_v[:, a], rhs_w[:, a]
+        idx = list(range(6))
+        acc = _chol_solve(idx, m_out, rhs, {k: idx[:k] for k in idx})
+        acc_l = torch.stack([acc[0], acc[1], acc[2]], -1)
+        acc_a = torch.stack([acc[3], acc[4], acc[5]], -1)
+    dt = float(c["dt"])
+    v_new = v_lin + dt * acc_l
+    w_new = w_b + dt * acc_a
+    pos_new = pos + dt * v_new
+    quat_new = chain._quat_mul(quat, chain._exp_quat(dt * w_new))
+    quat_new = quat_new / torch.sqrt(torch.sum(quat_new * quat_new, -1, keepdim=True))
+    return torch.cat([pos_new, quat_new], -1), torch.cat([v_new, w_new], -1)
+
+
+def forest_substep(c: dict, task: ForestTask, q, qd, ub, extras):
+    """One semi-implicit Euler substep of the forest: (q [N, nq], qd [N, nv])
+    -> the next (q, qd); ub {body: [N]} the clipped controls of the
+    actuated bodies (every other dof gets zero)."""
+    rots, poss, axes = _fk(c, q)
+    tau = torch.zeros_like(qd)
+    if task.points:
+        _contact(c, task, q, qd, rots, poss, axes, extras, tau)
+    if task.joint_torque is not None:
+        for i, t in task.joint_torque(q, qd, extras, (rots, poss, axes)).items():
+            tau[:, c["voff"][i]] = tau[:, c["voff"][i]] + t
+    rots_l, poss_l = rots.unbind(1), poss.unbind(1)
+    q_new, qd_new = q.clone(), qd.clone()
+    dt = float(c["dt"])
+    for tree in c["trees"]:
+        m_out, bias = _tree_mass_and_bias(c, tree, rots_l, poss_l, axes, qd)
+        rhs = {}
+        for i in tree:
+            vi, qi = c["voff"][i], c["qoff"][i]
+            m_out[(i, i)] = m_out[(i, i)] + float(c["reg"][i])
+            u = ub.get(i)
+            gu = float(c["gear"][vi]) * (u if u is not None else torch.zeros_like(qd[:, vi]))
+            rhs[i] = (gu - bias[i] - float(c["damping"][vi]) * qd[:, vi]
+                      - float(c["stiffness"][vi]) * q[:, qi] + tau[:, vi])
+            if c["frictionloss"][vi] != 0.0:      # smooth Coulomb friction
+                rhs[i] = rhs[i] - float(c["frictionloss"][vi]) * torch.tanh(qd[:, vi] * 50.0)
+        acc = _chol_solve(tree, m_out, rhs, {i: _ancestors(c, i) for i in tree})
+        for i in tree:
+            vi, qi = c["voff"][i], c["qoff"][i]
+            qdn = qd[:, vi] + dt * acc[i]
+            qn = q[:, qi] + dt * qdn
+            clamped = torch.clamp(qn, float(c["qlow"][qi]), float(c["qhigh"][qi]))
+            qd_new[:, vi] = torch.where(clamped == qn, qdn, torch.zeros_like(qdn))
+            q_new[:, qi] = clamped
+    for i in c["free"]:
+        qi, vi = c["qoff"][i], c["voff"][i]
+        q_new[:, qi:qi + 7], qd_new[:, vi:vi + 6] = _free_step(c, i, q, qd, rots_l[i], tau)
+    return q_new, qd_new
+
+
+def rollout_forest_plain(model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
+                         task: ForestTask, ulow: float, uhigh: float, q0, qd0, extras,
+                         mean, noise, consts: Optional[dict] = None):
+    """Plain PyTorch forest rollout: costs [N, H] of mean [H, dA] + noise
+    [N, H, dA] from (q0 [nq], qd0 [nv]) with the task's extras."""
+    c = forest_consts(model) if consts is None else consts
+    n, horizon, _ = noise.shape
+    q = q0.expand(n, c["nq"]).clone()
+    qd = qd0.expand(n, c["nv"]).clone()
+    costs = []
+    for t in range(horizon):
+        u = torch.clamp(mean[t] + noise[:, t], ulow, uhigh)
+        ub = {body: u[:, j] for j, body in enumerate(act_bodies)}
+        for _ in range(n_substeps):
+            q, qd = forest_substep(c, task, q, qd, ub, extras)
+        rots, poss, _ = _fk(c, q)
+        costs.append(task.cost(model, q, qd, rots, poss, extras))
+    return torch.stack(costs, 1)
+
+
+# The pen cost's gates: +10 and +50 at similarity > 0.90 / 0.95 while close,
+# -5 once dropped. A particle whose state sits at a gate within an f32 ulp
+# can land on either side in two summation orders, and its cost then moves
+# by a signed sum of these steps.
+PEN_BONUS_STEPS = tuple(sorted({a * 5 + b * 10 + c * 50 for a in (-1, 0, 1)
+                                for b in (-1, 0, 1) for c in (-1, 0, 1)} - {0}))
+
+
+def gated_cost_agreement(got, want, atol: float = 1e-3,
+                         steps: Sequence[float] = PEN_BONUS_STEPS) -> dict:
+    """How two cost arrays of a threshold-gated cost agree: the share of
+    entries within atol, the number of the others that differ by one of
+    the bonus `steps` to within atol, and the number that differ
+    otherwise. The tolerance is absolute: a bonus is a constant, and adds
+    no error beyond a few ulps of itself."""
+    diff = got - want
+    within = diff.abs() <= atol
+    step = torch.as_tensor(steps, dtype=diff.dtype, device=diff.device)
+    on_step = ((diff[..., None] - step).abs() <= atol).any(-1)
+    return dict(share_within=float(within.float().mean()),
+                bonus_steps=int((~within & on_step).sum()),
+                other=int((~within & ~on_step).sum()))
+
+
+# ---------------------------------------------------------------------------
+# Work counts for the card-time bound
+# ---------------------------------------------------------------------------
+
+_ADD, _DOT, _CROSS, _MV, _MM = 3, 5, 9, 15, 45
+_ROD, _QUAT_MAT, _ROT_INERTIA = 36, 39, 90
+# the RNEA's forward step of one body and its backward step (+21 with a parent)
+_RNEA_FWD, _RNEA_BWD, _RNEA_PARENT = 150, 23, 21
+# a free body's decoupled and coupled solves, and its integration
+_FREE_DECOUPLED, _FREE_COUPLED, _FREE_INTEGRATE = 63, 334, 75
+
+
+def _substep_flops(c: dict, task: ForestTask) -> Tuple[int, int]:
+    """(fk, substep without fk) operations of one particle, counted from
+    csrc/forest_rollout.cuh as written (a multiply, an add, a compare, a
+    division or a transcendental is one) on the forest's topology."""
+    n, par, jt = c["n"], c["parent"], c["jtype"]
+    paths = [_ancestors(c, i) + [i] for i in range(n)]
+    col = lambda d: 12 if jt[d] == HINGE else 0      # a hinge's a x (p - o)
+    fk = 0
+    for i in range(n):
+        if jt[i] == FREE:
+            fk += _ADD + _QUAT_MAT
+        elif par[i] < 0:
+            fk += _ROD + _MV if jt[i] == HINGE else 2 * _ADD
+        else:
+            fk += _MV + _ADD + (_ROD + _MM + _MV if jt[i] == HINGE else _MV + 2 * _ADD)
+    points = 0
+    for b, _ in task.points:
+        points += _MV + _ADD
+        if jt[b] == FREE:
+            points += (_CROSS + _MV + _ADD) + (2 * _ADD + _MV + _CROSS)    # v; scatter
+        else:
+            points += sum(2 * col(d) + 12 for d in paths[b])              # v; scatter
+    sub = points + task.force_ops
+    for i in range(n):
+        if jt[i] == FREE:
+            coupled = c["free_consts"][i]["coupled"]
+            sub += (_FREE_COUPLED if coupled else _FREE_DECOUPLED) + _FREE_INTEGRATE
+            continue
+        path = paths[i]
+        d = len(path)
+        h = [jt[k] == HINGE for k in path]
+        sub += _MV + _ADD + _ROT_INERTIA                                  # rc, ci, iw
+        sub += sum(27 if x else 0 for x in h) + _ADD * d                  # jv, iw a, m jv
+        sub += sum(_DOT + 1 + (_DOT + 1 if h[a] and h[b] else 0)
+                   for a in range(d) for b in range(a, d))                # mass pairs
+        sub += _RNEA_FWD + _RNEA_BWD + (_RNEA_PARENT if par[i] >= 0 else 0)
+        sub += sum(2 * k + 1 for k in range(d - 1)) + 2 * (d - 1) + 1      # factor row
+        sub += 2 * (2 * (d - 1) + 1)                                      # both substitutions
+        fl = int(c["frictionloss"][c["voff"][i]] != 0)
+        sub += 1 + 7 + 4 * fl + 7                                         # diag, rhs, update
+    return fk, sub
+
+
+def forest_rollout_flops(model: ChainModel, n_substeps: int, n: int, horizon: int,
+                         act_bodies: Sequence[int], task: ForestTask) -> int:
+    """Floating-point operations of one kernel call: per control step the
+    actions (3 per actuated dof), n_substeps of FK and the substep, then
+    the FK and the task's cost of the post-step state. The work is the
+    same for every input."""
+    fk, sub = _substep_flops(forest_consts(model), task)
+    step = 3 * len(act_bodies) + n_substeps * (fk + sub) + fk + task.cost_ops
+    return n * horizon * step
+
+
+def forest_rollout_bytes(model: ChainModel, n: int, horizon: int, d_act: int,
+                         task: ForestTask) -> int:
+    """Bytes one kernel call must move: q0, qd0, extras, the mean and the
+    noise in, costs out, f32."""
+    return 4 * (model.nq + model.nv + task.n_extras + horizon * d_act
+                + n * horizon * d_act + n * horizon)
+
+
+# ---------------------------------------------------------------------------
+# The generated header and the kernel wrapper
+# ---------------------------------------------------------------------------
+
+def model_header(model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
+                 task: ForestTask, ulow: float = -1.0, uhigh: float = 1.0) -> str:
+    """C++ header of the forest's constants, its topology and the task for
+    csrc/forest_rollout.cu: scalars as constexpr, tables through _table."""
+    c = forest_consts(model)
+    n = c["n"]
+    scalar = lambda key, off: [c[key][c[off][b]] if c["jtype"][b] != FREE else 0.0
+                               for b in range(n)]
+    free = lambda key, shape: np.asarray(
+        [c["free_consts"][b][key] if b in c["free_consts"] else np.zeros(shape, _F32)
+         for b in range(n)], _F32)
+    coupled = [int(b in c["free_consts"] and c["free_consts"][b]["coupled"]) for b in range(n)]
+    # each body's root path (root first, itself last), padded with -1
+    paths = [_ancestors(c, b) + [b] for b in range(n)]
+    maxd = max(len(p) for p in paths)
+    anc = [p + [-1] * (maxd - len(p)) for p in paths]
+    points = task.points or ((0, (0.0, 0.0, 0.0)),)     # a placeholder row, never read
+    tables = [
+        ("parent", "int", c["parent"]),
+        ("jtype", "int", c["jtype"]),
+        ("qoff", "int", c["qoff"]),
+        ("voff", "int", c["voff"]),
+        ("depth", "int", [len(p) for p in paths]),
+        ("anc", "int", anc),
+        ("ancestor", "int", c["anc"].astype(np.int64)),
+        ("act_body", "int", list(act_bodies)),
+        ("axis", "float", c["axis"]),
+        ("body_pos", "float", c["body_pos"]),
+        ("mass", "float", c["mass"]),
+        ("com", "float", c["com"]),
+        ("inertia", "float", c["inertia"]),
+        ("reg", "float", c["reg"]),
+        ("damping", "float", scalar("damping", "voff")),
+        ("stiffness", "float", scalar("stiffness", "voff")),
+        ("gear", "float", scalar("gear", "voff")),
+        ("frictionloss", "float", scalar("frictionloss", "voff")),
+        ("qlow", "float", scalar("qlow", "qoff")),
+        ("qhigh", "float", scalar("qhigh", "qoff")),
+        ("gravity", "float", c["gravity"]),
+        ("site_pos", "float", c["site_pos"]),
+        ("coupled", "int", coupled),
+        ("free_damp_l", "float", free("damp_l", ())),
+        ("free_damp_a", "float", free("damp_a", ())),
+        ("free_reg_a", "float", free("reg_a", ())),
+        ("free_inv_ml", "float", free("inv_ml", ())),
+        ("free_m_reg_l", "float", free("m_reg_l", ())),
+        ("free_mg", "float", free("mg", (3,))),
+        ("free_chol3", "float", free("chol3", (6,))),
+        ("free_i_o", "float", free("i_o", (3, 3)).reshape(n, 9)),
+        ("free_mskew", "float", free("mskew", (3, 3)).reshape(n, 9)),
+        ("point_body", "int", [b for b, _ in points]),
+        ("point_local", "float", np.asarray([p for _, p in points], _F32)),
+    ]
+    lines = [
+        "// Generated by mjmpc_tpu_torch/ops/forest_rollout.py from a ChainModel and a task.",
+        "#pragma once",
+        f"#define FOREST_TASK {task.index}",
+        "#ifdef __CUDA_ARCH__",
+        "#define FOREST_T(name) d_##name",
+        "#else",
+        "#define FOREST_T(name) h_##name",
+        "#endif",
+        "namespace forest {",
+        f"constexpr int NB = {n};",
+        f"constexpr int NQ = {c['nq']};",
+        f"constexpr int NV = {c['nv']};",
+        f"constexpr int MAXD = {maxd};",
+        f"constexpr int D_ACT = {len(act_bodies)};",
+        f"constexpr int N_POINTS = {len(task.points)};",
+        f"constexpr int N_SUBSTEPS = {int(n_substeps)};",
+        f"constexpr int SITE_BODY = {c['site_body']};",
+        f"constexpr int TASK = {task.index};  // {task.name}",
+        f"constexpr int N_EXTRAS = {task.n_extras};",
+        f"constexpr float DT = {_f(c['dt'])};",
+        f"constexpr float ULOW = {_f(ulow)};",
+        f"constexpr float UHIGH = {_f(uhigh)};",
+    ]
+    lines += [_table(*t) for t in tables]
+    lines += ["}  // namespace forest", "namespace forest_task {", *task.header,
+              "}  // namespace forest_task"]
+    return "\n".join(lines) + "\n"
+
+
+class ForestRollout:
+    """rollout(q0 [nq], qd0 [nv], extras [n_extras], mean [H, dA], noise
+    [N, H, dA]) -> costs [N, H], all float32 on one device; extras is the
+    task's.
+
+    `ForestRollout.launches` counts kernel launches over all instances; it
+    rises by one per launch and nowhere else (the plain version on CPU
+    tensors does not count).
+    """
+    launches = 0
+
+    def __init__(self, model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
+                 task: ForestTask, ulow: float = -1.0, uhigh: float = 1.0):
+        self.model = model
+        self.n_substeps = int(n_substeps)
+        self.act_bodies = tuple(int(b) for b in act_bodies)
+        self.task = task
+        self.ulow = float(ulow)
+        self.uhigh = float(uhigh)
+        self.consts = forest_consts(model)
+        for b in self.act_bodies:
+            if not 0 <= b < self.consts["n"] or self.consts["jtype"][b] == FREE:
+                raise ValueError(f"act body {b} is not a scalar joint of the model")
+        self.header = model_header(model, n_substeps, self.act_bodies, task, ulow, uhigh)
+        self._lib = None
+
+    def library(self) -> build.KernelLibrary:
+        """Build (at first use) and load the kernel for this model and task."""
+        if self._lib is None:
+            lib = build.load("forest_rollout", "forest_rollout.cu",
+                             {"forest_model.h": self.header})
+            entry = lib.lib.forest_rollout_launch
+            entry.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                                      ctypes.c_void_p]
+            entry.restype = ctypes.c_int
+            lib.lib.forest_rollout_error_string.argtypes = [ctypes.c_int]
+            lib.lib.forest_rollout_error_string.restype = ctypes.c_char_p
+            lib.lib.forest_rollout_layout.argtypes = [ctypes.c_void_p]
+            lib.lib.forest_rollout_layout.restype = None
+            layout = (ctypes.c_int * 5)()
+            lib.lib.forest_rollout_layout(layout)
+            want = (self.task.index, self.consts["nq"], self.consts["nv"],
+                    len(self.act_bodies), self.task.n_extras)
+            if tuple(layout) != want:
+                raise RuntimeError(f"{lib.path} was built for (task, nq, nv, dA, n_extras) = "
+                                   f"{tuple(layout)}, not {want}")
+            self._lib = lib
+        return self._lib
+
+    def _check(self, q0, qd0, extras, mean, noise):
+        c = self.consts
+        args = {"q0": q0, "qd0": qd0, "extras": extras, "mean": mean, "noise": noise}
+        d = len(self.act_bodies)
+        return _check_args(args, d, lambda h: {"q0": (c["nq"],), "qd0": (c["nv"],),
+                                               "extras": (self.task.n_extras,),
+                                               "mean": (h, d)})
+
+    def plain(self, q0, qd0, extras, mean, noise):
+        """The plain PyTorch version (any device)."""
+        self._check(q0, qd0, extras, mean, noise)
+        return rollout_forest_plain(self.model, self.n_substeps, self.act_bodies, self.task,
+                                    self.ulow, self.uhigh, q0, qd0, extras, mean, noise,
+                                    self.consts)
+
+    def __call__(self, q0, qd0, extras, mean, noise):
+        args = self._check(q0, qd0, extras, mean, noise)
+        device = noise.device
+        if device.type == "cpu":
+            return rollout_forest_plain(self.model, self.n_substeps, self.act_bodies,
+                                        self.task, self.ulow, self.uhigh, q0, qd0, extras,
+                                        mean, noise, self.consts)
+        if device.type != "cuda":
+            raise ValueError(f"no forest-rollout kernel for device {device}")
+        for name, x in args.items():
+            if not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        n, horizon, _ = noise.shape
+        lib = self.library().lib
+        with torch.cuda.device(device):
+            costs = torch.empty((n, horizon), dtype=torch.float32, device=device)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.forest_rollout_launch(_vp(q0), _vp(qd0), _vp(extras), _vp(mean),
+                                           _vp(noise), _vp(costs), n, horizon,
+                                           ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError("ForestRollout kernel launch failed: "
+                               + lib.forest_rollout_error_string(rc).decode())
+        type(self).launches += 1
+        return costs
+
+
+def build_forest_rollout(model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
+                         task: ForestTask, ulow: float = -1.0,
+                         uhigh: float = 1.0) -> ForestRollout:
+    """Fused forest rollout (see ForestRollout): act_bodies are the scalar
+    bodies that receive u[:, j], in the action layout."""
+    return ForestRollout(model, n_substeps, act_bodies, task, ulow, uhigh)

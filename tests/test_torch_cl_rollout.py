@@ -79,7 +79,7 @@ def test_envs_wire_the_rollouts():
         env = envs.make(name, device=DEVICE)
         assert env.d_obs == 19 and env.fused_cl_rollout is not None
         assert env.fused_obs_rollout is not None
-        assert env.fused_rollout is None      # the forest kernel's slot
+        assert env.fused_rollout is not None  # the forest kernel with the peg task
     assert envs.make(ENVS[2], device=DEVICE).params.sensor_bias.abs().sum() > 0
 
 

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card (chain rollout, chain rollout with
 observations, closed-loop chain rollout for the reacher and peg tasks,
 filtered noise, the locomotion rollout for the swimmer and the half
-cheetah): each against its plain PyTorch version, their launch counts on
-sync-free solves, and the wrappers' checks.
+cheetah, the forest rollout for pen-v0 and the sawyer peg): each against
+its plain PyTorch version, their launch counts on sync-free solves, and
+the wrappers' checks.
 
 Needs a CUDA card and skips without one (the kernel has no CPU mode). This
 file imports no jax, so it also runs where jax is not installed:
@@ -17,6 +18,12 @@ gain of about 1.25 and by sqrt(3) for cov 3 I). Locomotion: the swimmer
 atol 5e-5 at (37, 5) and 1e-3 at its config's (512, 32); the cheetah, whose
 stiff contact (kp 6000, 25 substeps per step) amplifies f32 reordering,
 5e-4 and 1e-2 of max(1, |cost|) at (37, 5) and its config's (512, 16).
+Forest: the peg 5e-5 at (37, 5) and 1e-3 at its config's (256, 16); pen,
+from a pinch in which every fingertip presses on the pen (so that the
+costs follow the hand's dynamics through contact), 1e-4 at (37, 5); at its
+config's (256, 16), 80 substeps of contact, at least 99% of the costs
+within 1e-3 and every other one off by a bonus step of the gated pen cost
+(a signed sum of 5, 10 and 50) to within 1e-3.
 """
 import numpy as np
 import pytest
@@ -24,10 +31,11 @@ import torch
 
 from mjmpc_tpu_torch import envs, solvers
 from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
-from mjmpc_tpu_torch.envs import half_cheetah, swimmer
+from mjmpc_tpu_torch.envs import half_cheetah, pen, sawyer_tasks, swimmer
 from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout, ChainObsRollout,
                                                ChainRollout, build_chain_cl_rollout,
                                                build_chain_obs_rollout, build_chain_rollout)
+from mjmpc_tpu_torch.ops.forest_rollout import ForestRollout, gated_cost_agreement
 from mjmpc_tpu_torch.ops.noise import FilteredNoise
 
 pytestmark = pytest.mark.cuda
@@ -227,4 +235,67 @@ def test_loco_solves_launch_the_ext_kernel_without_host_syncs(device, name):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert (ChainExtRollout.launches, ChainRollout.launches) == (before[0] + 3, before[1])
+    assert bool(torch.isfinite(action).all())
+
+
+def _forest_case(name, n, h, seed, device):
+    """Kernel #6's wrapper for pen-v0 (the pinch, the hand perturbed by
+    U(-0.05, 0.05)) or the peg, and its inputs: mean * 0.2, noise * 0.3 as
+    tests/test_pallas_forest.py draws them."""
+    rng = np.random.default_rng(seed)
+    env = envs.make(name, device=device)
+    if name == "pen-v0":
+        roll, st = pen.build_rollout(env.params.model), env.init(env.params, seed)
+        q0 = pen.pinch_qpos(st.qpos)
+        q0[:24] += torch.as_tensor(rng.uniform(-0.05, 0.05, 24), dtype=torch.float32,
+                                   device=device)
+        head = [q0, st.qvel, pen.pen_extras(env.params, st)]
+    else:
+        roll = sawyer_tasks.build_rollout(env.params.model)
+        head = [torch.as_tensor(np.asarray(rng.normal(size=7) * 0.1, np.float32), device=device)
+                for _ in range(2)] + [sawyer_tasks.peg_extras(env.params)]
+    d = len(roll.act_bodies)
+    tail = [torch.as_tensor(np.asarray(rng.normal(size=shape) * s, np.float32), device=device)
+            for shape, s in (((h, d), 0.2), ((n, h, d), 0.3))]
+    return roll, head + tail
+
+
+@pytest.mark.parametrize("name,n,h,tol", [("sawyer_peg_insertion-v0", 37, 5, 5e-5),
+                                          ("sawyer_peg_insertion-v0", 256, 16, 1e-3),
+                                          ("pen-v0", 37, 5, 1e-4)])
+def test_forest_kernel_matches_plain(device, name, n, h, tol):
+    roll, args = _forest_case(name, n, h, 6, device)
+    before = ForestRollout.launches
+    got = roll(*args)
+    assert ForestRollout.launches == before + 1
+    torch.testing.assert_close(got, roll.plain(*args), rtol=0, atol=tol)
+
+
+def test_forest_kernel_pen_config_size_agrees_up_to_bonus_steps(device):
+    roll, args = _forest_case("pen-v0", 256, 16, 7, device)
+    got, want = roll(*args), roll.plain(*args)
+    assert bool(torch.isfinite(got).all())
+    agree = gated_cost_agreement(got, want)
+    assert agree["share_within"] >= 0.99 and agree["other"] == 0, agree
+
+
+@pytest.mark.parametrize("name", ["pen-v0", "sawyer_peg_insertion-v0"])
+def test_forest_solves_launch_the_kernel_without_host_syncs(device, name):
+    env = envs.make(name, device=device)
+    solver = solvers.MPPI(d_action=env.d_action, horizon=8, num_particles=64, lam=0.05,
+                          init_cov=0.5, step_size=0.7, alpha=1, filter_coeffs=(0.25, 0.8, 0.0),
+                          base_action="repeat", device=device)
+    solve = solvers.make_solve_fn(solver, env)
+    env_state = env.init(env.params, 1)
+    state = solver.init_state(0)
+    before = (ForestRollout.launches, ChainRollout.launches, ChainObsRollout.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            action, _, state = solve(env.params, env_state, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = (ForestRollout.launches, ChainRollout.launches, ChainObsRollout.launches)
+    assert after == (before[0] + 3, before[1], before[2])
     assert bool(torch.isfinite(action).all())

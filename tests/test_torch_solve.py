@@ -184,7 +184,7 @@ def test_registry():
         envs.make("no_such_env-v0", device=DEVICE)
     assert envs.make("reacher_7dof-v0", device=DEVICE) is envs.make("reacher_7dof-v0", device=DEVICE)
     assert envs.available() == ["HalfCheetah-v0", "Swimmer-v0", "continual_reacher-v0",
-                                "reacher_7dof-v0", "sawyer_peg_insertion-v0",
+                                "pen-v0", "reacher_7dof-v0", "sawyer_peg_insertion-v0",
                                 "sawyer_peg_insertion-v1"]
     with pytest.raises(NotImplementedError):
         solvers.make_solve_fn(object(), envs.make("reacher_7dof-v0", device=DEVICE))
@@ -197,6 +197,7 @@ def test_import_leaves_jax_out():
             "mjmpc_tpu_torch.value_functions, mjmpc_tpu_torch.solvers.reinforce, "
             "mjmpc_tpu_torch.envs.sawyer_tasks, mjmpc_tpu_torch.envs.swimmer, "
             "mjmpc_tpu_torch.envs.half_cheetah, mjmpc_tpu_torch.harness.run_mpc, "
-            "mjmpc_tpu_torch.utils; "
+            "mjmpc_tpu_torch.utils, mjmpc_tpu_torch.envs.pen, mjmpc_tpu_torch.envs.adroit, "
+            "mjmpc_tpu_torch.envs.contact, mjmpc_tpu_torch.ops.forest_rollout; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], check=True)
