@@ -10,9 +10,10 @@ exit and no final line:
                library (costs-only, obs-emitting and closed-loop entries),
                the peg task's (the same three entries, peg's site and
                obs/cost), the swimmer's and the half cheetah's (the
-               external-force entry), the filtered-noise library and the
-               forest-rollout libraries of pen-v0 and the sawyer peg from
-               csrc/; ptxas register, stack and spill lines.
+               external-force entry), the filtered-noise library, the
+               forest-rollout libraries of pen-v0 and the sawyer peg and
+               the pendulum library (kernels #7 and #8) from csrc/; ptxas
+               register, stack and spill lines.
 3. kernel   -- each kernel against its plain PyTorch version on the card:
                chain and obs rollouts at (N=37, H=5) to atol 5e-5 and at
                the main path's (N=4096, H=32) to max abs error 1e-3 (costs
@@ -23,7 +24,16 @@ exit and no final line:
                peg's obs rollout at (37, 5) to 5e-5; the noise kernel at
                (37, 5, 7) and (4096, 32, 7), filter (0.25, 0.8, 0), cov 3 I,
                to 1e-4 (identical uniforms; libm ulps and sum order differ,
-               scaled by the filter's gain of about 1.25 and by sqrt(3)).
+               scaled by the filter's gain of about 1.25 and by sqrt(3));
+               the pendulum rollout (kernel #7) from a start that crosses
+               -pi (th0 = -3.0, thdot0 = -8) at (37, 5), (4096, 32), the
+               pendulum config's N = 24 and 64 and at N = 2048, H = 32, to
+               atol 1e-5, the
+               plain version with the noise zeroed failing the (37, 5)
+               check by more than 10x; the one-kernel MPPI solve (kernel
+               #8) at N = 1024 and 2048, H = 32, lam 0.01 and 1.0, to atol
+               1e-5 on the new mean, the plain version under another seed
+               failing by more than 10x.
 4. main     -- envs.make("reacher_7dof-v0") -> solvers.MPPI(...) ->
                solvers.make_solve_fn on device="cuda": 10 chained solves
                under torch.cuda.set_sync_debug_mode("error") (no host sync
@@ -75,19 +85,33 @@ exit and no final line:
                harness.config.make_solver_for_env at their full sizes: 3
                chained sync-free solves each, kernel #6's count rising by
                exactly 3 and every other count by 0, finite actions.
-12. harness -- harness.episode.run_episodes with each locomotion config's
+12. pendulum -- configs/SimplePendulum-v0.yml through
+               harness.config.make_solver_for_env at full size, each of its
+               five controllers: 3 chained sync-free solves, kernel #7's
+               count rising by exactly 3 and every other count by 0, finite
+               actions. Then the JAX package's closed loop on kernel #8
+               (tests/test_pallas_kernels.py): 100 steps of one-kernel
+               solves at N=1024, filter (0.25, 0.8, 0), sigma sqrt(3.5),
+               lam 0.01, step size 0.55, sync-free, kernel #8's count
+               rising by exactly 100 and the total reward above -400.
+13. harness -- harness.episode.run_episodes with each locomotion config's
                own solver and with every controller of
                configs/reacher_7dof-v0.yml, one episode of 10 steps, and
                with every controller of configs/hand/pen-v0.yml and the peg
                config's mppi, one episode of 3 steps (the real pen step is
                the eager AD engine), all overridden in memory: finite
-               rewards.
-13. timing  -- read-verified solves/s (each window ends by reading a value
+               rewards; every pendulum controller for one episode of 200
+               steps, its reward printed beside the JAX package's records
+               (RESULTS.md:207; no gate: the RNG streams differ).
+14. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
                for each solver of the zoo, for Reinforce on the reacher
                and the peg and for MPPI on both locomotion configs and both
-               forest configs; the real env step's ms per control step on
+               forest configs; MPPI on the pendulum through kernel #7 at
+               the config's N=24 and at N=2048 (the config's plain sampler,
+               and the kernel sampler) against kernel #8's one-launch solve
+               at N=2048; the real env step's ms per control step on
                the locomotion configs and on pen-v0; each kernel
                and its plain version timed with CUDA events; a per-stage
                breakdown with each noise sampler and of the Reinforce
@@ -98,8 +122,10 @@ exit and no final line:
 Every launch count is set to 0 just before a path runs and read just after.
 The last lines are the kernels' summary (kernel #5 with the swimmer's
 numbers, its cheetah instance on the `kernel_loco` line before it; kernel
-#6 with pen-v0's, its peg instance on the `kernel_forest` line), the
-nvidia-smi line and {"ok": true, "device": {...}}.
+#6 with pen-v0's, its peg instance on the `kernel_forest` line; #7 at
+the pendulum mppi block's N=24, #8 at the closed loop's N=1024, each size
+on a `kernel_pendulum` line), the nvidia-smi line and {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -143,6 +169,20 @@ FOREST_CONFIGS = {"pen-v0": "configs/hand/pen-v0.yml",
                   "sawyer_peg_insertion-v0": "configs/sawyer/sawyer_peg_insertion-v0.yml"}
 PEN_CONTROLLERS = ("mppi", "mppiq", "pfmpc", "random_shooting", "cem", "dmd")
 PEN_STEPS = 3
+# The pendulum config, run as written, at full size (mppi 4 x 6 particles,
+# the others 4 x 16; H=32), and the JAX package's closed loop on kernel #8
+# (tests/test_pallas_kernels.py test_one_kernel_mppi_solve_controls).
+PENDULUM_CONFIG = "configs/SimplePendulum-v0.yml"
+PENDULUM_CONTROLLERS = ("mppi", "random_shooting", "cem", "dmd", "pfmpc")
+PENDULUM_STEPS = 200
+ONE_KERNEL = dict(num_particles=1024, filter_coeffs=FILTER, sigma=float(np.sqrt(3.5)),
+                  lam=0.01, step_size=0.55, gamma=1.0)
+ONE_KERNEL_STEPS = 100
+# th0, thdot0: th + pi turns negative along the rollouts (a truncating
+# modulo goes wrong) and the new thdot passes -8 before its clamp
+CROSSING = (-3.0, -8.0)
+# The JAX package's pendulum rewards over 200 steps (RESULTS.md:207).
+JAX_PENDULUM_REWARDS = {"mppi": -173.0, "cem": -131.0, "pfmpc": -122.0}
 
 
 def emit(phase: str, **fields) -> None:
@@ -209,6 +249,18 @@ def forest_inputs(env, roll, n: int, h: int, seed: int, device):
     return head + [torch.as_tensor(np.asarray(rng.normal(size=shape) * scale, np.float32),
                                    device=device)
                    for shape, scale in (((h, d), 0.2), ((n, h, d), 0.3))]
+
+
+def pendulum_inputs(env, n: int, h: int, seed: int, device):
+    """Kernel #7's inputs: the crossing start, mean * 0.3 and unit noise."""
+    import torch
+    state = dataclasses.replace(env.init(env.params, 0),
+                                **{k: torch.tensor(v, device=device)
+                                   for k, v in zip(("th", "thdot"), CROSSING)})
+    rng = np.random.default_rng(seed)
+    mean = torch.as_tensor(np.asarray(rng.normal(size=(h, 1)) * 0.3, np.float32), device=device)
+    noise = torch.as_tensor(np.asarray(rng.normal(size=(n, h, 1)), np.float32), device=device)
+    return [env.params, state, mean, noise]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -288,6 +340,7 @@ def main() -> int:
         from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout,
                                                        ChainObsRollout, ChainRollout)
         from mjmpc_tpu_torch.ops.forest_rollout import ForestRollout, gated_cost_agreement
+        from mjmpc_tpu_torch.ops import pendulum as pend
         from mjmpc_tpu_torch.ops.noise import FilteredNoise
         from mjmpc_tpu_torch.rollout import Trajectories
         from mjmpc_tpu_torch.solvers.reinforce import closed_loop_rollout
@@ -295,12 +348,18 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
     counters = (ChainRollout, ChainObsRollout, ChainClRollout, ChainExtRollout, FilteredNoise,
-                ForestRollout)
+                ForestRollout, pend.PendulumRollout, pend.MppiPendulumSolve)
 
     def counts():
         return {"chain": ChainRollout.launches, "obs": ChainObsRollout.launches,
                 "cl": ChainClRollout.launches, "ext": ChainExtRollout.launches,
-                "noise": FilteredNoise.launches, "forest": ForestRollout.launches}
+                "noise": FilteredNoise.launches, "forest": ForestRollout.launches,
+                "pendulum": pend.PendulumRollout.launches,
+                "one_kernel_solve": pend.MppiPendulumSolve.launches}
+
+    def expected(**nonzero):
+        """Every count 0 but those given."""
+        return dict(dict.fromkeys(counts(), 0), **nonzero)
 
     # 1. device
     card_name = torch.cuda.get_device_name(0)
@@ -329,15 +388,17 @@ def main() -> int:
     forest_envs = {"pen-v0": envs.make("pen-v0", device=device), "sawyer_peg_insertion-v0": peg_env}
     forest_rolls = {"pen-v0": pen.build_rollout(forest_envs["pen-v0"].params.model),
                     "sawyer_peg_insertion-v0": sawyer_tasks.build_rollout(peg_model)}
+    pend_env = envs.make("SimplePendulum-v0", device=device)
     t0 = time.perf_counter()
-    wrappers = [roll, peg_cl, sampler, *loco_rolls.values(), *forest_rolls.values()]
-    with concurrent.futures.ThreadPoolExecutor(len(wrappers)) as pool:
-        futures = [pool.submit(w.library) for w in wrappers]
+    builders = [w.library for w in (roll, peg_cl, sampler, *loco_rolls.values(),
+                                    *forest_rolls.values())] + [pend.library]
+    with concurrent.futures.ThreadPoolExecutor(len(builders)) as pool:
+        futures = [pool.submit(b) for b in builders]
         libs = [f.result() for f in futures]
     for r in (roll_obs, roll_cl, peg_obs):
         r.library()     # the same libraries, loaded
     for lib, task in zip(libs, ("reacher", "peg", None, "swimmer", "cheetah", "forest_pen",
-                                "forest_peg")):
+                                "forest_peg", "pendulum")):
         emit("build", task=task, seconds=round(time.perf_counter() - t0, 3),
              nvcc_seconds=round(lib.build_seconds, 3), library=str(lib.path.name),
              ptxas=[ln.strip() for ln in lib.ptxas.splitlines()
@@ -420,6 +481,50 @@ def main() -> int:
             raise RuntimeError(f"noise kernel disagrees with its plain version at "
                                f"N={n} H={h}: {err} > 1e-4")
 
+    # kernel #7 from the crossing start; its check's power: the plain
+    # version with the noise zeroed
+    pend_args = {}
+    for n, h, seed in ((37, 5, 30), (NUM_PARTICLES, HORIZON, 31), (24, HORIZON, 32),
+                       (64, HORIZON, 33), (2048, HORIZON, 35)):
+        args = pend_args[(n, h)] = pendulum_inputs(pend_env, n, h, seed, device)
+        got, want = pend.pendulum_rollout(*args), pend.pendulum_rollout.plain(*args)
+        torch.cuda.synchronize()
+        if got.shape != (n, h) or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"pendulum kernel output bad at N={n} H={h}")
+        err = float((got - want).abs().max())
+        errors[("pendulum", n, h)] = err
+        fields = dict(name="pendulum_rollout", n=n, h=h, max_abs_err=err, atol=1e-5,
+                      costs_min=float(want.min()), costs_max=float(want.max()))
+        if (n, h) == (37, 5):
+            zeroed = pend.pendulum_rollout.plain(*args[:3], torch.zeros_like(args[3]))
+            fields["zeroed_noise_err"] = float((zeroed - got).abs().max())
+            if not fields["zeroed_noise_err"] > 10 * 1e-5:
+                raise RuntimeError(f"pendulum check too weak: {fields}")
+        emit("kernel", **fields)
+        if not err <= 1e-5:
+            raise RuntimeError(f"pendulum kernel disagrees with its plain version at N={n} "
+                               f"H={h}: {err} > 1e-5")
+    # kernel #8 on the same seed; its check's power: another seed
+    solve8_args = {}
+    for n, lam in ((1024, 0.01), (1024, 1.0), (2048, 0.01), (2048, 1.0)):
+        params, state, mean, _ = pendulum_inputs(pend_env, 1, HORIZON, 34, device)
+        cfg8 = dict(ONE_KERNEL, num_particles=n, lam=lam)
+        args = solve8_args[(n, lam)] = (params, state, mean, 77)
+        got = pend.mppi_pendulum_solve(*args, **cfg8)
+        want = pend.mppi_pendulum_solve.plain(*args, **cfg8)
+        other = pend.mppi_pendulum_solve.plain(*args[:3], 78, **cfg8)
+        torch.cuda.synchronize()
+        if got.shape != (HORIZON, 1) or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"one-kernel solve output bad at N={n}")
+        err = float((got - want).abs().max())
+        other_err = float((other - got).abs().max())
+        errors[("solve8", n, lam)] = err
+        emit("kernel", name="mppi_pendulum_solve", n=n, h=HORIZON, lam=lam, max_abs_err=err,
+             atol=1e-5, other_seed_err=other_err, mean_abs_max=float(want.abs().max()))
+        if not err <= 1e-5 or not other_err > 10 * 1e-5:
+            raise RuntimeError(f"one-kernel solve check failed at N={n} lam={lam}: {err}, "
+                               f"another seed {other_err}")
+
     # 4. main path, with the plain and with the kernel noise sampler
     cfg = dict(d_action=env.d_action, horizon=HORIZON, num_particles=NUM_PARTICLES,
                init_cov=3.0, filter_coeffs=FILTER, base_action="repeat", device=device)
@@ -437,8 +542,7 @@ def main() -> int:
         main_counts[phase] = got = counts()
         emit(phase, solves=N_SOLVES, launches=got, action=action_host.tolist(),
              step=state.step)
-        want = {"chain": N_SOLVES, "obs": 0, "cl": 0, "ext": 0,
-                "noise": N_SOLVES if s.noise_impl == "kernel" else 0, "forest": 0}
+        want = expected(chain=N_SOLVES, noise=N_SOLVES if s.noise_impl == "kernel" else 0)
         if got != want:
             raise RuntimeError(f"{phase}: launches {got}, expected {want}")
 
@@ -480,8 +584,7 @@ def main() -> int:
         zoo_solves[key] = (solve, state)
         emit("zoo", solver=key, solves=ZOO_SOLVES, launches=got, action=action_host.tolist())
         roll_key = "obs" if key == "mppiq_q" else "chain"
-        want = {"chain": 0, "obs": 0, "cl": 0, "ext": 0, "noise": ZOO_SOLVES, "forest": 0,
-                roll_key: ZOO_SOLVES}
+        want = expected(noise=ZOO_SOLVES, **{roll_key: ZOO_SOLVES})
         if got != want:
             raise RuntimeError(f"zoo {key}: launches {got}, expected {want}")
 
@@ -523,8 +626,7 @@ def main() -> int:
         emit("closed_loop", env=e.name, n=s.num_particles, h=s.horizon, n_iters=s.n_iters,
              baseline=s.baseline_type, solves=ZOO_SOLVES, launches=got,
              action=action_host.tolist(), fit_error=float(state.fit_error), step=state.step)
-        want = {"chain": 0, "obs": 0, "cl": ZOO_SOLVES * s.n_iters, "ext": 0, "noise": 0,
-                "forest": 0}
+        want = expected(cl=ZOO_SOLVES * s.n_iters)
         if got != want:
             raise RuntimeError(f"closed_loop {key}: launches {got}, expected {want}")
     s0 = rf.init_state(0)       # the first reacher solve's step, re-derived
@@ -582,7 +684,7 @@ def main() -> int:
         loco_runs[name] = (solve, s, e, es, state, exp)
         emit("loco", env=name, config=path, n=s.num_particles, h=s.horizon,
              solves=ZOO_SOLVES, launches=got, action=action_host.tolist(), step=state.step)
-        want = {"chain": 0, "obs": 0, "cl": 0, "ext": ZOO_SOLVES, "noise": 0, "forest": 0}
+        want = expected(ext=ZOO_SOLVES)
         if got != want or action_host.shape != (e.d_action,):
             raise RuntimeError(f"loco {name}: launches {got}, expected {want}")
 
@@ -640,11 +742,59 @@ def main() -> int:
         hand_runs[name] = (solve, s, e, es, state, exp)
         emit("hand", env=name, config=path, n=s.num_particles, h=s.horizon, solves=ZOO_SOLVES,
              launches=got, action=action_host.tolist(), step=state.step)
-        want = {"chain": 0, "obs": 0, "cl": 0, "ext": 0, "noise": 0, "forest": ZOO_SOLVES}
+        want = expected(forest=ZOO_SOLVES)
         if got != want or action_host.shape != (e.d_action,):
             raise RuntimeError(f"hand {name}: launches {got}, expected {want}")
 
-    # 12. the episode runner with each config's own solver(s)
+    # 12. the pendulum config through harness.config, full size, and the
+    # closed loop on kernel #8
+    pend_exp = hconfig.load_config(PENDULUM_CONFIG)
+    pend_runs, pend_counts = {}, {}
+    for controller in PENDULUM_CONTROLLERS:
+        s = hconfig.make_solver_for_env(pend_exp, controller, pend_env)
+        es = pend_env.init(pend_env.params, 1)
+        solve = solvers.make_solve_fn(s, pend_env)
+        reset_counts(*counters)
+        action_host, state = sync_free(solve, pend_env, es, s.init_state(0), ZOO_SOLVES)
+        pend_counts[controller] = got = counts()
+        pend_runs[controller] = (solve, s, es, state)
+        emit("pendulum", controller=controller, config=PENDULUM_CONFIG, n=s.num_particles,
+             h=s.horizon, solves=ZOO_SOLVES, launches=got, action=action_host.tolist())
+        if got != expected(pendulum=ZOO_SOLVES) or action_host.shape != (1,):
+            raise RuntimeError(f"pendulum {controller}: launches {got}, expected "
+                               f"{expected(pendulum=ZOO_SOLVES)}")
+
+    def one_kernel_loop(es, steps: int):
+        """The JAX package's closed loop on kernel #8: solve, step with the
+        clipped first action, shift the mean with a zero last row; the
+        rewards stay on the device."""
+        mean, rewards = torch.zeros(HORIZON, 1, device=device), []
+        for t in range(steps):
+            mean = pend.mppi_pendulum_solve(pend_env.params, es, mean, 1000 + t, **ONE_KERNEL)
+            es, _, reward, _ = pend_env.step(pend_env.params, es, pend_env.clip_action(mean[0]))
+            rewards.append(reward)
+            mean = torch.cat([mean[1:], torch.zeros_like(mean[:1])])
+        return torch.stack(rewards), mean
+
+    loop_start = pend_env.init(pend_env.params, 1)
+    reset_counts(*counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop_rewards, _ = one_kernel_loop(loop_start, ONE_KERNEL_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loop_rewards = loop_rewards.cpu().numpy()
+    loop_seconds = time.perf_counter() - t0
+    loop_counts = counts()
+    total = float(loop_rewards.sum())
+    emit("pendulum_one_kernel_loop", steps=ONE_KERNEL_STEPS, **ONE_KERNEL, launches=loop_counts,
+         total_reward=total, gate=-400.0, seconds=loop_seconds)
+    if loop_counts != expected(one_kernel_solve=ONE_KERNEL_STEPS) or not total > -400.0:
+        raise RuntimeError(f"one-kernel closed loop: launches {loop_counts}, total reward {total}")
+
+    # 13. the episode runner with each config's own solver(s)
     reacher_exp = hconfig.load_config("configs/reacher_7dof-v0.yml")
     harness_runs = [(name, "mppi", run[5], run[2]) for name, run in loco_runs.items()]
     harness_runs += [("reacher_7dof-v0", c, reacher_exp, env)
@@ -655,18 +805,21 @@ def main() -> int:
                      for c in PEN_CONTROLLERS]
     harness_runs.append(("sawyer_peg_insertion-v0", "mppi", hand_runs["sawyer_peg_insertion-v0"][5],
                          peg_env, PEN_STEPS))
+    harness_runs += [("SimplePendulum-v0", c, pend_exp, pend_env, PENDULUM_STEPS)
+                     for c in PENDULUM_CONTROLLERS]
     for name, controller, exp, e, steps in harness_runs:
         s = hconfig.make_solver_for_env(exp, controller, e)
         t0 = time.perf_counter()
         out = run_episodes(s, e, n_episodes=1, episode_length=steps, base_seed=exp["seed"])
         seconds = time.perf_counter() - t0
+        extra = (dict(jax_reward=JAX_PENDULUM_REWARDS.get(controller))
+                 if name == "SimplePendulum-v0" else dict(rewards=out["rewards"][0].tolist()))
         emit("harness", env=name, controller=controller, n=s.num_particles, h=s.horizon,
-             steps=steps, rewards=out["rewards"][0].tolist(),
-             ep_reward=float(out["ep_rewards"][0]), seconds=seconds)
+             steps=steps, ep_reward=float(out["ep_rewards"][0]), seconds=seconds, **extra)
         if out["rewards"].shape != (1, steps) or not np.isfinite(out["rewards"]).all():
             raise RuntimeError(f"harness {name} {controller}: rewards not finite")
 
-    # 13. timing (printed, not asserted)
+    # 14. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
     times = {
         "chain_rollout": (cuda_ms(lambda: roll(*args), 20), cuda_ms(lambda: roll.plain(*args), 2)),
@@ -756,6 +909,46 @@ def main() -> int:
         emit("forest_time", env=name, card=smi, n=s.num_particles, h=s.horizon,
              kernel_ms=forest_times[name][0], plain_ms=forest_times[name][1], solves_per_s=rate,
              windows=windows, **fields)
+
+    # the pendulum: kernels #7 and #8 per call; MPPI through kernel #7 (the
+    # config's plain sampler, and the kernel sampler) against kernel #8's
+    # one-launch solve
+    def one_kernel_solve_fn(n: int):
+        """Kernel #8 as a chained solve: (params, env state, (mean, step))
+        -> (action, None, (shifted mean, step + 1))."""
+        cfg8 = dict(ONE_KERNEL, num_particles=n)
+
+        def solve(params, es, carry):
+            mean, step = carry
+            mean = pend.mppi_pendulum_solve(params, es, mean, 1000 + step, **cfg8)
+            return mean[0], None, (torch.cat([mean[1:], torch.zeros_like(mean[:1])]), step + 1)
+
+        return solve
+
+    pend_times = {}
+    for n, h in bounds.PENDULUM_SIZES[7]:
+        args = pend_args[(n, h)]
+        pend_times[(7, n)] = (cuda_ms(lambda: pend.pendulum_rollout(*args), 50),
+                              cuda_ms(lambda: pend.pendulum_rollout.plain(*args), 5))
+    for n, _ in bounds.PENDULUM_SIZES[8]:
+        args, cfg8 = solve8_args[(n, 0.01)], dict(ONE_KERNEL, num_particles=n)
+        pend_times[(8, n)] = (cuda_ms(lambda: pend.mppi_pendulum_solve(*args, **cfg8), 50),
+                              cuda_ms(lambda: pend.mppi_pendulum_solve.plain(*args, **cfg8), 3))
+    _, mppi_cfg, pend_es, _ = pend_runs["mppi"]
+    pend_rates = {}
+    for key, s in (("mppi_n24", mppi_cfg),
+                   ("mppi_n2048", dataclasses.replace(mppi_cfg, num_particles=2048)),
+                   ("mppi_n2048_kernel_noise", dataclasses.replace(
+                       mppi_cfg, num_particles=2048, noise_impl="kernel"))):
+        pend_rates[key], _, _ = solves_per_s(solvers.make_solve_fn(s, pend_env), pend_env,
+                                             pend_es, s.init_state(0), 20, 5)
+    one_kernel_state = (torch.zeros(HORIZON, 1, device=device), 0)
+    pend_rates["one_kernel_n2048"], _, _ = solves_per_s(one_kernel_solve_fn(2048), pend_env,
+                                                        pend_es, one_kernel_state, 20, 5)
+    emit("pendulum_time", card=smi,
+         kernel_ms={f"#{k} N={n}": v[0] for (k, n), v in pend_times.items()},
+         plain_ms={f"#{k} N={n}": v[1] for (k, n), v in pend_times.items()},
+         solves_per_s=pend_rates, one_kernel_loop_seconds=loop_seconds)
 
     # where a solve's time goes: host clock per stage, synchronised
     for which, s in (("plain_noise", solver), ("kernel_noise", solver_k)):
@@ -859,6 +1052,10 @@ def main() -> int:
         profile(solve, e, es, s.init_state(0), solver="mppi", env=name)
     for name, (solve, s, e, es, _, _) in hand_runs.items():
         profile(solve, e, es, s.init_state(0), solver="mppi", env=name)
+    profile(pend_runs["mppi"][0], pend_env, pend_es, mppi_cfg.init_state(0), solver="mppi",
+            env="SimplePendulum-v0", n=mppi_cfg.num_particles)
+    profile(one_kernel_solve_fn(2048), pend_env, pend_es, one_kernel_state,
+            solver="one_kernel_mppi", env="SimplePendulum-v0", n=2048)
 
     # the kernels' summary: launches from the paths' runs, bounds from
     # this run's shapes (the work does not depend on the data)
@@ -917,6 +1114,33 @@ def main() -> int:
                  errors[("forest", "pen-v0", *bounds.FOREST_SIZES["pen-v0"])],
                  (pen_inst["bound_ms"], pen_inst["bound_by"])))
     times["forest_rollout"] = forest_times["pen-v0"]
+    pend_ptxas = [ln.strip() for ln in pend.library().ptxas.splitlines()
+                  if re.search(r"registers|spill|stack", ln)]
+    for number, sizes in bounds.PENDULUM_SIZES.items():
+        for n, h in sizes:
+            inst = bounds.pendulum_instance(number, n, h)
+            fields = (dict(max_abs_err=errors[("pendulum", n, h)],
+                           launches_per_solve=pend_counts["mppi"]["pendulum"] / ZOO_SOLVES)
+                      if number == 7 else
+                      dict(sampled=pend.sampled_particles(n), launches_per_solve=1.0,
+                           max_abs_err=max(errors[("solve8", n, lam)] for lam in (0.01, 1.0))))
+            emit("kernel_pendulum", number=number, kernel=inst["kernel"], n=n, h=h,
+                 ms=pend_times[(number, n)][0], plain_ms=pend_times[(number, n)][1],
+                 bound_ms=inst["bound_ms"], bound_by=inst["bound_by"],
+                 operations=inst["operations"], bytes=inst["bytes"], ptxas=pend_ptxas, card=smi,
+                 **fields)
+    mppi_n = mppi_cfg.num_particles
+    b7 = bounds.pendulum_instance(7, mppi_n, HORIZON)
+    b8 = bounds.pendulum_instance(8, ONE_KERNEL["num_particles"], HORIZON)
+    rows += [("pendulum_rollout", "mjmpc_tpu_torch/csrc/pendulum.cu",
+              "mjmpc_tpu/ops/pallas_kernels.py:130", pend_counts["mppi"]["pendulum"],
+              errors[("pendulum", mppi_n, HORIZON)], (b7["bound_ms"], b7["bound_by"])),
+             ("mppi_pendulum_solve", "mjmpc_tpu_torch/csrc/pendulum.cu",
+              "mjmpc_tpu/ops/pallas_kernels.py:201", loop_counts["one_kernel_solve"],
+              max(errors[("solve8", ONE_KERNEL["num_particles"], lam)] for lam in (0.01, 1.0)),
+              (b8["bound_ms"], b8["bound_by"]))]
+    times["pendulum_rollout"] = pend_times[(7, mppi_n)]
+    times["mppi_pendulum_solve"] = pend_times[(8, ONE_KERNEL["num_particles"])]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times[kname][0],

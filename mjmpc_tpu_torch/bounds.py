@@ -7,18 +7,19 @@ A bound is the larger of two times: the bytes the function must move
 rate, and the operations it does over the card's f32 rate (NVIDIA's data
 sheet for the H100 SXM at 700 W: 3.35 TB/s HBM3, 67 TFLOP/s f32 outside
 the tensor cores). Operations are counted from the kernels' sources (a
-multiply, an add, a compare or a transcendental is one). For the kernels
-not ported yet, the count is of the JAX package's Pallas source. This is
+multiply, an add, a compare or a transcendental is one). This is
 arithmetic on shapes, not a measurement; it runs anywhere. chip_smoke.py
-reports the same bounds for the ported kernels beside their measured
-times, kernel #4's peg instance at the closed-loop peg config's size,
-kernel #5 at the swimmer's and the half cheetah's config sizes and kernel
-#6 at pen-v0's and the sawyer peg's (N=256, H=16 each).
+reports the same bounds for the kernels beside their measured times,
+kernel #4's peg instance at the closed-loop peg config's size, kernel #5
+at the swimmer's and the half cheetah's config sizes, kernel #6 at
+pen-v0's and the sawyer peg's (N=256, H=16 each) and kernels #7 and #8 at
+the sizes it times (PENDULUM_SIZES).
 """
 from __future__ import annotations
 
 import json
 
+from .ops import pendulum
 from .ops.chain_rollout import (PEG, REACHER, ChainExtRollout, ext_rollout_bytes,
                                  ext_rollout_flops, rollout_bytes, rollout_flops)
 from .ops.forest_rollout import ForestRollout, forest_rollout_bytes, forest_rollout_flops
@@ -75,15 +76,7 @@ def kernel_table(model, n: int = 4096, h: int = 32, n_substeps: int = 2):
         r5["operations_from"])
     r6 = forest_instance(_forest_rollout("pen-v0"), *FOREST_SIZES["pen-v0"])
     rows.append(dict(r6, number=6, kernel="build_forest_rollout kernel"))
-    # #7: per step the clip (3), angle wrap (3), cost (7), velocity update
-    # with sin (7), position (2) and speed clamp (2): pallas_kernels.py:130-144
-    row(7, "_pendulum_kernel", "pendulum nu=1", F32 * (2 + h + 2 * nh), 24 * nh,
-        "pallas_kernels.py:130-144")
-    # #8: per particle-step two uniforms and Box-Muller (14), the AR(2)
-    # filter (5), sigma (1), the rollout step (24), the cost-to-go (2) and
-    # the weighted mean (3); per particle the softmax (4): :201-247
-    row(8, "_mppi_solve_kernel", "pendulum nu=1", F32 * (1 + 2 + 2 * h), 49 * nh + 4 * n,
-        "pallas_kernels.py:201-247")
+    rows += [pendulum_instance(7, n, h), pendulum_instance(8, n, h)]
     return rows
 
 
@@ -154,6 +147,29 @@ def forest_instance(roll: ForestRollout, n: int, h: int) -> dict:
                 bound_ms=ms, bound_by=by)
 
 
+# Kernels #7 and #8 at the sizes chip_smoke.py times: #7 at
+# configs/SimplePendulum-v0.yml's N (mppi 4 x 6, the others 4 x 16), H=32,
+# and at N=2048 and 4096; #8 at N=1024 (the JAX package's closed loop) and
+# 2048.
+PENDULUM_SIZES = {7: ((24, 32), (64, 32), (2048, 32), (4096, 32)), 8: ((1024, 32), (2048, 32))}
+
+
+def pendulum_instance(number: int, n: int, h: int) -> dict:
+    """Kernel #7 (the pendulum rollout) or #8 (the one-kernel MPPI solve,
+    n rounded up as it samples) at N particles and H steps, counted from
+    csrc/pendulum.cuh."""
+    if number == 7:
+        kernel, n_bytes, n_ops = ("_pendulum_kernel", pendulum.rollout_bytes(n, h),
+                                  pendulum.rollout_flops(n, h))
+    else:
+        kernel, n_bytes, n_ops = ("_mppi_solve_kernel", pendulum.solve_bytes(h),
+                                  pendulum.solve_flops(n, h))
+    ms, by = bound_ms(n_bytes, n_ops)
+    return dict(number=number, kernel=kernel, n=n, h=h, widths="pendulum nu=1",
+                bytes=n_bytes, operations=n_ops, operations_from="csrc/pendulum.cuh",
+                bound_ms=ms, bound_by=by)
+
+
 def main() -> None:
     from . import envs
     model = envs.make("reacher_7dof-v0", device="cpu").params.model
@@ -165,6 +181,9 @@ def main() -> None:
         print(json.dumps(ext_instance(_loco_rollout(name), *size)))
     for name, size in FOREST_SIZES.items():
         print(json.dumps(forest_instance(_forest_rollout(name), *size)))
+    for number, sizes in PENDULUM_SIZES.items():
+        for size in sizes:
+            print(json.dumps(pendulum_instance(number, *size)))
 
 
 if __name__ == "__main__":

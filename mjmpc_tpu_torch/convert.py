@@ -3,7 +3,8 @@
 Plain functions over numpy arrays, or objects whose fields convert with
 np.asarray (a JAX ChainModel, GaussianState, ReacherState, PegParams,
 PegState, ReinforceState, VFParams, LGPolicyParams, SwimmerParams,
-CheetahParams, SwimmerState, CheetahState, PenParams or PenState does;
+CheetahParams, SwimmerState, CheetahState, PenParams, PenState,
+PendulumParams or PendulumState does;
 models with ball and free joints keep the JAX layout: qpos [nq] with
 quaternions in wxyz order, per-DOF arrays [nv], limits [nq]). This module
 never imports jax; tests use it so that both packages compute on the same
@@ -17,9 +18,11 @@ import torch
 from .engine.chain import ChainModel
 from .envs.half_cheetah import CheetahParams, CheetahState
 from .envs.pen import PenParams, PenState
+from .envs.pendulum import PendulumParams, PendulumState
 from .envs.reacher_7dof import ReacherState
 from .envs.sawyer_tasks import PegParams, PegState
 from .envs.swimmer import _VEL_LIMIT, SwimmerParams, SwimmerState
+from .ops.pendulum import PARAM_FIELDS as _PENDULUM_FIELDS
 from .policies.linear_gaussian import LGPolicyParams
 from .solvers.base import GaussianState
 from .solvers.reinforce import ReinforceState
@@ -136,3 +139,16 @@ def pen_state_from_reference(state, device="cuda") -> PenState:
     return PenState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
                     desired=_t(state.desired, device),
                     timestep=int(np.asarray(state.timestep)))
+
+
+def pendulum_params_from_reference(params, device="cuda") -> PendulumParams:
+    """A reference PendulumParams (g, m, l, dt, max_speed, max_torque) as
+    the port's, 0-d float32 tensors."""
+    return PendulumParams(**{f: _t(getattr(params, f), device)
+                             for f in _PENDULUM_FIELDS})
+
+
+def pendulum_state_from_reference(state, device="cuda") -> PendulumState:
+    """A reference PendulumState (th, thdot; any leading batch shape) as the
+    port's."""
+    return PendulumState(th=_t(state.th, device), thdot=_t(state.thdot, device))

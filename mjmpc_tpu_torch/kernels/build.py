@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -50,18 +50,18 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _digest(source: bytes, headers: Dict[str, str]) -> str:
+def _digest(source: bytes, headers: Dict[str, str], flags: Tuple[str, ...]) -> str:
     h = hashlib.sha256(source)
     for path in sorted(CSRC.glob("*.cuh")):    # the sources' shared headers
         h.update(path.read_bytes())
     for name in sorted(headers):
         h.update(name.encode())
         h.update(headers[name].encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
     return h.hexdigest()[:16]
 
 
-def _compile(source: Path, headers: Dict[str, str], lib_name: str,
+def _compile(source: Path, headers: Dict[str, str], flags: Tuple[str, ...], lib_name: str,
              out_dir: Path) -> None:
     """Compile into a fresh directory, then move it into place, so that a
     concurrent or interrupted build never leaves a half-written library."""
@@ -70,7 +70,7 @@ def _compile(source: Path, headers: Dict[str, str], lib_name: str,
     try:
         for name, text in headers.items():
             (tmp / name).write_text(text)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(tmp), "-I", str(CSRC),
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-I", str(tmp), "-I", str(CSRC),
                "-o", str(tmp / lib_name), str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -87,12 +87,14 @@ def _compile(source: Path, headers: Dict[str, str], lib_name: str,
             shutil.rmtree(tmp, ignore_errors=True)
 
 
-def load(name: str, source: str, headers: Dict[str, str]) -> KernelLibrary:
+def load(name: str, source: str, headers: Dict[str, str],
+         flags: Tuple[str, ...] = ()) -> KernelLibrary:
     """Build (if needed) and load csrc/<source> with the generated
-    `headers` ({file name: text}) as lib<name>.so. Raises with nvcc's
-    stderr when the build fails."""
+    `headers` ({file name: text}) as lib<name>.so, with nvcc `flags` added
+    to NVCC_FLAGS. Raises with nvcc's stderr when the build fails."""
     src = CSRC / source
-    key = f"{name}-{_digest(src.read_bytes(), headers)}"
+    flags = tuple(flags)
+    key = f"{name}-{_digest(src.read_bytes(), headers, flags)}"
     if key in _LOADED:
         return _LOADED[key]
     out_dir = BUILD_ROOT / key
@@ -100,7 +102,7 @@ def load(name: str, source: str, headers: Dict[str, str]) -> KernelLibrary:
     seconds = 0.0
     if not (out_dir / lib_name).exists():
         start = time.perf_counter()
-        _compile(src, headers, lib_name, out_dir)
+        _compile(src, headers, flags, lib_name, out_dir)
         seconds = time.perf_counter() - start
     lib = ctypes.CDLL(str(out_dir / lib_name))
     loaded = KernelLibrary(lib=lib, path=out_dir / lib_name,

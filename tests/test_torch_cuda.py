@@ -1,9 +1,10 @@
 """The CUDA kernels on the card (chain rollout, chain rollout with
 observations, closed-loop chain rollout for the reacher and peg tasks,
 filtered noise, the locomotion rollout for the swimmer and the half
-cheetah, the forest rollout for pen-v0 and the sawyer peg): each against
-its plain PyTorch version, their launch counts on sync-free solves, and
-the wrappers' checks.
+cheetah, the forest rollout for pen-v0 and the sawyer peg, the pendulum
+rollout and the one-kernel pendulum MPPI solve): each against its plain
+PyTorch version, their launch counts on sync-free solves, and the
+wrappers' checks.
 
 Needs a CUDA card and skips without one (the kernel has no CPU mode). This
 file imports no jax, so it also runs where jax is not installed:
@@ -23,8 +24,14 @@ from a pinch in which every fingertip presses on the pen (so that the
 costs follow the hand's dynamics through contact), 1e-4 at (37, 5); at its
 config's (256, 16), 80 substeps of contact, at least 99% of the costs
 within 1e-3 and every other one off by a bonus step of the gated pen cost
-(a signed sum of 5, 10 and 50) to within 1e-3.
+(a signed sum of 5, 10 and 50) to within 1e-3. Pendulum rollout: atol
+1e-5 from a start that crosses -pi (th0 = -3.0, thdot0 = -8), at (37, 5)
+and (4096, 32). One-kernel MPPI solve: atol 1e-5 on the new mean at N =
+1024 and 2048, H = 32, lam 0.01 and 1.0 (the same Philox normals and the
+same rollout operations; only the order of the particle sums differs).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +44,8 @@ from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout, 
                                                build_chain_obs_rollout, build_chain_rollout)
 from mjmpc_tpu_torch.ops.forest_rollout import ForestRollout, gated_cost_agreement
 from mjmpc_tpu_torch.ops.noise import FilteredNoise
+from mjmpc_tpu_torch.ops.pendulum import (MppiPendulumSolve, PendulumRollout,
+                                          mppi_pendulum_solve, pendulum_rollout)
 
 pytestmark = pytest.mark.cuda
 
@@ -299,3 +308,62 @@ def test_forest_solves_launch_the_kernel_without_host_syncs(device, name):
     after = (ForestRollout.launches, ChainRollout.launches, ChainObsRollout.launches)
     assert after == (before[0] + 3, before[1], before[2])
     assert bool(torch.isfinite(action).all())
+
+
+def _pendulum_case(n, h, seed, device):
+    """The pendulum env, the start that crosses -pi, mean * 0.3 and noise."""
+    env = envs.make("SimplePendulum-v0", device=device)
+    state = dataclasses.replace(env.init(env.params, 0), th=torch.tensor(-3.0, device=device),
+                                thdot=torch.tensor(-8.0, device=device))
+    rng = np.random.default_rng(seed)
+    mean = torch.as_tensor(np.asarray(rng.normal(size=(h, 1)) * 0.3, np.float32), device=device)
+    noise = torch.as_tensor(np.asarray(rng.normal(size=(n, h, 1)), np.float32), device=device)
+    return env, state, mean, noise
+
+
+@pytest.mark.parametrize("n,h", [(37, 5), (4096, 32)])
+def test_pendulum_kernel_matches_plain(device, n, h):
+    env, state, mean, noise = _pendulum_case(n, h, 8, device)
+    before = PendulumRollout.launches
+    got = pendulum_rollout(env.params, state, mean, noise)
+    assert PendulumRollout.launches == before + 1
+    want = pendulum_rollout.plain(env.params, state, mean, noise)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    zeroed = pendulum_rollout.plain(env.params, state, mean, torch.zeros_like(noise))
+    assert float((zeroed - got).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("n,lam", [(1024, 0.01), (1024, 1.0), (2048, 0.01), (2048, 1.0)])
+def test_one_kernel_solve_matches_plain(device, n, lam):
+    env, state, mean, _ = _pendulum_case(1, 32, 9, device)
+    args = (env.params, state, mean, 77, n, (0.25, 0.8, 0.0), float(np.sqrt(3.5)), lam, 0.55,
+            1.0)
+    before = MppiPendulumSolve.launches
+    got = mppi_pendulum_solve(*args)
+    assert MppiPendulumSolve.launches == before + 1
+    torch.testing.assert_close(got, mppi_pendulum_solve.plain(*args), rtol=0, atol=1e-5)
+    other = mppi_pendulum_solve.plain(*args[:3], 78, *args[4:])
+    assert float((other - got).abs().max()) > 1e-4
+
+
+def test_pendulum_solves_launch_the_kernels_without_host_syncs(device):
+    env = envs.make("SimplePendulum-v0", device=device)
+    solver = solvers.MPPI(d_action=1, horizon=32, num_particles=24, lam=0.01, init_cov=3.5,
+                          step_size=0.55, alpha=1, filter_coeffs=(0.25, 0.8, 0.0),
+                          base_action="repeat", device=device)
+    solve = solvers.make_solve_fn(solver, env)
+    env_state, state = env.init(env.params, 1), solver.init_state(0)
+    mean = torch.zeros(32, 1, device=device)
+    before = (PendulumRollout.launches, MppiPendulumSolve.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(3):
+            action, _, state = solve(env.params, env_state, state)
+            mean = mppi_pendulum_solve(env.params, env_state, mean, 1000 + t, 1024,
+                                       (0.25, 0.8, 0.0), float(np.sqrt(3.5)), 0.01, 0.55, 1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (PendulumRollout.launches, MppiPendulumSolve.launches) == (before[0] + 3,
+                                                                      before[1] + 3)
+    assert bool(torch.isfinite(action).all()) and bool(torch.isfinite(mean).all())
