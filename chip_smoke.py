@@ -79,7 +79,9 @@ exit and no final line:
                printed. The plain version with the actions zeroed must
                fail both pen checks, at N=37 H=5 by more than 10x the
                tolerance (the check's power against a kernel that ignores
-               the actions).
+               the actions). A second launch on the same inputs must give
+               the same costs bit for bit (no atomics, a fixed order of
+               every sum).
 11. hand    -- configs/hand/pen-v0.yml and
                configs/sawyer/sawyer_peg_insertion-v0.yml (mppi) through
                harness.config.make_solver_for_env at their full sizes: 3
@@ -324,6 +326,39 @@ def sync_free(solve, env, env_state, state, k: int):
     if not np.isfinite(action_host).all():
         raise RuntimeError("solve produced a non-finite action")
     return action_host, state
+
+
+def profile(solve, e, es, state, smi: str, **labels) -> None:
+    """Kernels and device time per solve: torch.profiler over N_SOLVES
+    chained solves after 3 warm-up solves; one `profile` line beside the
+    card's name and power limit `smi`."""
+    import torch
+    for _ in range(3):
+        _, _, state = solve(e.params, es, state)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(N_SOLVES):
+            _, _, state = solve(e.params, es, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(device_time_us(ev) for ev in kernels)
+    by_name = {}
+    for ev in kernels:
+        us, count = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (us + device_time_us(ev), count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    emit("profile", **labels, card=smi, solves=N_SOLVES,
+         top_kernels=[{"kernel": k[:90], "ms_per_solve": us / 1e3 / N_SOLVES,
+                       "launches_per_solve": count / N_SOLVES}
+                      for k, (us, count) in top],
+         device_kernels_per_solve=len(kernels) / N_SOLVES,
+         device_ms_per_solve=device_us / 1e3 / N_SOLVES,
+         wall_ms_per_solve=wall * 1e3 / N_SOLVES,
+         device_busy_share=(device_us / 1e6) / wall if wall > 0 else None)
 
 
 def main() -> int:
@@ -695,13 +730,16 @@ def main() -> int:
                                   ("pen-v0", 37, 5, 1e-4, 22), ("pen-v0", 256, 16, None, 23)):
         r = forest_rolls[name]
         args = forest_args[(name, n, h)] = forest_inputs(forest_envs[name], r, n, h, seed, device)
-        got, want = r(*args), r.plain(*args)
+        got, again, want = r(*args), r(*args), r.plain(*args)
         torch.cuda.synchronize()
         if got.shape != (n, h) or not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"forest kernel output bad for {name} at N={n} H={h}")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"forest kernel: two launches differ for {name} at N={n} H={h}")
         err = float((got - want).abs().max())
         errors[("forest", name, n, h)] = err
-        fields = dict(env=name, n=n, h=h, max_abs_err=err, costs_min=float(want.min()),
+        fields = dict(env=name, n=n, h=h, team=r.team, max_abs_err=err,
+                      launches_identical=True, costs_min=float(want.min()),
                       costs_max=float(want.max()))
 
         def check(costs):
@@ -1015,46 +1053,17 @@ def main() -> int:
         emit("breakdown_ms", solver="reinforce", env=e.name, n_iters=s.n_iters, card=smi,
              **{k: statistics.median(v) for k, v in stages.items()})
 
-    # kernels and device time per solve (torch.profiler over 10 solves)
-    def profile(solve, e, es, state, **labels):
-        for _ in range(3):
-            _, _, state = solve(e.params, es, state)
-        torch.cuda.synchronize()
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            for _ in range(N_SOLVES):
-                _, _, state = solve(e.params, es, state)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [ev for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA]
-        device_us = sum(device_time_us(ev) for ev in kernels)
-        by_name = {}
-        for ev in kernels:
-            us, count = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (us + device_time_us(ev), count + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-        emit("profile", **labels, card=smi, solves=N_SOLVES,
-             top_kernels=[{"kernel": k[:90], "ms_per_solve": us / 1e3 / N_SOLVES,
-                           "launches_per_solve": count / N_SOLVES}
-                          for k, (us, count) in top],
-             device_kernels_per_solve=len(kernels) / N_SOLVES,
-             device_ms_per_solve=device_us / 1e3 / N_SOLVES,
-             wall_ms_per_solve=wall * 1e3 / N_SOLVES,
-             device_busy_share=(device_us / 1e6) / wall if wall > 0 else None)
-
     for which, (solve, s) in variants.items():
-        profile(solve, env, env_state, s.init_state(0), noise_impl=which)
+        profile(solve, env, env_state, s.init_state(0), smi, noise_impl=which)
     for key, (solve, s, e, es, _) in cl_runs.items():
-        profile(solve, e, es, s.init_state(0), solver="reinforce", env=e.name)
+        profile(solve, e, es, s.init_state(0), smi, solver="reinforce", env=e.name)
     for name, (solve, s, e, es, _, _) in loco_runs.items():
-        profile(solve, e, es, s.init_state(0), solver="mppi", env=name)
+        profile(solve, e, es, s.init_state(0), smi, solver="mppi", env=name)
     for name, (solve, s, e, es, _, _) in hand_runs.items():
-        profile(solve, e, es, s.init_state(0), solver="mppi", env=name)
-    profile(pend_runs["mppi"][0], pend_env, pend_es, mppi_cfg.init_state(0), solver="mppi",
-            env="SimplePendulum-v0", n=mppi_cfg.num_particles)
-    profile(one_kernel_solve_fn(2048), pend_env, pend_es, one_kernel_state,
+        profile(solve, e, es, s.init_state(0), smi, solver="mppi", env=name)
+    profile(pend_runs["mppi"][0], pend_env, pend_es, mppi_cfg.init_state(0), smi,
+            solver="mppi", env="SimplePendulum-v0", n=mppi_cfg.num_particles)
+    profile(one_kernel_solve_fn(2048), pend_env, pend_es, one_kernel_state, smi,
             solver="one_kernel_mppi", env="SimplePendulum-v0", n=2048)
 
     # the kernels' summary: launches from the paths' runs, bounds from
@@ -1102,8 +1111,8 @@ def main() -> int:
         n, h = bounds.FOREST_SIZES[name]
         inst = bounds.forest_instance(r, n, h)
         ptxas = [ln.strip() for ln in r.library().ptxas.splitlines()
-                 if re.search(r"registers|spill|stack", ln)]
-        emit("kernel_forest", name="forest_rollout", env=name, n=n, h=h,
+                 if re.search(r"registers|spill|stack|smem", ln)]
+        emit("kernel_forest", name="forest_rollout", env=name, n=n, h=h, team=r.team,
              launches_per_solve=hand_counts[name]["forest"] / ZOO_SOLVES,
              max_abs_err=errors[("forest", name, n, h)], ms=forest_times[name][0],
              plain_ms=forest_times[name][1], bound_ms=inst["bound_ms"], bound_by=inst["bound_by"],

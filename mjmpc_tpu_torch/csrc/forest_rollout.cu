@@ -1,5 +1,5 @@
 // The rollout of a kinematic forest with penalty contact over N particles
-// and H control steps, one CUDA thread per particle.
+// and H control steps, one team of forest::TEAM lanes per particle.
 //
 // Replaces the TPU kernel `kernel` of `build_forest_rollout` in
 // mjmpc_tpu/ops/pallas_forest.py (its `pl.pallas_call`), the hand suite's
@@ -8,14 +8,15 @@
 // Jacobians, one ancestor-sparse Cholesky solve per tree and the Euler
 // equations of each free body in every substep, and the task's cost of the
 // post-step state (forest_rollout.cuh has the arithmetic; the generated
-// header forest_model.h the model, topology and task as compile-time
-// constants).
+// header forest_model.h the model, topology, the team's work tables and
+// the task as compile-time constants).
 //
 //   for t in 0..H-1:
 //     u = clip(mean[t] + noise[b, t], ULOW, UHIGH) on act_body(j), 0 elsewhere
-//     N_SUBSTEPS times: FK; contact points, task forces, scatter; per
-//       tree mass matrix, RNEA bias, Cholesky solve, Euler step, limits;
-//       per free body the Euler equations, the quaternion retraction
+//     N_SUBSTEPS times: contact points, task forces, generalized forces;
+//       mass matrix, RNEA bias, Cholesky solve, Euler step, limits per
+//       tree; per free body the Euler equations, the quaternion retraction;
+//       FK of the new state
 //     costs[b, t] = the task's cost of the post-step state
 //
 // It computes what the TPU kernel computes, not its TPU layout: no lane
@@ -27,17 +28,40 @@
 // terms, RNEA, the sparse Cholesky, 12 contact points; counted from
 // forest_rollout.cuh by ops/forest_rollout.py forest_rollout_flops)
 // against 96 bytes of noise read and 4 of costs written per particle-step.
-// At the planners' N of 100-512 particles the work is too small to fill
-// the card, so the kernel is latency-bound: one thread carries a particle
-// through H * N_SUBSTEPS dependent substeps. The design keeps the code
-// small enough for nvcc to build in seconds: the loops over bodies,
-// ancestors and points stay rolled over the header's topology tables in
-// __constant__ memory (every thread of a warp reads the same entry), the
-// mass matrix is kept in packed ancestor rows, and the frames and rows sit
-// in local memory. Blocks are one warp, so the particles spread over up
-// to N / 32 SMs and each warp has its SM's L1 for that local memory.
-// Making it fast (several threads per particle, the hand's digits split
-// across a warp) is later work; PERF.md records its time and ptxas counts.
+// At the planners' N of 100-512 particles that is far too little work to
+// fill the card: the time is the length of one particle's dependent chain,
+// H * N_SUBSTEPS substeps. With one thread per particle that chain was
+// every operation of the substep in turn, through local memory.
+//
+// The design shortens the chain. A team of lanes carries one particle,
+// whose whole state (q, qd, frames, packed mass rows, RNEA terms, contact
+// points) sits in shared memory, so nothing of it goes to local memory.
+// The team is TEAM lanes (32 for the 25-body hand, 8 for the 7-body arm:
+// ops/forest_rollout.py default_team) in each of two warps. Each substep
+// is a sequence of phases over the header's tables: every hinge's cos and
+// sin at once, FK and the RNEA forward terms down the tree levels, each
+// body's own terms; the contact points beside the (body, ancestor)
+// Jacobian slots; the task's forces; the generalized forces beside the
+// packed mass entries, whose terms the header lays out as one list per
+// lane with every index a term needs; the Cholesky factor by columns, one
+// column per level at every body below it, beside the RNEA backward pass
+// up the levels; forward substitution down, back substitution with the
+// Euler step up. A particle's chain is then about four times the tree's
+// depth in phases, each as long as its slowest lane's items. Where a
+// phase has two kinds of work, the first group takes one and the last
+// group the other: in one warp they would run one after the other. The
+// team syncs with __syncthreads between phases. There are no atomics and
+// no sum is split
+// between lanes, so every sum keeps the plain version's order and two
+// launches give the same costs. A block holds 32 / TEAM
+// particles, so N=256 pen particles spread over all 132 SMs. Each block
+// first copies the model's tables from constant into shared memory: the
+// lanes of a team read different entries at once, which constant memory
+// serves one address at a time. The joint kinds a model lacks (slides,
+// free bodies, coupled ones, friction loss) build no code (the header's
+// HAS_* constants): a smaller kernel, which the instruction cache holds
+// better. PERF.md records the times, ptxas counts and a cycle count per
+// kind of phase (a -DFOREST_PHASE_CLOCKS build, tools/forest_ab.py).
 //
 // IEEE f32 math: built without --use_fast_math, with sinf/cosf/sqrtf/tanhf.
 
@@ -47,17 +71,29 @@
 
 namespace {
 
-constexpr int kBlock = 32;
+// A block is two warps holding 32 / TEAM teams: warp g holds every team's
+// group g. Their particles and the tables sit in static shared
+// memory, at most 48 KB a block (ptxas refuses more).
+constexpr int kTeams = 32 / forest::TEAM;
+constexpr int kBlock = 32 * forest_rollout::GROUPS;
 
 __global__ void __launch_bounds__(kBlock)
     forest_rollout_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
                           const float* __restrict__ extras, const float* __restrict__ mean,
                           const float* __restrict__ noise, float* __restrict__ costs, int n,
                           int horizon) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b < n)
-        forest_rollout::rollout_particle<forest_rollout::BuildTask>(q0, qd0, extras, mean, noise,
-                                                                    costs, b, horizon);
+    __shared__ forest_rollout::Particle particles[kTeams];
+    forest::load_tables(threadIdx.x, kBlock);
+    __syncthreads();
+    const int in_warp = threadIdx.x % 32;
+    const int team = in_warp / forest::TEAM;
+    const int b = blockIdx.x * kTeams + team;
+    const int lane = threadIdx.x / 32 * forest::TEAM + in_warp % forest::TEAM;
+    // a ragged block's spare teams roll out a copy of the last particle,
+    // unwritten, since the block syncs together
+    forest_rollout::rollout_team<forest_rollout::BuildTask>(
+        particles[team], forest_rollout::Team{lane}, q0, qd0, extras, mean, noise, costs,
+        b < n ? b : n - 1, horizon, b < n);
 }
 
 }  // namespace
@@ -71,20 +107,35 @@ extern "C" {
 int forest_rollout_launch(const float* q0, const float* qd0, const float* extras,
                           const float* mean, const float* noise, float* costs, int n,
                           int horizon, void* stream) {
-    forest_rollout_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
+    forest_rollout_kernel<<<(n + kTeams - 1) / kTeams, kBlock, 0,
                             static_cast<cudaStream_t>(stream)>>>(q0, qd0, extras, mean, noise,
                                                                  costs, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
 
-// The build's (task, nq, nv, dA, n_extras), checked by the wrapper.
+// The build's (task, nq, nv, dA, n_extras, team), checked by the wrapper.
 void forest_rollout_layout(int* out) {
     out[0] = forest::TASK;
     out[1] = forest::NQ;
     out[2] = forest::NV;
     out[3] = forest::D_ACT;
     out[4] = forest::N_EXTRAS;
+    out[5] = forest::TEAM;
 }
+
+#ifdef FOREST_PHASE_CLOCKS
+// A phase-clock build's cycles per kind of phase (forest_rollout.cuh
+// PhaseKind) into out [N_PHASE_KINDS], summed since the last call, then
+// zeroed; returns a cudaError_t (0 on success). Synchronises.
+int forest_rollout_phase_cycles(unsigned long long* out) {
+    auto& cycles = forest_rollout::phase_cycles;
+    cudaError_t rc = cudaMemcpyFromSymbol(out, cycles, sizeof(cycles));
+    void* address = nullptr;
+    if (rc == cudaSuccess) rc = cudaGetSymbolAddress(&address, cycles);
+    if (rc == cudaSuccess) rc = cudaMemset(address, 0, sizeof(cycles));
+    return static_cast<int>(rc);
+}
+#endif
 
 const char* forest_rollout_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,8 +1,10 @@
-// Per-particle arithmetic of the forest-rollout kernel (forest_rollout.cu)
-// over the forest of forest_model.h (the model, its topology and the task,
-// generated by mjmpc_tpu_torch/ops/forest_rollout.py model_header). The
-// functions are host-and-device, so the same source also compiles as plain
-// C++ (tests/test_torch_forest.py checks it on the CPU that way).
+// Per-particle arithmetic of the forest-rollout kernel (forest_rollout.cu),
+// written for a team of forest::TEAM lanes that carries one particle, over
+// the forest of forest_model.h (the model, its topology, the team's work
+// tables and the task, generated by mjmpc_tpu_torch/ops/forest_rollout.py
+// model_header). The functions are host-and-device, so the same source
+// also compiles as plain C++ (tests/test_torch_forest.py checks it on the
+// CPU that way).
 //
 // The forest: trees of hinge/slide bodies (a body's parent comes before
 // it) plus free root bodies without children. q[qoff(i)] and qd[voff(i)]
@@ -10,25 +12,38 @@
 // quaternion wxyz) and qd[voff(i) .. +6] (linear velocity, body-frame
 // angular velocity) a free body's.
 //
+// A particle's whole state lives in a Particle, in shared memory on the
+// card. A substep is a sequence of phases; in each, every lane of the team
+// works on its own items of the header's tables (bodies of one tree level,
+// contact points, (body, ancestor) slots, mass-matrix pairs) and writes only
+// its own items' outputs, reading what earlier phases wrote; the team syncs
+// between phases (phase()). On the host the lanes of a phase run one after
+// another, so the CPU build runs the kernel's own partition and order.
+// Every sum keeps the plain version's order (ops/forest_rollout.py
+// forest_substep), whatever the team size: a sum is never split between
+// lanes, and there are no atomics, so two launches give the same costs.
+//
 // The loops over bodies, ancestors and contact points stay rolled and read
-// the topology from tables (forest::parent, depth, anc, ...): in __constant__
-// memory on the card, where every thread of a warp reads the same entry.
-// Unrolling them over a compile-time 25-body hand multiplies the code past
-// what nvcc builds in reasonable time. The mass matrix is kept in packed
+// the topology from tables (forest::parent, depth, anc, ...): unrolling them
+// over a compile-time 25-body hand multiplies the code past what nvcc
+// builds in reasonable time. The mass matrix is kept in packed
 // ancestor-sparse rows: M[b][k] is the entry of the pair (anc(b, k), b), k <
 // depth(b), the k-th body on b's root path (root first, b last). The
 // forest's mass matrix is block-diagonal and a tree's block ordered
 // ancestors-first factorises without fill-in outside ancestor pairs, so
-// the Cholesky factor L takes the same slots, and nothing across trees is
-// ever stored.
+// the Cholesky factor L takes the same slots (its diagonal apart, in ld),
+// and nothing across trees is ever stored.
 //
 // Tasks (forest::TASK, and FOREST_TASK for the preprocessor): Pen (the
 // 12-point pen contact and the pen cost, envs/pen.py), Peg (no contact, the
 // depth-progress insertion cost of peg_cost.cuh) and GroundSpheres
 // (spheres against the plane z = 0). A task gives N_EXTRAS, load() of its
-// extras, forces() at the contact points, joint_torque() (the optional
-// hook on the joints' generalized forces) and cost() of a post-step state.
-// The contact primitives follow envs/contact.py formula for formula.
+// extras, point_force() of one contact point (its first N_FIRST points on
+// a team's first group, the rest on its last; for a force law that sums
+// over points, N_SUMS sums in sum_forces()), joint_torque() (the
+// optional hook on each joint's generalized force) and cost() of a
+// post-step state. The contact primitives follow envs/contact.py formula
+// for formula.
 
 #pragma once
 
@@ -56,11 +71,34 @@ using forest::MAXD;
 using forest::NB;
 using forest::NQ;
 using forest::NV;
+using forest::TEAM;
+
+static_assert(TEAM == 1 || TEAM == 2 || TEAM == 4 || TEAM == 8 || TEAM == 16 || TEAM == 32,
+              "a team's group is a power of two of lanes within one warp");
+// A particle's lanes: TEAM in each of GROUPS = 2 warps. Lanes [0, TEAM) are
+// the first group, [TEAM, LANES) the last. Where a phase has two kinds of
+// work, the first group takes one and the last group the other, so that
+// they run side by side, not one after the other in a warp.
+constexpr int GROUPS = 2;
+constexpr int LANES = TEAM * GROUPS;
+
+FOREST_FN bool first_group(int lane) { return lane < TEAM; }
+FOREST_FN bool last_group(int lane) { return lane >= LANES - TEAM; }
 
 constexpr int HINGE = 0;
 constexpr int FREE = 2;
-// array length of the per-point arrays (a task without contact has none)
+// array lengths of the per-point and per-slot arrays (a task without
+// contact has no points)
 constexpr int NP = forest::N_POINTS > 0 ? forest::N_POINTS : 1;
+constexpr int NS = forest::N_SLOTS > 0 ? forest::N_SLOTS : 1;
+
+// A body's joint kind. The kinds a model lacks (the header's HAS_FREE,
+// HAS_SLIDE) are decided at compile time, so their code is not built: a
+// smaller kernel, which the instruction cache holds better.
+FOREST_FN bool is_free(int i) { return forest::HAS_FREE && forest::jtype(i) == FREE; }
+FOREST_FN bool is_hinge(int i) {
+    return forest::HAS_SLIDE ? forest::jtype(i) == HINGE : !is_free(i);
+}
 
 FOREST_FN V3 axis_of(int i) { return {forest::axis(i, 0), forest::axis(i, 1), forest::axis(i, 2)}; }
 
@@ -83,15 +121,9 @@ FOREST_FN M3 inertia_of(int i) {
 
 FOREST_FN V3 load3(const float* v) { return {v[0], v[1], v[2]}; }
 
-FOREST_FN void add3(float* v, V3 a) {
-    v[0] = v[0] + a.x;
-    v[1] = v[1] + a.y;
-    v[2] = v[2] + a.z;
-}
-
-// Rotation about the constant unit axis of joint i by angle `ang`.
-FOREST_FN M3 rodrigues(int i, float ang) {
-    const float c = cosf(ang), s = sinf(ang);
+// Rotation about the constant unit axis of joint i by the angle whose
+// cosine and sine are c and s.
+FOREST_FN M3 rodrigues(int i, float c, float s) {
     const float x = forest::axis(i, 0), y = forest::axis(i, 1), z = forest::axis(i, 2);
     const float one_c = 1.0f - c;
     return {{c + x * x * one_c, x * y * one_c - z * s, x * z * one_c + y * s,
@@ -106,58 +138,222 @@ FOREST_FN M3 quat_to_mat(float w, float x, float y, float z) {
              2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)}};
 }
 
-// Body frames (rotation, origin) and a scalar body's world DOF axis (its
-// DOF anchor is its frame origin).
-struct Frames {
+// One particle's state, in shared memory on the card.
+struct Particle {
+    float q[NQ], qd[NV];
+    float ub[NB];    // the step's controls per body (zero on bodies without an action)
+    float tau[NV];   // the generalized contact forces
+    // body frames (rotation, origin) and a scalar body's world DOF axis (its
+    // DOF anchor is its frame origin)
     M3 R[NB];
-    V3 P[NB];
-    V3 A[NB];
+    V3 P[NB], A[NB];
+    float cq[NB], sq[NB];  // a hinge's cos and sin of its angle
+    // per scalar body: com offset R c, world inertia, the RNEA's forward
+    // terms at qdd = 0 and what the backward pass hands to the parent
+    V3 rc[NB];
+    M3 iw[NB];
+    V3 w[NB], dw[NB], ao[NB], fc[NB], nc[NB];
+    V3 fi[NB], nmom[NB];
+    // per slot (scalar body i, the k-th body d on its root path): the
+    // translational Jacobian column of i's com for d, and iw_i a_d
+    V3 jv[NS], iwa[NS];
+    float M[NB][MAXD];  // packed mass rows, then L off the diagonal
+    float ld[NB];       // L's diagonal
+    float bias[NB];
+    float x[NB];        // the solve's right-hand side, then qdd
+    // contact points: world position, velocity, force; the task's scratch
+    V3 p[NP], v[NP], f[NP];
+    V3 pf[NP];
+    float pt[NP];
 };
 
-FOREST_FN void fk(const float (&q)[NQ], Frames& f) {
-#pragma unroll 1
-    for (int i = 0; i < NB; ++i) {
-        const int pi = forest::parent(i);
-        const V3 bp = body_pos_of(i);
-        const int qi = forest::qoff(i);
-        if (forest::jtype(i) == FREE) {  // a root: p = body_pos + translation
-            f.P[i] = add(bp, {q[qi], q[qi + 1], q[qi + 2]});
-            f.R[i] = quat_to_mat(q[qi + 3], q[qi + 4], q[qi + 5], q[qi + 6]);
-            f.A[i] = {0.f, 0.f, 0.f};
-            continue;
-        }
-        const V3 ax = axis_of(i);
-        if (pi < 0) {  // world parent: identity rotation, zero origin
-            if (forest::jtype(i) == HINGE) {
-                f.P[i] = bp;
-                f.R[i] = rodrigues(i, q[qi]);
-                f.A[i] = mv(f.R[i], ax);
-            } else {
-                f.A[i] = ax;
-                f.R[i] = {{1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f}};
-                f.P[i] = add(bp, scale(q[qi], ax));
-            }
+// A thread's place in its team: its lane.
+struct Team {
+    int lane;
+};
+
+// The kinds of phase, as the optional cycle count names them.
+enum PhaseKind { PH_INIT, PH_FK, PH_POINTS, PH_FORCES, PH_SUMS, PH_MASS, PH_CHOL, PH_FORWARD,
+                 PH_BACK, PH_COST, N_PHASE_KINDS };
+
+#if defined(__CUDACC__) && defined(FOREST_PHASE_CLOCKS)
+// A build with -DFOREST_PHASE_CLOCKS sums the clock64() cycles of each kind
+// of phase, sync included, as the first thread of block 0 sees them (its
+// particle's whole chain); forest_rollout_phase_cycles reads them.
+__device__ unsigned long long phase_cycles[N_PHASE_KINDS];
+#endif
+
+// One phase: f(lane) for every lane of the team, then the team syncs (with
+// its block: its groups are in two warps). On the card each thread runs
+// its own lane; on the host the lanes run one after another.
+template <class F>
+FOREST_FN void phase(const Team& team, PhaseKind kind, F&& f) {
+#ifdef __CUDA_ARCH__
+#ifdef FOREST_PHASE_CLOCKS
+    const long long start = clock64();
+#endif
+    f(team.lane);
+    __syncthreads();
+#ifdef FOREST_PHASE_CLOCKS
+    if (blockIdx.x == 0 && threadIdx.x == 0) phase_cycles[kind] += clock64() - start;
+#endif
+#else
+    (void)team;
+    (void)kind;
+    for (int lane = 0; lane < LANES; ++lane) f(lane);
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// Kinematics
+// ---------------------------------------------------------------------------
+
+// Body i's frame from its parent's, then (a scalar body) the RNEA's
+// forward recursion at qdd = 0 (pallas_forest.py _tree_mass_and_bias): the
+// part of it that its children read.
+FOREST_FN void fk_body(Particle& s, int i) {
+    const int pi = forest::parent(i);
+    const V3 bp = body_pos_of(i);
+    const int qi = forest::qoff(i);
+    if (is_free(i)) {  // a root: p = body_pos + translation
+        s.P[i] = add(bp, {s.q[qi], s.q[qi + 1], s.q[qi + 2]});
+        s.R[i] = quat_to_mat(s.q[qi + 3], s.q[qi + 4], s.q[qi + 5], s.q[qi + 6]);
+        s.A[i] = {0.f, 0.f, 0.f};
+        return;
+    }
+    const V3 ax = axis_of(i);
+    const bool hinge = is_hinge(i);
+    M3 r;
+    V3 p, a;
+    if (pi < 0) {  // world parent: identity rotation, zero origin
+        if (hinge) {
+            p = bp;
+            r = rodrigues(i, s.cq[i], s.sq[i]);
+            a = mv(r, ax);
         } else {
-            const M3 rp = f.R[pi];
-            const V3 base = add(f.P[pi], mv(rp, bp));
-            if (forest::jtype(i) == HINGE) {
-                f.P[i] = base;
-                f.R[i] = mm(rp, rodrigues(i, q[qi]));
-                f.A[i] = mv(f.R[i], ax);
-            } else {  // slide
-                const V3 aw = mv(rp, ax);
-                f.A[i] = aw;
-                f.R[i] = rp;
-                f.P[i] = add(base, scale(q[qi], aw));
-            }
+            a = ax;
+            r = {{1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f}};
+            p = add(bp, scale(s.q[qi], ax));
+        }
+    } else {
+        const M3 rp = s.R[pi];
+        const V3 base = add(s.P[pi], mv(rp, bp));
+        if (hinge) {
+            p = base;
+            r = mm(rp, rodrigues(i, s.cq[i], s.sq[i]));
+            a = mv(r, ax);
+        } else {  // slide
+            a = mv(rp, ax);
+            r = rp;
+            p = add(base, scale(s.q[qi], a));
         }
     }
+    s.R[i] = r;
+    s.P[i] = p;
+    s.A[i] = a;
+    const V3 zero = {0.f, 0.f, 0.f};
+    V3 wp = zero, dwp = zero, ap = zero, pp = zero;
+    if (pi >= 0) {
+        wp = s.w[pi];
+        dwp = s.dw[pi];
+        ap = s.ao[pi];
+        pp = s.P[pi];
+    }
+    const V3 rr = sub(p, pp);
+    const V3 av = scale(s.qd[forest::voff(i)], a);
+    const V3 wj = hinge ? av : zero;
+    const V3 vj = hinge ? zero : av;
+    s.w[i] = add(wp, wj);
+    s.dw[i] = add(dwp, cross(wp, wj));
+    s.ao[i] = add(add(ap, cross(dwp, rr)),
+                  add(cross(wp, cross(wp, rr)), scale(2.0f, cross(wp, vj))));
+}
+
+// Scalar body i's com offset R c, world inertia and the RNEA's force and
+// moment terms at qdd = 0, from its frame and forward terms.
+FOREST_FN void body_terms(Particle& s, int i) {
+    const V3 g = {forest::gravity(0), forest::gravity(1), forest::gravity(2)};
+    const M3 r = s.R[i];
+    const V3 rc = mv(r, com_of(i));
+    const M3 iw = rotate_inertia(r, inertia_of(i));
+    const V3 w = s.w[i], dw = s.dw[i];
+    const V3 acc_c = add(s.ao[i], add(cross(dw, rc), cross(w, cross(w, rc))));
+    s.rc[i] = rc;
+    s.iw[i] = iw;
+    s.fc[i] = scale(forest::mass(i), sub(acc_c, g));
+    s.nc[i] = add(mv(iw, dw), cross(w, mv(iw, w)));
+}
+
+// FK and the RNEA's forward recursion over the forest: every hinge's cos
+// and sin at once, then down the tree levels, then every scalar body's own
+// terms at once.
+FOREST_FN void fk_pass(Particle& s, const Team& team) {
+    phase(team, PH_FK, [&](int lane) {
+#pragma unroll 1
+        for (int i = lane; i < NB; i += LANES) {
+            if (is_hinge(i)) {
+                const float ang = s.q[forest::qoff(i)];
+                s.cq[i] = cosf(ang);
+                s.sq[i] = sinf(ang);
+            }
+        }
+    });
+#pragma unroll 1
+    for (int lv = 0; lv < forest::N_LEVELS; ++lv)
+        phase(team, PH_FK, [&](int lane) {
+#pragma unroll 1
+            for (int e = forest::level_start(lv) + lane; e < forest::level_start(lv + 1);
+                 e += LANES)
+                fk_body(s, forest::level_body(e));
+        });
+    phase(team, PH_FK, [&](int lane) {
+#pragma unroll 1
+        for (int i = lane; i < NB; i += LANES)
+            if (!is_free(i)) body_terms(s, i);
+    });
 }
 
 // The translational Jacobian column of joint d at the world point p (on a
 // body that d moves): a_d x (p - o_d) for a hinge, a_d for a slide.
-FOREST_FN V3 point_column(const Frames& f, int d, V3 p) {
-    return forest::jtype(d) == HINGE ? cross(f.A[d], sub(p, f.P[d])) : f.A[d];
+FOREST_FN V3 point_column(const Particle& s, int d, V3 p) {
+    return is_hinge(d) ? cross(s.A[d], sub(p, s.P[d])) : s.A[d];
+}
+
+// Contact point k's world position and velocity.
+FOREST_FN void point_state(Particle& s, int k) {
+    const int b = forest::point_body(k);
+    const V3 l = point_local_of(k);
+    const V3 p = add(s.P[b], mv(s.R[b], l));
+    s.p[k] = p;
+    if (is_free(b)) {
+        const int vi = forest::voff(b);
+        s.v[k] = add(load3(&s.qd[vi]), mv(s.R[b], cross(load3(&s.qd[vi + 3]), l)));
+        return;
+    }
+    V3 vk = {0.f, 0.f, 0.f};
+    const int db = forest::depth(b);
+#pragma unroll
+    for (int kk = 0; kk < MAXD; ++kk) {
+        if (kk < db) {
+            const int d = forest::anc(b, kk);
+            vk = add(vk, scale(s.qd[forest::voff(d)], point_column(s, d, p)));
+        }
+    }
+    s.v[k] = vk;
+}
+
+// Slot sl, (scalar body i, the k-th body d on its root path): the column
+// a_d x (c_i - o_d) of i's com (a_d for a slide) and iw_i a_d.
+FOREST_FN void com_slot(Particle& s, int sl) {
+    const int i = forest::slot_body(sl);
+    const int d = forest::anc(i, forest::slot_k(sl));
+    if (is_hinge(d)) {
+        const V3 ci = add(s.P[i], s.rc[i]);
+        s.jv[sl] = cross(s.A[d], sub(ci, s.P[d]));
+        s.iwa[sl] = mv(s.iw[i], s.A[d]);
+    } else {
+        s.jv[sl] = s.A[d];
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -250,16 +446,17 @@ FOREST_FN V3 sphere_sphere_force(V3 pa, V3 va, float ra, V3 pb, V3 vb, float rb,
 // ---------------------------------------------------------------------------
 
 // The site (forest::SITE_BODY, offset site_pos) in the world.
-FOREST_FN V3 site_of(const Frames& f) {
+FOREST_FN V3 site_of(const Particle& s) {
     constexpr int sb = forest::SITE_BODY;
     const V3 sp = {forest::site_pos(0), forest::site_pos(1), forest::site_pos(2)};
-    return add(f.P[sb], mv(f.R[sb], sp));
+    return add(s.P[sb], mv(s.R[sb], sp));
 }
 
-// What every task leaves alone: no joint torques of its own.
+// What every task leaves alone: no joint torques of its own. The hook
+// adds to scalar body i's generalized force `tau` after the contact forces.
 struct NoJointTorque {
-    static FOREST_FN void joint_torque(const float (&)[NQ], const float (&)[NV], const Frames&,
-                                       float (&)[NV]) {}
+    template <class Extras>
+    static FOREST_FN void joint_torque(const Particle&, const Extras&, int, float&) {}
 };
 
 #if FOREST_TASK == 0
@@ -272,6 +469,8 @@ struct NoJointTorque {
 // react onto the pen.
 struct Pen : NoJointTorque {
     static constexpr int N_EXTRAS = 7;
+    static constexpr int N_SUMS = 2;  // the two ends' sums over the tips
+    static constexpr int N_FIRST = forest_task::N_TIPS;  // the tips; then the ends
 
     struct Extras {
         V3 desired;
@@ -282,40 +481,51 @@ struct Pen : NoJointTorque {
         return {{e[0], e[1], e[2]}, e[3], e[4], e[5], e[6]};
     }
 
-    static FOREST_FN void forces(const V3 (&p)[NP], const V3 (&v)[NP], const Extras& ex,
-                                 V3 (&out)[NP]) {
+    // A tip's force (its push on the pen and its weight t kept for the
+    // ends' sums); for the first end, both ends' plane and ridge forces.
+    static FOREST_FN void point_force(Particle& s, const Extras& ex, int k) {
         using namespace forest_task;
         constexpr int a = N_TIPS, b = N_TIPS + 1;
-        const V3 ridge_a_ = {ridge_a(0), ridge_a(1), ridge_a(2)};
-        const V3 ridge_b_ = {ridge_b(0), ridge_b(1), ridge_b(2)};
-        V3 f_a = sphere_plane_force(p[a], v[a], ex.pen_r, ex.kp, ex.kd, ex.mu);
-        V3 f_b = sphere_plane_force(p[b], v[b], ex.pen_r, ex.kp, ex.kd, ex.mu);
-        float sr;
-        const V3 f_ridge = capsule_capsule_force(p[a], p[b], v[a], v[b], ex.pen_r, ridge_a_,
-                                                 ridge_b_, RIDGE_R, ex.kp, ex.kd, ex.mu, sr);
-        f_a = add(f_a, scale(1.0f - sr, f_ridge));
-        f_b = add(f_b, scale(sr, f_ridge));
-#pragma unroll 1
-        for (int k = 0; k < N_TIPS; ++k) {
+        if (k < N_TIPS) {
             float t;
-            const V3 f_pen = sphere_segment_force(p[k], v[k], tip_radius(k), p[a], p[b], v[a],
-                                                  v[b], ex.pen_r, ex.kp, ex.kd, ex.mu, t);
-            f_a = sub(f_a, scale(1.0f - t, f_pen));
-            f_b = sub(f_b, scale(t, f_pen));
-            out[k] = add(f_pen, sphere_plane_force(p[k], v[k], tip_radius(k), ex.kp, ex.kd, ex.mu));
+            const V3 f_pen = sphere_segment_force(s.p[k], s.v[k], tip_radius(k), s.p[a], s.p[b],
+                                                  s.v[a], s.v[b], ex.pen_r, ex.kp, ex.kd, ex.mu, t);
+            s.pf[k] = f_pen;
+            s.pt[k] = t;
+            s.f[k] = add(f_pen, sphere_plane_force(s.p[k], s.v[k], tip_radius(k), ex.kp, ex.kd,
+                                                   ex.mu));
+        } else if (k == a) {
+            const V3 ridge_a_ = {ridge_a(0), ridge_a(1), ridge_a(2)};
+            const V3 ridge_b_ = {ridge_b(0), ridge_b(1), ridge_b(2)};
+            const V3 f_a = sphere_plane_force(s.p[a], s.v[a], ex.pen_r, ex.kp, ex.kd, ex.mu);
+            const V3 f_b = sphere_plane_force(s.p[b], s.v[b], ex.pen_r, ex.kp, ex.kd, ex.mu);
+            float sr;
+            const V3 f_ridge = capsule_capsule_force(s.p[a], s.p[b], s.v[a], s.v[b], ex.pen_r,
+                                                     ridge_a_, ridge_b_, RIDGE_R, ex.kp, ex.kd,
+                                                     ex.mu, sr);
+            s.pf[a] = add(f_a, scale(1.0f - sr, f_ridge));
+            s.pf[b] = add(f_b, scale(sr, f_ridge));
         }
-        out[a] = f_a;
-        out[b] = f_b;
+    }
+
+    // End e (0: a, 1: b) takes the tips' reactions, in tip order.
+    static FOREST_FN void sum_forces(Particle& s, int e) {
+        using namespace forest_task;
+        const int end = N_TIPS + e;
+        V3 f = s.pf[end];
+#pragma unroll
+        for (int k = 0; k < N_TIPS; ++k)
+            f = sub(f, scale(e == 0 ? 1.0f - s.pt[k] : s.pt[k], s.pf[k]));
+        s.f[end] = f;
     }
 
     // -reward: -|pen - rest| + axis . desired, +10 / +50 at similarity >
     // 0.90 / 0.95 while within 0.075 of the rest position, -5 once the pen
     // is more than 0.15 from the axis horizontally.
-    static FOREST_FN float cost(const Frames& f, const float (&)[NQ], const float (&)[NV],
-                                const Extras& ex) {
+    static FOREST_FN float cost(const Particle& s, const Extras& ex) {
         using namespace forest_task;
-        const V3 pp = f.P[PEN_BODY];
-        const M3& r = f.R[PEN_BODY];
+        const V3 pp = s.P[PEN_BODY];
+        const M3& r = s.R[PEN_BODY];
         const V3 axis = {r.m[0], r.m[3], r.m[6]};
         const V3 diff = sub(pp, {desired_pos(0), desired_pos(1), desired_pos(2)});
         const float pos_err = sqrtf(dot(diff, diff));
@@ -334,15 +544,18 @@ using BuildTask = Pen;
 // site (the peg's tip) is peg_cost.cuh's.
 struct Peg : NoJointTorque {
     static constexpr int N_EXTRAS = 10;
+    static constexpr int N_SUMS = 0;
+    static constexpr int N_FIRST = 0;
     using Extras = peg::Extras;
 
     static FOREST_FN Extras load(const float* __restrict__ e) { return peg::load(e); }
 
-    static FOREST_FN void forces(const V3 (&)[NP], const V3 (&)[NP], const Extras&, V3 (&)[NP]) {}
+    static FOREST_FN void point_force(Particle&, const Extras&, int) {}
 
-    static FOREST_FN float cost(const Frames& f, const float (&)[NQ], const float (&)[NV],
-                                const Extras& ex) {
-        return peg::cost(site_of(f), ex);
+    static FOREST_FN void sum_forces(Particle&, int) {}
+
+    static FOREST_FN float cost(const Particle& s, const Extras& ex) {
+        return peg::cost(site_of(s), ex);
     }
 };
 using BuildTask = Peg;
@@ -351,6 +564,8 @@ using BuildTask = Peg;
 // extras = [kp, kd, mu, target 3]; cost = |site - target|.
 struct GroundSpheres : NoJointTorque {
     static constexpr int N_EXTRAS = 6;
+    static constexpr int N_SUMS = 0;
+    static constexpr int N_FIRST = forest::N_POINTS;
 
     struct Extras {
         float kp, kd, mu;
@@ -361,17 +576,15 @@ struct GroundSpheres : NoJointTorque {
         return {e[0], e[1], e[2], {e[3], e[4], e[5]}};
     }
 
-    static FOREST_FN void forces(const V3 (&p)[NP], const V3 (&v)[NP], const Extras& ex,
-                                 V3 (&out)[NP]) {
-#pragma unroll 1
-        for (int k = 0; k < forest::N_POINTS; ++k)
-            out[k] = sphere_plane_force(p[k], v[k], forest_task::sphere_radius(k), ex.kp, ex.kd,
-                                        ex.mu);
+    static FOREST_FN void point_force(Particle& s, const Extras& ex, int k) {
+        s.f[k] = sphere_plane_force(s.p[k], s.v[k], forest_task::sphere_radius(k), ex.kp, ex.kd,
+                                    ex.mu);
     }
 
-    static FOREST_FN float cost(const Frames& f, const float (&)[NQ], const float (&)[NV],
-                                const Extras& ex) {
-        const V3 d = sub(site_of(f), ex.target);
+    static FOREST_FN void sum_forces(Particle&, int) {}
+
+    static FOREST_FN float cost(const Particle& s, const Extras& ex) {
+        const V3 d = sub(site_of(s), ex.target);
         return sqrtf(dot(d, d));
     }
 };
@@ -384,185 +597,142 @@ static_assert(BuildTask::N_EXTRAS == forest::N_EXTRAS, "the task's extras and th
 // Physics
 // ---------------------------------------------------------------------------
 
-// The generalized forces tau [NV] of the task's contact forces: every
-// point's world position and velocity, the task's force law, then the
-// scatter through the same point Jacobians (a free body takes f on its
-// linear dofs and l x R^T f on its angular ones).
+// Body d's generalized contact forces, gathered over the points it moves in
+// increasing order (the plain version's scatter, point by point): a scalar
+// body takes column . f, a free body f on its linear dofs and l x R^T f on
+// its angular ones; then the task's joint torque.
 template <class Task>
-FOREST_FN void contact(const Frames& f, const float (&qd)[NV], const typename Task::Extras& ex,
-                       float (&tau)[NV]) {
-    V3 p[NP], v[NP], force[NP];
-#pragma unroll 1
-    for (int k = 0; k < forest::N_POINTS; ++k) {
-        const int b = forest::point_body(k);
-        const V3 l = point_local_of(k);
-        p[k] = add(f.P[b], mv(f.R[b], l));
-        if (forest::jtype(b) == FREE) {
-            const int vi = forest::voff(b);
-            v[k] = add(load3(&qd[vi]), mv(f.R[b], cross(load3(&qd[vi + 3]), l)));
-        } else {
-            V3 vk = {0.f, 0.f, 0.f};
-#pragma unroll 1
-            for (int kk = 0; kk < forest::depth(b); ++kk) {
-                const int d = forest::anc(b, kk);
-                vk = add(vk, scale(qd[forest::voff(d)], point_column(f, d, p[k])));
-            }
-            v[k] = vk;
+FOREST_FN void gather_tau(Particle& s, const typename Task::Extras& ex, int d) {
+    const int vd = forest::voff(d);
+    const int lo = forest::point_start(d), hi = forest::point_start(d + 1);
+    if (is_free(d)) {
+        V3 lin = {0.f, 0.f, 0.f}, ang = {0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int e = lo; e < hi; ++e) {
+            const int k = forest::dof_point(e);
+            lin = add(lin, s.f[k]);
+            ang = add(ang, cross(point_local_of(k), mtv(s.R[d], s.f[k])));
         }
+        s.tau[vd] = lin.x;
+        s.tau[vd + 1] = lin.y;
+        s.tau[vd + 2] = lin.z;
+        s.tau[vd + 3] = ang.x;
+        s.tau[vd + 4] = ang.y;
+        s.tau[vd + 5] = ang.z;
+        return;
     }
-    Task::forces(p, v, ex, force);
-#pragma unroll 1
-    for (int k = 0; k < forest::N_POINTS; ++k) {
-        const int b = forest::point_body(k);
-        if (forest::jtype(b) == FREE) {
-            const int vi = forest::voff(b);
-            add3(&tau[vi], force[k]);
-            add3(&tau[vi + 3], cross(point_local_of(k), mtv(f.R[b], force[k])));
-        } else {
-#pragma unroll 1
-            for (int kk = 0; kk < forest::depth(b); ++kk) {
-                const int d = forest::anc(b, kk);
-                const int vd = forest::voff(d);
-                tau[vd] = tau[vd] + dot(point_column(f, d, p[k]), force[k]);
-            }
-        }
+    float t = 0.0f;
+#pragma unroll 4
+    for (int e = lo; e < hi; ++e) {
+        const int k = forest::dof_point(e);
+        t = t + dot(point_column(s, d, s.p[k]), s.f[k]);
+    }
+    Task::joint_torque(s, ex, d, t);
+    s.tau[vd] = t;
+}
+
+// The lane's packed mass entries M[b][ka] of the pairs (a = anc(b, ka), b)
+// by Jacobian composition: each the sum over b and the bodies i below it,
+// in increasing order, of jv_a . m_i jv_b (+ a_a . iw a_b for two hinges),
+// then armature + dt * damping on the diagonal. The header lays the lane's
+// entries out as one list of terms, each with its slots, body a, m_i, the
+// entry's place in M and its edge bits (1 an entry's first term, 2 its
+// last, 4 a diagonal entry, 8 two hinges), so that a term needs one round
+// of table reads, no branch, and the warp walks its longest lane's terms
+// once.
+FOREST_FN void mass_terms(Particle& s, int lane) {
+    float* __restrict__ m = &s.M[0][0];
+    const V3* __restrict__ jv = s.jv;
+    const V3* __restrict__ iwa = s.iwa;
+    const V3* __restrict__ axes = s.A;
+    float sum = 0.0f;
+#pragma unroll 4
+    for (int e = forest::term_start(lane); e < forest::term_start(lane + 1); ++e) {
+        const int edge = forest::term_edge(e), jb = forest::term_jb(e);
+        float term = dot(jv[forest::term_ja(e)], scale(forest::term_mass(e), jv[jb]));
+        const float rot = dot(axes[forest::term_a(e)], iwa[jb]);  // unread for a slide
+        term = (edge & 8) ? term + rot : term;
+        sum = ((edge & 1) ? 0.0f : sum) + term;
+        const float entry = (edge & 4) ? sum + forest::term_reg(e) : sum;
+        if (edge & 2) m[forest::term_m(e)] = entry;
     }
 }
 
-// The joint-space mass matrix of the scalar bodies by Jacobian composition,
-// in packed rows (M[b][k] the pair (anc(b, k), b)), and the RNEA bias at
-// zero qdd (pallas_forest.py _tree_mass_and_bias, every tree at once).
-FOREST_FN void mass_and_bias(const Frames& f, const float (&qd)[NV], float (&M)[NB][MAXD],
-                             float (&bias)[NB]) {
-    V3 rc[NB];
-    M3 iw[NB];
-#pragma unroll 1
-    for (int i = 0; i < NB; ++i)
+// Column c of the ancestor-sparse Cholesky factor at scalar body i, whose
+// depth passes c: with j = anc(i, c), L(i, j) into M[i][c], or at j = i the
+// diagonal L(i, i) into ld[i]. Columns < c are done. The lane recomputes
+// j's diagonal from j's row rather than wait a phase for it, so a column
+// takes one phase; every sum keeps pallas_forest.py _tree_chol_solve's
+// order, and the diagonals stay out of M, so no lane reads an entry that
+// another writes in the same phase.
+FOREST_FN void chol_entry(Particle& s, int i, int c) {
+    const int j = forest::anc(i, c);
+    float d = s.M[j][c];
 #pragma unroll
-        for (int k = 0; k < MAXD; ++k) M[i][k] = 0.f;
-#pragma unroll 1
-    for (int i = 0; i < NB; ++i) {
-        if (forest::jtype(i) == FREE) continue;
-        rc[i] = mv(f.R[i], com_of(i));
-        const V3 ci = add(f.P[i], rc[i]);
-        iw[i] = rotate_inertia(f.R[i], inertia_of(i));
-        const int di = forest::depth(i);
-        const float mass = forest::mass(i);
-        V3 jv[MAXD], mjv[MAXD], iwjw[MAXD];
-#pragma unroll 1
-        for (int k = 0; k < di; ++k) {
-            const int d = forest::anc(i, k);
-            if (forest::jtype(d) == HINGE) {
-                jv[k] = cross(f.A[d], sub(ci, f.P[d]));
-                iwjw[k] = mv(iw[i], f.A[d]);
-            } else {
-                jv[k] = f.A[d];
-            }
-            mjv[k] = scale(mass, jv[k]);
-        }
-#pragma unroll 1
-        for (int ka = 0; ka < di; ++ka) {
-            const int a = forest::anc(i, ka);
-#pragma unroll 1
-            for (int kb = ka; kb < di; ++kb) {
-                const int b = forest::anc(i, kb);
-                float term = dot(jv[ka], mjv[kb]);
-                if (forest::jtype(a) == HINGE && forest::jtype(b) == HINGE)
-                    term = term + dot(f.A[a], iwjw[kb]);
-                M[b][ka] = M[b][ka] + term;
-            }
-        }
+    for (int kk = 0; kk < MAXD - 1; ++kk)
+        if (kk < c) d = d - s.M[j][kk] * s.M[j][kk];
+    d = sqrtf(d);
+    if (j == i) {
+        s.ld[i] = d;
+        return;
     }
-    // the forward velocity/acceleration recursion at qdd = 0 ...
-    const V3 zero = {0.f, 0.f, 0.f};
-    const V3 g = {forest::gravity(0), forest::gravity(1), forest::gravity(2)};
-    V3 w[NB], dw[NB], ao[NB], fc[NB], nc[NB];
-#pragma unroll 1
-    for (int i = 0; i < NB; ++i) {
-        if (forest::jtype(i) == FREE) continue;
-        const int pi = forest::parent(i);
-        V3 wp = zero, dwp = zero, ap = zero, pp = zero;
-        if (pi >= 0) {
-            wp = w[pi];
-            dwp = dw[pi];
-            ap = ao[pi];
-            pp = f.P[pi];
-        }
-        const V3 r = sub(f.P[i], pp);
-        const V3 a = scale(qd[forest::voff(i)], f.A[i]);
-        const bool hinge = forest::jtype(i) == HINGE;
-        const V3 wj = hinge ? a : zero;
-        const V3 vj = hinge ? zero : a;
-        w[i] = add(wp, wj);
-        dw[i] = add(dwp, cross(wp, wj));
-        ao[i] = add(add(ap, cross(dwp, r)),
-                    add(cross(wp, cross(wp, r)), scale(2.0f, cross(wp, vj))));
-        const V3 acc_c = add(ao[i], add(cross(dw[i], rc[i]), cross(w[i], cross(w[i], rc[i]))));
-        fc[i] = scale(forest::mass(i), sub(acc_c, g));
-        nc[i] = add(mv(iw[i], dw[i]), cross(w[i], mv(iw[i], w[i])));
-    }
-    // ... then the backward force recursion
-    V3 fa[NB], na[NB];
-#pragma unroll 1
-    for (int i = 0; i < NB; ++i) {
-        fa[i] = zero;
-        na[i] = zero;
-    }
-#pragma unroll 1
-    for (int i = NB - 1; i >= 0; --i) {
-        if (forest::jtype(i) == FREE) continue;
-        const int pi = forest::parent(i);
-        const V3 fi = add(fc[i], fa[i]);
-        const V3 nmom = add(add(nc[i], cross(rc[i], fc[i])), na[i]);
-        bias[i] = forest::jtype(i) == HINGE ? dot(f.A[i], nmom) : dot(f.A[i], fi);
-        if (pi >= 0) {
-            fa[pi] = add(fa[pi], fi);
-            na[pi] = add(na[pi], add(nmom, cross(sub(f.P[i], f.P[pi]), fi)));
-        }
-    }
+    float v = s.M[i][c];
+#pragma unroll
+    for (int kk = 0; kk < MAXD - 1; ++kk)
+        if (kk < c) v = v - s.M[i][kk] * s.M[j][kk];
+    s.M[i][c] = v / d;
 }
 
-// Solve M x = rhs over the scalar bodies, M in packed rows: the
-// ancestor-sparse Cholesky factor L overwrites M in the same slots (L(b, b)
-// at M[b][depth(b) - 1]), then forward and back substitution; x overwrites
-// rhs. The order of every sum is pallas_forest.py _tree_chol_solve's.
-FOREST_FN void chol_solve(float (&M)[NB][MAXD], float (&x)[NB]) {
-#pragma unroll 1
-    for (int i = 0; i < NB; ++i) {
-        if (forest::jtype(i) == FREE) continue;
-        const int di = forest::depth(i);
-#pragma unroll 1
-        for (int kj = 0; kj < di - 1; ++kj) {
-            const int j = forest::anc(i, kj);
-            float s = M[i][kj];
-#pragma unroll 1
-            for (int kk = 0; kk < kj; ++kk) s = s - M[i][kk] * M[j][kk];
-            M[i][kj] = s / M[j][kj];
-        }
-        float s = M[i][di - 1];
-#pragma unroll 1
-        for (int kk = 0; kk < di - 1; ++kk) s = s - M[i][kk] * M[i][kk];
-        M[i][di - 1] = sqrtf(s);
+// The RNEA's backward step at body i, its children done: their forces and
+// moments gathered in decreasing order (the plain version's reverse loop),
+// the bias, and what i hands to its parent.
+FOREST_FN void rnea_backward(Particle& s, int i) {
+    V3 fa = {0.f, 0.f, 0.f}, na = {0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int e = forest::child_start(i); e < forest::child_start(i + 1); ++e) {
+        const int c = forest::child(e);
+        fa = add(fa, s.fi[c]);
+        na = add(na, add(s.nmom[c], cross(sub(s.P[c], s.P[i]), s.fi[c])));
     }
-#pragma unroll 1
-    for (int i = 0; i < NB; ++i) {
-        if (forest::jtype(i) == FREE) continue;
-        const int di = forest::depth(i);
-        float s = x[i];
-#pragma unroll 1
-        for (int kk = 0; kk < di - 1; ++kk) s = s - M[i][kk] * x[forest::anc(i, kk)];
-        x[i] = s / M[i][di - 1];
-    }
-#pragma unroll 1
-    for (int i = NB - 1; i >= 0; --i) {
-        if (forest::jtype(i) == FREE) continue;
-        const int di = forest::depth(i);
-        float s = x[i];
-#pragma unroll 1
-        for (int k = i + 1; k < NB; ++k)
-            if (forest::ancestor(k, i)) s = s - M[k][di - 1] * x[k];
-        x[i] = s / M[i][di - 1];
-    }
+    const V3 fi = add(s.fc[i], fa);
+    const V3 nmom = add(add(s.nc[i], cross(s.rc[i], s.fc[i])), na);
+    s.bias[i] = is_hinge(i) ? dot(s.A[i], nmom) : dot(s.A[i], fi);
+    s.fi[i] = fi;
+    s.nmom[i] = nmom;
+}
+
+// Forward substitution at scalar body i from the right-hand side gear u -
+// bias - damping qd - stiffness q + tau (- frictionloss tanh(50 qd)), its
+// ancestors done.
+FOREST_FN void forward_row(Particle& s, int i) {
+    const int vi = forest::voff(i), qi = forest::qoff(i), di = forest::depth(i);
+    float r = forest::gear(i) * s.ub[i] - s.bias[i] - forest::damping(i) * s.qd[vi]
+            - forest::stiffness(i) * s.q[qi] + s.tau[vi];
+    if (forest::HAS_FRICTIONLOSS && forest::frictionloss(i) != 0.0f)  // smooth Coulomb friction
+        r = r - forest::frictionloss(i) * tanhf(s.qd[vi] * 50.0f);
+#pragma unroll
+    for (int kk = 0; kk < MAXD - 1; ++kk)
+        if (kk < di - 1) r = r - s.M[i][kk] * s.x[forest::anc(i, kk)];
+    s.x[i] = r / s.ld[i];
+}
+
+// Back substitution at scalar body i over the bodies below it in increasing
+// order, those done, then its semi-implicit Euler step and joint-limit
+// clamp (qd zeroed where clamped).
+FOREST_FN void back_row(Particle& s, int i) {
+    const int vi = forest::voff(i), qi = forest::qoff(i);
+    const float* m = &s.M[0][0];
+    float r = s.x[i];
+#pragma unroll 4
+    for (int e = forest::desc_start(i) + 1; e < forest::desc_start(i + 1); ++e)
+        r = r - m[forest::desc_m(e)] * s.x[forest::desc(e)];  // L(k, i) x_k
+    const float acc = r / s.ld[i];
+    s.x[i] = acc;
+    const float qdn = s.qd[vi] + forest::DT * acc;
+    const float qn = s.q[qi] + forest::DT * qdn;
+    const float clamped = fminf(fmaxf(qn, forest::qlow(i)), forest::qhigh(i));
+    s.qd[vi] = clamped == qn ? qdn : 0.0f;
+    s.q[qi] = clamped;
 }
 
 // The unit quaternion exp(w / 2) of an axis-angle vector, with the
@@ -589,16 +759,15 @@ FOREST_FN void exp_quat(V3 w, float (&out)[4]) {
 // (I_o = I_c - m [c]x [c]x, Q_v = f + m g - damp v, Q_w = tau - damp w + c x
 // R^T m g) is factorised per particle, its B block depending on R. The
 // header's coupled(i) picks the branch from the model's com.
-FOREST_FN void free_substep(int i, const Frames& f, float (&q)[NQ], float (&qd)[NV],
-                            const float (&tau)[NV]) {
+FOREST_FN void free_substep(Particle& s, int i) {
     const int qi = forest::qoff(i), vi = forest::voff(i);
-    const V3 v = load3(&qd[vi]), w = load3(&qd[vi + 3]);
-    const V3 fl = load3(&tau[vi]), tb = load3(&tau[vi + 3]);
+    const V3 v = load3(&s.qd[vi]), w = load3(&s.qd[vi + 3]);
+    const V3 fl = load3(&s.tau[vi]), tb = load3(&s.tau[vi + 3]);
     const V3 mg = {forest::free_mg(i, 0), forest::free_mg(i, 1), forest::free_mg(i, 2)};
     const float damp_l = forest::free_damp_l(i), damp_a = forest::free_damp_a(i);
     const M3 ib = inertia_of(i);
     V3 acc_l, acc_a;
-    if (!forest::coupled(i)) {
+    if (!forest::HAS_COUPLED || !forest::coupled(i)) {
         const float inv_ml = forest::free_inv_ml(i);
         acc_l = {(fl.x + mg.x - damp_l * v.x) * inv_ml, (fl.y + mg.y - damp_l * v.y) * inv_ml,
                  (fl.z + mg.z - damp_l * v.z) * inv_ml};
@@ -614,7 +783,7 @@ FOREST_FN void free_substep(int i, const Frames& f, float (&q)[NQ], float (&qd)[
         const float x0 = (y0 - l10 * x1 - l20 * x2) / l00;
         acc_a = {x0, x1, x2};
     } else {
-        const M3& r = f.R[i];
+        const M3& r = s.R[i];
         const V3 cv = com_of(i);
         const float mass = forest::mass(i);
         const V3 q_v = sub(add(fl, mg), scale(damp_l, v));
@@ -643,135 +812,210 @@ FOREST_FN void free_substep(int i, const Frames& f, float (&q)[NQ], float (&qd)[
         for (int a = 0; a < 6; ++a) {
 #pragma unroll
             for (int b = 0; b < a; ++b) {
-                float s = m6[b][a];
+                float sum = m6[b][a];
 #pragma unroll
-                for (int k = 0; k < b; ++k) s = s - m6[a][k] * m6[b][k];
-                m6[a][b] = s / m6[b][b];
+                for (int k = 0; k < b; ++k) sum = sum - m6[a][k] * m6[b][k];
+                m6[a][b] = sum / m6[b][b];
             }
-            float s = m6[a][a];
+            float sum = m6[a][a];
 #pragma unroll
-            for (int k = 0; k < a; ++k) s = s - m6[a][k] * m6[a][k];
-            m6[a][a] = sqrtf(s);
+            for (int k = 0; k < a; ++k) sum = sum - m6[a][k] * m6[a][k];
+            m6[a][a] = sqrtf(sum);
         }
 #pragma unroll
         for (int a = 0; a < 6; ++a) {
-            float s = x6[a];
+            float sum = x6[a];
 #pragma unroll
-            for (int k = 0; k < a; ++k) s = s - m6[a][k] * x6[k];
-            x6[a] = s / m6[a][a];
+            for (int k = 0; k < a; ++k) sum = sum - m6[a][k] * x6[k];
+            x6[a] = sum / m6[a][a];
         }
 #pragma unroll
         for (int a = 5; a >= 0; --a) {
-            float s = x6[a];
+            float sum = x6[a];
 #pragma unroll
-            for (int k = a + 1; k < 6; ++k) s = s - m6[k][a] * x6[k];
-            x6[a] = s / m6[a][a];
+            for (int k = a + 1; k < 6; ++k) sum = sum - m6[k][a] * x6[k];
+            x6[a] = sum / m6[a][a];
         }
         acc_l = {x6[0], x6[1], x6[2]};
         acc_a = {x6[3], x6[4], x6[5]};
     }
     const V3 v_new = add(v, scale(forest::DT, acc_l));
     const V3 w_new = add(w, scale(forest::DT, acc_a));
-    const V3 pos_new = add(load3(&q[qi]), scale(forest::DT, v_new));
+    const V3 pos_new = add(load3(&s.q[qi]), scale(forest::DT, v_new));
     float e[4];
     exp_quat(scale(forest::DT, w_new), e);
-    const float aw = q[qi + 3], ax = q[qi + 4], ay = q[qi + 5], az = q[qi + 6];
+    const float aw = s.q[qi + 3], ax = s.q[qi + 4], ay = s.q[qi + 5], az = s.q[qi + 6];
     const float n0 = aw * e[0] - ax * e[1] - ay * e[2] - az * e[3];
     const float n1 = aw * e[1] + ax * e[0] + ay * e[3] - az * e[2];
     const float n2 = aw * e[2] - ax * e[3] + ay * e[0] + az * e[1];
     const float n3 = aw * e[3] + ax * e[2] - ay * e[1] + az * e[0];
     const float norm = sqrtf(n0 * n0 + n1 * n1 + n2 * n2 + n3 * n3);
-    q[qi] = pos_new.x;
-    q[qi + 1] = pos_new.y;
-    q[qi + 2] = pos_new.z;
-    q[qi + 3] = n0 / norm;
-    q[qi + 4] = n1 / norm;
-    q[qi + 5] = n2 / norm;
-    q[qi + 6] = n3 / norm;
-    qd[vi] = v_new.x;
-    qd[vi + 1] = v_new.y;
-    qd[vi + 2] = v_new.z;
-    qd[vi + 3] = w_new.x;
-    qd[vi + 4] = w_new.y;
-    qd[vi + 5] = w_new.z;
+    s.q[qi] = pos_new.x;
+    s.q[qi + 1] = pos_new.y;
+    s.q[qi + 2] = pos_new.z;
+    s.q[qi + 3] = n0 / norm;
+    s.q[qi + 4] = n1 / norm;
+    s.q[qi + 5] = n2 / norm;
+    s.q[qi + 6] = n3 / norm;
+    s.qd[vi] = v_new.x;
+    s.qd[vi + 1] = v_new.y;
+    s.qd[vi + 2] = v_new.z;
+    s.qd[vi + 3] = w_new.x;
+    s.qd[vi + 4] = w_new.y;
+    s.qd[vi + 5] = w_new.z;
 }
 
-// One semi-implicit Euler substep from the frames f of q under the
-// controls ub [NB] (zero on bodies without an action).
+// One semi-implicit Euler substep from the frames and RNEA forward terms of
+// q, qd (fk_pass); the caller's FK pass follows. At the first substep
+// of control step t (t >= 0) the team first reads the step's actions,
+// u = clip(mean[t] + noise[t]) on act_body(j), lane j on action j (an
+// action whose body a later one sets has act_body -1: the last wins).
 template <class Task>
-FOREST_FN void substep(float (&q)[NQ], float (&qd)[NV], const float (&ub)[NB], const Frames& f,
-                       const typename Task::Extras& ex) {
-    float tau[NV];
+FOREST_FN void substep(Particle& s, const Team& team, const typename Task::Extras& ex, int t,
+                       const float* __restrict__ mean, const float* __restrict__ nz) {
+    constexpr int np = forest::N_POINTS;
+    // the actions; the contact points' state (first group) and the com's
+    // Jacobian slots (last group)
+    phase(team, PH_POINTS, [&](int lane) {
+        if (t >= 0) {
 #pragma unroll 1
-    for (int k = 0; k < NV; ++k) tau[k] = 0.0f;
-    if constexpr (forest::N_POINTS > 0) contact<Task>(f, qd, ex, tau);
-    Task::joint_torque(q, qd, f, tau);
-    float M[NB][MAXD], bias[NB], acc[NB];
-    mass_and_bias(f, qd, M, bias);
-#pragma unroll 1
-    for (int i = 0; i < NB; ++i) {
-        if (forest::jtype(i) == FREE) continue;
-        const int vi = forest::voff(i), qi = forest::qoff(i);
-        const int di = forest::depth(i);
-        M[i][di - 1] = M[i][di - 1] + forest::reg(i);
-        float r = forest::gear(i) * ub[i] - bias[i] - forest::damping(i) * qd[vi]
-                - forest::stiffness(i) * q[qi] + tau[vi];
-        if (forest::frictionloss(i) != 0.0f)  // smooth Coulomb friction
-            r = r - forest::frictionloss(i) * tanhf(qd[vi] * 50.0f);
-        acc[i] = r;
-    }
-    chol_solve(M, acc);
-#pragma unroll 1
-    for (int i = 0; i < NB; ++i) {
-        if (forest::jtype(i) == FREE) {
-            free_substep(i, f, q, qd, tau);
-            continue;
+            for (int j = lane; j < forest::D_ACT; j += LANES) {
+                const int body = forest::act_body(j);
+                if (body >= 0)
+                    s.ub[body] =
+                        fminf(fmaxf(mean[t * forest::D_ACT + j] + nz[t * forest::D_ACT + j],
+                                    forest::ULOW), forest::UHIGH);
+            }
         }
-        const int vi = forest::voff(i), qi = forest::qoff(i);
-        const float qdn = qd[vi] + forest::DT * acc[i];
-        const float qn = q[qi] + forest::DT * qdn;
-        const float clamped = fminf(fmaxf(qn, forest::qlow(i)), forest::qhigh(i));
-        qd[vi] = clamped == qn ? qdn : 0.0f;
-        q[qi] = clamped;
+        const int g = lane % TEAM;
+        if (first_group(lane)) {
+#pragma unroll 1
+            for (int k = g; k < np; k += TEAM) point_state(s, k);
+        }
+        if (last_group(lane)) {
+#pragma unroll 1
+            for (int sl = g; sl < forest::N_SLOTS; sl += TEAM) com_slot(s, sl);
+        }
+    });
+    if constexpr (np > 0) {  // the task's force law: its first N_FIRST points on the
+                             // first group, the rest on the last
+        phase(team, PH_FORCES, [&](int lane) {
+            const int g = lane % TEAM;
+            if (first_group(lane)) {
+#pragma unroll 1
+                for (int k = g; k < Task::N_FIRST; k += TEAM) Task::point_force(s, ex, k);
+            }
+            if (last_group(lane)) {
+#pragma unroll 1
+                for (int k = Task::N_FIRST + g; k < np; k += TEAM) Task::point_force(s, ex, k);
+            }
+        });
+        if constexpr (Task::N_SUMS > 0)
+            phase(team, PH_SUMS, [&](int lane) {
+#pragma unroll 1
+                for (int e = lane; e < Task::N_SUMS; e += LANES) Task::sum_forces(s, e);
+            });
     }
+    // the generalized forces (first group) and the packed mass entries (last
+    // group), each as the header deals them to a group's lanes
+    phase(team, PH_MASS, [&](int lane) {
+        const int g = lane % TEAM;
+        if (first_group(lane)) {
+#pragma unroll 1
+            for (int e = forest::tau_start(g); e < forest::tau_start(g + 1); ++e)
+                gather_tau<Task>(s, ex, forest::tau_body(e));
+        }
+        if (last_group(lane)) mass_terms(s, g);
+    });
+    // the Cholesky factor by columns, column c at every body below level c
+    // (first group), beside the RNEA's backward pass up the levels and, with
+    // the first column, the free bodies' substeps (last group)
+    constexpr int nl = forest::N_LEVELS;
+#pragma unroll 1
+    for (int lv = 0; lv < nl; ++lv)
+        phase(team, PH_CHOL, [&](int lane) {
+            const int g = lane % TEAM;
+            if (first_group(lane)) {
+#pragma unroll 1
+                for (int e = forest::level_start(lv) + g; e < forest::level_start(nl); e += TEAM) {
+                    const int i = forest::level_body(e);
+                    if (!is_free(i)) chol_entry(s, i, lv);
+                }
+            }
+            if (last_group(lane)) {
+                const int up = nl - 1 - lv;
+#pragma unroll 1
+                for (int e = forest::level_start(up) + g; e < forest::level_start(up + 1);
+                     e += TEAM) {
+                    const int i = forest::level_body(e);
+                    if (!is_free(i)) rnea_backward(s, i);
+                }
+                if (forest::HAS_FREE && lv == 0) {
+#pragma unroll 1
+                    for (int e = g; e < forest::level_start(1); e += TEAM) {
+                        const int i = forest::level_body(e);
+                        if (is_free(i)) free_substep(s, i);
+                    }
+                }
+            }
+        });
+#pragma unroll 1
+    for (int lv = 0; lv < nl; ++lv)
+        phase(team, PH_FORWARD, [&](int lane) {
+#pragma unroll 1
+            for (int e = forest::level_start(lv) + lane; e < forest::level_start(lv + 1);
+                 e += LANES) {
+                const int i = forest::level_body(e);
+                if (!is_free(i)) forward_row(s, i);
+            }
+        });
+#pragma unroll 1
+    for (int lv = nl - 1; lv >= 0; --lv)
+        phase(team, PH_BACK, [&](int lane) {
+#pragma unroll 1
+            for (int e = forest::level_start(lv) + lane; e < forest::level_start(lv + 1);
+                 e += LANES) {
+                const int i = forest::level_body(e);
+                if (!is_free(i)) back_row(s, i);
+            }
+        });
 }
 
-// Roll out particle b: noise [n, horizon, D_ACT] and costs [n, horizon]
-// contiguous f32; q0 [NQ], qd0 [NV], extras [N_EXTRAS] and mean [horizon,
-// D_ACT] shared. u = clip(mean[t] + noise[b, t]) on the bodies act_body(j),
-// held for N_SUBSTEPS substeps; costs[b, t] = the task's cost of the state
-// after step t.
+// Roll out particle b on the team (costs written only when `live`: a
+// ragged block's spare teams roll out a copy, since every team of the
+// block syncs together): noise [n, horizon, D_ACT] and costs [n,
+// horizon] contiguous f32; q0 [NQ], qd0 [NV], extras [N_EXTRAS] and mean
+// [horizon, D_ACT] shared. u = clip(mean[t] + noise[b, t]) on the bodies
+// act_body(j), held for N_SUBSTEPS substeps; costs[b, t] = the task's cost
+// of the state after step t. A step's last FK pass gives the cost's frames
+// and the next substep's; the FK pass has one call site, which keeps the
+// kernel's code small.
 template <class Task>
-FOREST_FN void rollout_particle(const float* __restrict__ q0, const float* __restrict__ qd0,
-                                const float* __restrict__ extras,
-                                const float* __restrict__ mean,
-                                const float* __restrict__ noise, float* __restrict__ costs,
-                                int b, int horizon) {
-    float q[NQ], qd[NV], ub[NB];
-#pragma unroll 1
-    for (int i = 0; i < NQ; ++i) q[i] = q0[i];
-#pragma unroll 1
-    for (int i = 0; i < NV; ++i) qd[i] = qd0[i];
+FOREST_FN void rollout_team(Particle& s, const Team& team, const float* __restrict__ q0,
+                            const float* __restrict__ qd0, const float* __restrict__ extras,
+                            const float* __restrict__ mean, const float* __restrict__ noise,
+                            float* __restrict__ costs, int b, int horizon, bool live = true) {
     const typename Task::Extras ex = Task::load(extras);
     const float* nz = noise + static_cast<size_t>(b) * horizon * forest::D_ACT;
     float* out = costs + static_cast<size_t>(b) * horizon;
-    Frames f;
+    phase(team, PH_INIT, [&](int lane) {
 #pragma unroll 1
-    for (int t = 0; t < horizon; ++t) {
+        for (int k = lane; k < NQ; k += LANES) s.q[k] = q0[k];
 #pragma unroll 1
-        for (int i = 0; i < NB; ++i) ub[i] = 0.0f;
+        for (int k = lane; k < NV; k += LANES) s.qd[k] = qd0[k];
 #pragma unroll 1
-        for (int j = 0; j < forest::D_ACT; ++j)
-            ub[forest::act_body(j)] =
-                fminf(fmaxf(mean[t * forest::D_ACT + j] + nz[t * forest::D_ACT + j], forest::ULOW),
-                      forest::UHIGH);
+        for (int k = lane; k < NB; k += LANES) s.ub[k] = 0.0f;
+    });
+    constexpr int ns = forest::N_SUBSTEPS;
 #pragma unroll 1
-        for (int s = 0; s < forest::N_SUBSTEPS; ++s) {
-            fk(q, f);
-            substep<Task>(q, qd, ub, f, ex);
-        }
-        fk(q, f);
-        out[t] = Task::cost(f, q, qd, ex);
+    for (int k = 0;; ++k) {  // k substeps done
+        fk_pass(s, team);
+        if (k > 0 && k % ns == 0)
+            phase(team, PH_COST, [&](int lane) {
+                if (lane == 0 && live) out[k / ns - 1] = Task::cost(s, ex);
+            });
+        if (k == horizon * ns) break;
+        substep<Task>(s, team, ex, k % ns == 0 ? k / ns : -1, mean, nz);
     }
 }
 

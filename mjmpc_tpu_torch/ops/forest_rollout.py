@@ -5,8 +5,9 @@ Counterpart of mjmpc_tpu/ops/pallas_forest.py build_forest_rollout: a
 kinematic FOREST of hinge/slide trees (the hand's digits hanging from the
 wrist, an arm) plus free rigid bodies (the pen) whose only coupling to
 the trees is the explicit contact force, rolled out over N particles and
-H control steps in one kernel (csrc/forest_rollout.cu, one thread per
-particle; model, topology and task baked into a header generated here).
+H control steps in one kernel (csrc/forest_rollout.cu, a team of lanes
+per particle; model, topology, the team's work tables and task baked
+into a header generated here).
 
 Semantics, for every particle b and step t (identical to the Pallas
 builder):
@@ -173,8 +174,11 @@ def _ancestors(c: dict, i: int) -> List[int]:
 
 def _table(name: str, ctype: str, values, fmt=None) -> str:
     """A table of the generated header: a __constant__ copy for the card,
-    a constexpr copy for the host, and the accessor name(i, ...) that reads
-    the right one (FOREST_T), so the kernel can index it at run time."""
+    the block's copy of it in shared memory (filled by load_tables), a
+    constexpr copy for the host, and the accessor name(i, ...) that reads
+    the right one (FOREST_T), so the kernel can index it at run time. The
+    card reads the shared copy: a team's lanes read different entries at
+    once, which constant memory serves one address at a time."""
     fmt = fmt or ((lambda v: str(int(v))) if ctype == "int" else _f)
     arr = np.asarray(values)
     dims = "".join(f"[{d}]" for d in arr.shape)
@@ -185,9 +189,113 @@ def _table(name: str, ctype: str, values, fmt=None) -> str:
         return fmt(a) if a.ndim == 0 else "{" + ", ".join(init(x) for x in a) + "}"
 
     return (f"__constant__ {ctype} d_{name}{dims} = {init(arr)};\n"
+            f"FOREST_SHARED {ctype} s_{name}{dims};\n"
             f"constexpr {ctype} h_{name}{dims} = {init(arr)};\n"
             f"__host__ __device__ inline {ctype} {name}({idx}) "
             f"{{ return FOREST_T({name}){sub}; }}\n")
+
+
+def _cbool(x: bool) -> str:
+    return "true" if x else "false"
+
+
+def _table_copy(name: str, shape: Tuple[int, ...]) -> str:
+    """The line of load_tables that copies table `space::name` into shared
+    memory."""
+    space, base = name.split("::")
+    size = int(np.prod(shape))
+    idx, rest = "", size
+    for axis, d in enumerate(shape):
+        rest //= d
+        flat = f"k / {rest}" if rest > 1 else "k"
+        idx += f"[{flat} % {d}]" if axis > 0 else f"[{flat}]"
+    return (f"  for (int k = tid; k < {size}; k += nthreads) "
+            f"{space}::s_{base}{idx} = {space}::d_{base}{idx};")
+
+
+def _deal(costs: Sequence[int], team: int) -> List[List[int]]:
+    """Items dealt to `team` lanes, largest first, each to the lane with the
+    least work so far (the lowest such lane); each lane's items in
+    increasing order."""
+    lanes: List[List[int]] = [[] for _ in range(team)]
+    load = [0] * team
+    for item in sorted(range(len(costs)), key=lambda k: (-costs[k], k)):
+        lane = min(range(team), key=lambda l: (load[l], l))
+        lanes[lane].append(item)
+        load[lane] += costs[item]
+    return [sorted(x) for x in lanes]
+
+
+def default_team(c: dict, task: "ForestTask") -> int:
+    """A particle's lanes in each warp: the power of two (at most a warp)
+    that covers the widest tree level, the contact points and a quarter of
+    the (body, ancestor) slots: 32 for the hand, 8 for a 7-body chain."""
+    n, jt = c["n"], c["jtype"]
+    paths = [_ancestors(c, i) + [i] for i in range(n)]
+    width = max(sum(1 for i in range(n) if len(paths[i]) == d + 1) for d in range(n))
+    slots = sum(len(paths[i]) for i in range(n) if jt[i] != FREE)
+    need = max(width, len(task.points), -(-slots // 4), 1)
+    return min(32, 1 << (need - 1).bit_length())
+
+
+def forest_schedule(c: dict, task: "ForestTask", team: int) -> dict:
+    """The work tables of a team of `team` lanes in each warp, as the
+    generated header carries them (csrc/forest_rollout.cuh says which phase
+    reads which):
+
+    - levels: the bodies by tree level (a body's depth on its root path),
+      free bodies with the roots; the FK and RNEA forward pass go down the
+      levels, the Cholesky factor's columns (column c at every body of
+      level c or below) and forward substitution too, the RNEA backward
+      pass and back substitution up them;
+    - children: each body's children in decreasing order, the order in
+      which the backward pass adds their forces;
+    - desc: each scalar body b followed by its descendants, increasing,
+      the order of the mass-matrix sums over bodies below a pair (a, b)
+      and of back substitution's sum;
+    - slots: one per (scalar body i, k-th body on its root path), the
+      Jacobian columns of i's com;
+    - pairs: the packed mass entries (b, ka), dealt to the lanes by the
+      length of their sums (pair_lanes), each lane's laid out as one list
+      of terms (b, ka, i) over the bodies i of desc[b] (terms, per lane),
+      so that the warp walks the longest lane's terms once;
+    - tau_lanes: each body's generalized contact force, dealt to the lanes
+      by its number of points;
+    - dof_points: for each body the contact points it moves, increasing, the
+      order of its generalized-force sum."""
+    n, par, jt = c["n"], c["parent"], c["jtype"]
+    if team not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"team must be a power of two up to 32, not {team}")
+    paths = [_ancestors(c, i) + [i] for i in range(n)]
+    n_levels = max(len(p) for p in paths)
+    levels = [[i for i in range(n) if len(paths[i]) == lv + 1 and jt[i] != FREE]
+              + ([i for i in range(n) if jt[i] == FREE] if lv == 0 else [])
+              for lv in range(n_levels)]
+    children = [[k for k in range(n - 1, -1, -1) if par[k] == i] for i in range(n)]
+    desc = [[k for k in range(n) if jt[i] != FREE and i in paths[k]] for i in range(n)]
+    slots = [(i, k) for i in range(n) if jt[i] != FREE for k in range(len(paths[i]))]
+    pairs = [(b, ka) for b in range(n) if jt[b] != FREE for ka in range(len(paths[b]))]
+    dof_points = [[k for k, (b, _) in enumerate(task.points) if i in paths[b]]
+                  for i in range(n)]
+    pair_lanes = [[pairs[k] for k in lane]
+                  for lane in _deal([len(desc[b]) for b, _ in pairs], team)]
+    # a free body's point costs about twice a hinge's
+    tau_lanes = _deal([1 + len(dof_points[i]) * (2 if jt[i] == FREE else 1)
+                       for i in range(n)], team)
+    terms = [[(b, ka, i) for b, ka in lane for i in desc[b]] for lane in pair_lanes]
+    return dict(team=team, levels=levels, children=children, desc=desc, slots=slots,
+                pairs=pairs, dof_points=dof_points, pair_lanes=pair_lanes,
+                tau_lanes=tau_lanes, terms=terms)
+
+
+def _flat(lists: Sequence[Sequence], pad=0) -> Tuple[List[int], list]:
+    """(start offsets [len + 1], concatenated items, or [pad] if none: a
+    table has at least one entry)."""
+    start, items = [0], []
+    for x in lists:
+        items += list(x)
+        start.append(len(items))
+    return start, items or [pad]
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +314,7 @@ class ForestTask:
     forces: Optional[Callable]        # (pos [N, K, 3], vel [N, K, 3], extras) -> [N, K, 3]
     cost: Callable                    # (model, q, qd, rots, poss, extras) -> [N]
     header: Tuple[str, ...] = ()      # lines of the task's namespace
+    tables: Tuple[tuple, ...] = ()    # its tables, (name, ctype, values) as _table takes them
     force_ops: int = 0                # per substep
     cost_ops: int = 0                 # per control step
     # the optional joint-torque hook, (q, qd, extras, (rots, poss, axes)) ->
@@ -230,11 +339,9 @@ def pen_task() -> ForestTask:
         f"constexpr int PEN_BODY = {pen.PEN_BODY};",
         f"constexpr int N_TIPS = {pen.N_TIPS};",
         f"constexpr float RIDGE_R = {_f(pen.RIDGE_R)};",
-        _table("ridge_a", "float", pen.RIDGE_A),
-        _table("ridge_b", "float", pen.RIDGE_B),
-        _table("desired_pos", "float", pen.DESIRED_POS),
-        _table("tip_radius", "float", pen.C_RADII),
     )
+    tables = (("ridge_a", "float", pen.RIDGE_A), ("ridge_b", "float", pen.RIDGE_B),
+              ("desired_pos", "float", pen.DESIRED_POS), ("tip_radius", "float", pen.C_RADII))
     points = tuple((int(b), tuple(float(x) for x in p))
                    for b, p in zip(pen.C_BODIES, pen.C_POINTS))
     # counted from forest_rollout.cuh as written: a sphere-plane force per
@@ -244,7 +351,7 @@ def pen_task() -> ForestTask:
     # horizontal norm (5), the compares and the reward (11).
     force_ops = (2 * _FORCE_PLANE + _CAPSULE + 13
                  + pen.N_TIPS * (_SPHERE_SEG + 13 + _FORCE_PLANE + 3))
-    return ForestTask("pen", 0, 7, points, forces, cost, header, force_ops, 30)
+    return ForestTask("pen", 0, 7, points, forces, cost, header, tables, force_ops, 30)
 
 
 def peg_task() -> ForestTask:
@@ -255,7 +362,7 @@ def peg_task() -> ForestTask:
         return _peg_cost(model, (rots, poss, None, None), extras)
 
     # site (18) and the peg cost of csrc/peg_cost.cuh (48)
-    return ForestTask("peg", 1, 10, (), None, cost, (), 0, 66)
+    return ForestTask("peg", 1, 10, (), None, cost, (), (), 0, 66)
 
 
 def ground_spheres_task(points: Sequence[Tuple[int, Sequence[float]]],
@@ -274,10 +381,9 @@ def ground_spheres_task(points: Sequence[Tuple[int, Sequence[float]]],
         return torch.linalg.vector_norm(site - extras[3:6], dim=-1)
 
     pts = tuple((int(b), tuple(float(x) for x in p)) for b, p in points)
-    header = (_table("sphere_radius", "float", radii_f32),)
     # a sphere-plane force per point; the cost: the site (18) and |d| (9)
-    return ForestTask("ground_spheres", 2, 6, pts, forces, cost, header,
-                      len(pts) * _FORCE_PLANE, 27)
+    return ForestTask("ground_spheres", 2, 6, pts, forces, cost, (),
+                      (("sphere_radius", "float", radii_f32),), len(pts) * _FORCE_PLANE, 27)
 
 
 # Operation counts of csrc/forest_rollout.cuh's contact primitives as
@@ -650,9 +756,13 @@ _FREE_DECOUPLED, _FREE_COUPLED, _FREE_INTEGRATE = 63, 334, 75
 
 
 def _substep_flops(c: dict, task: ForestTask) -> Tuple[int, int]:
-    """(fk, substep without fk) operations of one particle, counted from
-    csrc/forest_rollout.cuh as written (a multiply, an add, a compare, a
-    division or a transcendental is one) on the forest's topology."""
+    """(FK pass, substep without it) operations of one particle, counted
+    from csrc/forest_rollout.cuh (a multiply, an add, a compare, a division
+    or a transcendental is one) on the forest's topology: each operation
+    that the function needs, once. What the kernel's lanes repeat to save
+    a phase (a column's Cholesky diagonal beside each of its entries,
+    m_i jv per mass term, a slide's unread rotational term) is not
+    counted."""
     n, par, jt = c["n"], c["parent"], c["jtype"]
     paths = [_ancestors(c, i) + [i] for i in range(n)]
     col = lambda d: 12 if jt[d] == HINGE else 0      # a hinge's a x (p - o)
@@ -668,9 +778,9 @@ def _substep_flops(c: dict, task: ForestTask) -> Tuple[int, int]:
     for b, _ in task.points:
         points += _MV + _ADD
         if jt[b] == FREE:
-            points += (_CROSS + _MV + _ADD) + (2 * _ADD + _MV + _CROSS)    # v; scatter
+            points += (_CROSS + _MV + _ADD) + (2 * _ADD + _MV + _CROSS)    # v; gather
         else:
-            points += sum(2 * col(d) + 12 for d in paths[b])              # v; scatter
+            points += sum(2 * col(d) + 12 for d in paths[b])              # v; gather
     sub = points + task.force_ops
     for i in range(n):
         if jt[i] == FREE:
@@ -694,13 +804,14 @@ def _substep_flops(c: dict, task: ForestTask) -> Tuple[int, int]:
 
 def forest_rollout_flops(model: ChainModel, n_substeps: int, n: int, horizon: int,
                          act_bodies: Sequence[int], task: ForestTask) -> int:
-    """Floating-point operations of one kernel call: per control step the
-    actions (3 per actuated dof), n_substeps of FK and the substep, then
-    the FK and the task's cost of the post-step state. The work is the
-    same for every input."""
+    """Floating-point operations of one kernel call: the FK pass of the
+    first state, then per control step the actions (3 per actuated dof),
+    n_substeps of the substep and the FK pass of its new state, and the
+    task's cost of the post-step state (a step's last FK pass serves its
+    cost and the next step). The work is the same for every input."""
     fk, sub = _substep_flops(forest_consts(model), task)
-    step = 3 * len(act_bodies) + n_substeps * (fk + sub) + fk + task.cost_ops
-    return n * horizon * step
+    step = 3 * len(act_bodies) + n_substeps * (fk + sub) + task.cost_ops
+    return n * (fk + horizon * step)
 
 
 def forest_rollout_bytes(model: ChainModel, n: int, horizon: int, d_act: int,
@@ -717,10 +828,22 @@ def forest_rollout_bytes(model: ChainModel, n: int, horizon: int, d_act: int,
 
 def model_header(model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
                  task: ForestTask, ulow: float = -1.0, uhigh: float = 1.0) -> str:
-    """C++ header of the forest's constants, its topology and the task for
-    csrc/forest_rollout.cu: scalars as constexpr, tables through _table."""
+    """C++ header of the forest's constants, its topology, the work tables
+    of a team of default_team lanes in each warp (forest_schedule) and the
+    task for csrc/forest_rollout.cu: scalars as constexpr, tables through
+    _table, and load_tables, which copies every table into the block's
+    shared memory."""
+    return _model_header(model, n_substeps, act_bodies, task, ulow, uhigh,
+                         default_team(forest_consts(model), task))
+
+
+def _model_header(model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
+                  task: ForestTask, ulow: float, uhigh: float, team: int) -> str:
+    """model_header for a team of `team` lanes in each warp (the tests build
+    other team sizes through it)."""
     c = forest_consts(model)
     n = c["n"]
+    sched = forest_schedule(c, task, team)
     scalar = lambda key, off: [c[key][c[off][b]] if c["jtype"][b] != FREE else 0.0
                                for b in range(n)]
     free = lambda key, shape: np.asarray(
@@ -732,6 +855,21 @@ def model_header(model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
     maxd = max(len(p) for p in paths)
     anc = [p + [-1] * (maxd - len(p)) for p in paths]
     points = task.points or ((0, (0.0, 0.0, 0.0)),)     # a placeholder row, never read
+    slot_off = np.cumsum([0] + [len(paths[b]) if c["jtype"][b] != FREE else 0
+                                for b in range(n)])[:n]
+    level_start, level_body = _flat(sched["levels"])
+    child_start, child = _flat(sched["children"])
+    desc_start, desc = _flat(sched["desc"])
+    point_start, dof_point = _flat(sched["dof_points"])
+    term_start, terms = _flat(sched["terms"], (0, 0, 0))
+    tau_start, tau_body = _flat(sched["tau_lanes"])
+    # a term's edge bits: 1 its entry's first, 2 its last, 4 a diagonal
+    # entry, 8 two hinges
+    edge = [int(k == 0 or terms[k - 1][:2] != t[:2])
+            + 2 * int(k == len(terms) - 1 or terms[k + 1][:2] != t[:2])
+            + 4 * int(ka == len(paths[b]) - 1)
+            + 8 * int(c["jtype"][paths[b][ka]] == HINGE and c["jtype"][b] == HINGE)
+            for k, t in enumerate(terms) for b, ka, _ in [t]]
     tables = [
         ("parent", "int", c["parent"]),
         ("jtype", "int", c["jtype"]),
@@ -739,8 +877,10 @@ def model_header(model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
         ("voff", "int", c["voff"]),
         ("depth", "int", [len(p) for p in paths]),
         ("anc", "int", anc),
-        ("ancestor", "int", c["anc"].astype(np.int64)),
-        ("act_body", "int", list(act_bodies)),
+        # an action whose body a later action sets is -1: the last wins, as
+        # in the plain version
+        ("act_body", "int", [-1 if b in act_bodies[j + 1:] else b
+                             for j, b in enumerate(act_bodies)]),
         ("axis", "float", c["axis"]),
         ("body_pos", "float", c["body_pos"]),
         ("mass", "float", c["mass"]),
@@ -767,15 +907,45 @@ def model_header(model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
         ("free_mskew", "float", free("mskew", (3, 3)).reshape(n, 9)),
         ("point_body", "int", [b for b, _ in points]),
         ("point_local", "float", np.asarray([p for _, p in points], _F32)),
+        # the team's schedule
+        ("level_start", "int", level_start),
+        ("level_body", "int", level_body),
+        ("child_start", "int", child_start),
+        ("child", "int", child),
+        ("desc_start", "int", desc_start),
+        ("desc", "int", desc),
+        # back substitution's L(k, i) for the bodies k below i: M[k][depth(i) - 1]
+        ("desc_m", "int", [k * maxd + len(paths[i]) - 1
+                           for i, ks in enumerate(sched["desc"]) for k in ks] or [0]),
+        ("slot_off", "int", slot_off),
+        ("slot_body", "int", [i for i, _ in sched["slots"]]),
+        ("slot_k", "int", [k for _, k in sched["slots"]]),
+        ("term_start", "int", term_start),
+        ("term_ja", "int", [slot_off[i] + ka for _, ka, i in terms]),
+        ("term_jb", "int", [slot_off[i] + len(paths[b]) - 1 for b, _, i in terms]),
+        ("term_a", "int", [paths[b][ka] for b, ka, _ in terms]),
+        ("term_m", "int", [b * maxd + ka for b, ka, _ in terms]),
+        ("term_mass", "float", [c["mass"][i] for _, _, i in terms]),
+        ("term_reg", "float", [c["reg"][b] for b, _, _ in terms]),
+        ("term_edge", "int", edge),
+        ("tau_start", "int", tau_start),
+        ("tau_body", "int", tau_body),
+        ("point_start", "int", point_start),
+        ("dof_point", "int", dof_point),
     ]
     lines = [
         "// Generated by mjmpc_tpu_torch/ops/forest_rollout.py from a ChainModel and a task.",
         "#pragma once",
         f"#define FOREST_TASK {task.index}",
         "#ifdef __CUDA_ARCH__",
-        "#define FOREST_T(name) d_##name",
+        "#define FOREST_T(name) s_##name",
         "#else",
         "#define FOREST_T(name) h_##name",
+        "#endif",
+        "#ifdef __CUDACC__",
+        "#define FOREST_SHARED __shared__",
+        "#else",
+        "#define FOREST_SHARED [[maybe_unused]] static",
         "#endif",
         "namespace forest {",
         f"constexpr int NB = {n};",
@@ -791,10 +961,27 @@ def model_header(model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
         f"constexpr float DT = {_f(c['dt'])};",
         f"constexpr float ULOW = {_f(ulow)};",
         f"constexpr float UHIGH = {_f(uhigh)};",
+        f"constexpr int TEAM = {team};  // a particle's lanes in each warp",
+        f"constexpr int N_LEVELS = {len(sched['levels'])};",
+        f"constexpr int N_SLOTS = {len(sched['slots'])};",
+        # the joint kinds and terms the model has: the kernel builds no code
+        # for the others
+        f"constexpr bool HAS_FREE = {_cbool(bool(c['free']))};",
+        f"constexpr bool HAS_SLIDE = {_cbool(SLIDE in c['jtype'])};",
+        f"constexpr bool HAS_COUPLED = {_cbool(any(coupled))};",
+        f"constexpr bool HAS_FRICTIONLOSS = {_cbool(bool(np.any(c['frictionloss'] != 0)))};",
     ]
     lines += [_table(*t) for t in tables]
     lines += ["}  // namespace forest", "namespace forest_task {", *task.header,
-              "}  // namespace forest_task"]
+              *(_table(*t) for t in task.tables), "}  // namespace forest_task"]
+    copies = [_table_copy(f"forest::{name}", np.asarray(values).shape)
+              for name, _, values in tables]
+    copies += [_table_copy(f"forest_task::{name}", np.asarray(values).shape)
+               for name, _, values in task.tables]
+    lines += ["#ifdef __CUDACC__", "namespace forest {",
+              "// Every table into the block's shared memory, by threads tid of nthreads.",
+              "__device__ inline void load_tables(int tid, int nthreads) {", *copies, "}",
+              "}  // namespace forest", "#endif"]
     return "\n".join(lines) + "\n"
 
 
@@ -808,6 +995,8 @@ class ForestRollout:
     tensors does not count).
     """
     launches = 0
+    # nvcc flags beyond build.NVCC_FLAGS (a measurement build sets its own)
+    nvcc_flags: Tuple[str, ...] = ()
 
     def __init__(self, model: ChainModel, n_substeps: int, act_bodies: Sequence[int],
                  task: ForestTask, ulow: float = -1.0, uhigh: float = 1.0):
@@ -821,6 +1010,7 @@ class ForestRollout:
         for b in self.act_bodies:
             if not 0 <= b < self.consts["n"] or self.consts["jtype"][b] == FREE:
                 raise ValueError(f"act body {b} is not a scalar joint of the model")
+        self.team = default_team(self.consts, task)
         self.header = model_header(model, n_substeps, self.act_bodies, task, ulow, uhigh)
         self._lib = None
 
@@ -828,7 +1018,7 @@ class ForestRollout:
         """Build (at first use) and load the kernel for this model and task."""
         if self._lib is None:
             lib = build.load("forest_rollout", "forest_rollout.cu",
-                             {"forest_model.h": self.header})
+                             {"forest_model.h": self.header}, self.nvcc_flags)
             entry = lib.lib.forest_rollout_launch
             entry.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                                       ctypes.c_void_p]
@@ -837,13 +1027,13 @@ class ForestRollout:
             lib.lib.forest_rollout_error_string.restype = ctypes.c_char_p
             lib.lib.forest_rollout_layout.argtypes = [ctypes.c_void_p]
             lib.lib.forest_rollout_layout.restype = None
-            layout = (ctypes.c_int * 5)()
+            layout = (ctypes.c_int * 6)()
             lib.lib.forest_rollout_layout(layout)
             want = (self.task.index, self.consts["nq"], self.consts["nv"],
-                    len(self.act_bodies), self.task.n_extras)
+                    len(self.act_bodies), self.task.n_extras, self.team)
             if tuple(layout) != want:
-                raise RuntimeError(f"{lib.path} was built for (task, nq, nv, dA, n_extras) = "
-                                   f"{tuple(layout)}, not {want}")
+                raise RuntimeError(f"{lib.path} was built for (task, nq, nv, dA, n_extras, "
+                                   f"team) = {tuple(layout)}, not {want}")
             self._lib = lib
         return self._lib
 

@@ -19,7 +19,10 @@ gain of about 1.25 and by sqrt(3) for cov 3 I). Locomotion: the swimmer
 atol 5e-5 at (37, 5) and 1e-3 at its config's (512, 32); the cheetah, whose
 stiff contact (kp 6000, 25 substeps per step) amplifies f32 reordering,
 5e-4 and 1e-2 of max(1, |cost|) at (37, 5) and its config's (512, 16).
-Forest: the peg 5e-5 at (37, 5) and 1e-3 at its config's (256, 16); pen,
+Forest: the peg 5e-5 at (37, 5), at N=1 and 37 (H=4) and 1e-3 at its
+config's (256, 16); pen 1e-4 at N=1 and 37 (H=4); two launches on the
+same inputs agree bit for bit, and so do the phase-clock build's; the
+peg with a repeated act body 5e-5 at (37, 4); pen,
 from a pinch in which every fingertip presses on the pen (so that the
 costs follow the hand's dynamics through contact), 1e-4 at (37, 5); at its
 config's (256, 16), 80 substeps of contact, at least 99% of the costs
@@ -31,6 +34,8 @@ and (4096, 32). One-kernel MPPI solve: atol 1e-5 on the new mean at N =
 same rollout operations; only the order of the particle sums differs).
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,7 +47,8 @@ from mjmpc_tpu_torch.envs import half_cheetah, pen, sawyer_tasks, swimmer
 from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout, ChainObsRollout,
                                                ChainRollout, build_chain_cl_rollout,
                                                build_chain_obs_rollout, build_chain_rollout)
-from mjmpc_tpu_torch.ops.forest_rollout import ForestRollout, gated_cost_agreement
+from mjmpc_tpu_torch.ops.forest_rollout import (ForestRollout, build_forest_rollout,
+                                                gated_cost_agreement)
 from mjmpc_tpu_torch.ops.noise import FilteredNoise
 from mjmpc_tpu_torch.ops.pendulum import (MppiPendulumSolve, PendulumRollout,
                                           mppi_pendulum_solve, pendulum_rollout)
@@ -286,6 +292,60 @@ def test_forest_kernel_pen_config_size_agrees_up_to_bonus_steps(device):
     assert bool(torch.isfinite(got).all())
     agree = gated_cost_agreement(got, want)
     assert agree["share_within"] >= 0.99 and agree["other"] == 0, agree
+
+
+@pytest.mark.parametrize("name,n", [("pen-v0", 1), ("pen-v0", 37),
+                                    ("sawyer_peg_insertion-v0", 1),
+                                    ("sawyer_peg_insertion-v0", 37)])
+def test_forest_kernel_ragged_sizes_match_plain(device, name, n):
+    """N=1 and N=37 leave teams and blocks ragged (a block holds 32 / team
+    particles: the peg's 4, pen's 1)."""
+    roll, args = _forest_case(name, n, 4, 8, device)
+    tol = 1e-4 if name == "pen-v0" else 5e-5
+    torch.testing.assert_close(roll(*args), roll.plain(*args), rtol=0, atol=tol)
+
+
+def test_forest_kernel_repeated_act_body_takes_its_last_action(device):
+    """A body listed twice in act_bodies takes the later action, as in the
+    plain version: the peg with its fourth joint listed again at the end
+    (two lanes of a team hold actions of that body)."""
+    roll, args = _forest_case("sawyer_peg_insertion-v0", 37, 4, 11, device)
+    twice = build_forest_rollout(roll.model, roll.n_substeps,
+                                 list(roll.act_bodies) + [roll.act_bodies[3]], roll.task,
+                                 roll.ulow, roll.uhigh)
+    rng = np.random.default_rng(12)
+    extra = [torch.as_tensor(np.asarray(rng.normal(size=shape) * 0.3, np.float32),
+                             device=device) for shape in ((4, 1), (37, 4, 1))]
+    args = args[:3] + [torch.cat([a, x], -1) for a, x in zip(args[3:], extra)]
+    torch.testing.assert_close(twice(*args), twice.plain(*args), rtol=0, atol=5e-5)
+
+
+def test_forest_phase_clocks_count_and_change_no_cost(device):
+    """The phase-clock build (tools/forest_ab.py clocked) counts cycles in
+    every kind of phase pen runs and gives the same costs, bit for bit."""
+    path = Path(__file__).resolve().parent.parent / "tools" / "forest_ab.py"
+    spec = importlib.util.spec_from_file_location("forest_ab", path)
+    forest_ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(forest_ab)
+    roll, args = _forest_case("pen-v0", 37, 5, 10, device)
+    clocked, read = forest_ab.clocked(roll)
+    clocked(*args)
+    torch.cuda.synchronize()
+    read()                                       # zeroes the counts
+    got = clocked(*args)
+    cycles = read()
+    assert torch.equal(got, roll(*args))
+    assert all(cycles[k] > 0 for k in ("init", "fk", "points", "forces", "sums", "mass",
+                                       "chol", "forward", "back", "cost")), cycles
+
+
+@pytest.mark.parametrize("name", ["pen-v0", "sawyer_peg_insertion-v0"])
+def test_forest_kernel_launches_agree_bit_for_bit(device, name):
+    """No atomics and a fixed order of every sum: two launches on the same
+    inputs give the same costs, bit for bit."""
+    roll, args = _forest_case(name, 256, 16, 9, device)
+    first, second = roll(*args), roll(*args)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("name", ["pen-v0", "sawyer_peg_insertion-v0"])

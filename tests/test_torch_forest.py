@@ -4,9 +4,13 @@ against mjmpc_tpu/envs/contact.py; the plain version on pen-v0 and on the
 sawyer peg against the JAX general rollout (engine.chain.step and the env
 cost: the reference the JAX kernel itself is held to); the coupled 6x6
 free-body branch on a small forest against the JAX engine's step; the
-kernel source compiled as host C++ for the pen, peg and ground-spheres
-tasks against the plain version; the wrapper's checks, forest_consts'
-refusals and the work counts. The kernel itself runs only on a CUDA card
+kernel source compiled as host C++ (each phase running its team's lanes
+one after another) for the pen, peg and ground-spheres tasks and the
+cheetah's tree on spheres against the plain version, and at two team
+sizes against itself; a repeated act body taking its last action; the
+generated header's work tables; the wrapper's
+checks, forest_consts' refusals and the work counts. The kernel itself
+runs only on a CUDA card
 (tests/test_torch_cuda.py). Each JAX reference is computed once per
 module; no test calls the JAX pen or peg fused rollout (an interpret-mode
 Pallas compile of minutes).
@@ -28,7 +32,8 @@ Tolerances:
   1e-4 on qd (velocities of order 1-5 after contact);
 - the host build against the plain version: pen 1e-4, peg and ground
   spheres 5e-5, the chip's tolerances at (N=37, H=5); the same check
-  fails for a build of the kernel whose actions are zeroed.
+  fails for a build of the kernel whose actions are zeroed; two team
+  sizes agree bit for bit (no sum is split between lanes).
 """
 import ctypes
 import dataclasses
@@ -104,6 +109,9 @@ def _synthetic(module, **kw):
 
 SYN_POINTS = [(2, (-0.03, 0.0, -0.005)), (2, (0.04, 0.01, -0.01)), (1, (0.0, 0.05, 0.0))]
 SYN_RADII = [0.02, 0.015, 0.02]
+# spheres on the half cheetah's torso and feet (bodies 2, 5, 8)
+CHEETAH_POINTS = [(2, (0.5, 0.0, 0.0)), (5, (0.0, 0.0, -0.1)), (8, (0.0, 0.0, -0.07))]
+CHEETAH_RADII = [0.05, 0.046, 0.046]
 
 
 def _synthetic_state(seed=0):
@@ -304,13 +312,23 @@ def test_coupled_free_body_branch_matches_jax_engine(jax_refs):
 # The line of csrc/forest_rollout.cuh that hands the clipped actions to the
 # substeps, and the same line with the actions zeroed (a wrong kernel that
 # the pen check must catch).
-ACTION_LINE = "            ub[forest::act_body(j)] =\n"
-ACTIONS_ZEROED = "            ub[forest::act_body(j)] = 0.0f *\n"
+ACTION_LINE = "                    s.ub[body] =\n"
+ACTIONS_ZEROED = "                    s.ub[body] = 0.0f *\n"
+
+
+_HOST_LIBRARIES = {}     # (header, zero_actions) -> the loaded build, once per module
 
 
 def _host_library(header, tmp_path, zero_actions=False):
     """csrc/forest_rollout.cuh for the task of `header`, built with g++;
     with zero_actions, a copy of it whose actions are zeroed."""
+    key = (header, zero_actions)
+    if key not in _HOST_LIBRARIES:
+        _HOST_LIBRARIES[key] = _build_host_library(header, tmp_path, zero_actions)
+    return _HOST_LIBRARIES[key]
+
+
+def _build_host_library(header, tmp_path, zero_actions):
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to build the host copy of the kernel source"
     (tmp_path / "forest_model.h").write_text(header)
@@ -323,8 +341,10 @@ def _host_library(header, tmp_path, zero_actions=False):
         'using namespace forest_rollout;\n'
         'extern "C" void host_forest(const float* q0, const float* qd0, const float* extras,\n'
         '    const float* mean, const float* noise, float* costs, int n, int horizon) {\n'
+        '  static Particle s;   // one team, its lanes in turn in every phase\n'
         '  for (int b = 0; b < n; ++b)\n'
-        '    rollout_particle<BuildTask>(q0, qd0, extras, mean, noise, costs, b, horizon);\n'
+        '    rollout_team<BuildTask>(s, Team{0}, q0, qd0, extras, mean, noise, costs, b,\n'
+        '                            horizon);\n'
         '}\n')
     lib_path = tmp_path / "libforesthost.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
@@ -349,13 +369,22 @@ def _kernel_case(name, n, h, seed):
                 np.asarray(rs.normal(size=7) * 0.1, np.float32),
                 sawyer_tasks.peg_extras(env.params).numpy()]
         tol, d = 5e-5, 7
-    else:
+    elif name == "ground_spheres":
         model = _synthetic(rb, device=DEVICE)
         roll = fr.build_forest_rollout(model, 4, [0, 1], fr.ground_spheres_task(SYN_POINTS,
                                                                                  SYN_RADII))
         q0, qd0 = _synthetic_state(seed)
         args = [q0, qd0, np.array([KP, KD, MU, 0.2, 0.0, 0.05], np.float32)]
         tol, d = 5e-5, 2
+    else:   # the cheetah's branched tree, two slides at its root, on spheres
+        model = envs.make("HalfCheetah-v0", device=DEVICE).params.model
+        roll = fr.build_forest_rollout(model, 4, list(range(3, 9)),
+                                       fr.ground_spheres_task(CHEETAH_POINTS, CHEETAH_RADII))
+        q0 = np.asarray(rs.normal(size=9) * 0.1, np.float32)
+        q0[1] = -0.03                      # the torso low enough that the spheres touch
+        args = [q0, np.asarray(rs.normal(size=9) * 0.3, np.float32),
+                np.array([KP, KD, MU, 0.5, 0.0, 0.0], np.float32)]
+        tol, d = 5e-5, 6
     args += [np.asarray(rs.normal(size=(h, d)) * 0.2, np.float32),
              np.asarray(rs.normal(size=(n, h, d)) * 0.3, np.float32)]
     return roll, args, tol
@@ -368,7 +397,7 @@ def _host_costs(lib, args, n, h):
     return costs
 
 
-@pytest.mark.parametrize("name", ["pen", "peg", "ground_spheres"])
+@pytest.mark.parametrize("name", ["pen", "peg", "ground_spheres", "cheetah_spheres"])
 def test_kernel_source_compiled_for_the_host_matches_plain(name, tmp_path):
     n, h = 37, 5
     roll, args, tol = _kernel_case(name, n, h, 3)
@@ -376,6 +405,148 @@ def test_kernel_source_compiled_for_the_host_matches_plain(name, tmp_path):
     want = roll(*(torch.as_tensor(a) for a in args)).numpy()
     assert np.isfinite(want).all()
     np.testing.assert_allclose(costs, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("name,team", [("pen", 8), ("ground_spheres", 1)])
+def test_host_build_is_the_same_for_every_team_size(name, team, tmp_path):
+    """No sum is split between lanes, so the lanes' partition of the work
+    does not change a bit of the costs: the default team against a
+    narrower one."""
+    n, h = 9, 3
+    roll, args, _ = _kernel_case(name, n, h, 5)
+    other = fr._model_header(roll.model, roll.n_substeps, roll.act_bodies, roll.task,
+                             roll.ulow, roll.uhigh, team)
+    assert team != roll.team and f"constexpr int TEAM = {team};" in other
+    got = []
+    for k, header in enumerate((roll.header, other)):
+        (tmp_path / str(k)).mkdir()
+        got.append(_host_costs(_host_library(header, tmp_path / str(k)), args, n, h))
+    np.testing.assert_array_equal(got[0], got[1])
+
+
+def test_a_repeated_act_body_takes_its_last_action(tmp_path):
+    """As in the JAX package's build_forest_rollout, a body listed twice in
+    act_bodies takes the later action: the plain version and the host
+    build of the kernel with act bodies (0, 1, 0) give the costs of (1, 0)
+    on the last two actions."""
+    n, h = 9, 3
+    model = _synthetic(rb, device=DEVICE)
+    task = fr.ground_spheres_task(SYN_POINTS, SYN_RADII)
+    roll = fr.build_forest_rollout(model, 4, [0, 1, 0], task)
+    once = fr.build_forest_rollout(model, 4, [1, 0], task)
+    # the first action's lane writes nothing: no two lanes write one body
+    assert _header_tables(roll.header)["act_body"] == [-1, 1, 0]
+    rs = np.random.default_rng(6)
+    q0, qd0 = _synthetic_state(6)
+    args = [q0, qd0, np.array([KP, KD, MU, 0.2, 0.0, 0.05], np.float32),
+            np.asarray(rs.normal(size=(h, 3)) * 0.2, np.float32),
+            np.asarray(rs.normal(size=(n, h, 3)) * 0.3, np.float32)]
+    want = once(*(torch.as_tensor(a) for a in args[:3] + [args[3][:, 1:], args[4][..., 1:]]))
+    np.testing.assert_array_equal(roll(*(torch.as_tensor(a) for a in args)).numpy(),
+                                  want.numpy())
+    costs = _host_costs(_host_library(roll.header, tmp_path), args, n, h)
+    np.testing.assert_allclose(costs, want.numpy(), rtol=0, atol=5e-5)
+
+
+def _header_tables(header):
+    """{name: flat list} of the header's host tables."""
+    import re
+    out = {}
+    for name, body in re.findall(r"constexpr (?:int|float) h_(\w+)(?:\[\d+\])+ = (.*);",
+                                 header):
+        out[name] = [float(x.rstrip("f")) for x in re.findall(r"[-+0-9.e]+f?", body)]
+    return out
+
+
+def _schedule_case(name):
+    if name == "pen":
+        return pen.build_rollout(envs.make("pen-v0", device=DEVICE).params.model)
+    if name == "peg":
+        return sawyer_tasks.build_rollout(
+            envs.make("sawyer_peg_insertion-v0", device=DEVICE).params.model)
+    if name == "ground_spheres":
+        return _kernel_case("cheetah_spheres", 1, 1, 0)[0]
+    return _kernel_case("ground_spheres", 1, 1, 0)[0]     # the synthetic coupled forest
+
+
+@pytest.mark.parametrize("name", ["pen", "peg", "ground_spheres", "coupled"])
+def test_header_schedule_covers_every_item_once(name):
+    """The team's work tables as the header carries them: every body once
+    in the levels, after its parent; every Cholesky row once; every packed
+    pair's terms and every body's generalized force dealt to exactly one
+    lane;
+    every (body, ancestor) slot once at its offset; each lane's mass terms
+    one run per pair over the pair's bodies, marked at its ends; each
+    contact point in
+    the gather of every body it moves, in increasing order; children in
+    decreasing order; each body's sum list itself then its descendants,
+    increasing."""
+    roll = _schedule_case(name)
+    c, team = roll.consts, roll.team
+    tables = _header_tables(roll.header)
+    t = {k: [int(x) for x in v] for k, v in tables.items()}
+    n = c["n"]
+    paths = [fr._ancestors(c, i) + [i] for i in range(n)]
+    scalar = [i for i in range(n) if c["jtype"][i] != fr.FREE]
+    desc_of = lambda b: [k for k in range(n) if b in paths[k]]
+    assert team == {"pen": 32, "peg": 8}.get(name, team) and 32 % team == 0
+    assert f"constexpr int TEAM = {team};" in roll.header
+
+    def lists(start, items, count):
+        assert len(t[start]) == count + 1 and t[start][0] == 0
+        return [t[items][t[start][k]:t[start][k + 1]] for k in range(count)]
+
+    levels = lists("level_start", "level_body", len(t["level_start"]) - 1)
+    assert sorted(sum(levels, [])) == list(range(n))
+    level_of = {i: lv for lv, bodies in enumerate(levels) for i in bodies}
+    for i in range(n):
+        assert level_of[i] == (len(paths[i]) - 1 if i in scalar else 0)
+        if c["parent"][i] >= 0:
+            assert level_of[c["parent"][i]] < level_of[i]
+    rows = [i for lv in levels for i in lv if i in scalar]       # the Cholesky rows
+    assert sorted(rows) == scalar
+    # each lane's mass terms: one run per packed pair (b, ka) over the
+    # bodies i of desc[b], each term naming its slots, body a, m_i, the
+    # entry's place in M, and its edge bits (first, last, diagonal, hinges)
+    hinge = [c["jtype"][i] == fr.HINGE for i in range(n)]
+    maxd = max(len(x) for x in paths)
+    pairs = []
+    for lane in range(team):
+        e = t["term_start"][lane]
+        while e < t["term_start"][lane + 1]:
+            b, ka = divmod(t["term_m"][e], maxd)
+            run = desc_of(b)
+            for k, i in enumerate(run):
+                assert t["term_ja"][e + k] == t["slot_off"][i] + ka
+                assert t["term_jb"][e + k] == t["slot_off"][i] + len(paths[b]) - 1
+                assert t["term_a"][e + k] == paths[b][ka] and t["term_m"][e + k] == b * maxd + ka
+                assert tables["term_mass"][e + k] == pytest.approx(float(c["mass"][i]), rel=1e-6)
+                edge = ((k == 0) + 2 * (k == len(run) - 1) + 4 * (ka == len(paths[b]) - 1)
+                        + 8 * (hinge[paths[b][ka]] and hinge[b]))
+                assert t["term_edge"][e + k] == edge
+            pairs.append((b, ka))
+            e += len(run)
+    assert sorted(pairs) == [(b, ka) for b in scalar for ka in range(len(paths[b]))]
+    assert len(set(pairs)) == len(pairs) == sum(len(paths[b]) for b in scalar)
+    assert sorted(sum(lists("tau_start", "tau_body", team), [])) == list(range(n))
+    slots = list(zip(t["slot_body"], t["slot_k"]))
+    assert slots == [(i, k) for i in scalar for k in range(len(paths[i]))]
+    for i in scalar:
+        assert slots[t["slot_off"][i]] == (i, 0)
+    points = lists("point_start", "dof_point", n)
+    for k, (b, _) in enumerate(roll.task.points):
+        assert [i for i in range(n) if k in points[i]] == sorted(paths[b])
+    for i in range(n):
+        assert points[i] == sorted(points[i])
+    assert sum(len(x) for x in points) == sum(len(paths[b]) for b, _ in roll.task.points)
+    children = lists("child_start", "child", n)
+    desc = lists("desc_start", "desc", n)
+    for i in range(n):
+        assert children[i] == [k for k in range(n - 1, -1, -1) if c["parent"][k] == i]
+        assert desc[i] == ([k for k in range(n) if i in paths[k]] if i in scalar else [])
+        lo = t["desc_start"][i]
+        assert t["desc_m"][lo:lo + len(desc[i])] == [k * maxd + len(paths[i]) - 1
+                                                     for k in desc[i]]
 
 
 def test_pen_check_fails_for_a_kernel_whose_actions_are_zeroed(tmp_path):
@@ -441,9 +612,9 @@ def test_forest_consts_refuses_what_the_kernel_does_not_take():
         model = rb.build_chain(bodies, dt=0.01, site_body=0, site_pos=(0, 0, 0), device=DEVICE)
         with pytest.raises(ValueError):
             fr.forest_consts(model)
+    pen_model = envs.make("pen-v0", device=DEVICE).params.model
     with pytest.raises(ValueError):   # an action on the free pen
-        fr.build_forest_rollout(envs.make("pen-v0", device=DEVICE).params.model, 5, [24],
-                                fr.pen_task())
+        fr.build_forest_rollout(pen_model, 5, [24], fr.pen_task())
 
 
 def test_pen_forest_topology():
@@ -457,15 +628,17 @@ def test_pen_forest_topology():
 
 
 def test_work_counts_and_bounds():
-    """Operations scale with N * H (the work does not depend on the data)
-    and bound both instances; bytes are q0, qd0, extras, the mean and the
-    noise in and the costs out."""
+    """Operations scale with N and, past the first FK pass, with H (the
+    work does not depend on the data) and bound both instances; bytes are
+    q0, qd0, extras, the mean and the noise in and the costs out."""
     for name in bounds.FOREST_SIZES:
         roll = bounds._forest_rollout(name)
         model, task, d = roll.model, roll.task, len(roll.act_bodies)
-        per = fr.forest_rollout_flops(model, roll.n_substeps, 1, 1, roll.act_bodies, task)
-        assert fr.forest_rollout_flops(model, roll.n_substeps, 256, 16, roll.act_bodies,
-                                       task) == 256 * 16 * per
+        ops = lambda n, h: fr.forest_rollout_flops(model, roll.n_substeps, n, h,
+                                                   roll.act_bodies, task)
+        step = ops(1, 2) - ops(1, 1)
+        assert step > 0 and 0 < ops(1, 1) - step < step
+        assert ops(256, 16) == 256 * ops(1, 16) == 256 * (ops(1, 1) + 15 * step)
         n, h = bounds.FOREST_SIZES[name]
         inst = bounds.forest_instance(roll, n, h)
         assert inst["bound_by"] == "operations" and inst["task"] == task.name
