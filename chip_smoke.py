@@ -18,9 +18,13 @@ exit and no final line:
                chain and obs rollouts at (N=37, H=5) to atol 5e-5 and at
                the main path's (N=4096, H=32) to max abs error 1e-3 (costs
                are O(1); the longer horizon accumulates f32 reordering);
-               the closed-loop rollout (obs, actions, costs) for the
-               reacher at (37, 5) to 5e-5 and (4096, 32) to 1e-3, for the
-               peg at (37, 5) to 5e-5 and at its config's (64, 32) to 1e-3;
+               the closed-loop rollout (kernel #4, a team of lanes per
+               particle: obs, actions, costs) for the reacher at (37, 5)
+               and N=1 to 5e-5 and (4096, 32) to 1e-3, for the peg at
+               (37, 5) and N=1 to 5e-5 and at its config's (64, 32) to
+               1e-3, two launches agreeing bit for bit and, at (37, 5), the
+               plain version with W and the noise zeroed failing by more
+               than 10x on obs and costs;
                peg's obs rollout at (37, 5) to 5e-5; the noise kernel at
                (37, 5, 7) and (4096, 32, 7), filter (0.25, 0.8, 0), cov 3 I,
                to 1e-4 (identical uniforms; libm ulps and sum order differ,
@@ -59,10 +63,13 @@ exit and no final line:
                solves, the count rising by exactly 12 (4 iterations); then
                a 10-step peg closed loop (solve, env.clip_action, env.step)
                with finite rewards and a finite baseline fit error.
-8. loco_kernel -- the external-force rollout (kernel #5) against its plain
-               version for the swimmer (atol 5e-5 at N=37 H=5, 1e-3 at its
-               config's N=512 H=32) and the half cheetah (5e-4 and 1e-2 of
-               max(1, |cost|) at N=37 H=5 and its config's N=512 H=16).
+8. loco_kernel -- the external-force rollout (kernel #5, a team of lanes
+               per particle) against its plain version for the swimmer
+               (atol 5e-5 at N=37 H=5 and N=1, 1e-3 at its config's N=512
+               H=32) and the half cheetah (5e-4 of max(1, |cost|) at N=37
+               H=5 and N=1, 1e-2 at its config's N=512 H=16), two launches
+               agreeing bit for bit and, at N=37 H=5, the plain version
+               with the mean and the noise zeroed failing by more than 10x.
 9. loco     -- configs/Swimmer-v0.yml and configs/HalfCheetah-v0.yml through
                harness.config.make_solver_for_env at their full sizes: 3
                chained sync-free MPPI solves each, kernel #5's count rising
@@ -154,6 +161,10 @@ FILTER = (0.25, 0.8, 0.0)
 # particles_per_cpu = 8 x 8 particles, init_cov = exp(2 init_log_std), the
 # critic as the baseline (held against the YAML by tests/test_torch_reinforce.py).
 RF_DELTA_KL = 1e-3   # small enough that the reacher's first step halves lr
+# Reinforce on the reacher: one iteration at the main path's size.
+RF_REACHER = dict(horizon=HORIZON, num_particles=NUM_PARTICLES, lr=1.0, n_iters=1, init_cov=1.0,
+                  baseline_type="quadratic", delta_reg=1e-3, delta_kl=RF_DELTA_KL,
+                  filter_coeffs=FILTER)
 PEG_CL = dict(horizon=32, gamma=1.0, n_iters=4, lr=1.0, beta=0.0, filter_coeffs=FILTER,
               num_particles=64, delta_kl=15.0, delta_reg=0.001, baseline_type="quadratic",
               init_cov=1.0)
@@ -161,9 +172,12 @@ HOLD_CYCLES = 100_000_000   # about 50 ms of spinning at the H100's clock
 # The locomotion configs, run as written, at full size.
 LOCO_CONFIGS = {"Swimmer-v0": "configs/Swimmer-v0.yml",
                 "HalfCheetah-v0": "configs/HalfCheetah-v0.yml"}
-# kernel #5 against its plain version: (N, H, atol, scaled by max(1, |cost|))
-LOCO_CHECKS = {"Swimmer-v0": ((37, 5, 5e-5, False), (512, 32, 1e-3, False)),
-               "HalfCheetah-v0": ((37, 5, 5e-4, True), (512, 16, 1e-2, True))}
+# kernel #5 against its plain version: (N, H, atol, scaled by max(1, |cost|),
+# seed); N=1 the ragged case
+LOCO_CHECKS = {"Swimmer-v0": ((37, 5, 5e-5, False, 10), (512, 32, 1e-3, False, 11),
+                              (1, 5, 5e-5, False, 12)),
+               "HalfCheetah-v0": ((37, 5, 5e-4, True, 10), (512, 16, 1e-2, True, 11),
+                                  (1, 5, 5e-4, True, 12))}
 HARNESS_STEPS = 10
 # The forest configs, run as written, at full size (mppi blocks: 8 x 32
 # particles, H=16), and the pen's controllers for the harness phase.
@@ -468,24 +482,36 @@ def main() -> int:
     cl_args = {}
     for task, r, extras, n, h, tol, seed in (
             ("reacher", roll_cl, reacher_target, 37, 5, 5e-5, 3),
+            ("reacher", roll_cl, reacher_target, 1, 5, 5e-5, 7),
             ("reacher", roll_cl, reacher_target, NUM_PARTICLES, HORIZON, 1e-3, 4),
             ("peg", peg_cl, peg_extras(peg_env.params), 37, 5, 5e-5, 5),
+            ("peg", peg_cl, peg_extras(peg_env.params), 1, 5, 5e-5, 8),
             ("peg", peg_cl, peg_extras(peg_env.params), PEG_CL["num_particles"],
              PEG_CL["horizon"], 1e-3, 6)):
         args = cl_args[(task, n, h)] = cl_inputs(r.d_obs, extras, n, h, seed, device)
-        got, want = r(*args), r.plain(*args)
+        got, again, want = r(*args), r(*args), r.plain(*args)
         torch.cuda.synchronize()
         shapes = ((n, h, r.d_obs), (n, h, D_ACTION), (n, h))
         if tuple(tuple(x.shape) for x in got) != shapes or not all(
                 bool(torch.isfinite(x).all()) for x in got):
             raise RuntimeError(f"closed-loop kernel output bad for {task} at N={n} H={h}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"closed-loop kernel: two launches differ for {task} at N={n}")
         err = max(float((x - y).abs().max()) for x, y in zip(got, want))
         errors[("cl", task, n, h)] = err
-        emit("kernel", name="chain_cl_rollout", task=task, n=n, h=h, max_abs_err=err, atol=tol,
-             max_abs_err_obs_actions_costs=[float((x - y).abs().max())
-                                            for x, y in zip(got, want)],
-             actions_abs_max=float(want[1].abs().max()),
-             costs_min=float(want[2].min()), costs_max=float(want[2].max()))
+        fields = dict(name="chain_cl_rollout", task=task, n=n, h=h, team=r.team,
+                      max_abs_err=err, atol=tol, launches_identical=True,
+                      max_abs_err_obs_actions_costs=[float((x - y).abs().max())
+                                                     for x, y in zip(got, want)],
+                      actions_abs_max=float(want[1].abs().max()),
+                      costs_min=float(want[2].min()), costs_max=float(want[2].max()))
+        if (n, h) == (37, 5):   # the check's power: a kernel that ignores the actions fails it
+            zeroed = r.plain(*args[:3], torch.zeros_like(args[3]), torch.zeros_like(args[4]))
+            fields["zeroed_actions_err_obs_costs"] = max(
+                float((x - y).abs().max()) for x, y in ((got[0], zeroed[0]), (got[2], zeroed[2])))
+            if not fields["zeroed_actions_err_obs_costs"] > 10 * tol:
+                raise RuntimeError(f"closed-loop check too weak: {fields}")
+        emit("kernel", **fields)
         if not err <= tol:
             raise RuntimeError(f"closed-loop kernel disagrees with its plain version for "
                                f"{task} at N={n} H={h}: {err} > {tol}")
@@ -644,10 +670,7 @@ def main() -> int:
         raise RuntimeError("guard_finite did not reset the non-finite solve")
 
     # 7. the closed loop: Reinforce on the reacher and with the peg config
-    rf = solvers.Reinforce(d_obs=env.d_obs, d_action=D_ACTION, horizon=HORIZON,
-                           num_particles=NUM_PARTICLES, lr=1.0, n_iters=1, init_cov=1.0,
-                           baseline_type="quadratic", delta_reg=1e-3, delta_kl=RF_DELTA_KL,
-                           filter_coeffs=FILTER, device=device)
+    rf = solvers.Reinforce(d_obs=env.d_obs, d_action=D_ACTION, device=device, **RF_REACHER)
     rf_peg = solvers.make_solver("reinforce", d_obs=peg_env.d_obs, d_action=D_ACTION,
                                  device=device, **PEG_CL)
     cl_runs, cl_counts = {}, {}
@@ -689,18 +712,27 @@ def main() -> int:
     loco_args = {}
     for name, checks in LOCO_CHECKS.items():
         r = loco_rolls[name]
-        for seed, (n, h, tol, scaled) in enumerate(checks):
-            args = loco_args[(name, n, h)] = loco_inputs(r.model.nv, n, h, 10 + seed, device)
-            got, want = r(*args), r.plain(*args)
+        for n, h, tol, scaled, seed in checks:
+            args = loco_args[(name, n, h)] = loco_inputs(r.model.nv, n, h, seed, device)
+            got, again, want = r(*args), r(*args), r.plain(*args)
             torch.cuda.synchronize()
             if got.shape != (n, h) or not bool(torch.isfinite(got).all()):
                 raise RuntimeError(f"ext kernel output bad for {name} at N={n} H={h}")
+            if not torch.equal(got, again):
+                raise RuntimeError(f"ext kernel: two launches differ for {name} at N={n} H={h}")
             scale = torch.clamp(want.abs(), min=1.0) if scaled else 1.0
             err = float(((got - want) / scale).abs().max())
             errors[("ext", name, n, h)] = err
-            emit("loco_kernel", env=name, n=n, h=h, max_abs_err=err, atol=tol,
-                 scaled_by_cost=scaled, max_abs_err_unscaled=float((got - want).abs().max()),
-                 costs_min=float(want.min()), costs_max=float(want.max()))
+            fields = dict(env=name, n=n, h=h, team=r.team, max_abs_err=err, atol=tol,
+                          scaled_by_cost=scaled, launches_identical=True,
+                          max_abs_err_unscaled=float((got - want).abs().max()),
+                          costs_min=float(want.min()), costs_max=float(want.max()))
+            if (n, h) == (37, 5):   # the check's power, as for the closed loop
+                zeroed = r.plain(*args[:2], torch.zeros_like(args[2]), torch.zeros_like(args[3]))
+                fields["zeroed_actions_err"] = float(((got - zeroed) / scale).abs().max())
+                if not fields["zeroed_actions_err"] > 10 * tol:
+                    raise RuntimeError(f"ext check too weak: {fields}")
+            emit("loco_kernel", **fields)
             if not err <= tol:
                 raise RuntimeError(f"ext kernel disagrees with its plain version for {name} "
                                    f"at N={n} H={h}: {err} > {tol}")
@@ -1087,7 +1119,7 @@ def main() -> int:
     ]
     peg = bounds.peg_instance(peg_model, PEG_CL["num_particles"], PEG_CL["horizon"])
     emit("kernel_peg", name="chain_cl_rollout", task="peg", n=peg["n"], h=peg["h"],
-         launches_per_solve=cl_counts["peg"]["cl"] / ZOO_SOLVES,
+         team=peg_cl.team, launches_per_solve=cl_counts["peg"]["cl"] / ZOO_SOLVES,
          max_abs_err=errors[("cl", "peg", peg["n"], peg["h"])],
          ms=times["chain_cl_rollout_peg"][0], plain_ms=times["chain_cl_rollout_peg"][1],
          bound_ms=peg["bound_ms"], bound_by=peg["bound_by"], card=smi)
@@ -1096,7 +1128,7 @@ def main() -> int:
         inst = bounds.ext_instance(r, n, h)
         ptxas = [ln.strip() for ln in r.library().ptxas.splitlines()
                  if re.search(r"registers|spill", ln)]
-        emit("kernel_loco", name="chain_ext_rollout", env=name, n=n, h=h,
+        emit("kernel_loco", name="chain_ext_rollout", env=name, n=n, h=h, team=r.team,
              launches_per_solve=loco_counts[name]["ext"] / ZOO_SOLVES,
              max_abs_err=errors[("ext", name, n, h)], ms=loco_times[name][0],
              plain_ms=loco_times[name][1], bound_ms=inst["bound_ms"], bound_by=inst["bound_by"],

@@ -1,5 +1,5 @@
 // Rollouts of a scalar-joint (hinge/slide) kinematic chain over N particles
-// and H control steps, one CUDA thread per particle.
+// and H control steps.
 //
 // Replaces four TPU kernels of mjmpc_tpu/ops/pallas_chain.py:
 //   - `_chain_kernel` (built by `build_chain_rollout`; entry
@@ -11,7 +11,7 @@
 //     chain_cl_rollout_launch): closed-loop-linear, a = W^T [obs; 1] +
 //     eps computed in the kernel from the observation of the state
 //     entering the step, stored before the clip, then u = clip(a); writes
-//     obs, actions and costs.
+//     obs, actions and costs;
 //   - `_chain_ext_kernel` (built by `build_chain_ext_rollout`, with
 //     `make_capsule_drag` or `make_ground_contact`; entry
 //     chain_ext_rollout_launch): the locomotion rollout. Every substep
@@ -22,100 +22,138 @@
 //     (state in, state out, u). A locomotion header (CHAIN_EXT_TASK)
 //     builds this entry only: the JAX package has no costs, obs or
 //     closed-loop kernel for those tasks.
-// One source, one template (chain_rollout.cuh rollout_particle<MODE, Task>):
-// the stores a mode does not need are compiled out. The task (observation,
-// cost, extras) is the generated header's model::TASK: Reacher (extras =
-// target [3]) or Peg (extras = hole entry, axis, depth, sensor bias [10]).
-// It computes what those kernels compute, not their TPU layout: no
-// (sublane, 128) lane panels, no padding of N, and no cap on the panel
-// (the closed-loop kernel's VMEM limit on the TPU has no counterpart here).
+// The task (observation, cost, extras) is the generated header's
+// model::TASK: Reacher (extras = target [3]) or Peg (extras = hole entry,
+// axis, depth, sensor bias [10]); Swimmer or Cheetah for the locomotion
+// rollout. It computes what those kernels compute, not their TPU layout:
+// no (sublane, 128) lane panels, no padding of N, and no cap on the panel
+// (the closed-loop kernel's VMEM limit on the TPU has no counterpart).
 //
 //   for t in 0..H-1:
-//     u = clip(mean[t] + noise[b, t], ULOW, UHIGH)             (costs, obs)
-//     a = W^T [obs_b(t); 1] + noise[b, t], u = clip(a)         (closed loop)
+//     u = clip(mean[t] + noise[b, t], ULOW, UHIGH)       (costs, obs, locomotion)
+//     a = W^T [obs_b(t); 1] + noise[b, t], u = clip(a)   (closed loop)
 //     held for N_SUBSTEPS substeps: FK, Jacobian-composed mass matrix
 //       (+ armature + dt*damping on the diagonal), zero-qdd RNEA bias,
-//       unrolled Cholesky solve of M qdd = gear*u - bias - damping*qd -
-//       stiffness*q - frictionloss*tanh(50 qd), semi-implicit Euler,
-//       joint-limit clamp with qd zeroed where clamped
-//     costs[b, t] = the task's cost of the post-step state
+//       (locomotion: the task's forces), Cholesky solve of M qdd = gear*u -
+//       bias - damping*qd - stiffness*q - frictionloss*tanh(50 qd) (+ tau),
+//       semi-implicit Euler, joint-limit clamp with qd zeroed where clamped
+//     costs[b, t] = the task's cost of the post-step state (or its step cost)
 //
 // The model constants come from the generated header chain_model.h
 // (mjmpc_tpu_torch/ops/chain_rollout.py model_header) as compile-time
-// constants, so the loops over bodies unroll into straight-line code with
-// the topology resolved at compile time. q and qd stay in registers across
-// all H * N_SUBSTEPS substeps. The FK of the state after step t serves both
-// step t's cost and step t+1's observation and first substep. In the
-// closed-loop kernel W ([D_OBS + 1, N], at most 21 x 7 floats) is staged
-// once per block in shared memory and read as a broadcast; the seven
-// action sums grow while each observation element is produced and stored,
-// so the observation never lives whole in registers.
+// constants, so loops over bodies unroll into straight-line code with the
+// topology resolved at compile time.
 //
-// The locomotion rollout keeps its substep loop rolled (the cheetah's 25
-// substeps per control step would multiply the code), unrolls the loops
-// over dofs, links and contact points, and computes the contact force as a
-// select on depth > 0, so no particle of a warp branches apart. Its work
-// per particle-substep is FK, the mass matrix, RNEA and Cholesky as above
-// plus the task's forces (ops/chain_rollout.py ext_rollout_flops counts
-// them); it reads the mean and the noise and writes one cost per step.
+// What bounds these kernels on an H100: neither bytes nor operations. The
+// closed-loop rollout at the peg config's N=64, H=32 needs 24.8 MFLOP and
+// 0.28 MB, 0.37 us of the card's f32 rate, and the cheetah's at N=512, H=16
+// 1.38 GFLOP, 21 us (ops/chain_rollout.py rollout_flops, ext_rollout_flops;
+// python -m mjmpc_tpu_torch.bounds); one thread per particle took 855 us
+// and 2.7 ms, 2,300x and 132x those bounds. The time is the length of one
+// particle's dependent chain, H * N_SUBSTEPS substeps of FK, the mass
+// matrix, RNEA and a Cholesky solve: about 26 K cycles per substep on one
+// thread (its 7x7 mass matrix and factor spilled to local memory), at a
+// few particles per SM (N=64 filled one block on one SM of 132).
 //
-// What bounds it on an H100: compute, roughly 6 KFLOP per particle-substep
-// in f32 (FK, the 7x7 mass matrix, RNEA, Cholesky; counted from this
-// source by ops/chain_rollout.py rollout_flops) against 14 bytes read per
-// particle-substep, plus per particle-step the obs stores (80 bytes) and,
-// closed loop, 7 x (2 D_OBS + 3) operations of the policy product and 28
-// bytes of actions. Known limits of this first version, left to later
-// work:
-//   - at N = 4096 one thread per particle fills only 32 blocks of 128
-//     threads on the card's 132 SMs;
-//   - per-thread noise reads and obs/action stores are strided by the row
-//     length, so a warp's accesses are not coalesced;
-//   - register pressure: the per-thread frames, mass matrix and Cholesky
-//     factor need many registers (the ptxas -v count and spills are
-//     recorded in PERF.md).
+// Kernels #1 and #3 (costs, obs) keep one thread per particle
+// (chain_rollout.cuh rollout_particle): q and qd in registers across all
+// substeps; the FK of the state after step t serves step t's cost and step
+// t+1's observation and first substep.
+//
+// Kernels #4 and #5 (closed loop, locomotion) run a team of team::TEAM
+// lanes per particle (chain_team.cuh rollout_team), a whole warp
+// (ops/chain_rollout.py DEFAULT_TEAM): a block of one warp holds 32 / TEAM
+// particles, so the peg config's N=64 particles run on 64 SMs. The
+// particle's state sits in shared memory, so nothing goes to local memory;
+// each lane reads what its items need of the model into registers before
+// the step loop. A substep is six phases synced with __syncwarp over the
+// team's lanes: every dof's Euler step and rotation at once; FK with the
+// RNEA's forward terms down each branch of the tree on its own lane (the
+// arm's 7 levels on one lane in registers, the cheetah's two legs side by
+// side); every body's inertia and RNEA terms (and each contact point's
+// force) at once; the Jacobian slots beside the RNEA's backward pass (and
+// the gathered generalized forces); the mass entries; the solve on one
+// lane in registers, one IEEE division per column (a phase per Cholesky
+// column cost about 550 cycles a column: each division's slow-path branch
+// keeps the next from starting). The team reads a step's noise row and
+// writes its obs and action rows side by side. No sum is split between
+// lanes and there are no atomics, so two launches agree bit for bit.
+// PERF.md records the times, ptxas counts and cycles per kind of phase (a
+// -DCHAIN_PHASE_CLOCKS build, tools/kernel_ab.py --phases).
 //
 // IEEE f32 math: built without --use_fast_math, with sinf/cosf/sqrtf/tanhf.
 
 #include <cuda_runtime.h>
 
-#include "chain_rollout.cuh"
+#include "chain_team.cuh"
 
 namespace {
 
 using chain_rollout::BuildTask;
 using chain_rollout::CL;
-using chain_rollout::COSTS;
 using chain_rollout::EXT;
+
+// A block of one warp: 32 / TEAM teams, each carrying one particle whose
+// state sits in static shared memory.
+constexpr int kTeams = 32 / team::TEAM;
+constexpr int kWarp = 32;
+
+template <int MODE>
+__global__ void __launch_bounds__(kWarp)
+    chain_team_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
+                      const float* __restrict__ extras, const float* __restrict__ ctrl,
+                      const float* __restrict__ noise, float* __restrict__ costs,
+                      float* __restrict__ obs, float* __restrict__ acts, int n, int horizon) {
+    __shared__ chain_team::Particle particles[kTeams];
+    const float* c = ctrl;
+    if constexpr (MODE == CL) {  // W [D_OBS + 1, N], read by every lane as a broadcast
+        constexpr int kW = (BuildTask::D_OBS + 1) * model::N;
+        __shared__ float w_s[kW];
+        for (int k = threadIdx.x; k < kW; k += kWarp) w_s[k] = ctrl[k];
+        __syncwarp();
+        c = w_s;
+    }
+    const int slot = threadIdx.x / team::TEAM;
+    const int lane = threadIdx.x % team::TEAM;
+    const int b = blockIdx.x * kTeams + slot;
+    if (b >= n) return;  // a ragged block's spare teams: their lanes leave together
+    const unsigned mask = team::TEAM == 32 ? 0xffffffffu
+                                           : ((1u << team::TEAM) - 1u) << (slot * team::TEAM);
+    const chain_team::Team tm{lane, mask, chain_team::own_of(lane)};
+    chain_team::rollout_team<MODE, BuildTask>(particles[slot], tm, q0, qd0, extras, c, noise,
+                                              costs, obs, acts, b, horizon);
+}
+
+int team_grid(int n) { return (n + kTeams - 1) / kTeams; }
+
+#ifndef CHAIN_EXT_TASK
+using chain_rollout::COSTS;
 using chain_rollout::OBS;
 
 template <int MODE>
 __global__ void chain_rollout_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
                                      const float* __restrict__ extras,
-                                     const float* __restrict__ ctrl,
+                                     const float* __restrict__ mean,
                                      const float* __restrict__ noise,
-                                     float* __restrict__ costs, float* __restrict__ obs,
-                                     float* __restrict__ acts, int n, int horizon) {
-    const float* c = ctrl;
-    if constexpr (MODE == CL) {
-        constexpr int kW = (BuildTask::D_OBS + 1) * model::N;
-        __shared__ float w_s[kW];
-        for (int k = threadIdx.x; k < kW; k += blockDim.x) w_s[k] = ctrl[k];
-        __syncthreads();
-        c = w_s;
-    }
+                                     float* __restrict__ costs, float* __restrict__ obs, int n,
+                                     int horizon) {
     const int b = blockIdx.x * blockDim.x + threadIdx.x;
     if (b < n)
-        chain_rollout::rollout_particle<MODE, BuildTask>(q0, qd0, extras, c, noise, costs, obs,
-                                                         acts, b, horizon);
+        chain_rollout::rollout_particle<MODE, BuildTask>(q0, qd0, extras, mean, noise, costs,
+                                                         obs, b, horizon);
 }
 
 constexpr int kBlock = 128;
 
 int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
+#endif
 
 }  // namespace
 
 extern "C" {
+
+// The build's team size, checked by the wrapper against its own.
+int chain_rollout_team() { return team::TEAM; }
 
 #ifdef CHAIN_EXT_TASK
 
@@ -126,7 +164,7 @@ extern "C" {
 int chain_ext_rollout_launch(const float* q0, const float* qd0, const float* mean,
                              const float* noise, float* costs, int n, int horizon,
                              void* stream) {
-    chain_rollout_kernel<EXT><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+    chain_team_kernel<EXT><<<team_grid(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
         q0, qd0, nullptr, mean, noise, costs, nullptr, nullptr, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
@@ -142,7 +180,7 @@ int chain_rollout_launch(const float* q0, const float* qd0, const float* extras,
                          const float* mean, const float* noise, float* costs, int n,
                          int horizon, void* stream) {
     chain_rollout_kernel<COSTS><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, extras, mean, noise, costs, nullptr, nullptr, n, horizon);
+        q0, qd0, extras, mean, noise, costs, nullptr, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -152,7 +190,7 @@ int chain_obs_rollout_launch(const float* q0, const float* qd0, const float* ext
                              const float* mean, const float* noise, float* costs, float* obs,
                              int n, int horizon, void* stream) {
     chain_rollout_kernel<OBS><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, extras, mean, noise, costs, obs, nullptr, n, horizon);
+        q0, qd0, extras, mean, noise, costs, obs, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -163,7 +201,7 @@ int chain_obs_rollout_launch(const float* q0, const float* qd0, const float* ext
 int chain_cl_rollout_launch(const float* q0, const float* qd0, const float* extras,
                             const float* w, const float* noise, float* costs, float* obs,
                             float* acts, int n, int horizon, void* stream) {
-    chain_rollout_kernel<CL><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+    chain_team_kernel<CL><<<team_grid(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
         q0, qd0, extras, w, noise, costs, obs, acts, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
@@ -174,6 +212,20 @@ int chain_rollout_d_obs() { return BuildTask::D_OBS; }
 int chain_rollout_n_extras() { return BuildTask::N_EXTRAS; }
 
 #endif  // CHAIN_EXT_TASK
+
+#ifdef CHAIN_PHASE_CLOCKS
+// A phase-clock build's cycles per kind of phase (chain_team.cuh
+// PhaseKind) into out [N_PHASE_KINDS], summed since the last call, then
+// zeroed; returns a cudaError_t (0 on success). Synchronises.
+int chain_rollout_phase_cycles(unsigned long long* out) {
+    auto& cycles = chain_team::phase_cycles;
+    cudaError_t rc = cudaMemcpyFromSymbol(out, cycles, sizeof(cycles));
+    void* address = nullptr;
+    if (rc == cudaSuccess) rc = cudaGetSymbolAddress(&address, cycles);
+    if (rc == cudaSuccess) rc = cudaMemset(address, 0, sizeof(cycles));
+    return static_cast<int>(rc);
+}
+#endif
 
 const char* chain_rollout_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));

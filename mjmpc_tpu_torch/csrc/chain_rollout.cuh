@@ -1,16 +1,14 @@
-// Per-particle arithmetic of the chain-rollout kernels (chain_rollout.cu):
-// straight-line code over the compile-time model of chain_model.h. The
-// functions are host-and-device, so the same source also compiles as plain
-// C++ (tests/test_torch_chain_rollout.py, tests/test_torch_obs_rollout.py
-// and tests/test_torch_cl_rollout.py check it on the CPU that way).
+// Per-particle arithmetic of the one-thread chain-rollout kernels
+// (chain_rollout.cu's costs and obs entries, kernels #1 and #3):
+// straight-line code over the compile-time model of chain_model.h, and the
+// tasks (Reacher, Peg; the locomotion tasks' layout) that the team kernel
+// (chain_team.cuh) shares. The functions are host-and-device, so the same
+// source also compiles as plain C++ (tests/test_torch_chain_rollout.py and
+// tests/test_torch_obs_rollout.py check it on the CPU that way).
 //
-// One template serves four modes (costs only; costs and observations;
-// closed-loop-linear; external forces) and four tasks: Reacher and Peg for
-// the first three modes, Swimmer and Cheetah (capsule drag, ground contact)
-// for the external-force mode. The generated header's model::TASK picks
-// the task; a locomotion header also defines CHAIN_EXT_TASK and its
-// constants (namespace loco), and only such a header builds Swimmer or
-// Cheetah (tests/test_torch_loco.py checks them on the CPU).
+// The generated header's model::TASK picks the task; a locomotion header
+// also defines CHAIN_EXT_TASK and its constants (namespace loco), and only
+// the team kernel's external-force mode runs it.
 
 #pragma once
 
@@ -37,15 +35,18 @@ CHAIN_FN V3 com_of(int i) {
     return {model::com(i, 0), model::com(i, 1), model::com(i, 2)};
 }
 
-// Rotation about the constant unit axis of joint i by angle `ang`.
-CHAIN_FN M3 rodrigues(int i, float ang) {
-    const float c = cosf(ang), s = sinf(ang);
-    const float x = model::axis(i, 0), y = model::axis(i, 1), z = model::axis(i, 2);
+// Rotation about the unit axis a by the angle whose cosine and sine are c
+// and s.
+CHAIN_FN M3 rodrigues(V3 a, float c, float s) {
+    const float x = a.x, y = a.y, z = a.z;
     const float one_c = 1.0f - c;
     return {{c + x * x * one_c, x * y * one_c - z * s, x * z * one_c + y * s,
              y * x * one_c + z * s, c + y * y * one_c, y * z * one_c - x * s,
              z * x * one_c - y * s, z * y * one_c + x * s, c + z * z * one_c}};
 }
+
+// Rotation about the constant unit axis of joint i by angle `ang`.
+CHAIN_FN M3 rodrigues(int i, float ang) { return rodrigues(axis_of(i), cosf(ang), sinf(ang)); }
 
 // R I R^T with I the constant body-frame inertia of body i.
 CHAIN_FN M3 world_inertia(const M3& r, int i) {
@@ -211,11 +212,8 @@ CHAIN_FN void chol_solve(const float (&M)[N][N], float (&x)[N]) {
     }
 }
 
-// One semi-implicit Euler substep from the frames f of q; with HAS_EXT the
-// generalized forces tau_ext are added to the right-hand side.
-template <bool HAS_EXT>
-CHAIN_FN void substep_impl(float (&q)[N], float (&qd)[N], const float (&u)[N],
-                           const Frames& f, const float (&tau_ext)[N]) {
+// One semi-implicit Euler substep from the frames f of q.
+CHAIN_FN void substep(float (&q)[N], float (&qd)[N], const float (&u)[N], const Frames& f) {
     float M[N][N], bias[N], acc[N];
     mass_and_bias(f, qd, M, bias);
 #pragma unroll
@@ -225,7 +223,6 @@ CHAIN_FN void substep_impl(float (&q)[N], float (&qd)[N], const float (&u)[N],
                 - model::stiffness(i) * q[i];
         if (model::frictionloss(i) != 0.0f)  // smooth Coulomb friction
             r = r - model::frictionloss(i) * tanhf(qd[i] * 50.0f);
-        if constexpr (HAS_EXT) r = r + tau_ext[i];
         acc[i] = r;
     }
     chol_solve(M, acc);
@@ -237,15 +234,6 @@ CHAIN_FN void substep_impl(float (&q)[N], float (&qd)[N], const float (&u)[N],
         qd[i] = clamped == qn ? qdn : 0.0f;
         q[i] = clamped;
     }
-}
-
-CHAIN_FN void substep(float (&q)[N], float (&qd)[N], const float (&u)[N], const Frames& f) {
-    substep_impl<false>(q, qd, u, f, u);
-}
-
-CHAIN_FN void substep(float (&q)[N], float (&qd)[N], const float (&u)[N], const Frames& f,
-                      const float (&tau_ext)[N]) {
-    substep_impl<true>(q, qd, u, f, tau_ext);
 }
 
 // World position of the site (model::SITE_BODY, offset site_pos).
@@ -347,32 +335,9 @@ struct TaskOf<1> {
 };
 
 #ifdef CHAIN_EXT_TASK
-static_assert(CHAIN_EXT_TASK == model::TASK, "the header's task and CHAIN_EXT_TASK differ");
-
-// Columns of the translational Jacobian of world point p on body b: for
-// each joint d that moves b, a_d x (p - o_d) for a hinge and a_d for a
-// slide (the analytic form of engine/chain.py point_state's jvp, exact for
-// scalar joints); the other columns are left unset and never read.
-CHAIN_FN void point_jacobian(const Frames& f, int b, V3 p, V3 (&col)[N]) {
-#pragma unroll
-    for (int d = 0; d < N; ++d)
-        if (model::ancestor(b, d))
-            col[d] = model::jtype(d) == 0 ? cross(f.A[d], sub(p, f.P[d])) : f.A[d];
-}
-
-// World velocity sum_d qd_d col_d of a point on body b, root to leaf.
-CHAIN_FN V3 point_velocity(const float (&qd)[N], int b, const V3 (&col)[N]) {
-    V3 v = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int d = 0; d < N; ++d)
-        if (model::ancestor(b, d)) v = add(v, scale(qd[d], col[d]));
-    return v;
-}
-
-// The locomotion tasks' shared part: no extras, and the step cost of
-// (state in, state out, clipped action), -reward of the env's step:
-// CTRL_WEIGHT * sum of u_j^2 over the actuated dofs j >= U0 minus the
-// forward progress (x_out - x_in) / control dt.
+// The locomotion tasks (the swimmer's capsule drag, the half cheetah's
+// ground contact): no extras and no observation; their force laws and step
+// cost are the team kernel's (chain_team.cuh).
 struct Loco {
     static constexpr int N_EXTRAS = 0;
     static constexpr int D_OBS = 0;
@@ -380,99 +345,16 @@ struct Loco {
     struct Extras {};
 
     static CHAIN_FN Extras load(const float* __restrict__) { return {}; }
-
-    // |qd_i| <= vel_limit(i) after a control step's substeps, when the
-    // header has a limit (the swimmer's _VEL_LIMIT).
-    static CHAIN_FN void limit_velocity(float (&qd)[N]) {
-        if constexpr (loco::HAS_VEL_LIMIT) {
-#pragma unroll
-            for (int i = 0; i < N; ++i)
-                qd[i] = fminf(fmaxf(qd[i], -loco::vel_limit(i)), loco::vel_limit(i));
-        }
-    }
-
-    static CHAIN_FN float step_cost(const float (&q_in)[N], const float (&q)[N],
-                                    const float (&qd)[N], const float (&u)[N]) {
-        float ctrl = 0.0f;
-#pragma unroll
-        for (int j = loco::U0; j < N; ++j) ctrl = ctrl + u[j] * u[j];
-        return loco::CTRL_WEIGHT * ctrl - (q[0] - q_in[0]) * loco::INV_DT;
-    }
-};
-
-#if CHAIN_EXT_TASK == 2
-// Swimmer (envs/swimmer.py): anisotropic quadratic drag on x-aligned
-// capsule links, sampled at N_SAMPLES points along each link's axis:
-// F = -c_perp/2 min(|v_n|, VCAP) v_n - c_par/2 min(|v_t|, VCAP) v_t
-// (drag_perp / drag_par hold the halved coefficients).
-struct Swimmer : Loco {
-    static CHAIN_FN void ext(const Frames& f, const float (&qd)[N], float (&tau)[N]) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) tau[i] = 0.0f;
-#pragma unroll
-        for (int li = 0; li < loco::N_LINKS; ++li) {
-            const int b = loco::link_body(li);
-            const V3 ax = {f.R[b].m[0], f.R[b].m[3], f.R[b].m[6]};  // R e_x
-#pragma unroll
-            for (int k = 0; k < loco::N_SAMPLES; ++k) {
-                const V3 p = add(f.P[b], scale(loco::sample(k), ax));
-                V3 col[N];
-                point_jacobian(f, b, p, col);
-                const V3 v = point_velocity(qd, b, col);
-                const float v_ax = dot(v, ax);
-                const V3 v_par = scale(v_ax, ax);
-                const V3 v_perp = sub(v, v_par);
-                const float n_perp = sqrtf(dot(v_perp, v_perp));
-                const float n_par = fabsf(v_ax);
-                const V3 force =
-                    add(scale(-loco::drag_perp(li) * fminf(n_perp, loco::VCAP), v_perp),
-                        scale(-loco::drag_par(li) * fminf(n_par, loco::VCAP), v_par));
-#pragma unroll
-                for (int d = 0; d < N; ++d)
-                    if (model::ancestor(b, d)) tau[d] = tau[d] + dot(col[d], force);
-            }
-        }
-    }
 };
 
 template <>
 struct TaskOf<2> {
-    using type = Swimmer;
+    using type = Loco;
 };
-#elif CHAIN_EXT_TASK == 3
-// Half cheetah (envs/half_cheetah.py): compliant ground contact at
-// body-local points, a spring-damper normal force below z = RADIUS and
-// saturated Coulomb friction -MU f_n tanh(v_x * INV_SLIP) along x. The
-// branch on depth is a select: every particle does the same work.
-struct Cheetah : Loco {
-    static CHAIN_FN void ext(const Frames& f, const float (&qd)[N], float (&tau)[N]) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) tau[i] = 0.0f;
-#pragma unroll
-        for (int c = 0; c < loco::N_CONTACTS; ++c) {
-            const int b = loco::contact_body(c);
-            const V3 pt = {loco::contact_point(c, 0), loco::contact_point(c, 1),
-                           loco::contact_point(c, 2)};
-            const V3 p = add(f.P[b], mv(f.R[b], pt));
-            V3 col[N];
-            point_jacobian(f, b, p, col);
-            const V3 v = point_velocity(qd, b, col);
-            const float depth = loco::RADIUS - p.z;
-            const float push = fmaxf(loco::KP * depth - loco::KD * v.z, 0.0f);
-            const float fn = depth > 0.0f ? push : 0.0f;
-            const float ft = -loco::MU * fn * tanhf(v.x * loco::INV_SLIP);
-#pragma unroll
-            for (int d = 0; d < N; ++d)
-                if (model::ancestor(b, d)) tau[d] = tau[d] + col[d].x * ft + col[d].z * fn;
-        }
-    }
-};
-
 template <>
 struct TaskOf<3> {
-    using type = Cheetah;
+    using type = Loco;
 };
-#endif
 #endif  // CHAIN_EXT_TASK
 
 // The task of this build (model::TASK of the generated header).
@@ -483,48 +365,33 @@ using BuildTask = TaskOf<model::TASK>::type;
 // ---------------------------------------------------------------------------
 
 enum Mode : int {
-    COSTS = 0,  // costs only (_chain_kernel)
-    OBS = 1,    // costs and pre-step observations (_chain_obs_kernel)
-    CL = 2,     // closed-loop-linear: obs, u = W^T [obs; 1] + eps, costs (_chain_cl_kernel)
-    EXT = 3,    // external forces per substep, a step cost per control step (_chain_ext_kernel)
+    COSTS = 0,  // costs only (_chain_kernel), one thread per particle
+    OBS = 1,    // costs and pre-step observations (_chain_obs_kernel), one thread per particle
+    CL = 2,     // closed-loop-linear (_chain_cl_kernel), a team per particle (chain_team.cuh)
+    EXT = 3,    // external forces (_chain_ext_kernel), a team per particle (chain_team.cuh)
 };
 
-// Takes the observation one element at a time: stores it and, in CL mode,
-// adds its terms W[j][i] * obs_j to the action sums, so the observation is
-// never held whole in registers.
-template <int MODE>
+// Takes the observation one element at a time and stores it, so the
+// observation is never held whole in registers.
 struct ObsSink {
-    float* __restrict__ o;        // this step's obs row
-    const float* __restrict__ w;  // W [D_OBS + 1, N] (CL)
-    float acc[N];                 // action sums (CL)
+    float* __restrict__ o;  // this step's obs row
 
-    CHAIN_FN void operator()(int j, float v) {
-        o[j] = v;
-        if constexpr (MODE == CL) {
-#pragma unroll
-            for (int i = 0; i < N; ++i) acc[i] = acc[i] + w[j * N + i] * v;
-        }
-    }
+    CHAIN_FN void operator()(int j, float v) { o[j] = v; }
 };
 
-// Roll out particle b. noise [n, horizon, N], costs [n, horizon], obs
-// [n, horizon, D_OBS] (OBS, CL) and acts [n, horizon, N] (CL) are contiguous
-// f32; q0, qd0 [N] and extras [N_EXTRAS] are shared; ctrl is the mean
-// [horizon, N] (COSTS, OBS, EXT: u = clip(mean[t] + eps)) or the policy W
-// [D_OBS + 1, N] (CL: a = W^T [obs; 1] + eps, stored before the clip,
-// u = clip(a)). Observations are of the state entering each step, from the
-// frames that serve that step's first substep; costs of the state after it.
-// EXT evaluates FK and the task's external forces at the start of every
-// substep, applies the task's velocity limit after the step's substeps and
-// takes the task's step cost of (state in, state out, u). Its substep loop
-// stays rolled: the cheetah runs 25.
+// Roll out particle b on one thread. noise [n, horizon, N], costs [n,
+// horizon] and obs [n, horizon, D_OBS] (OBS) are contiguous f32; q0, qd0
+// [N], extras [N_EXTRAS] and the mean [horizon, N] are shared; u =
+// clip(mean[t] + eps). Observations are of the state entering each step,
+// from the frames that serve that step's first substep; costs of the state
+// after it.
 template <int MODE, class Task>
 CHAIN_FN void rollout_particle(const float* __restrict__ q0, const float* __restrict__ qd0,
                                const float* __restrict__ extras,
-                               const float* __restrict__ ctrl,
+                               const float* __restrict__ mean,
                                const float* __restrict__ noise, float* __restrict__ costs,
-                               float* __restrict__ obs, float* __restrict__ acts, int b,
-                               int horizon) {
+                               float* __restrict__ obs, int b, int horizon) {
+    static_assert(MODE == COSTS || MODE == OBS, "the one-thread kernel runs COSTS and OBS");
     float q[N], qd[N], u[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -535,55 +402,24 @@ CHAIN_FN void rollout_particle(const float* __restrict__ q0, const float* __rest
     const float* nz = noise + static_cast<size_t>(b) * horizon * N;
     float* out = costs + static_cast<size_t>(b) * horizon;
     Frames f;
-    if constexpr (MODE != EXT) fk(q, f);
+    fk(q, f);
     for (int t = 0; t < horizon; ++t) {
         const float* eps = nz + t * N;
-        if constexpr (MODE == COSTS || MODE == EXT) {
-#pragma unroll
-            for (int j = 0; j < N; ++j)
-                u[j] = fminf(fmaxf(ctrl[t * N + j] + eps[j], model::ULOW), model::UHIGH);
-        } else {
+        if constexpr (MODE == OBS) {
             const size_t row = static_cast<size_t>(b) * horizon + t;
-            ObsSink<MODE> sink{obs + row * Task::D_OBS, ctrl, {}};
-            if constexpr (MODE == CL) {
-#pragma unroll
-                for (int i = 0; i < N; ++i) sink.acc[i] = ctrl[Task::D_OBS * N + i] + eps[i];
-            }
+            ObsSink sink{obs + row * Task::D_OBS};
             Task::obs(f, q, qd, ex, sink);
-#pragma unroll
-            for (int j = 0; j < N; ++j) {
-                float a;
-                if constexpr (MODE == CL) {
-                    a = sink.acc[j];
-                    acts[row * N + j] = a;
-                } else {
-                    a = ctrl[t * N + j] + eps[j];
-                }
-                u[j] = fminf(fmaxf(a, model::ULOW), model::UHIGH);
-            }
         }
-        if constexpr (MODE == EXT) {
-            float q_in[N];
 #pragma unroll
-            for (int i = 0; i < N; ++i) q_in[i] = q[i];
-#pragma unroll 1
-            for (int s = 0; s < model::N_SUBSTEPS; ++s) {
-                float tau[N];
-                fk(q, f);
-                Task::ext(f, qd, tau);
-                substep(q, qd, u, f, tau);
-            }
-            Task::limit_velocity(qd);
-            out[t] = Task::step_cost(q_in, q, qd, u);
-        } else {
-            substep(q, qd, u, f);
-            for (int s = 1; s < model::N_SUBSTEPS; ++s) {
-                fk(q, f);
-                substep(q, qd, u, f);
-            }
+        for (int j = 0; j < N; ++j)
+            u[j] = fminf(fmaxf(mean[t * N + j] + eps[j], model::ULOW), model::UHIGH);
+        substep(q, qd, u, f);
+        for (int s = 1; s < model::N_SUBSTEPS; ++s) {
             fk(q, f);
-            out[t] = Task::cost(f, ex);
+            substep(q, qd, u, f);
         }
+        fk(q, f);
+        out[t] = Task::cost(f, ex);
     }
 }
 

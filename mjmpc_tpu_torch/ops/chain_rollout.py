@@ -7,10 +7,13 @@ build_chain_cl_rollout (closed-loop-linear: observations, the policy
 product u = W^T [obs; 1] + eps, actions and costs) and
 build_chain_ext_rollout (the locomotion rollout: external forces in every
 substep, a velocity limit and a step cost per control step). The kernels
-(csrc/chain_rollout.cu, one template with four entries) run one thread
-per particle with q and qd in registers across all H * n_substeps
-substeps; the model constants and the task are compile-time constants in
-a header generated here from the ChainModel.
+are csrc/chain_rollout.cu's four entries: the costs and obs rollouts run
+one thread per particle with q and qd in registers across all H *
+n_substeps substeps (csrc/chain_rollout.cuh); the closed-loop and
+locomotion rollouts a team of lanes per particle with its state in shared
+memory (csrc/chain_team.cuh, DEFAULT_TEAM lanes, work tables from
+team_schedule). The model constants, the task and the team's tables are
+compile-time constants in a header generated here from the ChainModel.
 
 Semantics (identical to the Pallas builders): for every particle b and
 step t, the action is held for n_substeps semi-implicit Euler substeps
@@ -258,9 +261,13 @@ def rollout_plain(model: ChainModel, n_substeps: int, ulow: float, uhigh: float,
 
 
 def _physics_flops(model: ChainModel):
-    """(fk, substep) operations of one particle, counted from
-    csrc/chain_rollout.cuh as written (a multiply, an add, a compare or a
-    transcendental is one; the chain's topology as the header bakes it)."""
+    """(fk, substep) operations of one particle, counted from the one-thread
+    code of csrc/chain_rollout.cuh (a multiply, an add, a compare or a
+    transcendental is one; the chain's topology as the header bakes it):
+    what the function needs, once each. The team kernel
+    (csrc/chain_team.cuh) repeats some to save a phase (the upper FK levels
+    that a tree's branches share, on each branch's lane); that is not
+    counted."""
     add, dot, cross, mv, mm = 3, 5, 9, 15, 45
     rodrigues = 2 + 1 + 3 * 3 + 6 * 4        # sin, cos, 1-c, 9 entries
     world_inertia = mm + 9 * 5
@@ -295,11 +302,10 @@ def _physics_flops(model: ChainModel):
 
 def rollout_flops(model: ChainModel, n_substeps: int, n: int, horizon: int,
                   mode: str = "costs", task: Union[str, ChainTask] = REACHER) -> int:
-    """Floating-point operations of one kernel call, counted from
-    csrc/chain_rollout.cuh as written (a multiply, an add, a compare or a
-    transcendental is one; the chain's topology as the header bakes it;
-    the task's d_obs and its obs and cost counts). Used for the card-time
-    bound: the work is the same for every input."""
+    """Floating-point operations of one kernel call, what the function
+    needs once each (_physics_flops; the task's d_obs and its obs and cost
+    counts). Used for the card-time bound: the work is the same for every
+    input."""
     task = _task(task)
     fk, substep = _physics_flops(model)
     nb = model.n_joints
@@ -470,10 +476,11 @@ def rollout_ext_plain(model: ChainModel, n_substeps: int, task: ExtTask, vel_lim
 
 
 def ext_force_flops(model: ChainModel, task: ExtTask) -> int:
-    """Operations of one particle's Task::ext in csrc/chain_rollout.cuh as
-    written: per point its world position, the Jacobian columns (12 per
-    hinge ancestor), the velocity (6 per ancestor), the force law and the
-    scatter (6 per ancestor for drag: a dot and an add; 4 for contact)."""
+    """Operations of one particle's external forces (csrc/chain_team.cuh
+    point_terms and gather_tau): per point its world position, the Jacobian
+    columns (12 per hinge ancestor), the velocity (6 per ancestor), the
+    force law and its terms on the dofs with their sums (6 per ancestor for
+    drag: a dot and an add; 4 for contact)."""
     anc = model.ancestor_mask()
     hinge = np.array([t == "hinge" for t in model.joint_types])
     law = task.force
@@ -571,13 +578,184 @@ def _loco_header(task: ExtTask, vel_limit, nv: int) -> list:
     return lines + ["}  // namespace loco"]
 
 
+# A particle's lanes in the team kernel (csrc/chain_team.cuh): a whole warp,
+# for every chain up to 15 dofs. Measured on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md §6): 32 lanes beat 8 and 16 on the peg's N=64 (0.254 /
+# 0.352 / 0.294 ms), the swimmer's and the cheetah's N=512; at the
+# reacher's N=4096, where four particles a warp issue fewer instructions,
+# 8 lanes take 0.445 ms against 0.825.
+DEFAULT_TEAM = 32
+
+
+def _point_bodies(task) -> list:
+    """The body of each contact point of an ExtTask's force law, in the
+    kernel's point order (none for the other tasks)."""
+    if not isinstance(task, ExtTask):
+        return []
+    law = task.force
+    return list(law.points()[0] if isinstance(law, CapsuleDrag) else law.bodies)
+
+
+def team_schedule(model: ChainModel, team: int, point_bodies=()) -> dict:
+    """The work tables of a team of `team` lanes per particle, as the
+    generated header carries them (csrc/chain_team.cuh says which phase
+    reads which). Item x of a list of items goes to lane x % team in round
+    x // team; an empty place holds -1.
+
+    - branches: for every leaf its root path, FK's walk on one lane; the
+      first branch through a body stores it;
+    - runs: the RNEA's backward pass, from each leaf or branching body up
+      to below the next branching body, in segments that run one after
+      the other (a run's children in earlier segments), each body's
+      children in decreasing order;
+    - slots: (body i, its k-th ancestor d) for the Jacobian columns of i's
+      com;
+    - entries: the mass entries (a, b), a on b's root path, longest sums
+      (the bodies below b) first, so that a round's lanes sum about as many
+      terms;
+    - points: each contact point's body, depth and root path (4 bits a
+      level), and for every dof the points that it moves.
+
+    The tree must have one root, body 0, parents before children and each
+    subtree contiguous (the bodies below b are b .. end(b) - 1)."""
+    n, par = model.n_joints, [int(p) for p in model.parent]
+    if team not in (4, 8, 16, 32):
+        raise ValueError(f"team must be 4, 8, 16 or 32 lanes, not {team}")
+    if n > 15 or len(point_bodies) > 32:
+        raise ValueError("the team kernel takes at most 15 dofs and 32 contact points")
+    if par[0] != -1 or any(not 0 <= par[i] < i for i in range(1, n)):
+        raise ValueError(f"the team kernel needs one root, body 0, and parents first: {par}")
+    paths = []
+    for i in range(n):
+        path, k = [i], par[i]
+        while k >= 0:
+            path.append(k)
+            k = par[k]
+        paths.append(path[::-1])
+    depth = [len(path) - 1 for path in paths]
+    levels = max(depth) + 1
+    if levels > 8:
+        raise ValueError("the team kernel takes trees of at most 8 levels")
+    children = [[k for k in range(n - 1, -1, -1) if par[k] == i] for i in range(n)]
+    end = []
+    for i in range(n):
+        below = [k for k in range(n) if i in paths[k]]
+        if below != list(range(i, i + len(below))):
+            raise ValueError(f"the bodies below {i} are not contiguous: {below}")
+        end.append(i + len(below))
+    branches = [paths[i] for i in range(n) if not children[i]]
+    owner = {}
+    for b_, path in enumerate(branches):
+        for i in path:
+            owner.setdefault(i, b_)
+    fk_body = [[path[lv] if lv < len(path) else -1 for lv in range(levels)]
+               for path in branches]
+    fk_store = [[int(lv < len(path) and owner[path[lv]] == b_) for lv in range(levels)]
+                for b_, path in enumerate(branches)]
+    runs = []
+    for head in range(n):
+        if len(children[head]) == 1:
+            continue
+        run, x = [head], head
+        while par[x] >= 0 and len(children[par[x]]) == 1:
+            x = par[x]
+            run.append(x)
+        runs.append(run)
+    run_of = {i: k for k, run in enumerate(runs) for i in run}
+
+    def segment(k):
+        head = runs[k][0]
+        return 1 + max(segment(run_of[c]) for c in children[head]) if children[head] else 0
+
+    segs = [segment(k) for k in range(len(runs))]
+    segments = [[runs[k] for k in range(len(runs)) if segs[k] == sg] for sg in range(max(segs) + 1)]
+    if len(segments) > 3:
+        raise ValueError("the team kernel takes at most three segments of RNEA runs")
+    n_runs = max(len(sg) for sg in segments)
+    run_len = max(len(run) for run in runs)
+    max_children = max(1, max(len(c) for c in children))
+    run_body = [[(sg[r] + [-1] * run_len)[:run_len] if r < len(sg) else [-1] * run_len
+                 for r in range(n_runs)] for sg in segments]
+    run_child = [[[(children[i] + [-1] * max_children)[:max_children] if i >= 0
+                   else [-1] * max_children for i in row] for row in sg] for sg in run_body]
+
+    def deal(items, pad):
+        rounds = max(1, -(-len(items) // team))
+        return [[items[r * team + l] if r * team + l < len(items) else pad
+                 for l in range(team)] for r in range(rounds)]
+
+    slots = deal([(i, k, d) for i in range(n) for k, d in enumerate(paths[i])], (-1, 0, 0))
+    pairs = sorted(((a, b_) for b_ in range(n) for a in paths[b_]),
+                   key=lambda e: (-(end[e[1]] - e[1]), e[1], e[0]))
+    entries = deal([(a, b_, depth[a], depth[b_], end[b_]) for a, b_ in pairs], (-1, 0, 0, 0, 0))
+    points = deal([(p, b_, depth[b_], sum(d << (4 * k) for k, d in enumerate(paths[b_])))
+                   for p, b_ in enumerate(point_bodies)], (-1, 0, 0, 0))
+    dof_points = [sum(1 << p for p, b_ in enumerate(point_bodies) if i in paths[b_])
+                  for i in range(n)]
+    return dict(team=team, depth=depth, levels=levels, fk_body=fk_body,
+                fk_store=fk_store, run_body=run_body, run_child=run_child, slots=slots,
+                entries=entries, points=points, dof_points=dof_points,
+                n_points=len(point_bodies),
+                hinge_mask=sum(1 << i for i, t in enumerate(model.joint_types) if t == "hinge"))
+
+
+def _team_header(sched: dict) -> list:
+    """The team namespace of the generated header (team_schedule)."""
+    i = lambda v: str(int(v))
+    u = lambda v: f"{int(v)}u"
+    col = lambda table, k: [[item[k] for item in row] for row in table]
+    return [
+        "namespace team {",
+        f"constexpr int TEAM = {sched['team']};  // a particle's lanes",
+        f"constexpr int MAXD = {sched['levels']};  // levels of the tree",
+        f"constexpr unsigned HINGE_MASK = {sched['hinge_mask']}u;",
+        f"constexpr int N_BRANCHES = {len(sched['fk_body'])};",
+        f"constexpr int N_SEGMENTS = {len(sched['run_body'])};",
+        f"constexpr int N_RUNS = {len(sched['run_body'][0])};",
+        f"constexpr int RUN_LEN = {len(sched['run_body'][0][0])};",
+        f"constexpr int MAX_CHILDREN = {len(sched['run_child'][0][0][0])};",
+        f"constexpr int SLOT_ROUNDS = {len(sched['slots'])};",
+        f"constexpr int ENTRY_ROUNDS = {len(sched['entries'])};",
+        f"constexpr int N_POINTS = {sched['n_points']};",
+        f"constexpr int POINT_ROUNDS = {len(sched['points']) if sched['n_points'] else 0};",
+        _array("depth", "int", sched["depth"], i),
+        _array("fk_body", "int", sched["fk_body"], i),
+        _array("fk_store", "int", sched["fk_store"], i),
+        _array("run_body", "int", sched["run_body"], i),
+        _array("run_child", "int", sched["run_child"], i),
+        _array("slot_i", "int", col(sched["slots"], 0), i),
+        _array("slot_k", "int", col(sched["slots"], 1), i),
+        _array("slot_d", "int", col(sched["slots"], 2), i),
+        _array("entry_a", "int", col(sched["entries"], 0), i),
+        _array("entry_b", "int", col(sched["entries"], 1), i),
+        _array("entry_ka", "int", col(sched["entries"], 2), i),
+        _array("entry_kb", "int", col(sched["entries"], 3), i),
+        _array("entry_end", "int", col(sched["entries"], 4), i),
+        _array("entry_terms", "int", [max([e[4] - e[1] for e in row if e[0] >= 0] or [0])
+                                      for row in sched["entries"]], i),
+        _array("point_p", "int", col(sched["points"], 0), i),
+        _array("point_body", "int", col(sched["points"], 1), i),
+        _array("point_depth", "int", col(sched["points"], 2), i),
+        _array("point_anc", "unsigned", col(sched["points"], 3), u),
+        _array("dof_points", "unsigned", sched["dof_points"], u),
+        "}  // namespace team",
+    ]
+
+
 def model_header(model: ChainModel, n_substeps: int, ulow: float,
                  uhigh: float, task: Union[str, ChainTask, ExtTask] = REACHER,
                  vel_limit=None) -> str:
-    """C++ header of the model's constants and the task for
-    csrc/chain_rollout.cu; an ExtTask adds CHAIN_EXT_TASK and its
-    constants (force law, step cost, the per-dof velocity limit
-    `vel_limit`, None for none)."""
+    """C++ header of the model's constants, the task and the work tables of
+    a team of DEFAULT_TEAM lanes (team_schedule) for csrc/chain_rollout.cu;
+    an ExtTask adds CHAIN_EXT_TASK and its constants (force law, step cost,
+    the per-dof velocity limit `vel_limit`, None for none)."""
+    return _model_header(model, n_substeps, ulow, uhigh, task, vel_limit, DEFAULT_TEAM)
+
+
+def _model_header(model: ChainModel, n_substeps: int, ulow: float, uhigh: float, task,
+                  vel_limit, team: int) -> str:
+    """model_header for a team of `team` lanes (the tests and the A/B tool
+    build other team sizes through it)."""
     npf = lambda t: t.detach().cpu().numpy().astype(np.float32)
     task = task if isinstance(task, ExtTask) else _task(task)
     n = model.n_joints
@@ -621,6 +799,7 @@ def model_header(model: ChainModel, n_substeps: int, ulow: float,
     lines.append("}  // namespace model")
     if isinstance(task, ExtTask):
         lines += _loco_header(task, vel_limit, n)
+    lines += _team_header(team_schedule(model, team, _point_bodies(task)))
     return "\n".join(lines) + "\n"
 
 
@@ -659,6 +838,7 @@ class ChainRollout:
     """
     launches = 0
     mode = "costs"
+    nvcc_flags: Tuple[str, ...] = ()   # added to the build's (a measurement tool's hook)
 
     def __init__(self, model: ChainModel, n_substeps: int,
                  ulow: float = -1.0, uhigh: float = 1.0,
@@ -669,6 +849,7 @@ class ChainRollout:
         self.uhigh = float(uhigh)
         self.task = _task(task)
         self.d_obs = self.task.d_obs(model.nv)
+        self.team = DEFAULT_TEAM
         self.header = model_header(model, n_substeps, ulow, uhigh, self.task)
         self._lib = None
 
@@ -677,7 +858,7 @@ class ChainRollout:
         task (one library holds the three entries)."""
         if self._lib is None:
             lib = build.load("chain_rollout", "chain_rollout.cu",
-                             {"chain_model.h": self.header})
+                             {"chain_model.h": self.header}, self.nvcc_flags)
             tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             for entry, n_ptrs in (("chain_rollout_launch", 6),
                                   ("chain_obs_rollout_launch", 7),
@@ -686,12 +867,15 @@ class ChainRollout:
                 getattr(lib.lib, entry).restype = ctypes.c_int
             lib.lib.chain_rollout_error_string.argtypes = [ctypes.c_int]
             lib.lib.chain_rollout_error_string.restype = ctypes.c_char_p
-            for entry in (lib.lib.chain_rollout_d_obs, lib.lib.chain_rollout_n_extras):
+            for entry in (lib.lib.chain_rollout_d_obs, lib.lib.chain_rollout_n_extras,
+                          lib.lib.chain_rollout_team):
                 entry.argtypes, entry.restype = [], ctypes.c_int
-            layout = (lib.lib.chain_rollout_d_obs(), lib.lib.chain_rollout_n_extras())
-            if layout != (self.d_obs, self.task.n_extras):
-                raise RuntimeError(f"{lib.path} was built for (d_obs, n_extras) = {layout}, "
-                                   f"not {(self.d_obs, self.task.n_extras)}")
+            layout = (lib.lib.chain_rollout_d_obs(), lib.lib.chain_rollout_n_extras(),
+                      lib.lib.chain_rollout_team())
+            want = (self.d_obs, self.task.n_extras, self.team)
+            if layout != want:
+                raise RuntimeError(f"{lib.path} was built for (d_obs, n_extras, team) = "
+                                   f"{layout}, not {want}")
             self._lib = lib
         return self._lib
 
@@ -806,6 +990,7 @@ class ChainExtRollout:
     tensors does not count).
     """
     launches = 0
+    nvcc_flags: Tuple[str, ...] = ()   # added to the build's (a measurement tool's hook)
 
     def __init__(self, model: ChainModel, n_substeps: int, task: ExtTask, vel_limit=None,
                  ulow: float = -1.0, uhigh: float = 1.0):
@@ -816,6 +1001,7 @@ class ChainExtRollout:
         self.uhigh = float(uhigh)
         self.vel_limit = (None if vel_limit is None else torch.as_tensor(
             np.asarray(vel_limit, np.float32), device=model.device))
+        self.team = DEFAULT_TEAM
         self.header = model_header(model, n_substeps, ulow, uhigh, task, vel_limit)
         self._lib = None
 
@@ -824,18 +1010,19 @@ class ChainExtRollout:
         model and task."""
         if self._lib is None:
             lib = build.load("chain_rollout", "chain_rollout.cu",
-                             {"chain_model.h": self.header})
+                             {"chain_model.h": self.header}, self.nvcc_flags)
             entry = lib.lib.chain_ext_rollout_launch
             entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                                       ctypes.c_void_p]
             entry.restype = ctypes.c_int
             lib.lib.chain_rollout_error_string.argtypes = [ctypes.c_int]
             lib.lib.chain_rollout_error_string.restype = ctypes.c_char_p
-            lib.lib.chain_rollout_task.argtypes, lib.lib.chain_rollout_task.restype = [], \
-                ctypes.c_int
-            if lib.lib.chain_rollout_task() != self.task.index:
-                raise RuntimeError(f"{lib.path} was built for task "
-                                   f"{lib.lib.chain_rollout_task()}, not {self.task.index}")
+            for entry in (lib.lib.chain_rollout_task, lib.lib.chain_rollout_team):
+                entry.argtypes, entry.restype = [], ctypes.c_int
+            layout = (lib.lib.chain_rollout_task(), lib.lib.chain_rollout_team())
+            if layout != (self.task.index, self.team):
+                raise RuntimeError(f"{lib.path} was built for (task, team) = {layout}, "
+                                   f"not {(self.task.index, self.team)}")
             self._lib = lib
         return self._lib
 

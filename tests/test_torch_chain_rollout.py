@@ -98,7 +98,7 @@ def test_kernel_source_compiled_for_the_host_matches_plain(rollout, tmp_path):
         '    float* costs, int n, int horizon) {\n'
         '  for (int b = 0; b < n; ++b)\n'
         '    chain_rollout::rollout_particle<chain_rollout::COSTS, chain_rollout::BuildTask>(\n'
-        '        q0, qd0, target, mean, noise, costs, nullptr, nullptr, b, horizon);\n'
+        '        q0, qd0, target, mean, noise, costs, nullptr, b, horizon);\n'
         '}\n')
     lib_path = tmp_path / "libhost.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",

@@ -136,27 +136,29 @@ def test_the_loop_actually_closes():
 
 
 def _host_library(header, tmp_path):
-    """csrc/chain_rollout.cuh's closed-loop and obs instances, built with
+    """The closed-loop team code (csrc/chain_team.cuh, each phase's lanes in
+    turn) and csrc/chain_rollout.cuh's one-thread obs instance, built with
     g++ for the task of `header`."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to build the host copy of the kernel source"
     (tmp_path / "chain_model.h").write_text(header)
     (tmp_path / "host.cpp").write_text(
-        '#include "chain_rollout.cuh"\n'
+        '#include "chain_team.cuh"\n'
         'using namespace chain_rollout;\n'
         'extern "C" void host_cl(const float* q0, const float* qd0, const float* extras,\n'
         '    const float* w, const float* noise, float* costs, float* obs, float* acts,\n'
         '    int n, int horizon) {\n'
+        '  static chain_team::Particle s;   // one team, its lanes in turn\n'
         '  for (int b = 0; b < n; ++b)\n'
-        '    rollout_particle<CL, BuildTask>(q0, qd0, extras, w, noise, costs, obs, acts,\n'
-        '                                    b, horizon);\n'
+        '    chain_team::rollout_team<CL, BuildTask>(s, chain_team::Team{}, q0, qd0, extras,\n'
+        '                                            w, noise, costs, obs, acts, b, horizon);\n'
         '}\n'
         'extern "C" void host_obs(const float* q0, const float* qd0, const float* extras,\n'
         '    const float* mean, const float* noise, float* costs, float* obs,\n'
         '    int n, int horizon) {\n'
         '  for (int b = 0; b < n; ++b)\n'
         '    rollout_particle<OBS, BuildTask>(q0, qd0, extras, mean, noise, costs, obs,\n'
-        '                                     nullptr, b, horizon);\n'
+        '                                     b, horizon);\n'
         '}\n')
     lib_path = tmp_path / "libclhost.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",

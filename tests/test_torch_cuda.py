@@ -1,7 +1,9 @@
 """The CUDA kernels on the card (chain rollout, chain rollout with
 observations, closed-loop chain rollout for the reacher and peg tasks,
 filtered noise, the locomotion rollout for the swimmer and the half
-cheetah, the forest rollout for pen-v0 and the sawyer peg, the pendulum
+cheetah (#4 and #5 a team of lanes per particle: ragged N, two launches
+bit for bit, zeroed actions failing the check, their phase clocks), the
+forest rollout for pen-v0 and the sawyer peg, the pendulum
 rollout and the one-kernel pendulum MPPI solve): each against its plain
 PyTorch version, their launch counts on sync-free solves, and the
 wrappers' checks.
@@ -179,6 +181,49 @@ def test_cl_kernel_matches_plain(device, name, n, h, tol):
         torch.testing.assert_close(x, y, rtol=0, atol=tol)
 
 
+def _cl_case(name, n, h, seed, device):
+    """Kernel #4's wrapper for the reacher or the peg and its inputs: W *
+    0.05 and noise * 0.3 as tests/test_pallas_cl.py draws them."""
+    env = envs.make(name, device=device)
+    peg = name.startswith("sawyer_peg")
+    roll = build_chain_cl_rollout(env.params.model, n_substeps=2,
+                                  task="peg" if peg else "reacher")
+    rng = np.random.default_rng(seed)
+    q0, qd0, target, _, _ = _inputs(1, 1, seed, device)
+    extras = peg_extras(env.params) if peg else target
+    w = torch.as_tensor(np.asarray(rng.normal(size=(roll.d_obs + 1, 7)) * 0.05, np.float32),
+                        device=device)
+    noise = torch.as_tensor(np.asarray(rng.normal(size=(n, h, 7)) * 0.3, np.float32),
+                            device=device)
+    return roll, [q0, qd0, extras, w, noise]
+
+
+@pytest.mark.parametrize("name,n", [("reacher_7dof-v0", 1), ("reacher_7dof-v0", 5),
+                                    ("sawyer_peg_insertion-v0", 1),
+                                    ("sawyer_peg_insertion-v0", 5)])
+def test_cl_kernel_ragged_sizes_and_two_launches(device, name, n):
+    """N=1 and N=5 (ragged for any team narrower than a warp): the kernel
+    matches its plain version, and two launches agree bit for bit (no
+    atomics, a fixed order of every sum)."""
+    roll, args = _cl_case(name, n, 5, 13, device)
+    first, second = roll(*args), roll(*args)
+    for x, y, z in zip(first, second, roll.plain(*args)):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("name", ["reacher_7dof-v0", "sawyer_peg_insertion-v0"])
+def test_cl_check_fails_for_zeroed_actions(device, name):
+    """The check's power: the plain version with W and the noise zeroed
+    (a rollout that ignores the actions) misses the kernel's observations
+    and costs by more than 10x the tolerance."""
+    roll, args = _cl_case(name, 37, 5, 14, device)
+    obs, _, costs = roll(*args)
+    z_obs, _, z_costs = roll.plain(*args[:3], torch.zeros_like(args[3]),
+                                   torch.zeros_like(args[4]))
+    assert max(float((obs - z_obs).abs().max()), float((costs - z_costs).abs().max())) > 5e-4
+
+
 @pytest.mark.parametrize("name,baseline", [("reacher_7dof-v0", "quadratic"),
                                            ("sawyer_peg_insertion-v0", "linear")])
 def test_reinforce_solves_launch_the_cl_kernel_without_host_syncs(device, name, baseline):
@@ -230,6 +275,58 @@ def test_ext_kernel_matches_plain(device, name, n, h, tol):
     want = roll.plain(*args)
     scale = torch.clamp(want.abs(), min=1.0) if name == "HalfCheetah-v0" else 1.0
     torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("name,n", [("Swimmer-v0", 1), ("Swimmer-v0", 5),
+                                    ("HalfCheetah-v0", 1), ("HalfCheetah-v0", 5)])
+def test_ext_kernel_ragged_sizes_and_two_launches(device, name, n):
+    """As for the closed loop: N=1 and N=5 match the plain version (the
+    cheetah's to 5e-4 of max(1, |cost|)) and two launches agree bit for
+    bit."""
+    env = envs.make(name, device=device)
+    roll = _LOCO[name].build_rollout(env.params)
+    args = _loco_inputs(env.params.model.nv, n, 5, 15, device)
+    first, second, want = roll(*args), roll(*args), roll.plain(*args)
+    assert torch.equal(first, second)
+    cheetah = name == "HalfCheetah-v0"
+    scale = torch.clamp(want.abs(), min=1.0) if cheetah else 1.0
+    torch.testing.assert_close(first / scale, want / scale, rtol=0,
+                               atol=5e-4 if cheetah else 5e-5)
+
+
+@pytest.mark.parametrize("name", sorted(_LOCO))
+def test_ext_check_fails_for_zeroed_actions(device, name):
+    """The plain version with the mean and the noise zeroed misses the
+    kernel's costs by more than 10x the tolerance."""
+    env = envs.make(name, device=device)
+    roll = _LOCO[name].build_rollout(env.params)
+    args = _loco_inputs(env.params.model.nv, 37, 5, 16, device)
+    zeroed = roll.plain(*args[:2], torch.zeros_like(args[2]), torch.zeros_like(args[3]))
+    tol = 5e-4 if name == "HalfCheetah-v0" else 5e-5
+    assert float((roll(*args) - zeroed).abs().max()) > 10 * tol
+
+
+def test_chain_phase_clocks_count_and_change_no_output(device):
+    """The chain team kernel's phase-clock build (tools/kernel_ab.py
+    clocked) counts cycles in every kind of phase and gives the same
+    outputs, bit for bit, for the peg's closed loop and the cheetah."""
+    kernel_ab = _kernel_ab()
+    cases = [_cl_case("sawyer_peg_insertion-v0", 37, 5, 17, device)]
+    env = envs.make("HalfCheetah-v0", device=device)
+    cases.append((half_cheetah.build_rollout(env.params),
+                  _loco_inputs(env.params.model.nv, 37, 5, 17, device)))
+    for roll, args in cases:
+        clocked, read = kernel_ab.clocked(roll, "chain")
+        clocked(*args)
+        torch.cuda.synchronize()
+        read()                                   # zeroes the counts
+        got = clocked(*args)
+        cycles = read()
+        want = roll(*args)
+        for x, y in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(x, y)
+        assert all(cycles[k] > 0 for k in kernel_ab.PHASE_KINDS["chain"]), cycles
 
 
 @pytest.mark.parametrize("name", sorted(_LOCO))
@@ -320,15 +417,20 @@ def test_forest_kernel_repeated_act_body_takes_its_last_action(device):
     torch.testing.assert_close(twice(*args), twice.plain(*args), rtol=0, atol=5e-5)
 
 
+def _kernel_ab():
+    """tools/kernel_ab.py as a module."""
+    path = Path(__file__).resolve().parent.parent / "tools" / "kernel_ab.py"
+    spec = importlib.util.spec_from_file_location("kernel_ab", path)
+    kernel_ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kernel_ab)
+    return kernel_ab
+
+
 def test_forest_phase_clocks_count_and_change_no_cost(device):
-    """The phase-clock build (tools/forest_ab.py clocked) counts cycles in
+    """The phase-clock build (tools/kernel_ab.py clocked) counts cycles in
     every kind of phase pen runs and gives the same costs, bit for bit."""
-    path = Path(__file__).resolve().parent.parent / "tools" / "forest_ab.py"
-    spec = importlib.util.spec_from_file_location("forest_ab", path)
-    forest_ab = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(forest_ab)
     roll, args = _forest_case("pen-v0", 37, 5, 10, device)
-    clocked, read = forest_ab.clocked(roll)
+    clocked, read = _kernel_ab().clocked(roll, "forest")
     clocked(*args)
     torch.cuda.synchronize()
     read()                                       # zeroes the counts

@@ -196,19 +196,21 @@ def test_fused_rollout_matches_jax_kernel(jax_refs, name):
 
 
 def _host_library(header, tmp_path):
-    """csrc/chain_rollout.cuh's external-force instance for the task of
-    `header`, built with g++."""
+    """The external-force team code (csrc/chain_team.cuh, each phase's lanes
+    in turn) for the task of `header`, built with g++."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to build the host copy of the kernel source"
     (tmp_path / "chain_model.h").write_text(header)
     (tmp_path / "host.cpp").write_text(
-        '#include "chain_rollout.cuh"\n'
+        '#include "chain_team.cuh"\n'
         'using namespace chain_rollout;\n'
         'extern "C" void host_ext(const float* q0, const float* qd0, const float* mean,\n'
         '    const float* noise, float* costs, int n, int horizon) {\n'
+        '  static chain_team::Particle s;   // one team, its lanes in turn\n'
         '  for (int b = 0; b < n; ++b)\n'
-        '    rollout_particle<EXT, BuildTask>(q0, qd0, nullptr, mean, noise, costs,\n'
-        '                                     nullptr, nullptr, b, horizon);\n'
+        '    chain_team::rollout_team<EXT, BuildTask>(s, chain_team::Team{}, q0, qd0, nullptr,\n'
+        '                                             mean, noise, costs, nullptr, nullptr, b,\n'
+        '                                             horizon);\n'
         '}\n')
     lib_path = tmp_path / "libexthost.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",

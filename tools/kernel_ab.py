@@ -1,0 +1,347 @@
+"""The team-of-lanes rollout kernels and the solves that run them, timed on
+one CUDA card for one or more checkouts of this repository, in turns, so
+that versions are compared on the same card in the same run.
+
+    python3 tools/kernel_ab.py --checkout OLD --checkout . [--family chain] [--rounds 2]
+
+Each round runs every checkout once in order and once in reverse (A B B A
+for two), each in a process of its own from its root, importing that
+checkout's mjmpc_tpu_torch and this checkout's chip_smoke.py for the
+inputs and the timers, so that every version is timed the same way on the
+inputs that chip_smoke.py's gates hold. A family is the kernels of one
+source:
+
+- forest: kernel #6 (csrc/forest_rollout.cu), pen-v0 at N = 64, 256, 1024
+  and 4096 and the sawyer peg at N = 256, all H = 16; then the MPPI solves
+  of configs/hand/pen-v0.yml and the peg config;
+- chain: csrc/chain_rollout.cu, #1 (costs) and #3 (obs) on the reacher at
+  N=4096 H=32, #4 (closed loop) on the reacher at N=4096 H=32 and on the
+  peg at its config's N=64 H=32, #5 (locomotion) on the swimmer at N=512
+  H=32 and the cheetah at N=512 H=16; then MPPI on both locomotion configs
+  and Reinforce on the reacher and the peg config.
+
+A run builds its family's libraries (one nvcc each, in parallel), prints
+their ptxas lines, nvcc seconds and SASS instructions (cuobjdump), times
+each kernel by CUDA events (chip_smoke.cuda_ms: the mean of 20 calls on a
+held stream), then each solve's read-verified solves/s
+(chip_smoke.solves_per_s, the median of 5 windows of 10) and device time
+and busy share per solve (chip_smoke.profile). It keeps the kernels'
+outputs, and the script prints each checkout's largest difference from the
+first checkout's. One JSON line per measurement and one per comparison;
+the card's name and power limit first. Needs a CUDA card.
+
+    python3 tools/kernel_ab.py --phases [--family chain]
+
+instead builds this checkout's team kernels with their phase clocks
+(clocked(): -DFOREST_PHASE_CLOCKS or -DCHAIN_PHASE_CLOCKS) and prints the
+cycles of each kind of phase along one particle's chain, per substep, and
+their shares, and the SM clock (nvidia-smi) beside them: forest for pen
+and the peg at N=256 H=16, chain for #4 and #5 at the sizes above. It
+fails unless every kind of phase that the kernel runs counted cycles and
+the outputs are the plain build's, bit for bit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+FAMILIES = ("forest", "chain")
+FOREST_SIZES = (("pen-v0", 64, 16), ("pen-v0", 256, 16), ("pen-v0", 1024, 16),
+                ("pen-v0", 4096, 16), ("sawyer_peg_insertion-v0", 256, 16))
+# chain kernels: name -> (wrapper key, N, H)
+CHAIN_SIZES = {"chain_costs_reacher": ("costs", 4096, 32), "chain_obs_reacher": ("obs", 4096, 32),
+               "chain_cl_reacher": ("cl_reacher", 4096, 32), "chain_cl_peg": ("cl_peg", 64, 32),
+               "chain_ext_swimmer": ("Swimmer-v0", 512, 32),
+               "chain_ext_cheetah": ("HalfCheetah-v0", 512, 16)}
+# The kinds of phase of csrc/forest_rollout.cuh and csrc/chain_team.cuh
+# (PhaseKind), in their order.
+PHASE_KINDS = {"forest": ("init", "fk", "points", "forces", "sums", "mass", "chol", "forward",
+                          "back", "cost"),
+               "chain": ("init", "dofs", "fk", "body", "task", "act", "slots", "entries",
+                         "solve")}
+CLOCK_FLAGS = {"forest": "-DFOREST_PHASE_CLOCKS", "chain": "-DCHAIN_PHASE_CLOCKS"}
+
+
+def load_smoke():
+    """This checkout's chip_smoke.py as a module (its top level imports
+    only the standard library and numpy)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def clocked(roll, family):
+    """(a copy of the rollout wrapper `roll` whose kernel is built with its
+    family's phase clocks, read): read() returns {kind: cycles} for each
+    kind of phase along the first particle's chain, summed over the kernel
+    calls since the last read, and zeroes them."""
+    cls = type("Clocked", (type(roll),), {"nvcc_flags": (CLOCK_FLAGS[family],)})
+    copy = object.__new__(cls)
+    copy.__dict__.update(roll.__dict__)
+    copy._lib = None
+    kinds = PHASE_KINDS[family]
+    prefix = "forest_rollout" if family == "forest" else "chain_rollout"
+
+    def read():
+        lib = copy.library().lib
+        entry = getattr(lib, f"{prefix}_phase_cycles")
+        entry.argtypes, entry.restype = [ctypes.c_void_p], ctypes.c_int
+        out = (ctypes.c_ulonglong * len(kinds))()
+        rc = entry(out)
+        if rc != 0:
+            raise RuntimeError("reading the phase cycles failed: "
+                               + getattr(lib, f"{prefix}_error_string")(rc).decode())
+        return dict(zip(kinds, (int(x) for x in out)))
+
+    return copy, read
+
+
+def build_all(rolls):
+    """Build the wrappers' libraries at once (one nvcc each) and print their
+    build lines."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(len(rolls)) as pool:
+        libs = dict(zip(rolls, pool.map(lambda r: r.library(), rolls.values())))
+    for name, lib in libs.items():
+        sass = subprocess.run(["cuobjdump", "-sass", str(lib.path)], capture_output=True,
+                              text=True).stdout
+        print(json.dumps({"build": name, "team": getattr(rolls[name], "team", None),
+                          "nvcc_seconds": lib.build_seconds,
+                          "sass_instructions": len(re.findall(r"/\*[0-9a-f]{4,}\*/", sass)),
+                          "ptxas": [ln.strip() for ln in lib.ptxas.splitlines()
+                                    if re.search(r"registers|spill|stack|smem", ln)]}),
+              flush=True)
+
+
+def forest_setup(device):
+    """(envs, rollouts) of pen-v0 and the sawyer peg."""
+    from mjmpc_tpu_torch import envs
+    from mjmpc_tpu_torch.envs import pen, sawyer_tasks
+    made = {name: envs.make(name, device=device) for name in ("pen-v0", "sawyer_peg_insertion-v0")}
+    rolls = {"pen-v0": pen.build_rollout(made["pen-v0"].params.model),
+             "sawyer_peg_insertion-v0": sawyer_tasks.build_rollout(
+                 made["sawyer_peg_insertion-v0"].params.model)}
+    return made, rolls
+
+
+def chain_setup(device):
+    """(envs, wrappers) of the chain kernels: the reacher's costs, obs and
+    closed-loop rollouts (one library), the peg's closed loop, the
+    swimmer's and the cheetah's locomotion rollouts."""
+    from mjmpc_tpu_torch import envs
+    from mjmpc_tpu_torch.envs import half_cheetah, swimmer
+    from mjmpc_tpu_torch.ops import chain_rollout as cr
+    made = {name: envs.make(name, device=device)
+            for name in ("reacher_7dof-v0", "sawyer_peg_insertion-v0", "Swimmer-v0",
+                         "HalfCheetah-v0")}
+    reacher = made["reacher_7dof-v0"].params.model
+    rolls = {"costs": cr.ChainRollout(reacher, 2), "obs": cr.ChainObsRollout(reacher, 2),
+             "cl_reacher": cr.ChainClRollout(reacher, 2),
+             "cl_peg": cr.ChainClRollout(made["sawyer_peg_insertion-v0"].params.model, 2,
+                                         task="peg"),
+             "Swimmer-v0": swimmer.build_rollout(made["Swimmer-v0"].params),
+             "HalfCheetah-v0": half_cheetah.build_rollout(made["HalfCheetah-v0"].params)}
+    return made, rolls
+
+
+def chain_inputs(smoke, made, rolls, key, n, h, device):
+    """chip_smoke.py's inputs of the chain kernel `key` at (n, h), with the
+    seeds of its config-size checks."""
+    from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
+    roll = rolls[key]
+    if key in ("costs", "obs"):
+        return smoke.reacher_inputs(n, h, 0, device)
+    if key == "cl_reacher":
+        target = smoke.reacher_inputs(1, 1, 0, device)[2]
+        return smoke.cl_inputs(roll.d_obs, target, n, h, 4, device)
+    if key == "cl_peg":
+        return smoke.cl_inputs(roll.d_obs, peg_extras(made["sawyer_peg_insertion-v0"].params),
+                               n, h, 6, device)
+    return smoke.loco_inputs(roll.model.nv, n, h, 11, device)
+
+
+def forest_timings(smoke, smi, device, outputs):
+    from mjmpc_tpu_torch import solvers
+    from mjmpc_tpu_torch.harness import config as hconfig
+    import torch
+    made, rolls = forest_setup(device)
+    build_all(rolls)
+    for name, n, h in FOREST_SIZES:
+        roll = rolls[name]
+        args = smoke.forest_inputs(made[name], roll, n, h, 23, device)
+        got = roll(*args)
+        torch.cuda.synchronize()
+        outputs[f"{name}_{n}_{h}"] = got.cpu().numpy()
+        print(json.dumps({"env": name, "n": n, "h": h,
+                          "ms": smoke.cuda_ms(lambda: roll(*args), 20),
+                          "finite": bool(torch.isfinite(got).all())}), flush=True)
+    for name, path in smoke.FOREST_CONFIGS.items():
+        e = made[name]
+        s = hconfig.make_solver_for_env(hconfig.load_config(path), "mppi", e)
+        solve_rate(smoke, smi, solvers.make_solve_fn(s, e), s, e, solver="mppi", env=name,
+                   config=path)
+
+
+def chain_timings(smoke, smi, device, outputs):
+    from mjmpc_tpu_torch import solvers
+    from mjmpc_tpu_torch.harness import config as hconfig
+    import torch
+    made, rolls = chain_setup(device)
+    build_all({k: r for k, r in rolls.items() if k not in ("obs", "cl_reacher")})
+    for name, (key, n, h) in CHAIN_SIZES.items():
+        roll = rolls[key]
+        args = chain_inputs(smoke, made, rolls, key, n, h, device)
+        got = roll(*args)
+        torch.cuda.synchronize()
+        for k, x in enumerate(got if isinstance(got, tuple) else (got,)):
+            outputs[f"{name}_{k}"] = x.cpu().numpy()
+        print(json.dumps({"kernel": name, "n": n, "h": h, "team": getattr(roll, "team", None),
+                          "ms": smoke.cuda_ms(lambda: roll(*args), 20)}), flush=True)
+    for name, path in smoke.LOCO_CONFIGS.items():
+        e = made[name]
+        s = hconfig.make_solver_for_env(hconfig.load_config(path), "mppi", e)
+        solve_rate(smoke, smi, solvers.make_solve_fn(s, e), s, e, solver="mppi", env=name,
+                   config=path)
+    for name, s in (("reacher_7dof-v0", solvers.Reinforce(
+                        d_obs=made["reacher_7dof-v0"].d_obs, d_action=smoke.D_ACTION,
+                        device=device, **smoke.RF_REACHER)),
+                    ("sawyer_peg_insertion-v0", solvers.make_solver(
+                        "reinforce", d_obs=made["sawyer_peg_insertion-v0"].d_obs,
+                        d_action=smoke.D_ACTION, device=device, **smoke.PEG_CL))):
+        e = made[name]
+        solve_rate(smoke, smi, solvers.make_solve_fn(s, e), s, e, solver="reinforce", env=name)
+
+
+def solve_rate(smoke, smi, solve, s, e, **labels):
+    """A solve's read-verified solves/s and its profile line."""
+    es = e.init(e.params, 1)
+    _, state = smoke.sync_free(solve, e, es, s.init_state(0), 3)
+    rate, windows, _ = smoke.solves_per_s(solve, e, es, state, 10, 5)
+    print(json.dumps({**labels, "n": s.num_particles, "h": s.horizon, "solves_per_s": rate,
+                      "windows": windows}), flush=True)
+    smoke.profile(solve, e, es, s.init_state(0), smi, **labels)
+
+
+def run_timings(out_path: str, smi: str, families) -> None:
+    """One checkout's run (from its root): each family's kernels, then its
+    solves; the kernels' outputs saved to out_path."""
+    import numpy as np
+    import torch
+    smoke, device, outputs = load_smoke(), torch.device("cuda"), {}
+    if "forest" in families:
+        forest_timings(smoke, smi, device, outputs)
+    if "chain" in families:
+        chain_timings(smoke, smi, device, outputs)
+    np.savez(out_path, **outputs)
+
+
+def run_phases(families) -> None:
+    """This checkout's phase clocks: two calls (a warm-up and a timed one)
+    after the counts are read once and so zeroed."""
+    import torch
+    smoke, device = load_smoke(), torch.device("cuda")
+    cases = []
+    if "forest" in families:
+        made, rolls = forest_setup(device)
+        cases += [("forest", name, rolls[name], n, h,
+                   smoke.forest_inputs(made[name], rolls[name], n, h, 23, device))
+                  for name, n, h in (("pen-v0", 256, 16), ("sawyer_peg_insertion-v0", 256, 16))]
+    if "chain" in families:
+        made, rolls = chain_setup(device)
+        cases += [("chain", name, rolls[key], n, h,
+                   chain_inputs(smoke, made, rolls, key, n, h, device))
+                  for name, (key, n, h) in CHAIN_SIZES.items()
+                  if key not in ("costs", "obs")]
+    clocks = [clocked(roll, family) for family, _, roll, *_ in cases]
+    build_all({name: c for (_, name, *_), (c, _) in zip(cases, clocks)})
+    for (family, name, base, n, h, args), (roll, read) in zip(cases, clocks):
+        roll(*args)
+        torch.cuda.synchronize()
+        read()
+        ms = smoke.cuda_ms(lambda: roll(*args), 1)
+        cycles = read()
+        total = sum(cycles.values())
+        substeps = 2 * h * base.n_substeps      # two calls
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                               capture_output=True, text=True).stdout.strip()
+        print(json.dumps({"family": family, "kernel": name, "n": n, "h": h,
+                          "team": base.team, "ms_per_call": ms, "sm_clock_after": clock,
+                          "cycles_per_substep": total / substeps,
+                          "share": {k: round(v / total, 4) for k, v in cycles.items()},
+                          "cycles_per_substep_by_kind": {k: v / substeps
+                                                         for k, v in cycles.items()}}),
+              flush=True)
+        same = [torch.equal(x, y) for x, y in zip(*(
+            out if isinstance(out, tuple) else (out,) for out in (roll(*args), base(*args))))]
+        if not all(same):
+            raise RuntimeError(f"the phase-clock build's outputs differ for {name}")
+        # the forest peg has no contact; every chain kernel runs every kind
+        idle = {"peg": ("forces", "sums")}.get(base.task.name, ()) if family == "forest" else ()
+        if any((cycles[k] > 0) == (k in idle) for k in PHASE_KINDS[family]):
+            raise RuntimeError(f"phase cycles for {name} not as its phases: {cycles}")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--checkout", action="append", default=None,
+                        help="a checkout's root (repeatable; default: this one)")
+    parser.add_argument("--family", choices=FAMILIES, action="append", default=None,
+                        help="the kernels to run (repeatable; default: all)")
+    parser.add_argument("--rounds", type=int, default=1)
+    parser.add_argument("--phases", action="store_true",
+                        help="this checkout's phase clocks instead of the timings")
+    parser.add_argument("--run", nargs=3, metavar=("OUTPUTS_NPZ", "CARD", "FAMILIES"),
+                        help=argparse.SUPPRESS)    # one checkout's run, from its root
+    args = parser.parse_args()
+    families = tuple(args.family or FAMILIES)
+    if args.run:
+        run_timings(args.run[0], args.run[1], args.run[2].split(","))
+        return 0
+    if args.phases:
+        sys.path.insert(0, str(ROOT))
+        run_phases(families)
+        return 0
+    checkouts = [Path(c).resolve() for c in (args.checkout or [str(ROOT)])]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"card": smi}), flush=True)
+    order = []
+    for _ in range(args.rounds):
+        order += list(range(len(checkouts))) + list(reversed(range(len(checkouts))))
+    import numpy as np
+    with tempfile.TemporaryDirectory() as out:
+        saved = {}
+        for run, k in enumerate(order):
+            path = Path(out) / f"outputs_{k}_{run}.npz"
+            env = dict(os.environ, PYTHONPATH=str(checkouts[k]))
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--run",
+                                   str(path), smi, ",".join(families)], cwd=checkouts[k],
+                                  env=env, capture_output=True, text=True)
+            for line in proc.stdout.splitlines():
+                print(json.dumps({"checkout": str(checkouts[k]), "run": run,
+                                  **json.loads(line)}), flush=True)
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:], file=sys.stderr)
+                return proc.returncode
+            saved.setdefault(k, path)
+        first = np.load(saved[0])
+        for k, path in saved.items():
+            other = np.load(path)
+            print(json.dumps({"checkout": str(checkouts[k]), "max_abs_diff_from_first": {
+                key: float(np.abs(other[key] - first[key]).max()) for key in first.files}}),
+                flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
