@@ -7,17 +7,23 @@ exit and no final line:
 
 1. device   -- the card's name and power limit (nvidia-smi).
 2. build    -- nvcc builds, all at once, the reacher's chain-rollout
-               library (costs-only, obs-emitting and closed-loop entries),
-               the peg task's (the same three entries, peg's site and
-               obs/cost), the swimmer's and the half cheetah's (the
-               external-force entry), the filtered-noise library, the
-               forest-rollout libraries of pen-v0 and the sawyer peg and
-               the pendulum library (kernels #7 and #8) from csrc/; ptxas
-               register, stack and spill lines.
+               libraries (costs-only, obs-emitting and closed-loop entries)
+               at every team size the costs and obs rollouts can pick (4,
+               8, 16 and 32 lanes per particle), the peg task's (the same
+               three entries, peg's site and obs/cost) likewise, the
+               swimmer's and the half cheetah's (the external-force entry),
+               the filtered-noise library, the forest-rollout libraries of
+               pen-v0 and the sawyer peg and the pendulum library (kernels
+               #7 and #8) from csrc/; ptxas register, stack and spill
+               lines.
 3. kernel   -- each kernel against its plain PyTorch version on the card:
-               chain and obs rollouts at (N=37, H=5) to atol 5e-5 and at
-               the main path's (N=4096, H=32) to max abs error 1e-3 (costs
-               are O(1); the longer horizon accumulates f32 reordering);
+               chain and obs rollouts (kernels #1 and #3, a team of
+               team_for(N) lanes per particle) at (N=37, H=5) and N=1 to
+               atol 5e-5 and at the main path's (N=4096, H=32) to max abs
+               error 1e-3 (costs are O(1); the longer horizon accumulates
+               f32 reordering), two launches and all four team sizes
+               agreeing bit for bit and, at (37, 5), the plain version
+               with the mean and the noise zeroed failing by more than 10x;
                the closed-loop rollout (kernel #4, a team of lanes per
                particle: obs, actions, costs) for the reacher at (37, 5)
                and N=1 to 5e-5 and (4096, 32) to 1e-3, for the peg at
@@ -25,7 +31,8 @@ exit and no final line:
                1e-3, two launches agreeing bit for bit and, at (37, 5), the
                plain version with W and the noise zeroed failing by more
                than 10x on obs and costs;
-               peg's obs rollout at (37, 5) to 5e-5; the noise kernel at
+               peg's obs rollout at (37, 5) and N=1 to 5e-5, with the same
+               checks; the noise kernel at
                (37, 5, 7) and (4096, 32, 7), filter (0.25, 0.8, 0), cov 3 I,
                to 1e-4 (identical uniforms; libm ulps and sum order differ,
                scaled by the filter's gain of about 1.25 and by sqrt(3));
@@ -122,7 +129,10 @@ exit and no final line:
                and the kernel sampler) against kernel #8's one-launch solve
                at N=2048; the real env step's ms per control step on
                the locomotion configs and on pen-v0; each kernel
-               and its plain version timed with CUDA events; a per-stage
+               and its plain version timed with CUDA events (kernel #1 also
+               at the reacher configs' N=128 H=16 and N=256 H=32; #1 and #3
+               on a `kernel_open_loop` line per size with its team, bound
+               and ptxas); a per-stage
                breakdown with each noise sampler and of the Reinforce
                solves; a torch.profiler count of kernels and device time
                per solve, with the six kernels that take the most device
@@ -140,6 +150,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -169,6 +180,10 @@ PEG_CL = dict(horizon=32, gamma=1.0, n_iters=4, lr=1.0, beta=0.0, filter_coeffs=
               num_particles=64, delta_kl=15.0, delta_reg=0.001, baseline_type="quadratic",
               init_cov=1.0)
 HOLD_CYCLES = 100_000_000   # about 50 ms of spinning at the H100's clock
+# Kernel #1's other timed sizes: the run_mpc reacher configs' N = num_cpu x
+# particles_per_cpu and H (configs/reacher_7dof-v0.yml; configs/panda/
+# reacher-v0.yml and configs/sawyer/sawyer_reacher-v0.yml).
+OPEN_LOOP_SIZES = ((128, 16), (256, 32))
 # The locomotion configs, run as written, at full size.
 LOCO_CONFIGS = {"Swimmer-v0": "configs/Swimmer-v0.yml",
                 "HalfCheetah-v0": "configs/HalfCheetah-v0.yml"}
@@ -386,8 +401,9 @@ def main() -> int:
         from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
         from mjmpc_tpu_torch.harness import config as hconfig
         from mjmpc_tpu_torch.harness.episode import run_episodes
-        from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout,
-                                                       ChainObsRollout, ChainRollout)
+        from mjmpc_tpu_torch.ops.chain_rollout import (TEAM_SIZES, ChainClRollout,
+                                                       ChainExtRollout, ChainObsRollout,
+                                                       ChainRollout)
         from mjmpc_tpu_torch.ops.forest_rollout import ForestRollout, gated_cost_agreement
         from mjmpc_tpu_torch.ops import pendulum as pend
         from mjmpc_tpu_torch.ops.noise import FilteredNoise
@@ -439,45 +455,72 @@ def main() -> int:
                     "sawyer_peg_insertion-v0": sawyer_tasks.build_rollout(peg_model)}
     pend_env = envs.make("SimplePendulum-v0", device=device)
     t0 = time.perf_counter()
-    builders = [w.library for w in (roll, peg_cl, sampler, *loco_rolls.values(),
-                                    *forest_rolls.values())] + [pend.library]
+    # (task, team, builder): the chain libraries at every team size, then
+    # one library each
+    builders = [(task, t, functools.partial(r.library, t))
+                for task, r in (("reacher", roll), ("peg", peg_cl)) for t in TEAM_SIZES]
+    builders += [(task, None, build) for task, build in (
+        (None, sampler.library), ("swimmer", loco_rolls["Swimmer-v0"].library),
+        ("cheetah", loco_rolls["HalfCheetah-v0"].library),
+        ("forest_pen", forest_rolls["pen-v0"].library),
+        ("forest_peg", forest_rolls["sawyer_peg_insertion-v0"].library),
+        ("pendulum", pend.library))]
     with concurrent.futures.ThreadPoolExecutor(len(builders)) as pool:
-        futures = [pool.submit(b) for b in builders]
+        futures = [pool.submit(b) for _, _, b in builders]
         libs = [f.result() for f in futures]
-    for r in (roll_obs, roll_cl, peg_obs):
-        r.library()     # the same libraries, loaded
-    for lib, task in zip(libs, ("reacher", "peg", None, "swimmer", "cheetah", "forest_pen",
-                                "forest_peg", "pendulum")):
-        emit("build", task=task, seconds=round(time.perf_counter() - t0, 3),
+    roll_cl.library()     # the same libraries, loaded
+    for t in TEAM_SIZES:
+        roll_obs.library(t)
+        peg_obs.library(t)
+    for lib, (task, team, _) in zip(libs, builders):
+        emit("build", task=task, team=team, seconds=round(time.perf_counter() - t0, 3),
              nvcc_seconds=round(lib.build_seconds, 3), library=str(lib.path.name),
              ptxas=[ln.strip() for ln in lib.ptxas.splitlines()
                     if re.search(r"registers|spill|stack|Compiling entry", ln)])
 
-    # 3. each kernel against its plain version, on the card
+    # 3. each kernel against its plain version, on the card; kernels #1 and
+    # #3 (the costs and obs rollouts) for the reacher and the peg's obs
+    # rollout: two launches and every team size bit for bit, and the check's
+    # power at (37, 5)
     errors = {}
-    for n, h, tol, seed in ((37, 5, 5e-5, 1), (NUM_PARTICLES, HORIZON, 1e-3, 0)):
+    outputs = lambda x: x if isinstance(x, tuple) else (x,)
+    for task, r, n, h, tol, seed in (
+            ("reacher", roll, 37, 5, 5e-5, 1), ("reacher", roll, 1, 5, 5e-5, 2),
+            ("reacher", roll, NUM_PARTICLES, HORIZON, 1e-3, 0),
+            ("reacher", roll_obs, 37, 5, 5e-5, 1), ("reacher", roll_obs, 1, 5, 5e-5, 2),
+            ("reacher", roll_obs, NUM_PARTICLES, HORIZON, 1e-3, 0),
+            ("peg", peg_obs, 37, 5, 5e-5, 9), ("peg", peg_obs, 1, 5, 5e-5, 10)):
         args = reacher_inputs(n, h, seed, device)
-        got = roll(*args)
-        want = roll.plain(*args)
-        obs, obs_costs = roll_obs(*args)
-        want_obs, want_obs_costs = roll_obs.plain(*args)
+        if task == "peg":
+            args[2] = peg_extras(peg_env.params)
+        got, again, want = outputs(r(*args)), outputs(r(*args)), outputs(r.plain(*args))
+        by_team = [outputs(r(*args, team=t)) for t in TEAM_SIZES]
         torch.cuda.synchronize()
-        if got.shape != (n, h) or not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"chain kernel output bad at N={n} H={h}")
-        if obs.shape != (n, h, roll_obs.d_obs) or not bool(torch.isfinite(obs).all()):
-            raise RuntimeError(f"obs kernel output bad at N={n} H={h}")
-        err = float((got - want).abs().max())
-        err_obs = max(float((obs - want_obs).abs().max()),
-                      float((obs_costs - want_obs_costs).abs().max()))
-        errors[("chain", n, h)], errors[("obs", n, h)] = err, err_obs
-        emit("kernel", name="chain_rollout", n=n, h=h, max_abs_err=err, atol=tol,
-             costs_min=float(want.min()), costs_max=float(want.max()))
-        emit("kernel", name="chain_obs_rollout", n=n, h=h, max_abs_err=err_obs, atol=tol,
-             obs_abs_max=float(want_obs.abs().max()))
-        for which, e in (("chain", err), ("obs", err_obs)):
-            if not e <= tol:
-                raise RuntimeError(f"{which} kernel disagrees with its plain version at "
-                                   f"N={n} H={h}: {e} > {tol}")
+        name = "chain_rollout" if r.mode == "costs" else "chain_obs_rollout"
+        shapes = ((n, h),) if r.mode == "costs" else ((n, h, r.d_obs), (n, h))
+        if tuple(tuple(x.shape) for x in got) != shapes or not all(
+                bool(torch.isfinite(x).all()) for x in got):
+            raise RuntimeError(f"{name} kernel output bad for {task} at N={n} H={h}")
+        if not all(torch.equal(x, y) for other in [again] + by_team for x, y in zip(got, other)):
+            raise RuntimeError(f"{name} kernel: two launches or two team sizes differ for "
+                               f"{task} at N={n} H={h}")
+        errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+        err = errors[(r.mode, task, n, h)] = max(errs)
+        fields = dict(name=name, task=task, n=n, h=h, team=r.team_for(n), max_abs_err=err,
+                      atol=tol, launches_identical=True, team_sizes_identical=list(TEAM_SIZES),
+                      max_abs_err_per_output=errs, costs_min=float(want[-1].min()),
+                      costs_max=float(want[-1].max()))
+        if (n, h) == (37, 5):   # the check's power: a kernel that ignores the actions fails it
+            zeroed = outputs(r.plain(*args[:3], torch.zeros_like(args[3]),
+                                     torch.zeros_like(args[4])))
+            fields["zeroed_actions_err"] = max(float((x - y).abs().max())
+                                               for x, y in zip(got, zeroed))
+            if not fields["zeroed_actions_err"] > 10 * tol:
+                raise RuntimeError(f"{name} check too weak: {fields}")
+        emit("kernel", **fields)
+        if not err <= tol:
+            raise RuntimeError(f"{name} kernel disagrees with its plain version for {task} at "
+                               f"N={n} H={h}: {err} > {tol}")
     reacher_target = reacher_inputs(1, 1, 0, device)[2]
     cl_args = {}
     for task, r, extras, n, h, tol, seed in (
@@ -499,7 +542,7 @@ def main() -> int:
             raise RuntimeError(f"closed-loop kernel: two launches differ for {task} at N={n}")
         err = max(float((x - y).abs().max()) for x, y in zip(got, want))
         errors[("cl", task, n, h)] = err
-        fields = dict(name="chain_cl_rollout", task=task, n=n, h=h, team=r.team,
+        fields = dict(name="chain_cl_rollout", task=task, n=n, h=h, team=r.team_for(n),
                       max_abs_err=err, atol=tol, launches_identical=True,
                       max_abs_err_obs_actions_costs=[float((x - y).abs().max())
                                                      for x, y in zip(got, want)],
@@ -515,14 +558,6 @@ def main() -> int:
         if not err <= tol:
             raise RuntimeError(f"closed-loop kernel disagrees with its plain version for "
                                f"{task} at N={n} H={h}: {err} > {tol}")
-    q0, qd0, _, mean, noise = reacher_inputs(37, 5, 9, device)
-    args = (q0, qd0, peg_extras(peg_env.params), mean, noise)
-    got, want = peg_obs(*args), peg_obs.plain(*args)
-    torch.cuda.synchronize()
-    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
-    emit("kernel", name="chain_obs_rollout", task="peg", n=37, h=5, max_abs_err=err, atol=5e-5)
-    if not err <= 5e-5:
-        raise RuntimeError(f"peg obs kernel disagrees with its plain version: {err} > 5e-5")
 
     cov3 = 3.0 * torch.eye(D_ACTION, device=device)
     for n, h, seed in ((37, 5, 7), (NUM_PARTICLES, HORIZON, 8)):
@@ -901,6 +936,10 @@ def main() -> int:
             cuda_ms(lambda: sampler.white_plain(5, NUM_PARTICLES, HORIZON, D_ACTION, FILTER,
                                                 device), 5)),
     }
+    for n, h in OPEN_LOOP_SIZES:     # kernel #1 at the reacher configs' sizes
+        more = reacher_inputs(n, h, 0, device)
+        times[f"chain_rollout_n{n}_h{h}"] = (cuda_ms(lambda: roll(*more), 20),
+                                             cuda_ms(lambda: roll.plain(*more), 2))
     for kname, r, key in (("chain_cl_rollout", roll_cl, ("reacher", NUM_PARTICLES, HORIZON)),
                           ("chain_cl_rollout_peg", peg_cl,
                            ("peg", PEG_CL["num_particles"], PEG_CL["horizon"]))):
@@ -911,6 +950,15 @@ def main() -> int:
     emit("kernel_time", card=smi, sampler_with_colouring_ms=sampler_ms[0],
          plain_sampler_ms=sampler_ms[1],
          **{k: {"ms": v[0], "plain_ms": v[1]} for k, v in times.items()})
+    for key, r, n, h in [("chain_rollout", roll, NUM_PARTICLES, HORIZON),
+                         ("chain_obs_rollout", roll_obs, NUM_PARTICLES, HORIZON)] + [
+            (f"chain_rollout_n{n}_h{h}", roll, n, h) for n, h in OPEN_LOOP_SIZES]:
+        team = r.team_for(n)
+        bound_ms, bound_by = bounds.bound_ms(*bounds.chain_work(model, n, h, r.mode))
+        emit("kernel_open_loop", name=key, mode=r.mode, n=n, h=h, team=team,
+             ms=times[key][0], plain_ms=times[key][1], bound_ms=bound_ms, bound_by=bound_by,
+             ptxas=[ln.strip() for ln in r.library(team).ptxas.splitlines()
+                    if re.search(r"registers|spill|stack|smem", ln)], card=smi)
 
     plain_env = dataclasses.replace(
         env, fused_rollout=lambda p, s, mean, noise: roll.plain(
@@ -1106,20 +1154,20 @@ def main() -> int:
     rows = [
         ("chain_rollout", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
          "mjmpc_tpu/ops/pallas_chain.py:381", main_counts["main_kernel_noise"]["chain"],
-         errors[("chain", n, h)], bound[1]),
+         errors[("costs", "reacher", n, h)], bound[1]),
         ("filtered_noise", "mjmpc_tpu_torch/csrc/filtered_noise.cu",
          "mjmpc_tpu/ops/pallas_kernels.py:73", main_counts["main_kernel_noise"]["noise"],
          errors[("noise", n, h)], bound[2]),
         ("chain_obs_rollout", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
          "mjmpc_tpu/ops/pallas_chain.py:572", zoo_counts["mppiq_q"]["obs"],
-         errors[("obs", n, h)], bound[3]),
+         errors[("obs", "reacher", n, h)], bound[3]),
         ("chain_cl_rollout", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
          "mjmpc_tpu/ops/pallas_chain.py:520", cl_counts["reacher"]["cl"],
          errors[("cl", "reacher", n, h)], bound[4]),
     ]
     peg = bounds.peg_instance(peg_model, PEG_CL["num_particles"], PEG_CL["horizon"])
     emit("kernel_peg", name="chain_cl_rollout", task="peg", n=peg["n"], h=peg["h"],
-         team=peg_cl.team, launches_per_solve=cl_counts["peg"]["cl"] / ZOO_SOLVES,
+         team=peg_cl.team_for(peg["n"]), launches_per_solve=cl_counts["peg"]["cl"] / ZOO_SOLVES,
          max_abs_err=errors[("cl", "peg", peg["n"], peg["h"])],
          ms=times["chain_cl_rollout_peg"][0], plain_ms=times["chain_cl_rollout_peg"][1],
          bound_ms=peg["bound_ms"], bound_by=peg["bound_by"], card=smi)

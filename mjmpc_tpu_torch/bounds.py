@@ -25,6 +25,8 @@ from .ops.chain_rollout import (PEG, REACHER, ChainExtRollout, ext_rollout_bytes
 from .ops.forest_rollout import ForestRollout, forest_rollout_bytes, forest_rollout_flops
 from .ops.noise import noise_flops
 
+# where the chain kernels' operations are counted
+CHAIN_OPS = "ops/chain_rollout.py rollout_flops"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 F32 = 4
@@ -41,7 +43,7 @@ def bound_ms(n_bytes: int, n_ops=None):
 def chain_work(model, n: int, h: int, mode: str, task=REACHER, n_substeps: int = 2):
     """(bytes, operations) of one chain-kernel call in `mode` ("costs",
     "obs", "cl") for `task`: its d_obs and extras, and the operations
-    counted from csrc/chain_rollout.cuh (ops/chain_rollout.py)."""
+    counted in ops/chain_rollout.py rollout_flops."""
     return (rollout_bytes(model.nv, n, h, mode, task),
             rollout_flops(model, n_substeps, n, h, mode, task))
 
@@ -62,13 +64,13 @@ def kernel_table(model, n: int = 4096, h: int = 32, n_substeps: int = 2):
                          bound_ms=ms, bound_by=by))
 
     row(1, "_chain_kernel", f"reacher nv={nv}",
-        *chain_work(model, n, h, "costs", n_substeps=n_substeps), "csrc/chain_rollout.cuh")
+        *chain_work(model, n, h, "costs", n_substeps=n_substeps), CHAIN_OPS)
     row(2, "_noise_kernel", f"dA={nv}", F32 * nh * nv, noise_flops(n, h, nv),
         "csrc/filtered_noise.cuh")
     row(3, "_chain_obs_kernel", f"reacher nv={nv} d_obs={d_obs}",
-        *chain_work(model, n, h, "obs", n_substeps=n_substeps), "csrc/chain_rollout.cuh")
+        *chain_work(model, n, h, "obs", n_substeps=n_substeps), CHAIN_OPS)
     row(4, "_chain_cl_kernel", f"reacher nv={nv} d_obs={d_obs}",
-        *chain_work(model, n, h, "cl", n_substeps=n_substeps), "csrc/chain_rollout.cuh")
+        *chain_work(model, n, h, "cl", n_substeps=n_substeps), CHAIN_OPS)
     # #5 with the half cheetah's task (ext_instance gives both tasks at
     # their configs' sizes)
     r5 = ext_instance(_loco_rollout("HalfCheetah-v0"), n, h)
@@ -87,7 +89,7 @@ def peg_instance(peg_model, n: int = 64, h: int = 32, n_substeps: int = 2) -> di
     ms, by = bound_ms(n_bytes, n_ops)
     return dict(number=4, kernel="_chain_cl_kernel", n=n, h=h,
                 widths=f"peg nv={peg_model.nv} d_obs={PEG.d_obs(peg_model.nv)}",
-                bytes=n_bytes, operations=n_ops, operations_from="csrc/chain_rollout.cuh",
+                bytes=n_bytes, operations=n_ops, operations_from=CHAIN_OPS,
                 bound_ms=ms, bound_by=by)
 
 
@@ -115,7 +117,8 @@ def ext_instance(roll: ChainExtRollout, n: int, h: int) -> dict:
     ms, by = bound_ms(n_bytes, n_ops)
     return dict(number=5, kernel="_chain_ext_kernel", task=roll.task.name, n=n, h=h,
                 widths=f"{roll.task.name} nv={model.nv} substeps={roll.n_substeps}",
-                bytes=n_bytes, operations=n_ops, operations_from="csrc/chain_rollout.cuh",
+                bytes=n_bytes, operations=n_ops,
+                operations_from="ops/chain_rollout.py ext_rollout_flops",
                 bound_ms=ms, bound_by=by)
 
 

@@ -45,41 +45,45 @@
 // topology resolved at compile time.
 //
 // What bounds these kernels on an H100: neither bytes nor operations. The
-// closed-loop rollout at the peg config's N=64, H=32 needs 24.8 MFLOP and
-// 0.28 MB, 0.37 us of the card's f32 rate, and the cheetah's at N=512, H=16
-// 1.38 GFLOP, 21 us (ops/chain_rollout.py rollout_flops, ext_rollout_flops;
-// python -m mjmpc_tpu_torch.bounds); one thread per particle took 855 us
-// and 2.7 ms, 2,300x and 132x those bounds. The time is the length of one
-// particle's dependent chain, H * N_SUBSTEPS substeps of FK, the mass
-// matrix, RNEA and a Cholesky solve: about 26 K cycles per substep on one
-// thread (its 7x7 mass matrix and factor spilled to local memory), at a
-// few particles per SM (N=64 filled one block on one SM of 132).
+// main path's costs rollout at N=4096, H=32 needs 1.54 GFLOP and 4.2 MB,
+// 23 us of the card's f32 rate; the closed loop at the peg config's N=64,
+// H=32 24.8 MFLOP, 0.37 us; the cheetah's at N=512, H=16 1.38 GFLOP, 21 us
+// (ops/chain_rollout.py rollout_flops, ext_rollout_flops; python -m
+// mjmpc_tpu_torch.bounds). The time is the length of one particle's
+// dependent chain, H * N_SUBSTEPS substeps of FK, the mass matrix, RNEA and
+// a Cholesky solve, and, at large N, the instructions the warps issue. One
+// thread per particle (this file's first design) took about 26 K cycles per
+// substep: its 7x7 mass matrix and factor spilled to local memory, and a
+// few particles per SM left most SMs idle (N=64 filled one block on one
+// SM of 132).
 //
-// Kernels #1 and #3 (costs, obs) keep one thread per particle
-// (chain_rollout.cuh rollout_particle): q and qd in registers across all
-// substeps; the FK of the state after step t serves step t's cost and step
-// t+1's observation and first substep.
-//
-// Kernels #4 and #5 (closed loop, locomotion) run a team of team::TEAM
-// lanes per particle (chain_team.cuh rollout_team), a whole warp
-// (ops/chain_rollout.py DEFAULT_TEAM): a block of one warp holds 32 / TEAM
-// particles, so the peg config's N=64 particles run on 64 SMs. The
-// particle's state sits in shared memory, so nothing goes to local memory;
-// each lane reads what its items need of the model into registers before
-// the step loop. A substep is six phases synced with __syncwarp over the
-// team's lanes: every dof's Euler step and rotation at once; FK with the
-// RNEA's forward terms down each branch of the tree on its own lane (the
-// arm's 7 levels on one lane in registers, the cheetah's two legs side by
-// side); every body's inertia and RNEA terms (and each contact point's
-// force) at once; the Jacobian slots beside the RNEA's backward pass (and
-// the gathered generalized forces); the mass entries; the solve on one
-// lane in registers, one IEEE division per column (a phase per Cholesky
-// column cost about 550 cycles a column: each division's slow-path branch
-// keeps the next from starting). The team reads a step's noise row and
-// writes its obs and action rows side by side. No sum is split between
-// lanes and there are no atomics, so two launches agree bit for bit.
-// PERF.md records the times, ptxas counts and cycles per kind of phase (a
-// -DCHAIN_PHASE_CLOCKS build, tools/kernel_ab.py --phases).
+// Every entry runs a team of team::TEAM lanes per particle (chain_team.cuh
+// rollout_team, one mode per entry): a block of one warp holds 32 / TEAM
+// particles. The header carries one team size. The closed-loop and
+// locomotion rollouts (#4, #5) take the default, a whole warp
+// (ops/chain_rollout.py DEFAULT_TEAM); the costs and obs rollouts (#1, #3)
+// take the size open_loop_team picks from N and the card's SM count, from
+// a library built for it: a whole warp where few particles would leave
+// SMs idle, fewer lanes where many particles a warp issue fewer
+// instructions. The particle's state sits in shared memory, so nothing
+// goes to local memory; each lane reads what its items need of the model
+// into registers before the step loop. A substep is six phases synced with
+// __syncwarp over the team's lanes: every dof's Euler step and rotation at
+// once; FK with the RNEA's forward terms down each branch of the tree on
+// its own lane (the arm's 7 levels on one lane in registers, the cheetah's
+// two legs side by side); every body's inertia and RNEA terms (and each
+// contact point's force) at once; the Jacobian slots beside the RNEA's
+// backward pass (and the gathered generalized forces); the mass entries;
+// the solve on one lane in registers, one reciprocal square root per
+// column (a phase per Cholesky column cost about 550 cycles a column: each
+// IEEE division's slow-path branch keeps the next from starting). A
+// control step adds two: the task's cost and observation on one lane, then
+// the actions, with the team reading a step's mean and noise rows and
+// writing its obs and action rows side by side. No sum is split between
+// lanes and there are no atomics, so two launches agree bit for bit, and
+// so do the team sizes. PERF.md records the times, ptxas counts and cycles
+// per kind of phase (a -DCHAIN_PHASE_CLOCKS build, tools/kernel_ab.py
+// --phases).
 //
 // IEEE f32 math: built without --use_fast_math, with sinf/cosf/sqrtf/tanhf.
 
@@ -91,7 +95,9 @@ namespace {
 
 using chain_rollout::BuildTask;
 using chain_rollout::CL;
+using chain_rollout::COSTS;
 using chain_rollout::EXT;
+using chain_rollout::OBS;
 
 // A block of one warp: 32 / TEAM teams, each carrying one particle whose
 // state sits in static shared memory.
@@ -126,28 +132,6 @@ __global__ void __launch_bounds__(kWarp)
 
 int team_grid(int n) { return (n + kTeams - 1) / kTeams; }
 
-#ifndef CHAIN_EXT_TASK
-using chain_rollout::COSTS;
-using chain_rollout::OBS;
-
-template <int MODE>
-__global__ void chain_rollout_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
-                                     const float* __restrict__ extras,
-                                     const float* __restrict__ mean,
-                                     const float* __restrict__ noise,
-                                     float* __restrict__ costs, float* __restrict__ obs, int n,
-                                     int horizon) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b < n)
-        chain_rollout::rollout_particle<MODE, BuildTask>(q0, qd0, extras, mean, noise, costs,
-                                                         obs, b, horizon);
-}
-
-constexpr int kBlock = 128;
-
-int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
-#endif
-
 }  // namespace
 
 extern "C" {
@@ -174,13 +158,16 @@ int chain_rollout_task() { return model::TASK; }
 
 #else
 
-// Launch on `stream` (a cudaStream_t); returns cudaGetLastError() after the
-// launch (0 on success). Does not synchronise.
+// The open-loop rollout of mean [horizon, N] + noise [n, horizon, N] from
+// (q0, qd0): costs [n, horizon] (replaces the TPU kernel `_chain_kernel`,
+// built by `build_chain_rollout`). Launch on `stream` (a cudaStream_t);
+// returns cudaGetLastError() after the launch (0 on success). Does not
+// synchronise.
 int chain_rollout_launch(const float* q0, const float* qd0, const float* extras,
                          const float* mean, const float* noise, float* costs, int n,
                          int horizon, void* stream) {
-    chain_rollout_kernel<COSTS><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, extras, mean, noise, costs, nullptr, n, horizon);
+    chain_team_kernel<COSTS><<<team_grid(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, extras, mean, noise, costs, nullptr, nullptr, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -189,8 +176,8 @@ int chain_rollout_launch(const float* q0, const float* qd0, const float* extras,
 int chain_obs_rollout_launch(const float* q0, const float* qd0, const float* extras,
                              const float* mean, const float* noise, float* costs, float* obs,
                              int n, int horizon, void* stream) {
-    chain_rollout_kernel<OBS><<<grid_of(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, extras, mean, noise, costs, obs, n, horizon);
+    chain_team_kernel<OBS><<<team_grid(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, extras, mean, noise, costs, obs, nullptr, n, horizon);
     return static_cast<int>(cudaGetLastError());
 }
 

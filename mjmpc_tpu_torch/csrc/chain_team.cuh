@@ -1,13 +1,13 @@
 // Per-particle arithmetic of the chain rollout written for a team of
-// team::TEAM lanes that carries one particle (chain_rollout.cu's
-// closed-loop and external-force entries), over the compile-time chain of
-// chain_model.h: the model (namespace model), the team's work tables
-// (namespace team, generated by mjmpc_tpu_torch/ops/chain_rollout.py
-// team_schedule) and, for a locomotion header, the force law (namespace
-// loco). Host-and-device: the same source also compiles as plain C++, and
-// then each phase runs its lanes one after another, so the CPU tests
-// (tests/test_torch_chain_team.py) run the kernel's own partition and
-// order.
+// team::TEAM lanes that carries one particle (every entry of
+// chain_rollout.cu: costs, obs, closed loop, external forces), over the
+// compile-time chain of chain_model.h: the model (namespace model), the
+// team's work tables (namespace team, generated by
+// mjmpc_tpu_torch/ops/chain_rollout.py team_schedule) and, for a
+// locomotion header, the force law (namespace loco). Host-and-device: the
+// same source also compiles as plain C++, and then each phase runs its
+// lanes one after another, so the CPU tests (tests/test_torch_chain_team.py)
+// run the kernel's own partition and order.
 //
 // A particle's state (q, qd, the frames, the RNEA terms, the Jacobian
 // slots, the mass matrix, the task's scratch) lives in a Particle, in
@@ -30,8 +30,9 @@
 //   C  every body: R c, the world inertia, the RNEA force and moment terms;
 //      (EXT) the task's force at every contact point and its terms on the
 //      dofs that move the point
-//      [at a control step's start: TASK (the cost of the step before, the
-//      observation) and ACT (the observation row, the actions)]
+//      [at a control step's start: TASK (the cost of the step before; OBS,
+//      CL: the observation) and ACT (the actions; OBS, CL: the observation
+//      row)]
 //   D  the Jacobian slots (body i, its k-th ancestor d): a_d x (c_i - o_d)
 //      and I_i a_d; the RNEA backward pass of the leaf branches; (EXT)
 //      each dof's generalized force, gathered over its points in a fixed
@@ -42,12 +43,15 @@
 //      and both substitutions (chol_solve_rcp), a dataflow chain with one
 //      reciprocal square root per column; a phase per column took about
 //      550 cycles a column on the card
-// Every sum keeps the one-thread kernel's order (chain_rollout.cuh), except
-// that a contact point's terms on a dof are summed over the point before
-// they are added to the dof's sum; the solve multiplies by the reciprocal
-// square roots of its pivots where the one-thread kernel divides by their
-// square roots. No sum is split between lanes and there are no atomics,
-// so two launches give the same results and the team size changes no bit.
+// Every sum has one fixed order: a mass entry's over the bodies below it in
+// increasing order, a body's children in decreasing order in the RNEA's
+// backward pass, a dof's contact points in increasing order (each point's
+// terms summed before they are added), the solve's columns in order. No
+// sum is split between lanes and there are no atomics, so two launches
+// give the same results and the team size changes no bit. The solve
+// multiplies by the reciprocal square roots of its pivots where the plain
+// version's Cholesky divides by their square roots (within the kernels'
+// tolerance).
 
 #pragma once
 
@@ -492,13 +496,12 @@ CHAIN_FN float inv_sqrt(float v) {
 }
 
 // Solve M x = rhs for the SPD M given by its upper triangle, in registers:
-// the Cholesky factor row by row, then forward and back substitution, as
-// chain_rollout.cuh chol_solve, except that the factor's diagonal enters
-// only as its reciprocal, 1 / sqrt of the pivot, which multiplies: an IEEE
-// division or square root carries a slow-path branch that keeps the next
-// one from starting, so 4N of them in a row cost far more than N
-// reciprocal square roots (another rounding, within the kernel's
-// tolerance).
+// the Cholesky factor row by row, then forward and back substitution; the
+// factor's diagonal enters only as its reciprocal, 1 / sqrt of the pivot,
+// which multiplies: an IEEE division or square root carries a slow-path
+// branch that keeps the next one from starting, so 4N of them in a row
+// cost far more than N reciprocal square roots (another rounding, within
+// the kernel's tolerance).
 CHAIN_FN void chol_solve_rcp(const float (&m)[N][N], float (&x)[N]) {
     float l[N][N], inv[N];
 #pragma unroll
@@ -677,27 +680,29 @@ CHAIN_FN float loco_step_cost(const Particle& s) {
 // ---------------------------------------------------------------------------
 
 using chain_rollout::CL;
+using chain_rollout::COSTS;
 using chain_rollout::EXT;
+using chain_rollout::OBS;
 
 // Roll out particle b on the team. noise [n, horizon, N], costs [n,
-// horizon] and (CL) obs [n, horizon, D_OBS] and acts [n, horizon, N] are
-// contiguous f32; q0, qd0 [N] and extras [N_EXTRAS] are shared; ctrl is
-// the policy W [D_OBS + 1, N] (CL: a = W^T [obs; 1] + eps from the
+// horizon], (OBS, CL) obs [n, horizon, D_OBS] and (CL) acts [n, horizon,
+// N] are contiguous f32; q0, qd0 [N] and extras [N_EXTRAS] are shared;
+// ctrl is the mean [horizon, N] (COSTS, OBS, EXT: u = clip(mean[t] + eps))
+// or the policy W [D_OBS + 1, N] (CL: a = W^T [obs; 1] + eps from the
 // observation of the state entering the step, stored before the clip, u =
-// clip(a)) or the mean [horizon, N] (EXT: u = clip(mean[t] + eps)).
-// CL: costs of the state after each step, from the FK that also serves
-// the next step's observation and first substep. EXT: FK and the task's
-// external forces at the start of every substep, the velocity limit after
-// the step's substeps, the task's step cost of (state in, state out, u).
-// A step's row of noise, obs and actions is read or written by the team's
-// lanes side by side; one lane writes the cost.
+// clip(a)). COSTS, OBS, CL: costs of the state after each step, from the
+// FK that also serves the next step's observation and first substep; (OBS,
+// CL) the observation of the state entering each step. EXT: FK and the
+// task's external forces at the start of every substep, the velocity limit
+// after the step's substeps, the task's step cost of (state in, state
+// out, u). A step's row of noise, obs and actions is read or written by
+// the team's lanes side by side; one lane writes the cost.
 template <int MODE, class Task>
 CHAIN_FN void rollout_team(Particle& s, const Team& lane_team, const float* __restrict__ q0,
                            const float* __restrict__ qd0, const float* __restrict__ extras,
                            const float* __restrict__ ctrl, const float* __restrict__ noise,
                            float* __restrict__ costs, float* __restrict__ obs,
                            float* __restrict__ acts, int b, int horizon) {
-    static_assert(MODE == CL || MODE == EXT, "the team kernel runs the CL and EXT modes");
 #ifdef __CUDA_ARCH__
     const Team& team = lane_team;
 #else
@@ -733,7 +738,7 @@ CHAIN_FN void rollout_team(Particle& s, const Team& lane_team, const float* __re
 #endif
         });
         if (step_start) {
-            // the cost of the step before; (CL) this step's observation
+            // the cost of the step before; (OBS, CL) this step's observation
             phase(team, PH_TASK, [&](int lane, const Own&) {
                 if (lane != 0) return;
                 if constexpr (kExt) {
@@ -742,20 +747,30 @@ CHAIN_FN void rollout_team(Particle& s, const Team& lane_team, const float* __re
 #endif
                 } else {
                     if (t > 0) out[t - 1] = Task::cost(s.f, ex);
-                    if (t < horizon) {
-                        chain_rollout::ObsSink sink{s.obs};
-                        Task::obs(s.f, s.q, s.qd, ex, sink);
+                    if constexpr (MODE != COSTS) {
+                        if (t < horizon) {
+                            chain_rollout::ObsSink sink{s.obs};
+                            Task::obs(s.f, s.q, s.qd, ex, sink);
+                        }
                     }
                 }
             });
             if (t == horizon) break;
             // the step's actions: (CL) the observation row, a = W^T [obs; 1]
-            // + eps stored before the clip; (EXT) mean + eps and q[0]
+            // + eps stored before the clip; (COSTS, OBS, EXT) mean + eps;
+            // (EXT) q[0]; (OBS) the observation row
             const float* eps = nz + t * N;
             phase(team, PH_ACT, [&](int lane, const Own&) {
-                if constexpr (kExt) {
+                if constexpr (MODE != CL) {
                     for (int i = lane; i < N; i += TEAM) set_action(s, i, ctrl[t * N + i] + eps[i]);
-                    if (lane == 0) s.q_in0 = s.q[0];
+                    if constexpr (kExt) {
+                        if (lane == 0) s.q_in0 = s.q[0];
+                    }
+                    if constexpr (MODE == OBS) {
+                        constexpr int d_obs = Task::D_OBS;
+                        const size_t row = static_cast<size_t>(b) * horizon + t;
+                        for (int j = lane; j < d_obs; j += TEAM) obs[row * d_obs + j] = s.obs[j];
+                    }
                 } else {
                     constexpr int d_obs = Task::D_OBS;
                     const size_t row = static_cast<size_t>(b) * horizon + t;

@@ -7,13 +7,13 @@ build_chain_cl_rollout (closed-loop-linear: observations, the policy
 product u = W^T [obs; 1] + eps, actions and costs) and
 build_chain_ext_rollout (the locomotion rollout: external forces in every
 substep, a velocity limit and a step cost per control step). The kernels
-are csrc/chain_rollout.cu's four entries: the costs and obs rollouts run
-one thread per particle with q and qd in registers across all H *
-n_substeps substeps (csrc/chain_rollout.cuh); the closed-loop and
-locomotion rollouts a team of lanes per particle with its state in shared
-memory (csrc/chain_team.cuh, DEFAULT_TEAM lanes, work tables from
-team_schedule). The model constants, the task and the team's tables are
-compile-time constants in a header generated here from the ChainModel.
+are csrc/chain_rollout.cu's four entries, each a team of lanes per
+particle with its state in shared memory (csrc/chain_team.cuh, work tables
+from team_schedule): the closed-loop and locomotion rollouts at
+DEFAULT_TEAM lanes, the costs and obs rollouts at the size open_loop_team
+picks from N and the card's SM count. The model constants, the task and
+the team's tables are compile-time constants in a header generated here
+from the ChainModel, one library per team size.
 
 Semantics (identical to the Pallas builders): for every particle b and
 step t, the action is held for n_substeps semi-implicit Euler substeps
@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Callable, ClassVar, Tuple, Union
 
 import numpy as np
@@ -261,10 +262,11 @@ def rollout_plain(model: ChainModel, n_substeps: int, ulow: float, uhigh: float,
 
 
 def _physics_flops(model: ChainModel):
-    """(fk, substep) operations of one particle, counted from the one-thread
-    code of csrc/chain_rollout.cuh (a multiply, an add, a compare or a
-    transcendental is one; the chain's topology as the header bakes it):
-    what the function needs, once each. The team kernel
+    """(fk, substep) operations of one particle (a multiply, an add, a
+    compare or a transcendental is one; the chain's topology as the header
+    bakes it): what the function needs, once each, as a single thread would
+    compute it (FK, the Jacobian-composed mass matrix, the RNEA bias, the
+    Cholesky solve and the Euler step). The team kernel
     (csrc/chain_team.cuh) repeats some to save a phase (the upper FK levels
     that a tree's branches share, on each branch's lane); that is not
     counted."""
@@ -578,13 +580,39 @@ def _loco_header(task: ExtTask, vel_limit, nv: int) -> list:
     return lines + ["}  // namespace loco"]
 
 
-# A particle's lanes in the team kernel (csrc/chain_team.cuh): a whole warp,
-# for every chain up to 15 dofs. Measured on an NVIDIA H100 80GB HBM3 at
-# 700 W (PERF.md §6): 32 lanes beat 8 and 16 on the peg's N=64 (0.254 /
-# 0.352 / 0.294 ms), the swimmer's and the cheetah's N=512; at the
-# reacher's N=4096, where four particles a warp issue fewer instructions,
-# 8 lanes take 0.445 ms against 0.825.
+# A particle's lanes in the closed-loop and locomotion rollouts (#4, #5;
+# csrc/chain_team.cuh): a whole warp, for every chain up to 15 dofs.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): 32
+# lanes beat 8 and 16 on the peg's N=64 (0.254 / 0.352 / 0.294 ms), the
+# swimmer's and the cheetah's N=512; at the reacher's N=4096, where four
+# particles a warp issue fewer instructions, 8 lanes take 0.445 ms against
+# 0.825 (a team chosen from N for #4 is still open).
 DEFAULT_TEAM = 32
+# The team sizes the kernel takes (lanes of one warp).
+TEAM_SIZES = (4, 8, 16, 32)
+
+
+def open_loop_team(n: int, sm_count: int) -> int:
+    """Lanes per particle of the costs and obs rollouts (#1, #3) over n
+    particles on a card of sm_count SMs. While the particles are few
+    against the SMs, warps are to spare and more lanes shorten each
+    particle's chain: a whole warp up to 4 particles per SM. As they grow,
+    fewer lanes put more particles in each warp, so the card issues fewer
+    instructions per particle: 16 lanes up to 24 per SM, 8 up to 48. Past
+    that the 8-lane launch no longer fits the card at once (its costs
+    kernel takes 153 registers a thread, so an SM holds 12 of its one-warp
+    blocks, 48 particles) and 16 lanes win again. From a sweep of 4-32
+    lanes over N = 64 to 8192 on an H100 of 132 SMs (tools/kernel_ab.py
+    --sweep; PERF.md §6): within 4% of the fastest team size at
+    every N measured. The team size changes no bit of the result."""
+    per_sm = n / max(1, sm_count)
+    if per_sm <= 4:
+        return 32
+    if per_sm <= 24:
+        return 16
+    if per_sm <= 48:
+        return 8
+    return 16
 
 
 def _point_bodies(task) -> list:
@@ -754,8 +782,8 @@ def model_header(model: ChainModel, n_substeps: int, ulow: float,
 
 def _model_header(model: ChainModel, n_substeps: int, ulow: float, uhigh: float, task,
                   vel_limit, team: int) -> str:
-    """model_header for a team of `team` lanes (the tests and the A/B tool
-    build other team sizes through it)."""
+    """model_header for a team of `team` lanes (ChainRollout's header for
+    each team size; the tests)."""
     npf = lambda t: t.detach().cpu().numpy().astype(np.float32)
     task = task if isinstance(task, ExtTask) else _task(task)
     n = model.n_joints
@@ -827,10 +855,23 @@ def _check_args(args: dict, nv: int, shapes) -> dict:
     return args
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device `index`, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 class ChainRollout:
     """rollout(q0 [nv], qd0 [nv], extras [n_extras], mean [H, nv],
     noise [N, H, nv]) -> costs [N, H], all float32 on one device; extras
     is the task's (the reacher's target [3]).
+
+    The kernel runs a team of lanes per particle. Its size is team_for(N):
+    for the costs and obs rollouts open_loop_team(N, the card's SM count),
+    32 lanes up to 4 particles per SM, 16 up to 24, 8 up to 48, 16 above
+    (on an H100's 132 SMs: 32 up to N=528, 16 to 3168, 8 to 6336); for the
+    closed loop DEFAULT_TEAM. Each size has its library, built at its first
+    launch; the size changes no bit of the result.
 
     `ChainRollout.launches` counts kernel launches over all instances; it
     rises by one per launch and nowhere else (the plain version on CPU
@@ -849,16 +890,29 @@ class ChainRollout:
         self.uhigh = float(uhigh)
         self.task = _task(task)
         self.d_obs = self.task.d_obs(model.nv)
-        self.team = DEFAULT_TEAM
-        self.header = model_header(model, n_substeps, ulow, uhigh, self.task)
-        self._lib = None
+        # a header per team size, made here: from a CUDA model it reads the
+        # model to the host, which must not happen inside a sync-free solve
+        self.headers = {t: _model_header(model, n_substeps, ulow, uhigh, self.task, None, t)
+                        for t in TEAM_SIZES}
+        self.header = self.headers[DEFAULT_TEAM]
+        self._libs = {}
 
-    def library(self) -> build.KernelLibrary:
+    def team_for(self, n: int, device=None) -> int:
+        """The lanes per particle of a launch over n particles on the CUDA
+        `device` (default: the current one)."""
+        index = None if device is None else torch.device(device).index
+        return open_loop_team(n, _sm_count(torch.cuda.current_device() if index is None
+                                           else index))
+
+    def library(self, team: int = DEFAULT_TEAM) -> build.KernelLibrary:
         """Build (at first use) and load the kernels for this model and
-        task (one library holds the three entries)."""
-        if self._lib is None:
+        task at `team` lanes per particle (one library holds the three
+        entries)."""
+        if team not in self._libs:
+            if team not in self.headers:
+                raise ValueError(f"team must be one of {TEAM_SIZES}, not {team}")
             lib = build.load("chain_rollout", "chain_rollout.cu",
-                             {"chain_model.h": self.header}, self.nvcc_flags)
+                             {"chain_model.h": self.headers[team]}, self.nvcc_flags)
             tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             for entry, n_ptrs in (("chain_rollout_launch", 6),
                                   ("chain_obs_rollout_launch", 7),
@@ -872,12 +926,12 @@ class ChainRollout:
                 entry.argtypes, entry.restype = [], ctypes.c_int
             layout = (lib.lib.chain_rollout_d_obs(), lib.lib.chain_rollout_n_extras(),
                       lib.lib.chain_rollout_team())
-            want = (self.d_obs, self.task.n_extras, self.team)
+            want = (self.d_obs, self.task.n_extras, team)
             if layout != want:
                 raise RuntimeError(f"{lib.path} was built for (d_obs, n_extras, team) = "
                                    f"{layout}, not {want}")
-            self._lib = lib
-        return self._lib
+            self._libs[team] = lib
+        return self._libs[team]
 
     def _ctrl_shape(self, horizon: int) -> tuple:
         return (horizon, self.model.nv)
@@ -896,7 +950,10 @@ class ChainRollout:
         return rollout_plain(self.model, self.n_substeps, self.ulow, self.uhigh,
                              q0, qd0, extras, ctrl, noise, self.mode, self.task)
 
-    def __call__(self, q0, qd0, extras, ctrl, noise):
+    def __call__(self, q0, qd0, extras, ctrl, noise, *, team=None):
+        """The rollout; on a CUDA device the kernel at `team` lanes per
+        particle, by default team_for(N) (the checks and the team-size
+        sweep set another)."""
         args = self._check(q0, qd0, extras, ctrl, noise)
         device = noise.device
         if device.type == "cpu":
@@ -908,7 +965,7 @@ class ChainRollout:
             if not x.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
         n, horizon, nv = noise.shape
-        lib = self.library().lib
+        lib = self.library(self.team_for(n, device) if team is None else team).lib
         with torch.cuda.device(device):
             empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
             costs = empty(n, horizon)
@@ -949,6 +1006,9 @@ class ChainClRollout(ChainRollout):
     `ChainClRollout.launches`."""
     launches = 0
     mode = "cl"
+
+    def team_for(self, n: int, device=None) -> int:
+        return DEFAULT_TEAM
 
     def _ctrl_shape(self, horizon: int) -> tuple:
         return (self.d_obs + 1, self.model.nv)

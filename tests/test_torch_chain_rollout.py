@@ -1,8 +1,9 @@
 """The chain-rollout kernel's plain PyTorch version and its wrapper
 (mjmpc_tpu_torch/ops/chain_rollout.py) against the JAX Pallas kernel, the
 f64 C++ oracle and the port's general rollout, and the kernel source's
-per-particle arithmetic compiled as host C++. The kernel itself runs only
-on a CUDA card (tests/test_torch_cuda.py).
+team code in its costs mode compiled as host C++ (each phase's lanes in
+turn). The kernel itself runs only on a CUDA card
+(tests/test_torch_cuda.py).
 
 Tolerance: atol 5e-5 on costs of order 1-10, the JAX kernel's own
 tolerance (tests/test_pallas_chain.py): f32 physics over H * 2 substeps,
@@ -86,22 +87,25 @@ def test_plain_matches_general_rollout(rollout):
 
 
 def test_kernel_source_compiled_for_the_host_matches_plain(rollout, tmp_path):
-    """csrc/chain_rollout.cuh is host-and-device code: built with g++ it
-    runs the kernel's per-particle arithmetic on the CPU."""
+    """csrc/chain_team.cuh is host-and-device code: built with g++ it runs
+    the kernel's costs mode on the CPU, each phase's lanes one after
+    another in the kernel's own partition and order."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to build the host copy of the kernel source"
     (tmp_path / "chain_model.h").write_text(rollout.header)
     (tmp_path / "host.cpp").write_text(
-        '#include "chain_rollout.cuh"\n'
+        '#include "chain_team.cuh"\n'
         'extern "C" void host_rollout(const float* q0, const float* qd0,\n'
         '    const float* target, const float* mean, const float* noise,\n'
         '    float* costs, int n, int horizon) {\n'
+        '  static chain_team::Particle s;   // one team, its lanes in turn\n'
         '  for (int b = 0; b < n; ++b)\n'
-        '    chain_rollout::rollout_particle<chain_rollout::COSTS, chain_rollout::BuildTask>(\n'
-        '        q0, qd0, target, mean, noise, costs, nullptr, b, horizon);\n'
+        '    chain_team::rollout_team<chain_rollout::COSTS, chain_rollout::BuildTask>(\n'
+        '        s, chain_team::Team{}, q0, qd0, target, mean, noise, costs, nullptr,\n'
+        '        nullptr, b, horizon);\n'
         '}\n')
     lib_path = tmp_path / "libhost.so"
-    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+    subprocess.run([gxx, "-std=c++17", "-O0", "-shared", "-fPIC",
                     "-D__host__=", "-D__device__=", "-D__forceinline__=inline",
                     "-I", str(tmp_path), "-I", str(CSRC), "-o", str(lib_path),
                     str(tmp_path / "host.cpp")], check=True, capture_output=True)

@@ -1,9 +1,9 @@
 """The closed-loop-linear chain rollout (mjmpc_tpu_torch/ops/chain_rollout.py
 ChainClRollout, the envs' fused_cl_rollout), the port's general
 rollout_closed_loop_linear and the peg-insertion envs, against the JAX
-package's general rollout, and the kernel source's closed-loop and
-observation instances compiled as host C++ for both tasks. The kernel
-itself runs only on a CUDA card (tests/test_torch_cuda.py).
+package's general rollout, and the kernel source's team code in its
+closed-loop and observation modes compiled as host C++ for both tasks. The
+kernel itself runs only on a CUDA card (tests/test_torch_cuda.py).
 
 Tolerances: against JAX rollout_closed_loop_linear, obs and actions atol
 2e-5 and costs atol 2e-4, the JAX package's own tolerances for its
@@ -136,9 +136,9 @@ def test_the_loop_actually_closes():
 
 
 def _host_library(header, tmp_path):
-    """The closed-loop team code (csrc/chain_team.cuh, each phase's lanes in
-    turn) and csrc/chain_rollout.cuh's one-thread obs instance, built with
-    g++ for the task of `header`."""
+    """The team code (csrc/chain_team.cuh, each phase's lanes in turn) in
+    its closed-loop and obs modes, built with g++ for the task of
+    `header`."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to build the host copy of the kernel source"
     (tmp_path / "chain_model.h").write_text(header)
@@ -156,9 +156,11 @@ def _host_library(header, tmp_path):
         'extern "C" void host_obs(const float* q0, const float* qd0, const float* extras,\n'
         '    const float* mean, const float* noise, float* costs, float* obs,\n'
         '    int n, int horizon) {\n'
+        '  static chain_team::Particle s;\n'
         '  for (int b = 0; b < n; ++b)\n'
-        '    rollout_particle<OBS, BuildTask>(q0, qd0, extras, mean, noise, costs, obs,\n'
-        '                                     b, horizon);\n'
+        '    chain_team::rollout_team<OBS, BuildTask>(s, chain_team::Team{}, q0, qd0, extras,\n'
+        '                                             mean, noise, costs, obs, nullptr, b,\n'
+        '                                             horizon);\n'
         '}\n')
     lib_path = tmp_path / "libclhost.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",

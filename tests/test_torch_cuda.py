@@ -1,8 +1,9 @@
 """The CUDA kernels on the card (chain rollout, chain rollout with
 observations, closed-loop chain rollout for the reacher and peg tasks,
 filtered noise, the locomotion rollout for the swimmer and the half
-cheetah (#4 and #5 a team of lanes per particle: ragged N, two launches
-bit for bit, zeroed actions failing the check, their phase clocks), the
+cheetah (#1, #3, #4 and #5 a team of lanes per particle: ragged N, two
+launches bit for bit, zeroed actions failing the check, their phase
+clocks; #1 and #3 at every team size bit for bit), the
 forest rollout for pen-v0 and the sawyer peg, the pendulum
 rollout and the one-kernel pendulum MPPI solve): each against its plain
 PyTorch version, their launch counts on sync-free solves, and the
@@ -46,9 +47,10 @@ import torch
 from mjmpc_tpu_torch import envs, solvers
 from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
 from mjmpc_tpu_torch.envs import half_cheetah, pen, sawyer_tasks, swimmer
-from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout, ChainObsRollout,
-                                               ChainRollout, build_chain_cl_rollout,
-                                               build_chain_obs_rollout, build_chain_rollout)
+from mjmpc_tpu_torch.ops.chain_rollout import (TEAM_SIZES, ChainClRollout, ChainExtRollout,
+                                               ChainObsRollout, ChainRollout,
+                                               build_chain_cl_rollout, build_chain_obs_rollout,
+                                               build_chain_rollout)
 from mjmpc_tpu_torch.ops.forest_rollout import (ForestRollout, build_forest_rollout,
                                                 gated_cost_agreement)
 from mjmpc_tpu_torch.ops.noise import FilteredNoise
@@ -125,6 +127,49 @@ def test_obs_kernel_matches_plain(device, n, h, tol):
     want_obs, want_costs = roll.plain(*args)
     torch.testing.assert_close(obs, want_obs, rtol=0, atol=tol)
     torch.testing.assert_close(costs, want_costs, rtol=0, atol=tol)
+
+
+def _open_loop_case(kind, n, h, seed, device):
+    """Kernel #1 ("costs") or #3 ("obs", "peg_obs") and its inputs, drawn
+    as _inputs draws them (the peg's extras for "peg_obs")."""
+    name = "sawyer_peg_insertion-v0" if kind == "peg_obs" else "reacher_7dof-v0"
+    env = envs.make(name, device=device)
+    build = build_chain_rollout if kind == "costs" else build_chain_obs_rollout
+    roll = build(env.params.model, n_substeps=2, task="peg" if kind == "peg_obs" else "reacher")
+    args = _inputs(n, h, seed, device)
+    if kind == "peg_obs":
+        args[2] = peg_extras(env.params)
+    return roll, args
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("kind,n", [("costs", 1), ("costs", 5), ("obs", 1), ("obs", 5),
+                                    ("peg_obs", 1), ("peg_obs", 5)])
+def test_open_loop_kernels_ragged_sizes_two_launches_and_team_sizes(device, kind, n):
+    """N=1 and N=5 (ragged for any team narrower than a warp): the costs
+    and obs kernels match their plain versions, and two launches and every
+    team size agree bit for bit (no sum split between lanes)."""
+    roll, args = _open_loop_case(kind, n, 5, 18, device)
+    first, second = _tuple(roll(*args)), _tuple(roll(*args))
+    for team in TEAM_SIZES:
+        for x, y in zip(first, _tuple(roll(*args, team=team))):
+            assert torch.equal(x, y), team
+    for x, y, z in zip(first, second, _tuple(roll.plain(*args))):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("kind", ["costs", "obs", "peg_obs"])
+def test_open_loop_check_fails_for_zeroed_actions(device, kind):
+    """The plain version with the mean and the noise zeroed misses the
+    kernel's outputs by more than 10x the tolerance."""
+    roll, args = _open_loop_case(kind, 37, 5, 19, device)
+    zeroed = _tuple(roll.plain(*args[:3], torch.zeros_like(args[3]), torch.zeros_like(args[4])))
+    got = _tuple(roll(*args))
+    assert max(float((x - y).abs().max()) for x, y in zip(got, zeroed)) > 5e-4
 
 
 @pytest.mark.parametrize("n,h", [(37, 5), (4096, 32)])

@@ -1,8 +1,8 @@
 """The obs-emitting chain rollout (mjmpc_tpu_torch/ops/chain_rollout.py
 ChainObsRollout, reacher's fused_obs_rollout) in its plain version against
 the JAX package's general rollout, the port's general rollout and the
-kernel source's OBS mode compiled as host C++. The kernel itself runs
-only on a CUDA card (tests/test_torch_cuda.py).
+kernel source's team code in its OBS mode compiled as host C++. The kernel
+itself runs only on a CUDA card (tests/test_torch_cuda.py).
 
 Tolerances: against JAX rollout_open_loop, obs atol 2e-5 and costs atol
 2e-4, the JAX package's own tolerances for its obs kernel against that
@@ -89,21 +89,24 @@ def test_plain_matches_port_general_rollout_and_costs_kernel(env, rollout):
 
 
 def test_kernel_source_compiled_for_the_host_matches_plain(rollout, tmp_path):
-    """The OBS-mode instantiation of csrc/chain_rollout.cuh, built with g++."""
+    """The OBS-mode instantiation of csrc/chain_team.cuh's rollout_team,
+    built with g++ (each phase's lanes in turn)."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to build the host copy of the kernel source"
     (tmp_path / "chain_model.h").write_text(rollout.header)
     (tmp_path / "host.cpp").write_text(
-        '#include "chain_rollout.cuh"\n'
+        '#include "chain_team.cuh"\n'
         'extern "C" void host_obs_rollout(const float* q0, const float* qd0,\n'
         '    const float* target, const float* mean, const float* noise,\n'
         '    float* costs, float* obs, int n, int horizon) {\n'
+        '  static chain_team::Particle s;   // one team, its lanes in turn\n'
         '  for (int b = 0; b < n; ++b)\n'
-        '    chain_rollout::rollout_particle<chain_rollout::OBS, chain_rollout::BuildTask>(\n'
-        '        q0, qd0, target, mean, noise, costs, obs, b, horizon);\n'
+        '    chain_team::rollout_team<chain_rollout::OBS, chain_rollout::BuildTask>(\n'
+        '        s, chain_team::Team{}, q0, qd0, target, mean, noise, costs, obs, nullptr,\n'
+        '        b, horizon);\n'
         '}\n')
     lib_path = tmp_path / "libobshost.so"
-    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+    subprocess.run([gxx, "-std=c++17", "-O0", "-shared", "-fPIC",
                     "-D__host__=", "-D__device__=", "-D__forceinline__=inline",
                     "-I", str(tmp_path), "-I", str(CSRC), "-o", str(lib_path),
                     str(tmp_path / "host.cpp")], check=True, capture_output=True)

@@ -14,11 +14,15 @@ source:
 - forest: kernel #6 (csrc/forest_rollout.cu), pen-v0 at N = 64, 256, 1024
   and 4096 and the sawyer peg at N = 256, all H = 16; then the MPPI solves
   of configs/hand/pen-v0.yml and the peg config;
-- chain: csrc/chain_rollout.cu, #1 (costs) and #3 (obs) on the reacher at
-  N=4096 H=32, #4 (closed loop) on the reacher at N=4096 H=32 and on the
+- chain: csrc/chain_rollout.cu, #1 (costs) on the reacher at N=4096 H=32
+  and at the run_mpc reacher configs' N=128 H=16 and N=256 H=32, #3 (obs)
+  on the reacher at N=4096 H=32 and with the peg task at the peg config's
+  N=256 H=16, #4 (closed loop) on the reacher at N=4096 H=32 and on the
   peg at its config's N=64 H=32, #5 (locomotion) on the swimmer at N=512
-  H=32 and the cheetah at N=512 H=16; then MPPI on both locomotion configs
-  and Reinforce on the reacher and the peg config.
+  H=32 and the cheetah at N=512 H=16; then MPPI on the main path (the
+  reacher at N=4096 H=32, kernel noise), on configs/reacher_7dof-v0.yml
+  (N=128 H=16) and on both locomotion configs, and Reinforce on the
+  reacher and the peg config.
 
 A run builds its family's libraries (one nvcc each, in parallel), prints
 their ptxas lines, nvcc seconds and SASS instructions (cuobjdump), times
@@ -36,9 +40,19 @@ instead builds this checkout's team kernels with their phase clocks
 (clocked(): -DFOREST_PHASE_CLOCKS or -DCHAIN_PHASE_CLOCKS) and prints the
 cycles of each kind of phase along one particle's chain, per substep, and
 their shares, and the SM clock (nvidia-smi) beside them: forest for pen
-and the peg at N=256 H=16, chain for #4 and #5 at the sizes above. It
-fails unless every kind of phase that the kernel runs counted cycles and
-the outputs are the plain build's, bit for bit.
+and the peg at N=256 H=16, chain for #1, #3, #4 and #5 at the sizes above.
+It fails unless every kind of phase that the kernel runs counted cycles
+and the outputs are the plain build's, bit for bit.
+
+    python3 tools/kernel_ab.py --sweep
+
+instead times this checkout's costs and obs rollouts (#1, #3) at every
+team size the kernel takes (4, 8, 16 and 32 lanes per particle) over N =
+64 to 8192 (SWEEP_N): the reacher's costs at H=32 and H=16 and the
+peg's obs at H=32. One line per time, then one per (case, N) with the
+fastest team and the one that ops/chain_rollout.py open_loop_team picks
+on this card. It fails unless every team size gives the same outputs, bit
+for bit.
 """
 from __future__ import annotations
 
@@ -58,10 +72,20 @@ FAMILIES = ("forest", "chain")
 FOREST_SIZES = (("pen-v0", 64, 16), ("pen-v0", 256, 16), ("pen-v0", 1024, 16),
                 ("pen-v0", 4096, 16), ("sawyer_peg_insertion-v0", 256, 16))
 # chain kernels: name -> (wrapper key, N, H)
-CHAIN_SIZES = {"chain_costs_reacher": ("costs", 4096, 32), "chain_obs_reacher": ("obs", 4096, 32),
+CHAIN_SIZES = {"chain_costs_reacher": ("costs", 4096, 32),
+               "chain_costs_reacher_n128_h16": ("costs", 128, 16),
+               "chain_costs_reacher_n256_h32": ("costs", 256, 32),
+               "chain_obs_reacher": ("obs", 4096, 32), "chain_obs_peg": ("obs_peg", 256, 16),
                "chain_cl_reacher": ("cl_reacher", 4096, 32), "chain_cl_peg": ("cl_peg", 64, 32),
                "chain_ext_swimmer": ("Swimmer-v0", 512, 32),
                "chain_ext_cheetah": ("HalfCheetah-v0", 512, 16)}
+# the wrappers that share one library (per team size): the task's
+LIBRARY_OF = {"costs": "reacher", "obs": "reacher", "cl_reacher": "reacher", "obs_peg": "peg",
+              "cl_peg": "peg"}
+# --sweep: case -> (wrapper key, H), over SWEEP_N particles
+SWEEP = {"reacher_costs_h32": ("costs", 32), "reacher_costs_h16": ("costs", 16),
+         "peg_obs_h32": ("obs_peg", 32)}
+SWEEP_N = (64, 128, 256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096, 5120, 6144, 7168, 8192)
 # The kinds of phase of csrc/forest_rollout.cuh and csrc/chain_team.cuh
 # (PhaseKind), in their order.
 PHASE_KINDS = {"forest": ("init", "fk", "points", "forces", "sums", "mass", "chol", "forward",
@@ -88,34 +112,54 @@ def clocked(roll, family):
     cls = type("Clocked", (type(roll),), {"nvcc_flags": (CLOCK_FLAGS[family],)})
     copy = object.__new__(cls)
     copy.__dict__.update(roll.__dict__)
-    copy._lib = None
+    if hasattr(copy, "_libs"):      # one library per team size
+        copy._libs = {}
+    else:
+        copy._lib = None
     kinds = PHASE_KINDS[family]
     prefix = "forest_rollout" if family == "forest" else "chain_rollout"
 
     def read():
-        lib = copy.library().lib
-        entry = getattr(lib, f"{prefix}_phase_cycles")
-        entry.argtypes, entry.restype = [ctypes.c_void_p], ctypes.c_int
-        out = (ctypes.c_ulonglong * len(kinds))()
-        rc = entry(out)
-        if rc != 0:
-            raise RuntimeError("reading the phase cycles failed: "
-                               + getattr(lib, f"{prefix}_error_string")(rc).decode())
-        return dict(zip(kinds, (int(x) for x in out)))
+        libs = (list(copy._libs.values()) if hasattr(copy, "_libs")   # every team size launched
+                else [copy.library()])
+        total = dict.fromkeys(kinds, 0)
+        for lib in (x.lib for x in libs):
+            entry = getattr(lib, f"{prefix}_phase_cycles")
+            entry.argtypes, entry.restype = [ctypes.c_void_p], ctypes.c_int
+            out = (ctypes.c_ulonglong * len(kinds))()
+            rc = entry(out)
+            if rc != 0:
+                raise RuntimeError("reading the phase cycles failed: "
+                                   + getattr(lib, f"{prefix}_error_string")(rc).decode())
+            for k, x in zip(kinds, out):
+                total[k] += int(x)
+        return total
 
     return copy, read
 
 
-def build_all(rolls):
-    """Build the wrappers' libraries at once (one nvcc each) and print their
-    build lines."""
+def team_of(roll, n):
+    """The lanes per particle of the wrapper's launch over n particles: its
+    rule's (team_for) where it has one, else its `team` attribute."""
+    return roll.team_for(n) if hasattr(roll, "team_for") else getattr(roll, "team", None)
+
+
+def library_of(roll, team):
+    """The wrapper's library at `team` lanes where it has one per team size,
+    else its one library."""
+    return roll.library(team) if hasattr(roll, "team_for") else roll.library()
+
+
+def build_all(builds):
+    """Build the libraries {name: (wrapper, team)} at once (one nvcc each)
+    and print their build lines."""
     import concurrent.futures
-    with concurrent.futures.ThreadPoolExecutor(len(rolls)) as pool:
-        libs = dict(zip(rolls, pool.map(lambda r: r.library(), rolls.values())))
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        libs = dict(zip(builds, pool.map(lambda b: library_of(*b), builds.values())))
     for name, lib in libs.items():
         sass = subprocess.run(["cuobjdump", "-sass", str(lib.path)], capture_output=True,
                               text=True).stdout
-        print(json.dumps({"build": name, "team": getattr(rolls[name], "team", None),
+        print(json.dumps({"build": name, "team": builds[name][1],
                           "nvcc_seconds": lib.build_seconds,
                           "sass_instructions": len(re.findall(r"/\*[0-9a-f]{4,}\*/", sass)),
                           "ptxas": [ln.strip() for ln in lib.ptxas.splitlines()
@@ -136,8 +180,8 @@ def forest_setup(device):
 
 def chain_setup(device):
     """(envs, wrappers) of the chain kernels: the reacher's costs, obs and
-    closed-loop rollouts (one library), the peg's closed loop, the
-    swimmer's and the cheetah's locomotion rollouts."""
+    closed-loop rollouts (one library per team size), the peg's obs and
+    closed loop, the swimmer's and the cheetah's locomotion rollouts."""
     from mjmpc_tpu_torch import envs
     from mjmpc_tpu_torch.envs import half_cheetah, swimmer
     from mjmpc_tpu_torch.ops import chain_rollout as cr
@@ -145,10 +189,11 @@ def chain_setup(device):
             for name in ("reacher_7dof-v0", "sawyer_peg_insertion-v0", "Swimmer-v0",
                          "HalfCheetah-v0")}
     reacher = made["reacher_7dof-v0"].params.model
+    peg = made["sawyer_peg_insertion-v0"].params.model
     rolls = {"costs": cr.ChainRollout(reacher, 2), "obs": cr.ChainObsRollout(reacher, 2),
              "cl_reacher": cr.ChainClRollout(reacher, 2),
-             "cl_peg": cr.ChainClRollout(made["sawyer_peg_insertion-v0"].params.model, 2,
-                                         task="peg"),
+             "obs_peg": cr.ChainObsRollout(peg, 2, task="peg"),
+             "cl_peg": cr.ChainClRollout(peg, 2, task="peg"),
              "Swimmer-v0": swimmer.build_rollout(made["Swimmer-v0"].params),
              "HalfCheetah-v0": half_cheetah.build_rollout(made["HalfCheetah-v0"].params)}
     return made, rolls
@@ -161,6 +206,9 @@ def chain_inputs(smoke, made, rolls, key, n, h, device):
     roll = rolls[key]
     if key in ("costs", "obs"):
         return smoke.reacher_inputs(n, h, 0, device)
+    if key == "obs_peg":
+        args = smoke.reacher_inputs(n, h, 0, device)
+        return args[:2] + [peg_extras(made["sawyer_peg_insertion-v0"].params)] + args[3:]
     if key == "cl_reacher":
         target = smoke.reacher_inputs(1, 1, 0, device)[2]
         return smoke.cl_inputs(roll.d_obs, target, n, h, 4, device)
@@ -175,7 +223,7 @@ def forest_timings(smoke, smi, device, outputs):
     from mjmpc_tpu_torch.harness import config as hconfig
     import torch
     made, rolls = forest_setup(device)
-    build_all(rolls)
+    build_all({name: (r, r.team) for name, r in rolls.items()})
     for name, n, h in FOREST_SIZES:
         roll = rolls[name]
         args = smoke.forest_inputs(made[name], roll, n, h, 23, device)
@@ -197,7 +245,11 @@ def chain_timings(smoke, smi, device, outputs):
     from mjmpc_tpu_torch.harness import config as hconfig
     import torch
     made, rolls = chain_setup(device)
-    build_all({k: r for k, r in rolls.items() if k not in ("obs", "cl_reacher")})
+    builds = {}
+    for key, n, _ in CHAIN_SIZES.values():
+        team = team_of(rolls[key], n)
+        builds.setdefault(f"{LIBRARY_OF.get(key, key)} team={team}", (rolls[key], team))
+    build_all(builds)
     for name, (key, n, h) in CHAIN_SIZES.items():
         roll = rolls[key]
         args = chain_inputs(smoke, made, rolls, key, n, h, device)
@@ -205,9 +257,17 @@ def chain_timings(smoke, smi, device, outputs):
         torch.cuda.synchronize()
         for k, x in enumerate(got if isinstance(got, tuple) else (got,)):
             outputs[f"{name}_{k}"] = x.cpu().numpy()
-        print(json.dumps({"kernel": name, "n": n, "h": h, "team": getattr(roll, "team", None),
+        print(json.dumps({"kernel": name, "n": n, "h": h, "team": team_of(roll, n),
                           "ms": smoke.cuda_ms(lambda: roll(*args), 20)}), flush=True)
-    for name, path in smoke.LOCO_CONFIGS.items():
+    e = made["reacher_7dof-v0"]     # the main path: MPPI with the kernel noise, #1
+    s = solvers.MPPI(d_action=e.d_action, horizon=smoke.HORIZON,
+                     num_particles=smoke.NUM_PARTICLES, init_cov=3.0,
+                     filter_coeffs=smoke.FILTER, base_action="repeat", device=device, lam=0.01,
+                     step_size=0.55, gamma=1.0, noise_impl="kernel")
+    solve_rate(smoke, smi, solvers.make_solve_fn(s, e), s, e, solver="mppi", env=e.name,
+               noise_impl="kernel")
+    configs = dict(smoke.LOCO_CONFIGS, **{"reacher_7dof-v0": "configs/reacher_7dof-v0.yml"})
+    for name, path in configs.items():
         e = made[name]
         s = hconfig.make_solver_for_env(hconfig.load_config(path), "mppi", e)
         solve_rate(smoke, smi, solvers.make_solve_fn(s, e), s, e, solver="mppi", env=name,
@@ -260,10 +320,9 @@ def run_phases(families) -> None:
         made, rolls = chain_setup(device)
         cases += [("chain", name, rolls[key], n, h,
                    chain_inputs(smoke, made, rolls, key, n, h, device))
-                  for name, (key, n, h) in CHAIN_SIZES.items()
-                  if key not in ("costs", "obs")]
+                  for name, (key, n, h) in CHAIN_SIZES.items()]
     clocks = [clocked(roll, family) for family, _, roll, *_ in cases]
-    build_all({name: c for (_, name, *_), (c, _) in zip(cases, clocks)})
+    build_all({name: (c, team_of(c, n)) for (_, name, _, n, *_), (c, _) in zip(cases, clocks)})
     for (family, name, base, n, h, args), (roll, read) in zip(cases, clocks):
         roll(*args)
         torch.cuda.synchronize()
@@ -275,7 +334,8 @@ def run_phases(families) -> None:
         clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
                                capture_output=True, text=True).stdout.strip()
         print(json.dumps({"family": family, "kernel": name, "n": n, "h": h,
-                          "team": base.team, "ms_per_call": ms, "sm_clock_after": clock,
+                          "team": team_of(base, n), "ms_per_call": ms,
+                          "sm_clock_after": clock,
                           "cycles_per_substep": total / substeps,
                           "share": {k: round(v / total, 4) for k, v in cycles.items()},
                           "cycles_per_substep_by_kind": {k: v / substeps
@@ -291,6 +351,35 @@ def run_phases(families) -> None:
             raise RuntimeError(f"phase cycles for {name} not as its phases: {cycles}")
 
 
+def run_sweep() -> None:
+    """This checkout's costs and obs rollouts at every team size (SWEEP)."""
+    import torch
+    smoke, device = load_smoke(), torch.device("cuda")
+    from mjmpc_tpu_torch.ops.chain_rollout import TEAM_SIZES, open_loop_team
+    made, rolls = chain_setup(device)
+    build_all({f"{LIBRARY_OF[key]} team={t}": (rolls[key], t)
+               for key in ("costs", "obs_peg") for t in TEAM_SIZES})
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    for case, (key, h) in SWEEP.items():
+        roll = rolls[key]
+        for n in SWEEP_N:
+            args = chain_inputs(smoke, made, rolls, key, n, h, device)
+            outs, times = [], {}
+            for team in TEAM_SIZES:
+                got = roll(*args, team=team)
+                torch.cuda.synchronize()
+                outs.append(got if isinstance(got, tuple) else (got,))
+                times[team] = smoke.cuda_ms(lambda: roll(*args, team=team), 20)
+                print(json.dumps({"sweep": case, "n": n, "h": h, "team": team,
+                                  "ms": times[team]}), flush=True)
+            if not all(torch.equal(x, y) for other in outs[1:] for x, y in zip(outs[0], other)):
+                raise RuntimeError(f"team sizes disagree for {case} at N={n}")
+            print(json.dumps({"sweep": case, "n": n, "h": h, "sm_count": sm_count,
+                              "fastest": min(times, key=times.get),
+                              "rule": open_loop_team(n, sm_count), "ms": times,
+                              "identical": True}), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", action="append", default=None,
@@ -300,6 +389,8 @@ def main() -> int:
     parser.add_argument("--rounds", type=int, default=1)
     parser.add_argument("--phases", action="store_true",
                         help="this checkout's phase clocks instead of the timings")
+    parser.add_argument("--sweep", action="store_true",
+                        help="this checkout's costs and obs rollouts at every team size")
     parser.add_argument("--run", nargs=3, metavar=("OUTPUTS_NPZ", "CARD", "FAMILIES"),
                         help=argparse.SUPPRESS)    # one checkout's run, from its root
     args = parser.parse_args()
@@ -307,9 +398,9 @@ def main() -> int:
     if args.run:
         run_timings(args.run[0], args.run[1], args.run[2].split(","))
         return 0
-    if args.phases:
+    if args.phases or args.sweep:
         sys.path.insert(0, str(ROOT))
-        run_phases(families)
+        run_sweep() if args.sweep else run_phases(families)
         return 0
     checkouts = [Path(c).resolve() for c in (args.checkout or [str(ROOT)])]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
