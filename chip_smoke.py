@@ -32,28 +32,38 @@ exit and no final line:
                plain version with W and the noise zeroed failing by more
                than 10x on obs and costs;
                peg's obs rollout at (37, 5) and N=1 to 5e-5, with the same
-               checks; the noise kernel at
-               (37, 5, 7) and (4096, 32, 7), filter (0.25, 0.8, 0), cov 3 I,
-               to 1e-4 (identical uniforms; libm ulps and sum order differ,
-               scaled by the filter's gain of about 1.25 and by sqrt(3));
+               checks; the noise kernel (#2) at
+               (N, H, dA) = (37, 5, 7), (4096, 32, 7) and (512, 32, 30),
+               filter (0.25, 0.8, 0), cov 3 I, to 1e-4 (identical uniforms;
+               libm ulps and sum order differ, scaled by the filter's gain
+               of about 1.25 and by sqrt(3)) at step 5 (a device tensor),
+               two launches agreeing bit for bit and the plain version at
+               step 6 failing by more than 10x; the uniforms kernel bit for
+               bit;
                the pendulum rollout (kernel #7) from a start that crosses
                -pi (th0 = -3.0, thdot0 = -8) at (37, 5), (4096, 32), the
                pendulum config's N = 24 and 64 and at N = 2048, H = 32, to
                atol 1e-5, the
                plain version with the noise zeroed failing the (37, 5)
                check by more than 10x; the one-kernel MPPI solve (kernel
-               #8) at N = 1024 and 2048, H = 32, lam 0.01 and 1.0, to atol
-               1e-5 on the new mean, the plain version under another seed
+               #8, one thread-block cluster) at N = 128, 1024, 2048 and
+               8192, H = 32, lam 0.01 and 1.0, to atol 1e-5 on the new mean,
+               two launches bit for bit, every cluster size it can take
+               within the same atol, the plain version at another step
                failing by more than 10x.
 4. main     -- envs.make("reacher_7dof-v0") -> solvers.MPPI(...) ->
                solvers.make_solve_fn on device="cuda": 10 chained solves
                under torch.cuda.set_sync_debug_mode("error") (no host sync
                inside a solve), a finite action read once at the end, the
-               chain kernel's launch count rising by exactly 10; then a
-               10-step evaluate_episode with finite rewards. Run with the
-               plain noise sampler (main) and again with noise_impl="kernel"
-               (main_kernel_noise: the chain and noise counts each rise by
-               exactly 10).
+               chain kernel's and the noise kernel's launch counts rising by
+               exactly 10; then a 10-step evaluate_episode with finite
+               rewards. Run with the plain noise sampler (main: the noise
+               kernel's normals with the filter off, then the filter in
+               tensor operations) and again with noise_impl="kernel"
+               (main_kernel_noise). Every count below counts the noise
+               kernel's launches too: each noise draw of a solve is one
+               (noise_launches), and each PFMPC update one of the uniforms
+               kernel.
 5. zoo      -- RandomShooting, CEM (diagonal, full), DMD (update_cov),
                MPPIQ without Q, PFMPC and MPPIQ with a torch q_fn, N=4096
                H=32, noise_impl="kernel": 3 chained sync-free solves each,
@@ -110,7 +120,19 @@ exit and no final line:
                solves at N=1024, filter (0.25, 0.8, 0), sigma sqrt(3.5),
                lam 0.01, step size 0.55, sync-free, kernel #8's count
                rising by exactly 100 and the total reward above -400.
-13. harness -- harness.episode.run_episodes with each locomotion config's
+13. graph   -- one solve of each family captured as a torch.cuda.CUDAGraph:
+               MPPI on the main path with the kernel noise (under
+               guard_finite, which rebuilds the fresh state inside the
+               captured solve) and with the plain sampler, PFMPC (the zoo's),
+               Reinforce with the peg closed-loop config and kernel #8's
+               closed-loop step at N=1024. Each graph is replayed 5 times,
+               each replay's state fed to the next, and every replay's
+               action, value and state tensors must equal 5 eager solves'
+               from the same start bit for bit (the eager solves sync-free);
+               then two replays from the same start but for the step (which
+               the graph advances on the device) must differ: they drew
+               different noise.
+14. harness -- harness.episode.run_episodes with each locomotion config's
                own solver and with every controller of
                configs/reacher_7dof-v0.yml, one episode of 10 steps, and
                with every controller of configs/hand/pen-v0.yml and the peg
@@ -119,7 +141,7 @@ exit and no final line:
                rewards; every pendulum controller for one episode of 200
                steps, its reward printed beside the JAX package's records
                (RESULTS.md:207; no gate: the RNG streams differ).
-14. timing  -- read-verified solves/s (each window ends by reading a value
+15. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
                for each solver of the zoo, for Reinforce on the reacher
@@ -132,7 +154,9 @@ exit and no final line:
                and its plain version timed with CUDA events (kernel #1 also
                at the reacher configs' N=128 H=16 and N=256 H=32; #1 and #3
                on a `kernel_open_loop` line per size with its team, bound
-               and ptxas); a per-stage
+               and ptxas; #2 on a `kernel_noise` line per shape); solves/s
+               of the main path's MPPI eager and replayed as a CUDA graph
+               (`graph_solves_per_s`); a per-stage
                breakdown with each noise sampler and of the Reinforce
                solves; a torch.profiler count of kernels and device time
                per solve, with the six kernels that take the most device
@@ -143,8 +167,8 @@ The last lines are the kernels' summary (kernel #5 with the swimmer's
 numbers, its cheetah instance on the `kernel_loco` line before it; kernel
 #6 with pen-v0's, its peg instance on the `kernel_forest` line; #7 at
 the pendulum mppi block's N=24, #8 at the closed loop's N=1024, each size
-on a `kernel_pendulum` line), the nvidia-smi line and {"ok": true,
-"device": {...}}.
+on a `kernel_pendulum` line, with #8's cluster size), the nvidia-smi line
+and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -209,6 +233,8 @@ PENDULUM_STEPS = 200
 ONE_KERNEL = dict(num_particles=1024, filter_coeffs=FILTER, sigma=float(np.sqrt(3.5)),
                   lam=0.01, step_size=0.55, gamma=1.0)
 ONE_KERNEL_STEPS = 100
+ONE_KERNEL_KEY = 1000       # kernel #8's stream key in the closed loop
+GRAPH_REPLAYS = 5
 # th0, thdot0: th + pi turns negative along the rollouts (a truncating
 # modulo goes wrong) and the new thdot passes -8 before its clamp
 CROSSING = (-3.0, -8.0)
@@ -357,6 +383,180 @@ def sync_free(solve, env, env_state, state, k: int):
     return action_host, state
 
 
+@dataclasses.dataclass(frozen=True)
+class OneKernelState:
+    """Kernel #8's closed loop as a solver state: the mean [H, 1] and the
+    step, a 0-d int64 tensor on the device."""
+    mean: "torch.Tensor"
+    step: "torch.Tensor"
+
+
+def one_kernel_solve_fn(n: int):
+    """Kernel #8 as a chained solve: (params, env state, OneKernelState) ->
+    (action, value 0, the mean shifted with a zero last row and step + 1),
+    the JAX package's closed loop (tests/test_pallas_kernels.py)."""
+    import torch
+    from mjmpc_tpu_torch.ops import pendulum as pend
+    cfg8 = dict(ONE_KERNEL, num_particles=n)
+
+    def solve(params, es, state):
+        mean = pend.mppi_pendulum_solve(params, es, state.mean, ONE_KERNEL_KEY, state.step,
+                                        **cfg8)
+        shifted = torch.cat([mean[1:], torch.zeros_like(mean[:1])])
+        return mean[0], torch.zeros((), device=mean.device), OneKernelState(shifted,
+                                                                            state.step + 1)
+
+    return solve
+
+
+def one_kernel_start(device) -> OneKernelState:
+    import torch
+    from mjmpc_tpu_torch import rng
+    return OneKernelState(torch.zeros(HORIZON, 1, device=device), rng.step_tensor(0, device))
+
+
+def noise_launches(s, solves: int) -> dict:
+    """The noise kernel's and the uniforms kernel's launches in `solves`
+    solves of solver `s` (every noise draw is one noise-kernel launch, the
+    plain sampler's too): per iteration the rollout noise (Reinforce, the
+    open-loop solvers) or, for PFMPC, the resampling offset (a uniforms
+    launch); per solve one more for a sampled act and for a random base
+    action, and PFMPC's shift noise."""
+    iters = s.n_iters
+    sampled = getattr(s, "sample_mode", "mean") == "sample"
+    random_base = getattr(s, "base_action", None) == "random"
+    if hasattr(s, "cov_shift"):          # PFMPC
+        return dict(noise=solves * (1 + random_base), uniforms=solves * iters)
+    return dict(noise=solves * (iters + random_base + sampled), uniforms=0)
+
+
+def state_tensors(state) -> dict:
+    import torch
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)}
+
+
+def capture(solve, e, es, state):
+    """(graph, out, feed): `solve` on a static copy of `state` captured as a
+    torch.cuda.CUDAGraph after one warm-up solve on a side stream; `out` the
+    captured solve's (action, value, state); feed() copies out's state
+    tensors into the static state (the next replay's start), feed(start=
+    tensors) the step alone and the other tensors from `start`.
+    feed.static is the static state."""
+    import torch
+
+    def fresh():
+        return dataclasses.replace(state, **{k: v.clone()
+                                             for k, v in state_tensors(state).items()})
+
+    static = fresh()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solve(e.params, es, fresh())
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = solve(e.params, es, static)
+    into = state_tensors(static)
+
+    def feed(start=None):
+        new = {k: v.clone() for k, v in state_tensors(out[2]).items()}
+        for k, v in into.items():
+            v.copy_(new[k] if start is None or k == "step" else start[k])
+
+    feed.static = static
+    return graph, out, feed
+
+
+def graph_solves_per_s(solve, e, es, state, k: int, windows: int):
+    """solves_per_s for `solve` captured as a CUDA graph: windows of k
+    replays, each fed the last one's state, each window ending by reading
+    the action."""
+    graph, out, feed = capture(solve, e, es, state)
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            graph.replay()
+            feed()
+        value = float(out[0][0])
+        rates.append(k / (time.perf_counter() - t0))
+        if not np.isfinite(value):
+            raise RuntimeError("graph replays produced a non-finite action")
+    return statistics.median(rates), rates
+
+
+def graph_check(name: str, solve, e, es, state, k: int = GRAPH_REPLAYS) -> dict:
+    """One solve captured as a CUDA graph, against eager solves.
+
+    k eager solves from `state` (sync-free), then the solve captured on a
+    static copy of `state` and replayed k times, each replay's state copied
+    into the static one: every replay's action, value and state tensors
+    must equal the eager solve's bit for bit. Then the static state is set
+    back to `state` but for its step (which the replays advanced on the
+    device) and the graph replayed twice, the step alone fed back between:
+    the two results must differ (fresh noise each replay). Returns the
+    fields of the `graph` line; raises on a failed check."""
+    import torch
+    start = {k_: v.clone() for k_, v in state_tensors(state).items()}
+
+    def snapshot(action, value, s):
+        return [action.clone(), value.clone()] + [v.clone() for v in state_tensors(s).values()]
+
+    eager, s = [], state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(k):
+            action, value, s = solve(e.params, es, s)
+            eager.append(snapshot(action, value, s))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graph, out, feed = capture(solve, e, es, state)
+    fed = state_tensors(feed.static)
+    replays = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(k):
+            graph.replay()
+            replays.append(snapshot(*out))
+            feed()
+        for k_, v in fed.items():       # the start again, at the advanced step
+            if k_ != "step":
+                v.copy_(start[k_])
+        graph.replay()
+        first = snapshot(*out)
+        feed(start=start)
+        graph.replay()
+        second = snapshot(*out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    names = ["action", "value"] + list(start)
+    diffs = dict.fromkeys(names, 0.0)
+    for got, want in zip(replays, eager):
+        for n_, a, b in zip(names, got, want):
+            if a.numel():
+                diffs[n_] = max(diffs[n_], float((a.double() - b.double()).abs().max()))
+    identical = all(torch.equal(a, b) for got, want in zip(replays, eager)
+                    for a, b in zip(got, want))
+    steps = [int(x[names.index("step")]) for x in replays]
+    fresh = max(float((a.double() - b.double()).abs().max())
+                for a, b in zip(first, second) if a.is_floating_point())
+    fields = dict(family=name, replays=k, identical=identical, max_abs_diff=diffs,
+                  steps=steps, replay_after_step=[int(first[names.index("step")]),
+                                                  int(second[names.index("step")])],
+                  max_abs_diff_next_step=fresh)
+    emit("graph", **fields)
+    if not identical:
+        raise RuntimeError(f"graph {name}: replays differ from eager solves: {diffs}")
+    if not fresh > 0.0:
+        raise RuntimeError(f"graph {name}: two replays at successive steps drew the same noise")
+    return fields
+
+
 def profile(solve, e, es, state, smi: str, **labels) -> None:
     """Kernels and device time per solve: torch.profiler over N_SOLVES
     chained solves after 3 warm-up solves; one `profile` line beside the
@@ -396,7 +596,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from mjmpc_tpu_torch import bounds, envs, ops, solvers
+        from mjmpc_tpu_torch import bounds, envs, ops, rng, solvers
         from mjmpc_tpu_torch.envs import half_cheetah, pen, sawyer_tasks, swimmer
         from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
         from mjmpc_tpu_torch.harness import config as hconfig
@@ -406,19 +606,20 @@ def main() -> int:
                                                        ChainRollout)
         from mjmpc_tpu_torch.ops.forest_rollout import ForestRollout, gated_cost_agreement
         from mjmpc_tpu_torch.ops import pendulum as pend
-        from mjmpc_tpu_torch.ops.noise import FilteredNoise
+        from mjmpc_tpu_torch.ops.noise import FilteredNoise, PhiloxUniforms
         from mjmpc_tpu_torch.rollout import Trajectories
         from mjmpc_tpu_torch.solvers.reinforce import closed_loop_rollout
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
     counters = (ChainRollout, ChainObsRollout, ChainClRollout, ChainExtRollout, FilteredNoise,
-                ForestRollout, pend.PendulumRollout, pend.MppiPendulumSolve)
+                PhiloxUniforms, ForestRollout, pend.PendulumRollout, pend.MppiPendulumSolve)
 
     def counts():
         return {"chain": ChainRollout.launches, "obs": ChainObsRollout.launches,
                 "cl": ChainClRollout.launches, "ext": ChainExtRollout.launches,
-                "noise": FilteredNoise.launches, "forest": ForestRollout.launches,
+                "noise": FilteredNoise.launches, "uniforms": PhiloxUniforms.launches,
+                "forest": ForestRollout.launches,
                 "pendulum": pend.PendulumRollout.launches,
                 "one_kernel_solve": pend.MppiPendulumSolve.launches}
 
@@ -559,23 +760,38 @@ def main() -> int:
             raise RuntimeError(f"closed-loop kernel disagrees with its plain version for "
                                f"{task} at N={n} H={h}: {err} > {tol}")
 
-    cov3 = 3.0 * torch.eye(D_ACTION, device=device)
-    for n, h, seed in ((37, 5, 7), (NUM_PARTICLES, HORIZON, 8)):
-        got = sampler(seed, cov3, (n, h), FILTER)
-        want = sampler.plain(seed, cov3, (n, h), FILTER)
-        white = sampler.white(seed, n, h, D_ACTION, FILTER, device)
-        want_white = sampler.white_plain(seed, n, h, D_ACTION, FILTER, device)
+    # kernel #2 at step 5 (a device tensor); its check's power: step 6
+    step5, step6 = rng.step_tensor(5, device), rng.step_tensor(6, device)
+    for n, h, d_action in bounds.NOISE_SIZES:
+        key = rng.stream_key(7, n)
+        cov3 = 3.0 * torch.eye(d_action, device=device)
+        got, again = sampler(key, step5, cov3, (n, h), FILTER), sampler(key, step5, cov3, (n, h),
+                                                                         FILTER)
+        want = sampler.plain(key, step5, cov3, (n, h), FILTER)
+        white = sampler.white(key, step5, n, h, d_action, FILTER)
+        want_white = sampler.white_plain(key, step5, n, h, d_action, FILTER)
+        other = sampler.plain(key, step6, cov3, (n, h), FILTER)
         torch.cuda.synchronize()
-        if got.shape != (n, h, D_ACTION) or not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"noise kernel output bad at N={n} H={h}")
+        if got.shape != (n, h, d_action) or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"noise kernel output bad at {(n, h, d_action)}")
         err = float((got - want).abs().max())
         err_white = float((white - want_white).abs().max())
-        errors[("noise", n, h)] = err
-        emit("kernel", name="filtered_noise", n=n, h=h, d_action=D_ACTION, max_abs_err=err,
-             max_abs_err_uncoloured=err_white, atol=1e-4, std=float(want.std()))
-        if not max(err, err_white) <= 1e-4:
+        other_err = float((other - got).abs().max())
+        errors[("noise", n, h, d_action)] = err
+        emit("kernel", name="filtered_noise", n=n, h=h, d_action=d_action, max_abs_err=err,
+             max_abs_err_uncoloured=err_white, atol=1e-4, launches_identical=torch.equal(
+                 got, again), other_step_err=other_err, std=float(want.std()))
+        if not max(err, err_white) <= 1e-4 or not torch.equal(got, again):
             raise RuntimeError(f"noise kernel disagrees with its plain version at "
-                               f"N={n} H={h}: {err} > 1e-4")
+                               f"{(n, h, d_action)}: {err}, {err_white} > 1e-4")
+        if not other_err > 10 * 1e-4:
+            raise RuntimeError(f"noise check too weak at {(n, h, d_action)}: {other_err}")
+    for n in (1, 7, 4096):
+        got, want = ops.uniforms(11, step5, n), ops.uniforms.plain(11, step5, n)
+        torch.cuda.synchronize()
+        emit("kernel", name="philox_uniforms", n=n, identical=torch.equal(got, want))
+        if not torch.equal(got, want):
+            raise RuntimeError(f"uniforms kernel differs from its plain version at n={n}")
 
     # kernel #7 from the crossing start; its check's power: the plain
     # version with the noise zeroed
@@ -600,26 +816,43 @@ def main() -> int:
         if not err <= 1e-5:
             raise RuntimeError(f"pendulum kernel disagrees with its plain version at N={n} "
                                f"H={h}: {err} > 1e-5")
-    # kernel #8 on the same seed; its check's power: another seed
+    # kernel #8 at step 3; its check's power: step 4; two launches bit for
+    # bit; every cluster size the kernel can take at the same tolerance
     solve8_args = {}
-    for n, lam in ((1024, 0.01), (1024, 1.0), (2048, 0.01), (2048, 1.0)):
-        params, state, mean, _ = pendulum_inputs(pend_env, 1, HORIZON, 34, device)
-        cfg8 = dict(ONE_KERNEL, num_particles=n, lam=lam)
-        args = solve8_args[(n, lam)] = (params, state, mean, 77)
-        got = pend.mppi_pendulum_solve(*args, **cfg8)
-        want = pend.mppi_pendulum_solve.plain(*args, **cfg8)
-        other = pend.mppi_pendulum_solve.plain(*args[:3], 78, **cfg8)
-        torch.cuda.synchronize()
-        if got.shape != (HORIZON, 1) or not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"one-kernel solve output bad at N={n}")
-        err = float((got - want).abs().max())
-        other_err = float((other - got).abs().max())
-        errors[("solve8", n, lam)] = err
-        emit("kernel", name="mppi_pendulum_solve", n=n, h=HORIZON, lam=lam, max_abs_err=err,
-             atol=1e-5, other_seed_err=other_err, mean_abs_max=float(want.abs().max()))
-        if not err <= 1e-5 or not other_err > 10 * 1e-5:
-            raise RuntimeError(f"one-kernel solve check failed at N={n} lam={lam}: {err}, "
-                               f"another seed {other_err}")
+    step3, step4 = rng.step_tensor(3, device), rng.step_tensor(4, device)
+    for n, _ in bounds.PENDULUM_SIZES[8]:
+        for lam in (0.01, 1.0):
+            params, state, mean, _ = pendulum_inputs(pend_env, 1, HORIZON, 34, device)
+            cfg8 = dict(ONE_KERNEL, num_particles=n, lam=lam)
+            args = solve8_args[(n, lam)] = (params, state, mean, 77, step3)
+            got, again = (pend.mppi_pendulum_solve(*args, **cfg8),
+                          pend.mppi_pendulum_solve(*args, **cfg8))
+            want = pend.mppi_pendulum_solve.plain(*args, **cfg8)
+            other = pend.mppi_pendulum_solve.plain(*args[:4], step4, **cfg8)
+            by_cluster = {}
+            for ctas in pend.CLUSTER_SIZES:
+                try:
+                    pend.solve_shape(pend.sampled_particles(n), HORIZON, ctas)
+                except ValueError:
+                    continue
+                if pend.max_active_clusters(pend.sampled_particles(n), HORIZON, ctas) < 1:
+                    continue
+                by_cluster[ctas] = pend.mppi_pendulum_solve(*args, **cfg8, ctas=ctas)
+            torch.cuda.synchronize()
+            if got.shape != (HORIZON, 1) or not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"one-kernel solve output bad at N={n}")
+            err = float((got - want).abs().max())
+            other_err = float((other - got).abs().max())
+            cluster_errs = {c: float((x - want).abs().max()) for c, x in by_cluster.items()}
+            errors[("solve8", n, lam)] = err
+            emit("kernel", name="mppi_pendulum_solve", n=n, h=HORIZON, lam=lam,
+                 ctas=pend.solve_cluster(pend.sampled_particles(n)), max_abs_err=err, atol=1e-5,
+                 launches_identical=torch.equal(got, again), other_step_err=other_err,
+                 max_abs_err_by_cluster=cluster_errs, mean_abs_max=float(want.abs().max()))
+            if (not err <= 1e-5 or not other_err > 10 * 1e-5 or not torch.equal(got, again)
+                    or not all(e_ <= 1e-5 for e_ in cluster_errs.values())):
+                raise RuntimeError(f"one-kernel solve check failed at N={n} lam={lam}: {err}, "
+                                   f"another step {other_err}, clusters {cluster_errs}")
 
     # 4. main path, with the plain and with the kernel noise sampler
     cfg = dict(d_action=env.d_action, horizon=HORIZON, num_particles=NUM_PARTICLES,
@@ -637,8 +870,8 @@ def main() -> int:
         action_host, state = sync_free(solve, env, env_state, state, N_SOLVES)
         main_counts[phase] = got = counts()
         emit(phase, solves=N_SOLVES, launches=got, action=action_host.tolist(),
-             step=state.step)
-        want = expected(chain=N_SOLVES, noise=N_SOLVES if s.noise_impl == "kernel" else 0)
+             step=int(state.step))
+        want = expected(chain=N_SOLVES, **noise_launches(s, N_SOLVES))
         if got != want:
             raise RuntimeError(f"{phase}: launches {got}, expected {want}")
 
@@ -680,7 +913,7 @@ def main() -> int:
         zoo_solves[key] = (solve, state)
         emit("zoo", solver=key, solves=ZOO_SOLVES, launches=got, action=action_host.tolist())
         roll_key = "obs" if key == "mppiq_q" else "chain"
-        want = expected(noise=ZOO_SOLVES, **{roll_key: ZOO_SOLVES})
+        want = expected(**noise_launches(s, ZOO_SOLVES), **{roll_key: ZOO_SOLVES})
         if got != want:
             raise RuntimeError(f"zoo {key}: launches {got}, expected {want}")
 
@@ -688,7 +921,7 @@ def main() -> int:
     nan_env = dataclasses.replace(env, fused_rollout=lambda p, s, mean, noise: torch.full(
         noise.shape[:2], float("nan"), device=noise.device))
     guarded = solvers.guard_finite(solvers.make_solve_fn(solver_k, nan_env), solver_k)
-    state = dataclasses.replace(solver_k.init_state(0), step=3)
+    state = dataclasses.replace(solver_k.init_state(0), step=rng.step_tensor(3, device))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -696,11 +929,11 @@ def main() -> int:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     fresh = solver_k.init_state(0)
-    ok = (bool((action == 0).all()) and float(value) == 0.0 and state.step == 4
+    ok = (bool((action == 0).all()) and float(value) == 0.0 and int(state.step) == 4
           and bool(torch.equal(state.mean, fresh.mean))
           and bool(torch.equal(state.cov, fresh.cov)))
-    emit("guard", action=action.cpu().numpy().tolist(), value=float(value), step=state.step,
-         reset=ok)
+    emit("guard", action=action.cpu().numpy().tolist(), value=float(value),
+         step=int(state.step), reset=ok)
     if not ok:
         raise RuntimeError("guard_finite did not reset the non-finite solve")
 
@@ -718,8 +951,9 @@ def main() -> int:
         cl_runs[key] = (solve, s, e, es, state)
         emit("closed_loop", env=e.name, n=s.num_particles, h=s.horizon, n_iters=s.n_iters,
              baseline=s.baseline_type, solves=ZOO_SOLVES, launches=got,
-             action=action_host.tolist(), fit_error=float(state.fit_error), step=state.step)
-        want = expected(cl=ZOO_SOLVES * s.n_iters)
+             action=action_host.tolist(), fit_error=float(state.fit_error),
+             step=int(state.step))
+        want = expected(cl=ZOO_SOLVES * s.n_iters, **noise_launches(s, ZOO_SOLVES))
         if got != want:
             raise RuntimeError(f"closed_loop {key}: launches {got}, expected {want}")
     s0 = rf.init_state(0)       # the first reacher solve's step, re-derived
@@ -785,8 +1019,9 @@ def main() -> int:
         loco_counts[name] = got = counts()
         loco_runs[name] = (solve, s, e, es, state, exp)
         emit("loco", env=name, config=path, n=s.num_particles, h=s.horizon,
-             solves=ZOO_SOLVES, launches=got, action=action_host.tolist(), step=state.step)
-        want = expected(ext=ZOO_SOLVES)
+             solves=ZOO_SOLVES, launches=got, action=action_host.tolist(),
+             step=int(state.step))
+        want = expected(ext=ZOO_SOLVES, **noise_launches(s, ZOO_SOLVES))
         if got != want or action_host.shape != (e.d_action,):
             raise RuntimeError(f"loco {name}: launches {got}, expected {want}")
 
@@ -846,8 +1081,8 @@ def main() -> int:
         hand_counts[name] = got = counts()
         hand_runs[name] = (solve, s, e, es, state, exp)
         emit("hand", env=name, config=path, n=s.num_particles, h=s.horizon, solves=ZOO_SOLVES,
-             launches=got, action=action_host.tolist(), step=state.step)
-        want = expected(forest=ZOO_SOLVES)
+             launches=got, action=action_host.tolist(), step=int(state.step))
+        want = expected(forest=ZOO_SOLVES, **noise_launches(s, ZOO_SOLVES))
         if got != want or action_host.shape != (e.d_action,):
             raise RuntimeError(f"hand {name}: launches {got}, expected {want}")
 
@@ -857,29 +1092,29 @@ def main() -> int:
     pend_runs, pend_counts = {}, {}
     for controller in PENDULUM_CONTROLLERS:
         s = hconfig.make_solver_for_env(pend_exp, controller, pend_env)
-        es = pend_env.init(pend_env.params, 1)
+        es, state = pend_env.init(pend_env.params, 1), s.init_state(0)
         solve = solvers.make_solve_fn(s, pend_env)
         reset_counts(*counters)
-        action_host, state = sync_free(solve, pend_env, es, s.init_state(0), ZOO_SOLVES)
+        action_host, state = sync_free(solve, pend_env, es, state, ZOO_SOLVES)
         pend_counts[controller] = got = counts()
         pend_runs[controller] = (solve, s, es, state)
         emit("pendulum", controller=controller, config=PENDULUM_CONFIG, n=s.num_particles,
              h=s.horizon, solves=ZOO_SOLVES, launches=got, action=action_host.tolist())
-        if got != expected(pendulum=ZOO_SOLVES) or action_host.shape != (1,):
-            raise RuntimeError(f"pendulum {controller}: launches {got}, expected "
-                               f"{expected(pendulum=ZOO_SOLVES)}")
+        want = expected(pendulum=ZOO_SOLVES, **noise_launches(s, ZOO_SOLVES))
+        if got != want or action_host.shape != (1,):
+            raise RuntimeError(f"pendulum {controller}: launches {got}, expected {want}")
 
     def one_kernel_loop(es, steps: int):
         """The JAX package's closed loop on kernel #8: solve, step with the
-        clipped first action, shift the mean with a zero last row; the
-        rewards stay on the device."""
-        mean, rewards = torch.zeros(HORIZON, 1, device=device), []
-        for t in range(steps):
-            mean = pend.mppi_pendulum_solve(pend_env.params, es, mean, 1000 + t, **ONE_KERNEL)
-            es, _, reward, _ = pend_env.step(pend_env.params, es, pend_env.clip_action(mean[0]))
+        clipped first action, shift the mean with a zero last row, advance
+        the step on the device; the rewards stay on the device."""
+        solve = one_kernel_solve_fn(ONE_KERNEL["num_particles"])
+        state, rewards = one_kernel_start(device), []
+        for _ in range(steps):
+            action, _, state = solve(pend_env.params, es, state)
+            es, _, reward, _ = pend_env.step(pend_env.params, es, pend_env.clip_action(action))
             rewards.append(reward)
-            mean = torch.cat([mean[1:], torch.zeros_like(mean[:1])])
-        return torch.stack(rewards), mean
+        return torch.stack(rewards), state.mean
 
     loop_start = pend_env.init(pend_env.params, 1)
     reset_counts(*counters)
@@ -899,7 +1134,25 @@ def main() -> int:
     if loop_counts != expected(one_kernel_solve=ONE_KERNEL_STEPS) or not total > -400.0:
         raise RuntimeError(f"one-kernel closed loop: launches {loop_counts}, total reward {total}")
 
-    # 13. the episode runner with each config's own solver(s)
+    # 13. one solve of each family captured as a CUDA graph and replayed
+    graph_solves = {
+        "mppi_kernel_noise_guarded": (solvers.guard_finite(solvers.make_solve_fn(solver_k, env),
+                                                           solver_k), env, env_state,
+                                      solver_k.init_state(0)),
+        "mppi_plain_noise": (solvers.make_solve_fn(solver, env), env, env_state,
+                             solver.init_state(0)),
+        "pfmpc": (zoo_solves["pfmpc"][0], env, env_state, zoo["pfmpc"].init_state(0)),
+        "reinforce_peg_cl": (cl_runs["peg"][0], peg_env, cl_runs["peg"][3],
+                             rf_peg.init_state(0)),
+        "one_kernel_n1024": (one_kernel_solve_fn(ONE_KERNEL["num_particles"]), pend_env,
+                             loop_start, one_kernel_start(device)),
+    }
+    graph_results = {}
+    for name, (solve, e, es, state) in graph_solves.items():
+        reset_counts(*counters)
+        graph_results[name] = graph_check(name, solve, e, es, state)
+
+    # 14. the episode runner with each config's own solver(s)
     reacher_exp = hconfig.load_config("configs/reacher_7dof-v0.yml")
     harness_runs = [(name, "mppi", run[5], run[2]) for name, run in loco_runs.items()]
     harness_runs += [("reacher_7dof-v0", c, reacher_exp, env)
@@ -924,18 +1177,18 @@ def main() -> int:
         if out["rewards"].shape != (1, steps) or not np.isfinite(out["rewards"]).all():
             raise RuntimeError(f"harness {name} {controller}: rewards not finite")
 
-    # 14. timing (printed, not asserted)
+    # 15. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
     times = {
         "chain_rollout": (cuda_ms(lambda: roll(*args), 20), cuda_ms(lambda: roll.plain(*args), 2)),
         "chain_obs_rollout": (cuda_ms(lambda: roll_obs(*args), 20),
                               cuda_ms(lambda: roll_obs.plain(*args), 2)),
-        "filtered_noise": (
-            cuda_ms(lambda: sampler.white(5, NUM_PARTICLES, HORIZON, D_ACTION, FILTER, device),
-                    50),
-            cuda_ms(lambda: sampler.white_plain(5, NUM_PARTICLES, HORIZON, D_ACTION, FILTER,
-                                                device), 5)),
     }
+    for n, h, d_action in bounds.NOISE_SIZES:      # kernel #2, uncoloured
+        times[f"filtered_noise_{n}_{h}_{d_action}"] = (
+            cuda_ms(lambda: sampler.white(5, step5, n, h, d_action, FILTER), 50),
+            cuda_ms(lambda: sampler.white_plain(5, step5, n, h, d_action, FILTER), 5))
+    times["filtered_noise"] = times[f"filtered_noise_{NUM_PARTICLES}_{HORIZON}_{D_ACTION}"]
     for n, h in OPEN_LOOP_SIZES:     # kernel #1 at the reacher configs' sizes
         more = reacher_inputs(n, h, 0, device)
         times[f"chain_rollout_n{n}_h{h}"] = (cuda_ms(lambda: roll(*more), 20),
@@ -945,11 +1198,20 @@ def main() -> int:
                            ("peg", PEG_CL["num_particles"], PEG_CL["horizon"]))):
         times[kname] = (cuda_ms(lambda: r(*cl_args[key]), 20),
                         cuda_ms(lambda: r.plain(*cl_args[key]), 2))
-    sampler_ms = (cuda_ms(lambda: sampler(5, cov3, (NUM_PARTICLES, HORIZON), FILTER), 50),
+    cov3 = 3.0 * torch.eye(D_ACTION, device=device)
+    sampler_ms = (cuda_ms(lambda: sampler(5, step5, cov3, (NUM_PARTICLES, HORIZON), FILTER), 50),
                   cuda_ms(lambda: solver.sample_noise(solver.init_state(5)), 5))
     emit("kernel_time", card=smi, sampler_with_colouring_ms=sampler_ms[0],
          plain_sampler_ms=sampler_ms[1],
          **{k: {"ms": v[0], "plain_ms": v[1]} for k, v in times.items()})
+    for n, h, d_action in bounds.NOISE_SIZES:
+        inst = bounds.noise_instance(n, h, d_action)
+        key = f"filtered_noise_{n}_{h}_{d_action}"
+        emit("kernel_noise", name="filtered_noise", n=n, h=h, d_action=d_action,
+             ms=times[key][0], plain_ms=times[key][1], bound_ms=inst["bound_ms"],
+             bound_by=inst["bound_by"], max_abs_err=errors[("noise", n, h, d_action)],
+             ptxas=[ln.strip() for ln in sampler.library().ptxas.splitlines()
+                    if re.search(r"registers|spill|stack|smem", ln)], card=smi)
     for key, r, n, h in [("chain_rollout", roll, NUM_PARTICLES, HORIZON),
                          ("chain_obs_rollout", roll_obs, NUM_PARTICLES, HORIZON)] + [
             (f"chain_rollout_n{n}_h{h}", roll, n, h) for n, h in OPEN_LOOP_SIZES]:
@@ -978,6 +1240,12 @@ def main() -> int:
          **{k: statistics.median(v) for k, v in rates.items()},
          **{k + "_windows": v for k, v in rates.items()},
          plain_rollout=plain_rate, plain_rollout_windows=plain_windows)
+    graph_rates = {which: graph_solves_per_s(solve, env, env_state, s.init_state(0), 20, 5)
+                   for which, (solve, s) in variants.items()}
+    emit("graph_solves_per_s", card=smi, n=NUM_PARTICLES, h=HORIZON,
+         **{k: v[0] for k, v in graph_rates.items()},
+         **{k + "_windows": v[1] for k, v in graph_rates.items()},
+         **{"eager_" + k: statistics.median(v) for k, v in rates.items()})
     zoo_rates = {}
     for key, (solve, state) in zoo_solves.items():
         zoo_rates[key], _, _ = solves_per_s(solve, env, env_state, state, 10, 5)
@@ -1031,18 +1299,6 @@ def main() -> int:
     # the pendulum: kernels #7 and #8 per call; MPPI through kernel #7 (the
     # config's plain sampler, and the kernel sampler) against kernel #8's
     # one-launch solve
-    def one_kernel_solve_fn(n: int):
-        """Kernel #8 as a chained solve: (params, env state, (mean, step))
-        -> (action, None, (shifted mean, step + 1))."""
-        cfg8 = dict(ONE_KERNEL, num_particles=n)
-
-        def solve(params, es, carry):
-            mean, step = carry
-            mean = pend.mppi_pendulum_solve(params, es, mean, 1000 + step, **cfg8)
-            return mean[0], None, (torch.cat([mean[1:], torch.zeros_like(mean[:1])]), step + 1)
-
-        return solve
-
     pend_times = {}
     for n, h in bounds.PENDULUM_SIZES[7]:
         args = pend_args[(n, h)]
@@ -1060,7 +1316,7 @@ def main() -> int:
                        mppi_cfg, num_particles=2048, noise_impl="kernel"))):
         pend_rates[key], _, _ = solves_per_s(solvers.make_solve_fn(s, pend_env), pend_env,
                                              pend_es, s.init_state(0), 20, 5)
-    one_kernel_state = (torch.zeros(HORIZON, 1, device=device), 0)
+    one_kernel_state = one_kernel_start(device)
     pend_rates["one_kernel_n2048"], _, _ = solves_per_s(one_kernel_solve_fn(2048), pend_env,
                                                         pend_es, one_kernel_state, 20, 5)
     emit("pendulum_time", card=smi,
@@ -1157,7 +1413,7 @@ def main() -> int:
          errors[("costs", "reacher", n, h)], bound[1]),
         ("filtered_noise", "mjmpc_tpu_torch/csrc/filtered_noise.cu",
          "mjmpc_tpu/ops/pallas_kernels.py:73", main_counts["main_kernel_noise"]["noise"],
-         errors[("noise", n, h)], bound[2]),
+         errors[("noise", n, h, D_ACTION)], bound[2]),
         ("chain_obs_rollout", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
          "mjmpc_tpu/ops/pallas_chain.py:572", zoo_counts["mppiq_q"]["obs"],
          errors[("obs", "reacher", n, h)], bound[3]),
@@ -1212,6 +1468,7 @@ def main() -> int:
                            launches_per_solve=pend_counts["mppi"]["pendulum"] / ZOO_SOLVES)
                       if number == 7 else
                       dict(sampled=pend.sampled_particles(n), launches_per_solve=1.0,
+                           ctas=pend.solve_cluster(pend.sampled_particles(n)),
                            max_abs_err=max(errors[("solve8", n, lam)] for lam in (0.01, 1.0))))
             emit("kernel_pendulum", number=number, kernel=inst["kernel"], n=n, h=h,
                  ms=pend_times[(number, n)][0], plain_ms=pend_times[(number, n)][1],

@@ -4,9 +4,11 @@ The JAX package `mjmpc_tpu` stays the reference; this package mirrors its
 layout (ops, engine, envs, rollout, solvers, policies) in PyTorch idiom:
 plain functions over tensors, frozen dataclasses holding tensors, a
 `device` on every entry point (the CUDA card unless the caller asks for
-the CPU) and explicit `torch.Generator`s. The hot rollouts and the
-filtered-noise sampler run in hand-written CUDA kernels (csrc/) built by
-nvcc at first use (kernels/build.py).
+the CPU) and counter-based random streams: Philox under a key from
+(seed, tag) at the solver state's step, a device tensor (rng.py), so that
+a solve can be captured as a CUDA graph and replayed. The hot rollouts
+and the filtered-noise sampler run in hand-written CUDA kernels (csrc/)
+built by nvcc at first use (kernels/build.py).
 
 This package never imports jax.
 """

@@ -150,11 +150,27 @@ def forest_instance(roll: ForestRollout, n: int, h: int) -> dict:
                 bound_ms=ms, bound_by=by)
 
 
+# Kernel #2 at the shapes chip_smoke.py checks and times: the main path's
+# (N=4096, H=32, dA=7), a ragged one and the hand envs' dA=30.
+NOISE_SIZES = ((37, 5, 7), (4096, 32, 7), (512, 32, 30))
+
+
+def noise_instance(n: int, h: int, d_action: int) -> dict:
+    """Kernel #2 (the filtered-noise kernel) at [N, H, dA]: N H dA floats
+    written against noise_flops, counted from csrc/filtered_noise.cuh."""
+    n_bytes, n_ops = F32 * n * h * d_action, noise_flops(n, h, d_action)
+    ms, by = bound_ms(n_bytes, n_ops)
+    return dict(number=2, kernel="_noise_kernel", n=n, h=h, widths=f"dA={d_action}",
+                bytes=n_bytes, operations=n_ops, operations_from="csrc/filtered_noise.cuh",
+                bound_ms=ms, bound_by=by)
+
+
 # Kernels #7 and #8 at the sizes chip_smoke.py times: #7 at
 # configs/SimplePendulum-v0.yml's N (mppi 4 x 6, the others 4 x 16), H=32,
-# and at N=2048 and 4096; #8 at N=1024 (the JAX package's closed loop) and
-# 2048.
-PENDULUM_SIZES = {7: ((24, 32), (64, 32), (2048, 32), (4096, 32)), 8: ((1024, 32), (2048, 32))}
+# and at N=2048 and 4096; #8 at N=128 (the least it samples), 1024 (the JAX
+# package's closed loop), 2048 and 8192 (the top of the TPU kernel's range).
+PENDULUM_SIZES = {7: ((24, 32), (64, 32), (2048, 32), (4096, 32)),
+                  8: ((128, 32), (1024, 32), (2048, 32), (8192, 32))}
 
 
 def pendulum_instance(number: int, n: int, h: int) -> dict:
@@ -184,6 +200,8 @@ def main() -> None:
         print(json.dumps(ext_instance(_loco_rollout(name), *size)))
     for name, size in FOREST_SIZES.items():
         print(json.dumps(forest_instance(_forest_rollout(name), *size)))
+    for size in NOISE_SIZES:
+        print(json.dumps(noise_instance(*size)))
     for number, sizes in PENDULUM_SIZES.items():
         for size in sizes:
             print(json.dumps(pendulum_instance(number, *size)))

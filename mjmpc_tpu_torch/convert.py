@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import rng
 from .engine.chain import ChainModel
 from .envs.half_cheetah import CheetahParams, CheetahState
 from .envs.pen import PenParams, PenState
@@ -53,7 +54,8 @@ def gaussian_state_from_reference(state, seed: int = 0,
     The reference PRNG key has no torch counterpart: the port's streams
     start from `seed`."""
     return GaussianState(mean=_t(state.mean, device), cov=_t(state.cov, device),
-                         step=int(np.asarray(state.step)), seed=int(seed))
+                         step=rng.step_tensor(int(np.asarray(state.step)), device),
+                         seed=int(seed))
 
 
 def reacher_state_from_reference(state, seed: int = 0,
@@ -89,7 +91,8 @@ def reinforce_state_from_reference(state, seed: int = 0, device="cuda") -> Reinf
                           vf_weights=_t(state.vf_weights, device),
                           vf_bias=_t(state.vf_bias, device),
                           fit_error=_t(state.fit_error, device),
-                          step=int(np.asarray(state.step)), seed=int(seed))
+                          step=rng.step_tensor(int(np.asarray(state.step)), device),
+                          seed=int(seed))
 
 
 def vf_params_from_reference(params, device="cuda") -> VFParams:

@@ -11,17 +11,29 @@
 //
 // Kernel #8, mppi_pendulum_solve_kernel, replaces `_mppi_solve_kernel`
 // (built by `mppi_pendulum_solve_pallas`): one whole MPPI solve in one
-// launch of one block. As the TPU kernel does, it samples n =
-// round_up(max(N, 128), 128) particles, every one of them live in the
-// softmax and the mean. Pass 1: each thread takes particles tid, tid +
-// blockDim, ... and for each draws its noise (Philox, the filtered-noise
-// kernel's counter layout, so that ops/noise.py philox_normals reproduces
-// it bit for bit), filters and scales it, rolls the pendulum out and takes
-// the cost-to-go at t = 0 (pendulum.cuh solve_particle); eps and costs go
-// to [n, H] scratch in device memory. Then a block-wide max and sum give
-// the softmax weights of -ctg / lam. Pass 3: warp w forms the weighted
-// sums of rows t = w, w + 32, ... over all n particles and writes the
-// step-size blend of the old mean and that sum.
+// launch. As the TPU kernel does, it samples n = round_up(max(N, 128), 128)
+// particles, every one of them live in the softmax and the mean. It reads
+// its stream's step from device memory, as the TPU kernel reads `seed_ref`,
+// so that a launch captured in a CUDA graph draws anew on every replay.
+//
+// One launch is one thread-block cluster of C CTAs (C chosen at launch
+// from n, ops/pendulum.py solve_cluster); CTA r owns particles [r m, (r+1)
+// m), m = n / C, and keeps all of their state in its shared memory:
+//   1. its threads cover the (particle, step-pair) items, one Philox call
+//      and two Box-Muller normals each (pendulum.cuh noise_item), into an
+//      [H, m] tile, particle fastest;
+//   2. one thread per particle filters and scales its row, rolls the
+//      pendulum out, keeps its costs in a second [H, m] tile and takes the
+//      cost-to-go at t = 0 (pendulum.cuh solve_row);
+//   3. the max and the sum of the softmax of -ctg / lam are reduced in the
+//      CTA and then across the cluster through distributed shared memory:
+//      a warp's lane r reads rank r's value and one fixed shuffle tree adds
+//      them, so that every CTA holds the same total; the weights are ex *
+//      (1 / total);
+//   4. each CTA forms its partial weighted sums over its particles, one warp
+//      per row t; rank 0 adds the C partials of each row by the same tree
+//      and writes the step-size blend of the old mean and that sum.
+// No atomics and no global scratch: two launches agree bit for bit.
 //
 // Both read the start state and the six params from device memory (eight
 // floats, pendulum.cuh Scalar), so no solve reads a value back to the host.
@@ -31,30 +43,43 @@
 // so the bytes bound it (0.31 us at N=4096, H=32); #8 reads and writes
 // only 2 H + 8 floats against about 100 operations per particle-step
 // (noise and Philox, the step, the weighted sum), so the operations bound
-// it. Limits of this first version:
+// it. Limits:
 //   - #7's thread reads its noise row and writes its cost row, H floats
 //     apart from the next thread's, so a warp's accesses are not coalesced;
 //     each thread runs its H steps serially, so the kernel takes one
 //     thread's latency at any N the card holds at once;
-//   - #8 is one block on one SM of 132: a thread walks ceil(n / 1024)
-//     particles' H-step rollouts in turn, and the block waits at two
-//     reductions. Several blocks would need a reduction across blocks.
+//   - #8's particle runs its H steps serially on one thread, and the
+//     cluster syncs four times.
 //
 // IEEE f32 math: built without --use_fast_math (sinf, expf, fmodf, not
 // their intrinsics) and with -fmad=false, so that the kernels round as the
 // plain PyTorch version's separate operations do.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "pendulum.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kRolloutBlock = 128;
 constexpr int kSolveMaxBlock = 1024;
 constexpr int kWarp = 32;
+
+// The card's largest dynamic shared memory a block can opt into, read once.
+int max_dynamic_smem() {
+    static int bytes = -1;
+    if (bytes < 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    return bytes;
+}
 
 __global__ void pendulum_rollout_kernel(const float* __restrict__ scalars,
                                         const float* __restrict__ mean,
@@ -76,7 +101,8 @@ __device__ float warp_sum(float v) {
     return v;
 }
 
-// Block-wide reduction through shared memory; every thread gets the result.
+// Block-wide reduction through shared memory (32 floats); every thread
+// gets the result. blockDim.x is a multiple of 32.
 template <bool kMax>
 __device__ float block_reduce(float v, float* shared) {
     const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
@@ -90,46 +116,94 @@ __device__ float block_reduce(float v, float* shared) {
     return v;
 }
 
-// scratch: eps [n, H], costs [n, H], then ex [n] (the softmax numerators).
-__global__ void mppi_pendulum_solve_kernel(unsigned long long seed,
-                                           const float* __restrict__ scalars,
-                                           const float* __restrict__ mean,
-                                           float* __restrict__ out, float* __restrict__ scratch,
-                                           int n, int horizon, float b0, float b1, float b2,
-                                           int filter, float sigma, float inv_lam, float keep,
-                                           float step_size, float gamma) {
-    __shared__ float shared[kWarp];
-    float* eps = scratch;
-    float* costs = eps + static_cast<size_t>(n) * horizon;
-    float* ex = costs + static_cast<size_t>(n) * horizon;
+// Shared memory of one CTA, in floats: the mean [H], the partial weighted
+// sums [H], the block reductions' scratch [32], the CTA's max and sum for
+// the cluster [2], the weights [m], then the eps and cost tiles [H, m].
+__host__ __device__ constexpr size_t solve_smem_floats(int m, int horizon) {
+    return 2 * static_cast<size_t>(horizon) + kWarp + 2 + m + 2 * static_cast<size_t>(horizon) * m;
+}
 
-    float local_max = -INFINITY;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const float acc = pendulum::solve_particle(seed, scalars, mean, i, horizon, b0, b1, b2,
-                                                   filter != 0, sigma, gamma, eps, costs);
-        const float neg = -acc * inv_lam;
-        ex[i] = neg;
-        local_max = fmaxf(local_max, neg);
+__global__ void __launch_bounds__(kSolveMaxBlock)
+    mppi_pendulum_solve_kernel(unsigned long long key, const long long* __restrict__ step,
+                               const float* __restrict__ scalars, const float* __restrict__ mean,
+                               float* __restrict__ out, int m, int horizon, float b0, float b1,
+                               float b2, int filter, float sigma, float inv_lam, float keep,
+                               float step_size, float gamma) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int n_ctas = static_cast<int>(cluster.num_blocks());
+    extern __shared__ float smem[];
+    float* mean_s = smem;
+    float* part = mean_s + horizon;
+    float* red = part + horizon;
+    float* mine = red + kWarp;          // [0] the CTA's max, [1] its sum
+    float* w = mine + 2;
+    float* eps = w + m;
+    float* cost = eps + static_cast<size_t>(horizon) * m;
+    const int tid = threadIdx.x;
+
+    for (int t = tid; t < horizon; t += blockDim.x) mean_s[t] = mean[t];
+    // 1. the white normals of the CTA's particles
+    const uint32_t k0 = static_cast<uint32_t>(key), k1 = static_cast<uint32_t>(key >> 32);
+    const uint32_t s = static_cast<uint32_t>(*step);
+    const int pairs = (horizon + 1) / 2;
+    for (int k = tid; k < m * pairs; k += blockDim.x) {
+        const int i = k % m;
+        pendulum::noise_item(k0, k1, s, rank * m + i, k / m, eps + i, m, horizon);
     }
-    const float top = block_reduce<true>(local_max, shared);
+    __syncthreads();
 
-    float local_sum = 0.0f;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const float e = expf(ex[i] - top);
-        ex[i] = e;
-        local_sum += e;
+    // 2. one thread per particle: filter, scale, roll out, cost-to-go
+    float neg = -INFINITY;
+    if (tid < m) {
+        const pendulum::Model model = pendulum::model(scalars);
+        const float acc = pendulum::solve_row(model, scalars[pendulum::TH0],
+                                              scalars[pendulum::THDOT0], mean_s, eps + tid,
+                                              cost + tid, m, horizon, b0, b1, b2, filter != 0,
+                                              sigma, gamma);
+        neg = -acc * inv_lam;
+        w[tid] = neg;
     }
-    const float total = block_reduce<false>(local_sum, shared);   // syncs: ex[] is complete
 
-    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+    // 3. the softmax's max and sum, over the CTA, then over the cluster
+    const float cta_max = block_reduce<true>(neg, red);
+    if (tid == 0) mine[0] = cta_max;
+    cluster.sync();
+    // every warp reads the C values, lane r rank r's, and reduces them by
+    // the same shuffle tree, so every thread of every CTA gets the same
+    const int lane = tid % kWarp, warp = tid / kWarp;
+    const float top = warp_max(lane < n_ctas ? cluster.map_shared_rank(mine, lane)[0] : -INFINITY);
+    float ex = 0.0f;
+    if (tid < m) {
+        ex = expf(w[tid] - top);
+        w[tid] = ex;
+    }
+    const float cta_sum = block_reduce<false>(ex, red);
+    if (tid == 0) mine[1] = cta_sum;
+    cluster.sync();
+    const float total = warp_sum(lane < n_ctas ? cluster.map_shared_rank(mine, lane)[1] : 0.0f);
+    const float inv_total = 1.0f / total;
+    if (tid < m) w[tid] = w[tid] * inv_total;
+    __syncthreads();
+
+    // 4. the CTA's weighted sums of mean + eps, one warp per row t
     for (int t = warp; t < horizon; t += blockDim.x / kWarp) {
-        const float mt = mean[t];
+        const float mt = mean_s[t];
+        const float* row = eps + static_cast<size_t>(t) * m;
         float acc = 0.0f;
-        for (int i = lane; i < n; i += kWarp)
-            acc += (ex[i] / total) * (mt + eps[static_cast<size_t>(i) * horizon + t]);
+        for (int i = lane; i < m; i += kWarp) acc += w[i] * (mt + row[i]);
         acc = warp_sum(acc);
-        if (lane == 0) out[t] = keep * mt + step_size * acc;
+        if (lane == 0) part[t] = acc;
     }
+    cluster.sync();
+    if (rank == 0) {    // row t: lane r reads rank r's partial sum
+        for (int t = warp; t < horizon; t += blockDim.x / kWarp) {
+            const float acc =
+                warp_sum(lane < n_ctas ? cluster.map_shared_rank(part, lane)[t] : 0.0f);
+            if (lane == 0) out[t] = keep * mean_s[t] + step_size * acc;
+        }
+    }
+    cluster.sync();   // no CTA leaves while rank 0 reads its partial sums
 }
 
 }  // namespace
@@ -148,16 +222,85 @@ int pendulum_rollout_launch(const float* scalars, const float* mean, const float
     return static_cast<int>(cudaGetLastError());
 }
 
-// n: the sampled particle count, a multiple of 32 (the wrapper rounds the
-// caller's N up to a multiple of 128).
-int mppi_pendulum_solve_launch(unsigned long long seed, const float* scalars, const float* mean,
-                               float* out, float* scratch, int n, int horizon, float b0,
-                               float b1, float b2, int filter, float sigma, float inv_lam,
-                               float keep, float step_size, float gamma, void* stream) {
-    const int block = n < kSolveMaxBlock ? n : kSolveMaxBlock;
-    mppi_pendulum_solve_kernel<<<1, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        seed, scalars, mean, out, scratch, n, horizon, b0, b1, b2, filter, sigma, inv_lam, keep,
-        step_size, gamma);
+// Once, before any launch (and before any graph capture): lets kernel #8
+// take clusters of up to 16 CTAs and the card's largest dynamic shared
+// memory. Returns 0 or a cudaError_t.
+int mppi_pendulum_solve_setup() {
+    cudaError_t rc = cudaFuncSetAttribute(mppi_pendulum_solve_kernel,
+                                          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    return static_cast<int>(cudaFuncSetAttribute(mppi_pendulum_solve_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 max_dynamic_smem()));
+}
+
+// Kernel #8's launch shape for n sampled particles in clusters of `ctas`:
+// threads a CTA (one per (particle, step pair) item, at most 1024, at least
+// one per particle) and dynamic shared memory bytes. Returns 0, or
+// cudaErrorInvalidValue when n is not a multiple of ctas, a CTA would hold
+// more than 1024 particles or its tiles do not fit in shared memory.
+int mppi_pendulum_solve_shape(int n, int horizon, int ctas, int* threads, int* smem_bytes) {
+    if (ctas < 1 || n % ctas != 0 || horizon < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int m = n / ctas;
+    const long long items = static_cast<long long>(m) * ((horizon + 1) / 2);
+    long long t = (items + kWarp - 1) / kWarp * kWarp;
+    if (t > kSolveMaxBlock) t = kSolveMaxBlock;
+    const size_t bytes = solve_smem_floats(m, horizon) * sizeof(float);
+    if (m > kSolveMaxBlock || bytes > static_cast<size_t>(max_dynamic_smem()))
+        return static_cast<int>(cudaErrorInvalidValue);
+    *threads = static_cast<int>(t);
+    *smem_bytes = static_cast<int>(bytes);
+    return 0;
+}
+
+// The clusters of `ctas` CTAs of kernel #8's shape for (n, horizon) that the
+// card can hold at once (cudaOccupancyMaxActiveClusters); 0 when none fits.
+int mppi_pendulum_solve_max_clusters(int n, int horizon, int ctas, int* clusters) {
+    int threads = 0, bytes = 0;
+    int rc = mppi_pendulum_solve_shape(n, horizon, ctas, &threads, &bytes);
+    if (rc != 0) return rc;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(ctas);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = bytes;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    return static_cast<int>(
+        cudaOccupancyMaxActiveClusters(clusters, mppi_pendulum_solve_kernel, &config));
+}
+
+// n: the sampled particle count, a multiple of 128 (the wrapper rounds the
+// caller's N up); ctas: the cluster's size, dividing n. `step` points at
+// the int64 step on the device. One cluster of `ctas` CTAs.
+int mppi_pendulum_solve_launch(unsigned long long key, const long long* step,
+                               const float* scalars, const float* mean, float* out, int n,
+                               int horizon, int ctas, float b0, float b1, float b2, int filter,
+                               float sigma, float inv_lam, float keep, float step_size,
+                               float gamma, void* stream) {
+    int threads = 0, bytes = 0;
+    int rc = mppi_pendulum_solve_shape(n, horizon, ctas, &threads, &bytes);
+    if (rc != 0) return rc;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(ctas);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = bytes;
+    config.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    rc = static_cast<int>(cudaLaunchKernelEx(&config, mppi_pendulum_solve_kernel, key, step,
+                                             scalars, mean, out, n / ctas, horizon, b0, b1, b2,
+                                             filter, sigma, inv_lam, keep, step_size, gamma));
+    if (rc != 0) return rc;
     return static_cast<int>(cudaGetLastError());
 }
 

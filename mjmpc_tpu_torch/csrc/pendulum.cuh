@@ -1,6 +1,6 @@
 // Per-thread arithmetic of the pendulum kernels (pendulum.cu): the
 // analytic pendulum's control step, one particle's open-loop rollout
-// (kernel #7) and one particle's share of the one-kernel MPPI solve
+// (kernel #7) and the one-kernel MPPI solve's noise item and particle row
 // (kernel #8). Host-and-device code, so the same source also compiles as
 // plain C++ (tests/test_torch_pendulum.py checks it on the CPU that way);
 // the plain PyTorch version is mjmpc_tpu_torch/ops/pendulum.py, which
@@ -76,27 +76,37 @@ PENDULUM_FN void rollout_particle(const float* s, const float* mean, const float
     for (int t = 0; t < horizon; ++t) costs[t] = step(m, mean[t] + noise[t], th, thdot);
 }
 
-// Kernel #8, particle i: its noise row eps[i, t] = sigma * e[t], e the
-// AR(2)-filtered normals of the filtered-noise kernel's Philox counter
-// (i, 0, t / 2, 0) under `seed` (filtered_noise.cuh noise_column), the
-// rollout of mean[t] + eps[i, t] with its costs in costs[i, t], and the
-// return value: the cost-to-go at t = 0 by the backward recurrence
-// acc = c[H-1], acc = c[t] + gamma acc. eps and costs are [n, horizon]
-// scratch arrays.
-PENDULUM_FN float solve_particle(uint64_t seed, const float* s, const float* mean, int i,
-                                 int horizon, float b0, float b1, float b2, bool filter,
-                                 float sigma, float gamma, float* eps, float* costs) {
-    filtered_noise::noise_column(seed, b0, b1, b2, filter, i, 0, horizon, 1, eps);
-    float* e = eps + static_cast<size_t>(i) * horizon;
-    float* c = costs + static_cast<size_t>(i) * horizon;
-    const Model m = model(s);
-    float th = s[TH0], thdot = s[THDOT0];
+// Kernel #8, phase 1, item (particle i, step pair p): its two white
+// normals, the filtered-noise kernel's counter (i, 0, p, step) under the
+// key (filtered_noise.cuh normal_pair), so that ops/noise.py
+// philox_normals reproduces them bit for bit. Written to the row's t = 2p
+// and, when H has it, t = 2p + 1, `stride` floats apart.
+PENDULUM_FN void noise_item(uint32_t k0, uint32_t k1, uint32_t step, int i, int p, float* row,
+                            int stride, int horizon) {
+    float z0, z1;
+    filtered_noise::normal_pair(k0, k1, static_cast<uint32_t>(i), 0u, static_cast<uint32_t>(p),
+                                step, z0, z1);
+    row[static_cast<size_t>(2 * p) * stride] = z0;
+    if (2 * p + 1 < horizon) row[static_cast<size_t>(2 * p + 1) * stride] = z1;
+}
+
+// Kernel #8, phase 2, one particle: its row e[t * stride] holds its white
+// normals on entry and eps[t] = sigma * AR(2)(white)[t] on return; c[t *
+// stride] gets the costs of the rollout of mean[t] + eps[t] from (th0,
+// thdot0). Returns the cost-to-go at t = 0 by the backward recurrence acc =
+// c[H-1], acc = c[t] + gamma acc (ops/pendulum.py mppi_blend_plain).
+PENDULUM_FN float solve_row(const Model& m, float th, float thdot, const float* mean, float* e,
+                            float* c, int stride, int horizon, float b0, float b1, float b2,
+                            bool filter, float sigma, float gamma) {
+    if (filter) filtered_noise::filter_column(e, stride, horizon, b0, b1, b2);
     for (int t = 0; t < horizon; ++t) {
-        e[t] = sigma * e[t];
-        c[t] = step(m, mean[t] + e[t], th, thdot);
+        const size_t at = static_cast<size_t>(t) * stride;
+        const float et = sigma * e[at];
+        e[at] = et;
+        c[at] = step(m, mean[t] + et, th, thdot);
     }
-    float acc = c[horizon - 1];
-    for (int t = horizon - 2; t >= 0; --t) acc = c[t] + gamma * acc;
+    float acc = c[static_cast<size_t>(horizon - 1) * stride];
+    for (int t = horizon - 2; t >= 0; --t) acc = c[static_cast<size_t>(t) * stride] + gamma * acc;
     return acc;
 }
 

@@ -9,7 +9,8 @@ from .control import (
     gaussian_logprobgrad,
     scale_ctrl,
 )
-from .noise import FilteredNoise, ar_filter, colour, filtered_noise, gaussian_noise
+from .noise import (FilteredNoise, PhiloxUniforms, ar_filter, colour, filtered_noise,
+                    standard_normals, uniforms)
 
 __all__ = [
     "clip_ctrl",
@@ -22,8 +23,10 @@ __all__ = [
     "gaussian_logprobgrad",
     "scale_ctrl",
     "FilteredNoise",
+    "PhiloxUniforms",
     "ar_filter",
     "colour",
     "filtered_noise",
-    "gaussian_noise",
+    "standard_normals",
+    "uniforms",
 ]

@@ -1,4 +1,4 @@
-"""Autoregressive-filtered Gaussian action noise.
+"""Autoregressive-filtered Gaussian action noise, keyed by (key, step).
 
 Counterpart of mjmpc_tpu/ops/noise.py. The AR(2) IIR filter along the
 horizon
@@ -6,15 +6,21 @@ horizon
     eps[:, i] = b0*eps[:, i] + b1*eps[:, i-1] + b2*eps[:, i-2]   for i >= 2
 
 (previous values already filtered; eps[:, 0] and eps[:, 1] unfiltered) is a
-Python loop over H on [N, dA] slices. Randomness comes from an explicit
-`torch.Generator`; the streams differ from JAX's, so parity tests inject
-noise made with numpy.
+Python loop over H on [N, dA] slices. Randomness is Philox4x32-10 under a
+stream's 64-bit key with the solver state's step, a 0-d int64 tensor on
+the device, as the last counter word (rng.py), so the same (key, step)
+gives the same noise, no draw reads the device, and a draw captured in a
+CUDA graph draws anew on every replay. The streams differ from JAX's, so
+parity tests inject noise made with numpy.
 
 `FilteredNoise` is the counterpart of mjmpc_tpu/ops/pallas_kernels.py
 filtered_noise_pallas: Philox bits, Box-Muller normals and the AR(2)
 filter in one CUDA kernel (csrc/filtered_noise.cu), then colouring by
 chol(cov) as one matmul. Its plain version below draws the same Philox
 bits in int64 tensor arithmetic, so kernel and plain agree to rounding.
+`filtered_noise` is the plain sampler (the JAX package's "xla" noise): the
+same kernel's normals with the filter off, coloured, then the filter as a
+loop of tensor operations.
 """
 from __future__ import annotations
 
@@ -53,21 +59,6 @@ def colour(white: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
     jitter = 1e-6 * torch.eye(d_action, dtype=cov.dtype, device=cov.device)
     chol = torch.linalg.cholesky_ex(cov + jitter).L
     return white @ chol.T.to(white.dtype)
-
-
-def gaussian_noise(generator: torch.Generator, cov: torch.Tensor, shape: tuple,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Draw eps ~ N(0, cov) of shape [*shape, dA] on cov's device."""
-    white = torch.randn(tuple(shape) + (cov.shape[0],), generator=generator,
-                        dtype=dtype, device=cov.device)
-    return colour(white, cov)
-
-
-def filtered_noise(generator: torch.Generator, cov: torch.Tensor, shape: tuple,
-                   filter_coeffs: Sequence[float] = (1.0, 0.0, 0.0),
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """AR(2)-filtered Gaussian noise [*shape, dA]."""
-    return ar_filter(gaussian_noise(generator, cov, shape, dtype), filter_coeffs)
 
 
 # ---------------------------------------------------------------------------
@@ -116,22 +107,45 @@ def _box_muller(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(-2.0 * torch.log(_uniform01(a))) * torch.cos(_TWO_PI_F32 * _uniform01(b))
 
 
-def philox_normals(seed: int, n: int, horizon: int, d_action: int,
-                   device) -> torch.Tensor:
+def _key_words(key: int) -> Tuple[int, int]:
+    key = int(key) & 0xFFFFFFFFFFFFFFFF
+    return key & _MASK32, key >> 32
+
+
+def check_step(step) -> torch.Tensor:
+    """A solver state's step: a 0-d int64 tensor (rng.step_tensor)."""
+    if not isinstance(step, torch.Tensor) or step.dtype != torch.int64 or step.dim() != 0:
+        raise TypeError("step must be a 0-d int64 torch.Tensor (rng.step_tensor)")
+    return step
+
+
+def philox_normals(key: int, step: torch.Tensor, n: int, horizon: int,
+                   d_action: int) -> torch.Tensor:
     """The kernel's standard normals [n, horizon, d_action] before the
-    filter: Philox counter (b, d, t // 2, 0) under the 64-bit seed, words
-    (x, y) for even t and (z, w) for odd t."""
-    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    key = (seed & _MASK32, seed >> 32)
+    filter, on step's device: Philox counter (b, d, t // 2, step) under the
+    64-bit key, words (x, y) for even t and (z, w) for odd t."""
+    step = check_step(step)
     pairs = (horizon + 1) // 2
-    idx = dict(dtype=torch.int64, device=device)
+    idx = dict(dtype=torch.int64, device=step.device)
     shape = (n, d_action, pairs)
     b = torch.arange(n, **idx).view(n, 1, 1).expand(shape)
     d = torch.arange(d_action, **idx).view(1, d_action, 1).expand(shape)
     t = torch.arange(pairs, **idx).view(1, 1, pairs).expand(shape)
-    x, y, z, w = philox4x32_10((b, d, t, torch.zeros_like(b)), key)
+    x, y, z, w = philox4x32_10((b, d, t, (step & _MASK32).expand(shape)), _key_words(key))
     normals = torch.stack([_box_muller(x, y), _box_muller(z, w)], -1)
     return normals.reshape(n, d_action, 2 * pairs)[..., :horizon].transpose(1, 2)
+
+
+def philox_uniforms(key: int, step: torch.Tensor, n: int) -> torch.Tensor:
+    """The uniforms kernel's [n] uniforms in [2^-25, 1) on step's device:
+    counter (q, 0xFFFFFFFF, 0, step) under the key gives uniforms 4q to
+    4q + 3 (csrc/filtered_noise.cuh uniform_quad)."""
+    step = check_step(step)
+    quads = (n + 3) // 4
+    q = torch.arange(quads, dtype=torch.int64, device=step.device)
+    words = philox4x32_10((q, torch.full_like(q, _MASK32), torch.zeros_like(q),
+                           (step & _MASK32).expand(quads)), _key_words(key))
+    return _uniform01(torch.stack(words, -1)).reshape(-1)[:n]
 
 
 def noise_flops(n: int, horizon: int, d_action: int) -> int:
@@ -151,13 +165,50 @@ def _check_coeffs(filter_coeffs) -> Tuple[float, float, float]:
     return coeffs
 
 
+_NO_FILTER = (1.0, 0.0, 0.0)
+_LIB = None
+
+
+def library() -> build.KernelLibrary:
+    """Build (at first use) and load the noise and uniforms kernels, and
+    let the noise kernel take the card's largest shared memory (before any
+    launch, so that no launch does it inside a captured graph)."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load("filtered_noise", "filtered_noise.cu", {})
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lib.filtered_noise_launch.argtypes = (
+            [ctypes.c_ulonglong, p] + [ctypes.c_float] * 3 + [i] * 5 + [p, p])
+        lib.lib.philox_uniforms_launch.argtypes = [ctypes.c_ulonglong, p, i, p, p]
+        for fn in (lib.lib.filtered_noise_launch, lib.lib.philox_uniforms_launch,
+                   lib.lib.filtered_noise_setup, lib.lib.filtered_noise_max_smem):
+            fn.restype = i
+        lib.lib.filtered_noise_error_string.argtypes = [i]
+        lib.lib.filtered_noise_error_string.restype = ctypes.c_char_p
+        _raise_on(lib, lib.lib.filtered_noise_setup(), "filtered_noise setup")
+        _LIB = lib
+    return _LIB
+
+
+def _raise_on(lib: build.KernelLibrary, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: " + lib.lib.filtered_noise_error_string(rc).decode())
+
+
+def _cuda_device(step: torch.Tensor) -> torch.device:
+    if step.device.type != "cuda":
+        raise ValueError(f"no noise kernel for device {step.device}")
+    return step.device
+
+
 class FilteredNoise:
-    """sampler(seed, cov [dA, dA], (N, H), filter_coeffs) -> [N, H, dA]
+    """sampler(key, step, cov [dA, dA], (N, H), filter_coeffs) -> [N, H, dA]
     float32 on cov's device: AR(2)-filtered normals from Philox under the
-    64-bit `seed`, coloured by chol(cov + 1e-6 I). Filter and colouring
-    commute (one acts along H, the other along dA), so this is the plain
-    sampler's distribution: colour-then-filter there, filter-then-colour
-    here, as the TPU kernel does it.
+    64-bit `key` at `step` (a 0-d int64 tensor on cov's device, read by the
+    kernel from device memory), coloured by chol(cov + 1e-6 I). Filter and
+    colouring commute (one acts along H, the other along dA), so this is the
+    plain sampler's distribution: colour-then-filter there, filter-then-
+    colour here, as the TPU kernel does it.
 
     `FilteredNoise.launches` counts kernel launches over all instances; it
     rises by one per launch and nowhere else (the plain version on CPU
@@ -165,21 +216,10 @@ class FilteredNoise:
     """
     launches = 0
 
-    def __init__(self):
-        self._lib = None
-
-    def library(self) -> build.KernelLibrary:
+    @staticmethod
+    def library() -> build.KernelLibrary:
         """Build (at first use) and load the kernel."""
-        if self._lib is None:
-            lib = build.load("filtered_noise", "filtered_noise.cu", {})
-            lib.lib.filtered_noise_launch.argtypes = (
-                [ctypes.c_ulonglong] + [ctypes.c_float] * 3
-                + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p])
-            lib.lib.filtered_noise_launch.restype = ctypes.c_int
-            lib.lib.filtered_noise_error_string.argtypes = [ctypes.c_int]
-            lib.lib.filtered_noise_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+        return library()
 
     @staticmethod
     def _check(cov, shape):
@@ -192,45 +232,99 @@ class FilteredNoise:
             raise ValueError(f"shape must be (N>=1, H>=1), got {tuple(shape)}")
         return n, horizon, cov.shape[0]
 
-    def white_plain(self, seed: int, n: int, horizon: int, d_action: int,
-                    filter_coeffs, device) -> torch.Tensor:
+    def white_plain(self, key: int, step: torch.Tensor, n: int, horizon: int, d_action: int,
+                    filter_coeffs) -> torch.Tensor:
         """The kernel's output (filtered, not coloured) in plain PyTorch."""
-        z = philox_normals(seed, n, horizon, d_action, device)
+        z = philox_normals(key, step, n, horizon, d_action)
         return ar_filter(z, _check_coeffs(filter_coeffs)).contiguous()
 
-    def white(self, seed: int, n: int, horizon: int, d_action: int,
-              filter_coeffs, device) -> torch.Tensor:
-        """Filtered standard normals [n, horizon, d_action]: the kernel on a
-        CUDA device, the plain version on the CPU."""
+    def white(self, key: int, step: torch.Tensor, n: int, horizon: int, d_action: int,
+              filter_coeffs, per_block: int = 0) -> torch.Tensor:
+        """Filtered standard normals [n, horizon, d_action] on step's device:
+        the kernel on a CUDA device, the plain version on the CPU.
+        per_block: the particles a block of the kernel owns (0: the
+        kernel's default for (H, dA)); it changes no bit of the result."""
         coeffs = _check_coeffs(filter_coeffs)
-        device = torch.device(device)
-        if device.type == "cpu":
-            return self.white_plain(seed, n, horizon, d_action, coeffs, device)
-        if device.type != "cuda":
-            raise ValueError(f"no filtered-noise kernel for device {device}")
-        lib = self.library().lib
-        use_filter = coeffs != (1.0, 0.0, 0.0) and horizon > 2
+        step = check_step(step)
+        if step.device.type == "cpu":
+            return self.white_plain(key, step, n, horizon, d_action, coeffs)
+        device = _cuda_device(step)
+        lib = self.library()
+        span = 4 * horizon * d_action * max(1, per_block)
+        if span > 48 * 1024 and span > lib.lib.filtered_noise_max_smem():
+            raise ValueError(f"{max(1, per_block)} particles' noise ({horizon} x {d_action} "
+                             f"floats each) do not fit in a block's shared memory")
+        use_filter = coeffs != _NO_FILTER and horizon > 2
         with torch.cuda.device(device):
             out = torch.empty((n, horizon, d_action), dtype=torch.float32, device=device)
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = lib.filtered_noise_launch(
-                int(seed) & 0xFFFFFFFFFFFFFFFF, *coeffs, int(use_filter), n, horizon,
-                d_action, ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
-        if rc != 0:
-            raise RuntimeError("filtered_noise kernel launch failed: "
-                               + lib.filtered_noise_error_string(rc).decode())
+            rc = lib.lib.filtered_noise_launch(
+                int(key) & 0xFFFFFFFFFFFFFFFF, step.data_ptr(), *coeffs, int(use_filter), n,
+                horizon, d_action, int(per_block), out.data_ptr(), stream)
+        _raise_on(lib, rc, "filtered_noise kernel launch")
         FilteredNoise.launches += 1
         return out
 
-    def plain(self, seed: int, cov: torch.Tensor, shape,
-              filter_coeffs=(1.0, 0.0, 0.0)) -> torch.Tensor:
+    def plain(self, key: int, step: torch.Tensor, cov: torch.Tensor, shape,
+              filter_coeffs=_NO_FILTER) -> torch.Tensor:
         """The plain PyTorch version (any device)."""
         n, horizon, d_action = self._check(cov, shape)
-        return colour(self.white_plain(seed, n, horizon, d_action, filter_coeffs,
-                                       cov.device), cov)
+        return colour(self.white_plain(key, step, n, horizon, d_action, filter_coeffs), cov)
 
-    def __call__(self, seed: int, cov: torch.Tensor, shape,
-                 filter_coeffs=(1.0, 0.0, 0.0)) -> torch.Tensor:
+    def __call__(self, key: int, step: torch.Tensor, cov: torch.Tensor, shape,
+                 filter_coeffs=_NO_FILTER) -> torch.Tensor:
         n, horizon, d_action = self._check(cov, shape)
-        return colour(self.white(seed, n, horizon, d_action, filter_coeffs,
-                                 cov.device), cov)
+        return colour(self.white(key, step, n, horizon, d_action, filter_coeffs), cov)
+
+
+class PhiloxUniforms:
+    """uniforms(key, step, n) -> [n] float32 uniforms in [2^-25, 1) on
+    step's device: the uniforms kernel (csrc/filtered_noise.cu) on a CUDA
+    device, its plain version (philox_uniforms) on the CPU.
+
+    `PhiloxUniforms.launches` counts kernel launches, as
+    FilteredNoise.launches does.
+    """
+    launches = 0
+    plain = staticmethod(philox_uniforms)
+
+    def __call__(self, key: int, step: torch.Tensor, n: int) -> torch.Tensor:
+        step = check_step(step)
+        if int(n) < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
+        if step.device.type == "cpu":
+            return philox_uniforms(key, step, n)
+        device = _cuda_device(step)
+        lib = library()
+        with torch.cuda.device(device):
+            out = torch.empty((n,), dtype=torch.float32, device=device)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.lib.philox_uniforms_launch(int(key) & 0xFFFFFFFFFFFFFFFF, step.data_ptr(),
+                                                n, out.data_ptr(), stream)
+        _raise_on(lib, rc, "philox_uniforms kernel launch")
+        PhiloxUniforms.launches += 1
+        return out
+
+
+_SAMPLER = FilteredNoise()
+uniforms = PhiloxUniforms()
+
+
+def standard_normals(key: int, step: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """Standard normals of `shape` (at least one dim) on step's device: the
+    noise kernel's with the filter off, [prod(shape[:-1]), 1, shape[-1]]
+    reshaped (its plain version on the CPU)."""
+    shape = tuple(int(s) for s in shape)
+    lead = int(np.prod(shape[:-1], dtype=np.int64))
+    return _SAMPLER.white(key, step, lead, 1, shape[-1], _NO_FILTER).reshape(shape)
+
+
+def filtered_noise(key: int, step: torch.Tensor, cov: torch.Tensor, shape,
+                   filter_coeffs: Sequence[float] = _NO_FILTER) -> torch.Tensor:
+    """The plain sampler: AR(2)-filtered N(0, cov) noise [N, H, dA] from the
+    stream (key, step): the noise kernel's normals with the filter off (its
+    plain version on the CPU), coloured by chol(cov + 1e-6 I), then the
+    filter as a loop of tensor operations (ar_filter)."""
+    n, horizon, d_action = FilteredNoise._check(cov, shape)
+    white = _SAMPLER.white(key, step, n, horizon, d_action, _NO_FILTER)
+    return ar_filter(colour(white, cov), filter_coeffs)

@@ -6,11 +6,15 @@ Counterpart of the pendulum half of mjmpc_tpu/ops/pallas_kernels.py:
   [N, H]: kernel #7 (`pendulum_rollout_pallas`), SimplePendulum-v0's
   fused rollout. Its costs are those of the general rollout
   (rollout_open_loop), taken at each step's pre-step state.
-- `mppi_pendulum_solve(params, state, mean [H, 1], seed, num_particles,
+- `mppi_pendulum_solve(params, state, mean [H, 1], key, step, num_particles,
   filter_coeffs, sigma, lam, step_size, gamma)` -> new mean [H, 1]: kernel
   #8 (`mppi_pendulum_solve_pallas`), one whole MPPI solve (alpha = 1, one
-  weight per particle) in one launch. Like the TPU kernel it samples n =
-  round_up(max(N, 128), 128) particles, all of them live.
+  weight per particle) in one launch of one thread-block cluster. Like the
+  TPU kernel it samples n = round_up(max(N, 128), 128) particles, all of
+  them live. Its noise is Philox under the 64-bit stream `key` at `step`, a
+  0-d int64 tensor that the kernel reads from device memory, so a launch
+  captured in a CUDA graph draws anew on every replay once the caller
+  advances the step on the device.
 
 Both kernels (csrc/pendulum.cu) read the start state and the six params
 from device memory at call time, packed by one device-side stack; no
@@ -22,13 +26,14 @@ tensors only; for CUDA tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence
 
 import torch
 
 from ..kernels import build
-from .noise import _check_coeffs, ar_filter, noise_flops, philox_normals
+from .noise import _check_coeffs, ar_filter, check_step, noise_flops, philox_normals
 
 _TWO_PI = 2.0 * math.pi
 # The params the kernels read at call time (harness/episode.py _fused_mode).
@@ -77,15 +82,15 @@ def sampled_particles(num_particles: int) -> int:
 def mppi_blend_plain(mean: torch.Tensor, eps: torch.Tensor, costs: torch.Tensor, lam: float,
                      step_size: float, gamma: float) -> torch.Tensor:
     """Kernel #8's update from its rollouts: the cost-to-go at t = 0 of
-    costs [n, H] by backward recurrence, softmax weights of -ctg / lam, and
-    the step-size blend of mean [H, 1] with the weighted mean of mean + eps
-    [n, H, 1] (the actions before the clip)."""
+    costs [n, H] by backward recurrence, softmax weights ex * (1 / sum(ex))
+    of -ctg / lam, and the step-size blend of mean [H, 1] with the weighted
+    mean of mean + eps [n, H, 1] (the actions before the clip)."""
     acc = costs[:, -1]
     for t in range(costs.shape[1] - 2, -1, -1):
         acc = costs[:, t] + gamma * acc
     neg = -acc * (1.0 / lam)
     ex = torch.exp(neg - neg.max())
-    weighted = ((ex / ex.sum())[:, None] * (mean[:, 0] + eps[..., 0])).sum(0)
+    weighted = ((ex * (1.0 / ex.sum()))[:, None] * (mean[:, 0] + eps[..., 0])).sum(0)
     return ((1.0 - step_size) * mean[:, 0] + step_size * weighted)[:, None]
 
 
@@ -100,15 +105,16 @@ def mppi_pendulum_update_plain(params, state, mean: torch.Tensor, white: torch.T
                             step_size, gamma)
 
 
-def mppi_pendulum_solve_plain(params, state, mean: torch.Tensor, seed: int,
-                              num_particles: int, filter_coeffs=(1.0, 0.0, 0.0),
-                              sigma: float = 1.0, lam: float = 0.01, step_size: float = 0.55,
+def mppi_pendulum_solve_plain(params, state, mean: torch.Tensor, key: int,
+                              step: torch.Tensor, num_particles: int,
+                              filter_coeffs=(1.0, 0.0, 0.0), sigma: float = 1.0,
+                              lam: float = 0.01, step_size: float = 0.55,
                               gamma: float = 1.0) -> torch.Tensor:
     """Kernel #8's plain PyTorch version (any device): the update on the
-    kernel's own normals, Philox under `seed` (ops/noise.py philox_normals),
-    for sampled_particles(num_particles) particles."""
+    kernel's own normals, Philox under `key` at `step` (ops/noise.py
+    philox_normals), for sampled_particles(num_particles) particles."""
     n, horizon = sampled_particles(num_particles), mean.shape[0]
-    white = philox_normals(seed, n, horizon, 1, mean.device)[..., 0]
+    white = philox_normals(key, step, n, horizon, 1)[..., 0]
     return mppi_pendulum_update_plain(params, state, mean, white, filter_coeffs, sigma, lam,
                                       step_size, gamma)
 
@@ -137,11 +143,12 @@ def rollout_bytes(n: int, horizon: int) -> int:
 def solve_flops(num_particles: int, horizon: int) -> int:
     """Per sampled particle-step: the noise (ops/noise.py noise_flops), the
     sigma scale (1), the step (26), the recurrence (2) and the weighted sum
-    (divide, add, multiply, add: 4); per particle the scale by 1/lam, the
-    max, the exp's subtract and exp and the sum (5); per row the blend (3)."""
+    (add, multiply, add: 3); per particle the scale by 1/lam, the max, the
+    exp's subtract and exp, the sum and the weight's multiply (6); per row
+    the blend (3)."""
     n = sampled_particles(num_particles)
-    return (noise_flops(n, horizon, 1) + n * horizon * (1 + _STEP_OPS + 2 + 4)
-            + 5 * n + 3 * horizon)
+    return (noise_flops(n, horizon, 1) + n * horizon * (1 + _STEP_OPS + 2 + 3)
+            + 6 * n + 3 * horizon)
 
 
 def solve_bytes(horizon: int) -> int:
@@ -154,26 +161,75 @@ def solve_bytes(horizon: int) -> int:
 # ---------------------------------------------------------------------------
 
 _LIB: Optional[build.KernelLibrary] = None
+# Kernel #8's cluster sizes (CTAs of one cluster): 16 needs the card's
+# non-portable cluster sizes, which csrc/pendulum.cu's setup allows.
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+def solve_cluster(n: int) -> int:
+    """Kernel #8's cluster size for n sampled particles (a multiple of
+    128): one CTA per 128 particles, at least 4 and at most 16. From the
+    sweep of 1-16 CTAs at N = 128, 1024, 2048 and 8192 on an H100
+    (tools/kernel_ab.py --cluster-sweep; PERF.md §6): 4 CTAs fastest at
+    N=128 (0.0163 ms against 0.0181 for one), 8 at 1024, 16 at 2048; only
+    16 hold N=8192 (512 particles a CTA). A CTA's particles each run their
+    H steps on one thread, so fewer per CTA shorten only the noise and the
+    sums."""
+    return max(4, min(16, n // 128))
 
 
 def library() -> build.KernelLibrary:
-    """Build (at first use) and load both kernels. -fmad=false keeps every
+    """Build (at first use) and load both kernels, and let #8 take clusters
+    of 16 and the card's largest shared memory (before any launch, so that
+    no launch does it inside a captured graph). -fmad=false keeps every
     multiply and add rounded on its own, as the plain version's operations
     are."""
     global _LIB
     if _LIB is None:
         lib = build.load("pendulum", "pendulum.cu", {}, flags=("-fmad=false",))
-        p = ctypes.c_void_p
-        lib.lib.pendulum_rollout_launch.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, p]
-        lib.lib.pendulum_rollout_launch.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lib.pendulum_rollout_launch.argtypes = [p, p, p, p, i, i, p]
         lib.lib.mppi_pendulum_solve_launch.argtypes = (
-            [ctypes.c_ulonglong, p, p, p, p, ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3
-            + [ctypes.c_int] + [ctypes.c_float] * 5 + [p])
-        lib.lib.mppi_pendulum_solve_launch.restype = ctypes.c_int
-        lib.lib.pendulum_error_string.argtypes = [ctypes.c_int]
+            [ctypes.c_ulonglong, p, p, p, p, i, i, i] + [ctypes.c_float] * 3 + [i]
+            + [ctypes.c_float] * 5 + [p])
+        lib.lib.mppi_pendulum_solve_shape.argtypes = [i, i, i, p, p]
+        lib.lib.mppi_pendulum_solve_max_clusters.argtypes = [i, i, i, p]
+        for fn in (lib.lib.pendulum_rollout_launch, lib.lib.mppi_pendulum_solve_launch,
+                   lib.lib.mppi_pendulum_solve_setup, lib.lib.mppi_pendulum_solve_shape,
+                   lib.lib.mppi_pendulum_solve_max_clusters):
+            fn.restype = i
+        lib.lib.pendulum_error_string.argtypes = [i]
         lib.lib.pendulum_error_string.restype = ctypes.c_char_p
+        rc = lib.lib.mppi_pendulum_solve_setup()
+        if rc != 0:
+            raise RuntimeError("one-kernel MPPI solve setup failed: "
+                               + lib.lib.pendulum_error_string(rc).decode())
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=64)
+def solve_shape(n: int, horizon: int, ctas: int):
+    """(threads a CTA, dynamic shared memory bytes) of kernel #8's launch
+    over n sampled particles in clusters of `ctas`; raises ValueError where
+    the CTA's particles or tiles do not fit (csrc/pendulum.cu
+    mppi_pendulum_solve_shape)."""
+    threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = library().lib.mppi_pendulum_solve_shape(n, horizon, ctas, ctypes.byref(threads),
+                                                 ctypes.byref(smem))
+    if rc != 0:
+        raise ValueError(f"kernel #8 cannot hold N={n} H={horizon} in clusters of {ctas} CTAs "
+                         f"(at most 1024 particles a CTA, its tiles in shared memory)")
+    return threads.value, smem.value
+
+
+def max_active_clusters(n: int, horizon: int, ctas: int) -> int:
+    """The clusters of kernel #8's shape the card holds at once (0: none)."""
+    solve_shape(n, horizon, ctas)
+    out = ctypes.c_int(0)
+    rc = library().lib.mppi_pendulum_solve_max_clusters(n, horizon, ctas, ctypes.byref(out))
+    _raise_on(rc, "one-kernel MPPI solve occupancy")
+    return out.value
 
 
 def _scalars(params, state, device: torch.device) -> torch.Tensor:
@@ -248,11 +304,14 @@ class PendulumRollout:
 
 
 class MppiPendulumSolve:
-    """solve(params, state, mean [H, 1], seed, num_particles, filter_coeffs,
-    sigma, lam, step_size, gamma) -> new mean [H, 1]: kernel #8 on a CUDA
-    device, its plain version (the same Philox normals) on the CPU. `seed`
-    is a host integer (64 bits); the state and params are read on the
-    device.
+    """solve(params, state, mean [H, 1], key, step, num_particles,
+    filter_coeffs, sigma, lam, step_size, gamma, ctas=None) -> new mean
+    [H, 1]: kernel #8 on a CUDA device, its plain version (the same Philox
+    normals) on the CPU. `key` is the stream's 64-bit key (a host integer);
+    `step` a 0-d int64 tensor on the mean's device, read by the kernel from
+    device memory; the state and params are read on the device too. `ctas`
+    is the cluster's size (default solve_cluster(n)); it changes no bit of
+    the particles' rollouts, only the order of the sums over them.
 
     `MppiPendulumSolve.launches` counts kernel launches, as
     PendulumRollout's does.
@@ -260,33 +319,38 @@ class MppiPendulumSolve:
     launches = 0
     plain = staticmethod(mppi_pendulum_solve_plain)
 
-    def __call__(self, params, state, mean, seed: int, num_particles: int,
+    def __call__(self, params, state, mean, key: int, step: torch.Tensor, num_particles: int,
                  filter_coeffs: Sequence[float] = (1.0, 0.0, 0.0), sigma: float = 1.0,
-                 lam: float = 0.01, step_size: float = 0.55, gamma: float = 1.0):
+                 lam: float = 0.01, step_size: float = 0.55, gamma: float = 1.0,
+                 ctas: Optional[int] = None):
         coeffs = _check_coeffs(filter_coeffs)
         if not isinstance(mean, torch.Tensor):
             raise TypeError("mean must be a float32 torch.Tensor")
         horizon, device = mean.shape[0], mean.device
         _check(mean, device, horizon)
+        check_step(step)
+        if step.device != device:
+            raise ValueError(f"step is on {step.device}, expected {device}")
         if int(num_particles) < 1:
             raise ValueError(f"num_particles must be >= 1, got {num_particles}")
         if not lam > 0:
             raise ValueError(f"lam must be > 0, got {lam}")
         scalars = _scalars(params, state, device)
         if device.type == "cpu":
-            return mppi_pendulum_solve_plain(params, state, mean, seed, num_particles, coeffs,
-                                             sigma, lam, step_size, gamma)
+            return mppi_pendulum_solve_plain(params, state, mean, key, step, num_particles,
+                                             coeffs, sigma, lam, step_size, gamma)
         lib = _cuda_launch_setup(device, "one-kernel MPPI solve")
         mean = mean.contiguous()
         n = sampled_particles(num_particles)
+        ctas = solve_cluster(n) if ctas is None else int(ctas)
+        solve_shape(n, horizon, ctas)
         use_filter = coeffs != (1.0, 0.0, 0.0) and horizon > 2
         with torch.cuda.device(device):
             out = torch.empty((horizon, 1), dtype=torch.float32, device=device)
-            scratch = torch.empty((2 * n * horizon + n,), dtype=torch.float32, device=device)
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = lib.mppi_pendulum_solve_launch(
-                int(seed) & 0xFFFFFFFFFFFFFFFF, scalars.data_ptr(), mean.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), n, horizon, *coeffs, int(use_filter),
+                int(key) & 0xFFFFFFFFFFFFFFFF, step.data_ptr(), scalars.data_ptr(),
+                mean.data_ptr(), out.data_ptr(), n, horizon, ctas, *coeffs, int(use_filter),
                 float(sigma), 1.0 / float(lam), 1.0 - float(step_size), float(step_size),
                 float(gamma), stream)
         _raise_on(rc, "one-kernel MPPI solve")

@@ -7,11 +7,18 @@ operations with no host round trips: no .item(), .cpu() or float() on a
 tensor, no host-to-device copy (constants are built once, on the solver's
 device), and no linalg call that checks its info on the host.
 
-Seeding: each consumer draws from a stream keyed by
-derive_seed(seed, tag, step), with `step` a host integer, so the same
-solver state gives the same noise and seeding never reads the device. The
-stream is a torch.Generator (noise_impl "plain") or the Philox counter of
-the filtered-noise kernel (noise_impl "kernel", ops.FilteredNoise).
+Seeding: each consumer (tag) draws from Philox4x32-10 under the key
+rng.stream_key(seed, tag), a host integer worked out once per (seed, tag),
+with the state's `step` as the last counter word. `step` is a 0-d int64
+tensor on the solver's device: a solve advances it by a device add, and the
+noise kernels read it from device memory. So noise is a function of (seed,
+tag, step), as in the JAX package's fold_in(key, tag, step); the same
+solver state gives the same noise; no solve reads the step back to the
+host or seeds a torch.Generator; and a solve captured as a CUDA graph draws
+fresh noise on every replay. noise_impl "kernel" filters in the
+filtered-noise kernel (ops.FilteredNoise); "plain" takes the same kernel's
+normals unfiltered and colours and filters them with tensor operations
+(ops.filtered_noise).
 """
 from __future__ import annotations
 
@@ -37,29 +44,23 @@ class GaussianState:
     """Open-loop Gaussian control distribution state."""
     mean: torch.Tensor   # [H, dA]
     cov: torch.Tensor    # [dA, dA]
-    step: int            # solves taken so far (host counter)
+    step: torch.Tensor   # [] int64 on the device: solves taken so far
     seed: int            # base seed of the solver's streams
-
-
-def _stream(state: GaussianState, tag: int) -> torch.Generator:
-    return rng.generator(rng.derive_seed(state.seed, tag, state.step),
-                         state.mean.device)
 
 
 NOISE_IMPLS = ("plain", "kernel")
 
 
-def sample_filtered_noise(noise_impl: str, sampler: ops.FilteredNoise, seed: int,
-                          cov: torch.Tensor, shape: tuple,
+def sample_filtered_noise(noise_impl: str, sampler: ops.FilteredNoise, key: int,
+                          step: torch.Tensor, cov: torch.Tensor, shape: tuple,
                           filter_coeffs) -> torch.Tensor:
-    """AR(2)-filtered N(0, cov) noise [*shape, dA] from the stream `seed`:
-    torch.randn with a generator ("plain", the JAX package's "xla") or the
-    filtered-noise kernel `sampler` ("kernel", JAX's "pallas"; its plain
-    version on CPU tensors)."""
+    """AR(2)-filtered N(0, cov) noise [*shape, dA] from the stream (key,
+    step): the plain sampler ("plain", the JAX package's "xla") or the
+    filtered-noise kernel `sampler` ("kernel", JAX's "pallas"); on CPU
+    tensors both run their plain versions."""
     if noise_impl == "kernel":
-        return sampler(seed, cov, shape, filter_coeffs)
-    return ops.filtered_noise(rng.generator(seed, cov.device), cov, shape,
-                              filter_coeffs)
+        return sampler(key, step, cov, shape, filter_coeffs)
+    return ops.filtered_noise(key, step, cov, shape, filter_coeffs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,16 +124,15 @@ class GaussianMPC:
                           device=self.device)
         return GaussianState(
             mean=torch.zeros((self.horizon, self.d_action), device=self.device),
-            cov=torch.diag(diag), step=0, seed=int(seed))
+            cov=torch.diag(diag), step=rng.step_tensor(0, self.device), seed=int(seed))
 
     # ---- sampling --------------------------------------------------------
     def sample_noise(self, state: GaussianState) -> torch.Tensor:
         """AR(2)-filtered Gaussian noise [N, H, dA] from the noise_impl's
         stream (JAX base.py sample_noise)."""
         delta = sample_filtered_noise(
-            self.noise_impl, self.noise_sampler,
-            rng.derive_seed(state.seed, _TAG_ROLLOUT, state.step), state.cov,
-            (self.num_particles, self.horizon), self.filter_coeffs)
+            self.noise_impl, self.noise_sampler, rng.stream_key(state.seed, _TAG_ROLLOUT),
+            state.step, state.cov, (self.num_particles, self.horizon), self.filter_coeffs)
         if self.use_zero_control_seq:
             # the last particle probes the zero-action sequence
             delta[-1] = -state.mean
@@ -152,8 +152,8 @@ class GaussianMPC:
         if mode == "mean":
             return state.mean[0]
         if mode == "sample":
-            delta = ops.filtered_noise(_stream(state, _TAG_ACT), state.cov,
-                                       (1, 1), self.filter_coeffs)
+            delta = ops.filtered_noise(rng.stream_key(state.seed, _TAG_ACT), state.step,
+                                       state.cov, (1, 1), self.filter_coeffs)
             return state.mean[0] + delta.reshape(self.d_action)
         raise ValueError(f"unknown sample mode {mode!r}")
 
@@ -163,9 +163,8 @@ class GaussianMPC:
         mean = torch.roll(state.mean, -1, 0)
         if self.base_action == "random":
             # as the reference does, init_cov (a variance) is the scale
-            last = self.init_cov * torch.randn(
-                self.d_action, generator=_stream(state, _TAG_SHIFT),
-                device=mean.device)
+            last = self.init_cov * ops.standard_normals(
+                rng.stream_key(state.seed, _TAG_SHIFT), state.step, (self.d_action,))
         elif self.base_action == "null":
             last = torch.zeros(self.d_action, device=mean.device)
         elif self.base_action == "repeat":
@@ -251,18 +250,22 @@ def guard_finite(solve, solver):
     control distribution to init_state's; `step` advances in every case.
 
     The check is one device-side boolean and the choice a torch.where per
-    tensor, so the guard reads nothing back to the host. The JAX version
-    draws the fresh state from fold_in(key, step); a host-integer seed
-    cannot be chosen on the device without a sync, so the reset state keeps
-    the solver state's `seed`. Noise streams are keyed by (seed, tag, step)
-    and step advances anyway, so the next solve's noise is still fresh.
+    tensor, and the step advances by a device add, so the guard reads
+    nothing back to the host and can be captured in a CUDA graph with the
+    solve (init_state builds the fresh tensors with device fills). The JAX
+    version draws the fresh state from fold_in(key, step); a host-integer
+    seed cannot be chosen on the device without a sync, so the reset state
+    keeps the solver state's `seed`. Noise streams are keyed by (seed, tag,
+    step) and step advances anyway, so the next solve's noise is still
+    fresh.
     """
     def guarded(env_params, env_state, solver_state):
         action, value, new_state = solve(env_params, env_state, solver_state)
         ok = torch.isfinite(action).all() & torch.isfinite(value).all()
         tensors = {f.name: getattr(new_state, f.name)
                    for f in dataclasses.fields(new_state)
-                   if isinstance(getattr(new_state, f.name), torch.Tensor)}
+                   if f.name != "step"
+                   and isinstance(getattr(new_state, f.name), torch.Tensor)}
         for x in tensors.values():
             if x.is_floating_point():
                 ok = ok & torch.isfinite(x).all()

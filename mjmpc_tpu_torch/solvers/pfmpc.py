@@ -9,7 +9,10 @@ weights via torch.searchsorted, with r drawn on the device.
 
 Beyond the JAX config, `noise_impl` ("plain" or "kernel") picks the
 sampler of the particles' noise, as for GaussianMPC, and `device` places
-the state.
+the state. Every stream (the particles' initial and shift noise, the
+resampling offset, a random base action) is Philox under
+rng.stream_key(seed, tag) at the state's device-side step, as for
+GaussianMPC (base.py).
 """
 from __future__ import annotations
 
@@ -28,13 +31,14 @@ from .base import NOISE_IMPLS, open_loop_rollout, sample_filtered_noise
 _TAG_RESAMPLE = 10
 _TAG_SHIFT = 11
 _TAG_INIT = 12
+_TAG_SHIFT_RANDOM = 13
 
 
 @dataclasses.dataclass(frozen=True)
 class PFState:
     action_samples: torch.Tensor  # [N, H, dA]
     mean: torch.Tensor            # [H, dA]
-    step: int                     # solves taken so far (host counter)
+    step: torch.Tensor            # [] int64 on the device: solves taken so far
     seed: int                     # base seed of the solver's streams
 
 
@@ -79,17 +83,18 @@ class PFMPC:
     def _cov(self, v: float) -> torch.Tensor:
         return torch.diag(torch.full((self.d_action,), float(v), device=self.device))
 
-    def _noise(self, seed: int, v: float) -> torch.Tensor:
-        return sample_filtered_noise(self.noise_impl, self.noise_sampler, seed,
+    def _noise(self, key: int, step: torch.Tensor, v: float) -> torch.Tensor:
+        return sample_filtered_noise(self.noise_impl, self.noise_sampler, key, step,
                                      self._cov(v), (self.num_particles, self.horizon),
                                      self.filter_coeffs)
 
     def init_state(self, seed: int) -> PFState:
         """Particles ~ filtered N(0, cov_resample), zero mean."""
-        return PFState(action_samples=self._noise(rng.derive_seed(seed, _TAG_INIT),
+        step = rng.step_tensor(0, self.device)
+        return PFState(action_samples=self._noise(rng.stream_key(seed, _TAG_INIT), step,
                                                   self.cov_resample),
                        mean=torch.zeros((self.horizon, self.d_action), device=self.device),
-                       step=0, seed=int(seed))
+                       step=step, seed=int(seed))
 
     def systematic_resample(self, samples: torch.Tensor, weights: torch.Tensor,
                             r: torch.Tensor) -> torch.Tensor:
@@ -106,9 +111,8 @@ class PFMPC:
         """Weight, resample, mean."""
         traj_costs = ops.cost_to_go(traj.costs, self.discount)[:, 0]
         w = torch.softmax((-1.0 / self.lam) * traj_costs, dim=0)
-        gen = rng.generator(rng.derive_seed(state.seed, _TAG_RESAMPLE, state.step),
-                            w.device)
-        r = torch.rand((), generator=gen, device=w.device) / self.num_particles
+        r = ops.uniforms(rng.stream_key(state.seed, _TAG_RESAMPLE), state.step,
+                         1)[0] / self.num_particles
         samples = self.systematic_resample(state.action_samples, w, r)
         return dataclasses.replace(state, action_samples=samples,
                                    mean=torch.mean(samples, dim=0))
@@ -121,12 +125,12 @@ class PFMPC:
         """Roll the particles one step, add cov_shift noise, set the last
         step to the base action. 'random' draws from N(0, cov_resample) with
         scale sqrt(cov_resample), as the JAX package does."""
-        seed = rng.derive_seed(state.seed, _TAG_SHIFT, state.step)
-        samples = torch.roll(state.action_samples, -1, 1) + self._noise(seed, self.cov_shift)
+        samples = torch.roll(state.action_samples, -1, 1) + self._noise(
+            rng.stream_key(state.seed, _TAG_SHIFT), state.step, self.cov_shift)
         if self.base_action == "random":
-            gen = rng.generator(rng.derive_seed(seed, 1), samples.device)
-            last = float(np.sqrt(self.cov_resample)) * torch.randn(
-                (self.num_particles, self.d_action), generator=gen, device=samples.device)
+            last = float(np.sqrt(self.cov_resample)) * ops.standard_normals(
+                rng.stream_key(state.seed, _TAG_SHIFT_RANDOM), state.step,
+                (self.num_particles, self.d_action))
         elif self.base_action == "null":
             last = torch.zeros((self.num_particles, self.d_action), device=samples.device)
         elif self.base_action == "repeat":

@@ -15,7 +15,9 @@ AR(2)-filtered N(0, diag(cov_diag)); each iteration of a solve:
    delta_kl, at most max_linesearch_iters times.
 
 The whole solve runs on the device with no host round trip. The state's
-step and seed are host integers, as in GaussianState.
+step is a 0-d int64 tensor on the device and its seed a host integer, and
+its streams are Philox under rng.stream_key(seed, tag) at that step, as in
+GaussianState (base.py).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ class ReinforceState:
     vf_weights: torch.Tensor     # baseline params (zeros for the mean baseline)
     vf_bias: torch.Tensor
     fit_error: torch.Tensor      # [] last baseline relative fit error
-    step: int                    # solves taken so far (host counter)
+    step: torch.Tensor           # [] int64 on the device: solves taken so far
     seed: int                    # base seed of the solver's streams
 
 
@@ -98,16 +100,15 @@ class Reinforce:
             mean_weights=torch.zeros((self.d_obs + 1, self.d_action), device=self.device),
             cov_diag=torch.full((self.d_action,), float(self.init_cov), device=self.device),
             vf_weights=vw, vf_bias=vb, fit_error=torch.zeros((), device=self.device),
-            step=0, seed=int(seed))
+            step=rng.step_tensor(0, self.device), seed=int(seed))
 
     # ---- sampling ----------------------------------------------------------
     def sample_noise(self, state: ReinforceState) -> torch.Tensor:
         """AR(2)-filtered N(0, diag(cov_diag)) noise [N, H, dA] from the
-        stream (seed, 20, step): every iteration of one solve draws the
-        same noise, as in the JAX package."""
-        gen = rng.generator(rng.derive_seed(state.seed, _TAG_ROLLOUT, state.step),
-                            state.cov_diag.device)
-        return ops.filtered_noise(gen, torch.diag(state.cov_diag),
+        stream (seed, 20) at the state's step: every iteration of one solve
+        draws the same noise, as in the JAX package."""
+        return ops.filtered_noise(rng.stream_key(state.seed, _TAG_ROLLOUT), state.step,
+                                  torch.diag(state.cov_diag),
                                   (self.num_particles, self.horizon), self.filter_coeffs)
 
     # ---- update, in its three stages ----------------------------------------
@@ -175,10 +176,8 @@ class Reinforce:
         if mode == "mean":
             return mean
         if mode == "sample":
-            gen = rng.generator(rng.derive_seed(state.seed, _TAG_ACT, state.step),
-                                state.cov_diag.device)
-            eps = ops.filtered_noise(gen, torch.diag(state.cov_diag), (1, 1),
-                                     self.filter_coeffs)
+            eps = ops.filtered_noise(rng.stream_key(state.seed, _TAG_ACT), state.step,
+                                     torch.diag(state.cov_diag), (1, 1), self.filter_coeffs)
             return mean + eps.reshape(self.d_action)
         raise ValueError(f"unknown sample mode {mode!r}")
 

@@ -16,6 +16,7 @@ delta_reg) -> params (and the relative errors before and after).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -47,6 +48,24 @@ def _ladder_tensor(delta_reg: float, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(reg_ladder(delta_reg), device=device)
 
 
+@contextlib.contextmanager
+def _capturable_linalg(device: torch.device):
+    """On a CUDA device, let the batched solve take cuSOLVER's looped LU,
+    whose calls run on the current stream and can be captured in a CUDA
+    graph; at the fit's sizes (11 systems of ~170 x 170 on the peg) the
+    default backend picks MAGMA's batched LU, which synchronises the host
+    and invalidates a capture. Restores the caller's choice after."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
 def solve_retry(gram: torch.Tensor, moment: torch.Tensor, delta_reg: float):
     """(x, k): the solution of (gram + reg_k I) x = moment [..., d] with k
     the first rung of reg_ladder(delta_reg) whose solution is finite, or
@@ -61,7 +80,8 @@ def solve_retry(gram: torch.Tensor, moment: torch.Tensor, delta_reg: float):
     eye = torch.eye(d, dtype=gram.dtype, device=gram.device)
     systems = gram[..., None, :, :] + regs[:, None, None] * eye          # [..., K, d, d]
     rhs = moment[..., None, :, None].expand(*moment.shape[:-1], regs.shape[0], d, 1)
-    xs = torch.linalg.solve_ex(systems, rhs, check_errors=False).result[..., 0]
+    with _capturable_linalg(gram.device):
+        xs = torch.linalg.solve_ex(systems, rhs, check_errors=False).result[..., 0]
     finite = torch.isfinite(xs).all(-1)                                   # [..., K]
     k = torch.where(finite.any(-1), torch.argmax(finite.to(torch.int32), -1),
                     torch.full_like(finite[..., 0], N_RETRIES, dtype=torch.int64))

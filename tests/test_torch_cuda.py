@@ -5,9 +5,11 @@ cheetah (#1, #3, #4 and #5 a team of lanes per particle: ragged N, two
 launches bit for bit, zeroed actions failing the check, their phase
 clocks; #1 and #3 at every team size bit for bit), the
 forest rollout for pen-v0 and the sawyer peg, the pendulum
-rollout and the one-kernel pendulum MPPI solve): each against its plain
-PyTorch version, their launch counts on sync-free solves, and the
-wrappers' checks.
+rollout and the one-kernel pendulum MPPI solve, a thread-block cluster):
+each against its plain PyTorch version, their launch counts on sync-free
+solves, and the wrappers' checks; and one solve of each family captured as
+a CUDA graph and replayed against eager solves (chip_smoke.py graph_check),
+two replays drawing different noise.
 
 Needs a CUDA card and skips without one (the kernel has no CPU mode). This
 file imports no jax, so it also runs where jax is not installed:
@@ -18,7 +20,8 @@ Tolerance: atol 5e-5 at (N=37, H=5), the JAX kernel's own tolerance; 1e-3
 at the main path's (N=4096, H=32), where the longer horizon accumulates
 f32 reordering on costs of order 1-10. Noise: atol 1e-4 (identical
 uniforms; libm ulps and the order of sums differ, scaled by the filter's
-gain of about 1.25 and by sqrt(3) for cov 3 I). Locomotion: the swimmer
+gain of about 1.25 and by sqrt(3) for cov 3 I), two launches bit for bit;
+uniforms bit for bit. Locomotion: the swimmer
 atol 5e-5 at (37, 5) and 1e-3 at its config's (512, 32); the cheetah, whose
 stiff contact (kp 6000, 25 substeps per step) amplifies f32 reordering,
 5e-4 and 1e-2 of max(1, |cost|) at (37, 5) and its config's (512, 16).
@@ -33,8 +36,10 @@ within 1e-3 and every other one off by a bonus step of the gated pen cost
 (a signed sum of 5, 10 and 50) to within 1e-3. Pendulum rollout: atol
 1e-5 from a start that crosses -pi (th0 = -3.0, thdot0 = -8), at (37, 5)
 and (4096, 32). One-kernel MPPI solve: atol 1e-5 on the new mean at N =
-1024 and 2048, H = 32, lam 0.01 and 1.0 (the same Philox normals and the
-same rollout operations; only the order of the particle sums differs).
+128, 1024, 2048 and 8192, H = 32, lam 0.01 and 1.0, and at every cluster
+size (the same Philox normals and the same rollout operations; only the
+order of the particle sums differs), two launches bit for bit. Graph
+replays: bit for bit against eager solves.
 """
 import dataclasses
 import importlib.util
@@ -44,7 +49,7 @@ import numpy as np
 import pytest
 import torch
 
-from mjmpc_tpu_torch import envs, solvers
+from mjmpc_tpu_torch import envs, ops, rng, solvers
 from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
 from mjmpc_tpu_torch.envs import half_cheetah, pen, sawyer_tasks, swimmer
 from mjmpc_tpu_torch.ops.chain_rollout import (TEAM_SIZES, ChainClRollout, ChainExtRollout,
@@ -54,8 +59,10 @@ from mjmpc_tpu_torch.ops.chain_rollout import (TEAM_SIZES, ChainClRollout, Chain
 from mjmpc_tpu_torch.ops.forest_rollout import (ForestRollout, build_forest_rollout,
                                                 gated_cost_agreement)
 from mjmpc_tpu_torch.ops.noise import FilteredNoise
-from mjmpc_tpu_torch.ops.pendulum import (MppiPendulumSolve, PendulumRollout,
-                                          mppi_pendulum_solve, pendulum_rollout)
+from mjmpc_tpu_torch.ops.pendulum import (CLUSTER_SIZES, MppiPendulumSolve, PendulumRollout,
+                                          max_active_clusters, mppi_pendulum_solve,
+                                          pendulum_rollout, sampled_particles, solve_cluster,
+                                          solve_shape)
 
 pytestmark = pytest.mark.cuda
 
@@ -172,15 +179,28 @@ def test_open_loop_check_fails_for_zeroed_actions(device, kind):
     assert max(float((x - y).abs().max()) for x, y in zip(got, zeroed)) > 5e-4
 
 
-@pytest.mark.parametrize("n,h", [(37, 5), (4096, 32)])
-def test_noise_kernel_matches_plain(device, n, h):
+@pytest.mark.parametrize("n,h,d_action", [(37, 5, 7), (4096, 32, 7), (512, 32, 30)])
+def test_noise_kernel_matches_plain(device, n, h, d_action):
     sampler = FilteredNoise()
-    cov = 3.0 * torch.eye(7, device=device)
+    cov = 3.0 * torch.eye(d_action, device=device)
+    step = rng.step_tensor(5, device)
     before = FilteredNoise.launches
-    got = sampler(12345, cov, (n, h), (0.25, 0.8, 0.0))
+    got = sampler(12345, step, cov, (n, h), (0.25, 0.8, 0.0))
     assert FilteredNoise.launches == before + 1
-    torch.testing.assert_close(got, sampler.plain(12345, cov, (n, h), (0.25, 0.8, 0.0)),
-                               rtol=0, atol=1e-4)
+    want = sampler.plain(12345, step, cov, (n, h), (0.25, 0.8, 0.0))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(sampler(12345, step, cov, (n, h), (0.25, 0.8, 0.0)), got)
+    other = sampler.plain(12345, step + 1, cov, (n, h), (0.25, 0.8, 0.0))
+    assert float((other - got).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("n", [1, 7, 4096])
+def test_uniforms_kernel_matches_plain(device, n):
+    step = rng.step_tensor(3, device)
+    before = ops.PhiloxUniforms.launches
+    got = ops.uniforms(9, step, n)
+    assert ops.PhiloxUniforms.launches == before + 1
+    assert torch.equal(got, ops.uniforms.plain(9, step, n))
 
 
 def test_kernel_noise_solves_without_host_syncs(device):
@@ -540,17 +560,45 @@ def test_pendulum_kernel_matches_plain(device, n, h):
     assert float((zeroed - got).abs().max()) > 1e-4
 
 
-@pytest.mark.parametrize("n,lam", [(1024, 0.01), (1024, 1.0), (2048, 0.01), (2048, 1.0)])
+@pytest.mark.parametrize("n", [128, 1024, 2048, 8192])
+@pytest.mark.parametrize("lam", [0.01, 1.0])
 def test_one_kernel_solve_matches_plain(device, n, lam):
     env, state, mean, _ = _pendulum_case(1, 32, 9, device)
-    args = (env.params, state, mean, 77, n, (0.25, 0.8, 0.0), float(np.sqrt(3.5)), lam, 0.55,
-            1.0)
+    step = rng.step_tensor(3, device)
+    args = (env.params, state, mean, 77, step, n, (0.25, 0.8, 0.0), float(np.sqrt(3.5)), lam,
+            0.55, 1.0)
     before = MppiPendulumSolve.launches
     got = mppi_pendulum_solve(*args)
     assert MppiPendulumSolve.launches == before + 1
     torch.testing.assert_close(got, mppi_pendulum_solve.plain(*args), rtol=0, atol=1e-5)
-    other = mppi_pendulum_solve.plain(*args[:3], 78, *args[4:])
+    assert torch.equal(mppi_pendulum_solve(*args), got)
+    other = mppi_pendulum_solve.plain(*args[:4], step + 1, *args[5:])
     assert float((other - got).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("n", [128, 2048, 8192])
+def test_one_kernel_solve_every_cluster_size_agrees(device, n):
+    """Every cluster size the card holds gives the plain version's mean to
+    1e-5 (only the order of the sums over the particles moves); a shape
+    that does not fit raises."""
+    env, state, mean, _ = _pendulum_case(1, 32, 10, device)
+    args = (env.params, state, mean, 5, rng.step_tensor(0, device), n, (0.25, 0.8, 0.0), 1.5,
+            0.01, 0.55, 1.0)
+    want = mppi_pendulum_solve.plain(*args)
+    sampled, ran = sampled_particles(n), []
+    for ctas in CLUSTER_SIZES:
+        try:
+            solve_shape(sampled, 32, ctas)
+        except ValueError:
+            with pytest.raises(ValueError):
+                mppi_pendulum_solve(*args, ctas=ctas)
+            continue
+        if max_active_clusters(sampled, 32, ctas) < 1:
+            continue
+        torch.testing.assert_close(mppi_pendulum_solve(*args, ctas=ctas), want, rtol=0,
+                                   atol=1e-5)
+        ran.append(ctas)
+    assert solve_cluster(sampled) in ran
 
 
 def test_pendulum_solves_launch_the_kernels_without_host_syncs(device):
@@ -560,17 +608,72 @@ def test_pendulum_solves_launch_the_kernels_without_host_syncs(device):
                           base_action="repeat", device=device)
     solve = solvers.make_solve_fn(solver, env)
     env_state, state = env.init(env.params, 1), solver.init_state(0)
-    mean = torch.zeros(32, 1, device=device)
+    mean, step = torch.zeros(32, 1, device=device), rng.step_tensor(0, device)
+    mppi_pendulum_solve(env.params, env_state, mean, 1000, step, 1024)    # builds the kernel
     before = (PendulumRollout.launches, MppiPendulumSolve.launches)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for t in range(3):
+        for _ in range(3):
             action, _, state = solve(env.params, env_state, state)
-            mean = mppi_pendulum_solve(env.params, env_state, mean, 1000 + t, 1024,
+            mean = mppi_pendulum_solve(env.params, env_state, mean, 1000, step, 1024,
                                        (0.25, 0.8, 0.0), float(np.sqrt(3.5)), 0.01, 0.55, 1.0)
+            step = step + 1
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert (PendulumRollout.launches, MppiPendulumSolve.launches) == (before[0] + 3,
                                                                       before[1] + 3)
     assert bool(torch.isfinite(action).all()) and bool(torch.isfinite(mean).all())
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its top level imports only the standard
+    library and numpy)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _graph_family(name, device):
+    """(solve, env, env state, solver state) of one family at a small size."""
+    reacher = envs.make("reacher_7dof-v0", device=device)
+    cfg = dict(d_action=7, horizon=8, num_particles=256, filter_coeffs=(0.25, 0.8, 0.0),
+               device=device)
+    if name in ("mppi_kernel_noise_guarded", "mppi_plain_noise"):
+        solver = solvers.MPPI(**cfg, lam=0.01, init_cov=3.0, step_size=0.55,
+                              base_action="repeat",
+                              noise_impl="kernel" if "kernel" in name else "plain")
+        solve = solvers.make_solve_fn(solver, reacher)
+        if "guarded" in name:
+            solve = solvers.guard_finite(solve, solver)
+        return solve, reacher, reacher.init(reacher.params, 1), solver.init_state(0)
+    if name == "pfmpc":
+        solver = solvers.PFMPC(**cfg, lam=0.01, cov_shift=0.05, base_action="random",
+                               noise_impl="kernel")
+        return (solvers.make_solve_fn(solver, reacher), reacher,
+                reacher.init(reacher.params, 1), solver.init_state(0))
+    if name == "reinforce_peg_cl":
+        peg = envs.make("sawyer_peg_insertion-v0", device=device)
+        smoke = _chip_smoke()
+        solver = solvers.make_solver("reinforce", d_obs=peg.d_obs, d_action=7, device=device,
+                                     **smoke.PEG_CL)
+        return (solvers.make_solve_fn(solver, peg), peg, peg.init(peg.params, 1),
+                solver.init_state(0))
+    smoke = _chip_smoke()
+    pend = envs.make("SimplePendulum-v0", device=device)
+    return (smoke.one_kernel_solve_fn(1024), pend, pend.init(pend.params, 1),
+            smoke.one_kernel_start(device))
+
+
+@pytest.mark.parametrize("name", ["mppi_kernel_noise_guarded", "mppi_plain_noise", "pfmpc",
+                                  "reinforce_peg_cl", "one_kernel_n1024"])
+def test_solve_replays_as_a_cuda_graph(device, name):
+    """5 replays equal 5 eager solves bit for bit; two replays at successive
+    steps from the same start draw different noise (chip_smoke.graph_check
+    raises otherwise)."""
+    solve, env, es, state = _graph_family(name, device)
+    fields = _chip_smoke().graph_check(name, solve, env, es, state)
+    assert fields["identical"] and fields["steps"] == [1, 2, 3, 4, 5]
+    assert fields["max_abs_diff_next_step"] > 0.0

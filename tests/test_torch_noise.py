@@ -1,12 +1,15 @@
 """The filtered-noise kernel's plain version and wrapper
-(mjmpc_tpu_torch/ops/noise.py FilteredNoise) against Philox's published
-answers, the kernel source compiled as host C++, the JAX package's filter
-and colouring, and the statistics the JAX package checks of its TPU
+(mjmpc_tpu_torch/ops/noise.py FilteredNoise) and the uniforms kernel's
+(PhiloxUniforms) against Philox's published answers, the kernels' per-item
+source compiled as host C++ (run in the kernel's phases: items, then the
+filter along each column) at a step that is not 0, the JAX package's
+filter and colouring, and the statistics the JAX package checks of its TPU
 sampler (tests/test_pallas_kernels.py, which cannot run them on the CPU).
-The kernel itself runs only on a CUDA card (tests/test_torch_cuda.py).
+The kernels themselves run only on a CUDA card (tests/test_torch_cuda.py).
 
 Tolerances:
-- Philox words: bit for bit (integer arithmetic on both sides);
+- Philox words and uniforms: bit for bit (integer arithmetic and exact
+  float conversions on both sides);
 - host C++ against plain: atol 1e-6 on normals of magnitude < 6 (the same
   uniforms; libm and PyTorch's log/cos differ by an ulp or so, and the
   filter's gain of about 1.25 carries that over);
@@ -69,13 +72,31 @@ def host_lib(tmp_path_factory):
         '    out[4 * i + 2] = r.z; out[4 * i + 3] = r.w;\n'
         '  }\n'
         '}\n'
-        'extern "C" void host_noise(uint64_t seed, float b0, float b1, float b2,\n'
-        '                           int filter, int n, int horizon, int d_action,\n'
-        '                           float* out) {\n'
+        'extern "C" void host_noise(uint64_t key, uint32_t step, float b0, float b1,\n'
+        '                           float b2, int filter, int n, int horizon,\n'
+        '                           int d_action, float* out) {\n'
+        '  const int pairs = (horizon + 1) / 2, row = horizon * d_action;\n'
         '  for (int b = 0; b < n; ++b)\n'
-        '    for (int d = 0; d < d_action; ++d)\n'
-        '      filtered_noise::noise_column(seed, b0, b1, b2, filter != 0, b, d,\n'
-        '                                   horizon, d_action, out);\n'
+        '    for (int p = 0; p < pairs; ++p)\n'
+        '      for (int d = 0; d < d_action; ++d) {\n'
+        '        float z0, z1;\n'
+        '        filtered_noise::normal_pair((uint32_t)key, (uint32_t)(key >> 32), b, d,\n'
+        '                                    p, step, z0, z1);\n'
+        '        float* at = out + (size_t)b * row + 2 * p * d_action + d;\n'
+        '        at[0] = z0;\n'
+        '        if (2 * p + 1 < horizon) at[d_action] = z1;\n'
+        '      }\n'
+        '  if (filter)\n'
+        '    for (int c = 0; c < n * d_action; ++c)\n'
+        '      filtered_noise::filter_column(out + (c / d_action) * row + c % d_action,\n'
+        '                                    d_action, horizon, b0, b1, b2);\n'
+        '}\n'
+        'extern "C" void host_uniforms(uint64_t key, uint32_t step, int n, float* out) {\n'
+        '  for (int q = 0; 4 * q < n; ++q) {\n'
+        '    float u[4];\n'
+        '    filtered_noise::uniform_quad((uint32_t)key, (uint32_t)(key >> 32), q, step, u);\n'
+        '    for (int k = 0; k < 4 && 4 * q + k < n; ++k) out[4 * q + k] = u[k];\n'
+        '  }\n'
         '}\n')
     lib_path = tmp / "libnoisehost.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
@@ -85,8 +106,10 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     lib.host_philox.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64,
                                 ctypes.c_void_p]
-    lib.host_noise.argtypes = ([ctypes.c_uint64] + [ctypes.c_float] * 3
+    lib.host_noise.argtypes = ([ctypes.c_uint64, ctypes.c_uint32] + [ctypes.c_float] * 3
                                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.host_uniforms.argtypes = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int,
+                                  ctypes.c_void_p]
     return lib
 
 
@@ -102,14 +125,32 @@ def test_host_philox_matches_plain_bit_for_bit(host_lib):
 @pytest.mark.parametrize("coeffs,horizon", [((0.25, 0.8, 0.0), 9), ((0.5, 0.3, 0.2), 6),
                                             ((1.0, 0.0, 0.0), 5), ((0.25, 0.8, 0.0), 2)])
 def test_host_noise_matches_plain(host_lib, coeffs, horizon):
-    n, d_action = 37, 3
-    seed = rng.derive_seed(11, 0, 7)
+    """The kernel's items and filter, at step 7 (counter word 3), against
+    the plain version given the step as a tensor."""
+    n, d_action, step = 37, 3, 7
+    key = rng.stream_key(11, 0)
     use_filter = coeffs != (1.0, 0.0, 0.0) and horizon > 2
     out = np.empty((n, horizon, d_action), np.float32)
-    host_lib.host_noise(seed, *coeffs, int(use_filter), n, horizon, d_action,
+    host_lib.host_noise(key, step, *coeffs, int(use_filter), n, horizon, d_action,
                         out.ctypes.data)
-    want = FilteredNoise().white_plain(seed, n, horizon, d_action, coeffs, DEVICE)
+    want = FilteredNoise().white_plain(key, rng.step_tensor(step, DEVICE), n, horizon,
+                                       d_action, coeffs)
     np.testing.assert_allclose(out, want.numpy(), rtol=0, atol=HOST_ATOL)
+    at_0 = FilteredNoise().white_plain(key, rng.step_tensor(0, DEVICE), n, horizon, d_action,
+                                       coeffs)
+    assert np.abs(out - at_0.numpy()).max() > 1.0     # the step is read
+
+
+@pytest.mark.parametrize("n,step", [(1, 0), (13, 3), (64, 2 ** 33 + 5)])
+def test_host_uniforms_match_plain_bit_for_bit(host_lib, n, step):
+    """The uniforms kernel's items against philox_uniforms; the step enters
+    as its low 32 bits."""
+    key = rng.stream_key(4, 10)
+    out = np.empty(n, np.float32)
+    host_lib.host_uniforms(key, step & 0xFFFFFFFF, n, out.ctypes.data)
+    got = ops.uniforms(key, rng.step_tensor(step, DEVICE), n)
+    np.testing.assert_array_equal(out, got.numpy())
+    assert got.min() > 0.0 and got.max() < 1.0
 
 
 @pytest.mark.parametrize("coeffs", [(0.25, 0.8, 0.0), (0.5, 0.3, 0.2)])
@@ -128,7 +169,7 @@ def test_filter_and_colouring_match_jax(coeffs):
 
 def _sample(seed, shape, d_action, coeffs, cov=None):
     cov = torch.eye(d_action) if cov is None else torch.as_tensor(cov)
-    return FilteredNoise()(seed, cov, shape, coeffs).numpy()
+    return FilteredNoise()(seed, rng.step_tensor(0, DEVICE), cov, shape, coeffs).numpy()
 
 
 def test_statistics_and_seeding():
@@ -147,7 +188,7 @@ def test_ar_recurrence_innovations_are_standard_normal():
     assert abs(z.std() - 1.0) < 0.1
     assert abs(e[:, :2].std() - 1.0) < 0.1
     # the innovations are the kernel's own normals
-    raw = philox_normals(3, 64, 10, 1, DEVICE).numpy()[..., 0]
+    raw = philox_normals(3, rng.step_tensor(0, DEVICE), 64, 10, 1).numpy()[..., 0]
     np.testing.assert_allclose(z, raw[:, 2:], rtol=0, atol=1e-4)
 
 
@@ -165,7 +206,7 @@ def test_kernel_noise_impl_runs_plain_on_the_cpu_and_counts_no_launch():
     before = FilteredNoise.launches
     got = solver.sample_noise(state)
     assert FilteredNoise.launches == before
-    want = FilteredNoise().plain(rng.derive_seed(4, 0, 0), state.cov, (5, 6),
+    want = FilteredNoise().plain(rng.stream_key(4, 0), state.step, state.cov, (5, 6),
                                  (0.25, 0.8, 0.0))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert not torch.equal(solver.sample_noise(solver.init_state(5)), got)
@@ -177,14 +218,18 @@ def test_noise_impl_is_checked():
                      device=DEVICE)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "empty"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "empty", "host_step", "step_dtype"])
 def test_wrapper_rejects_bad_inputs(bad):
-    cov, shape = torch.eye(3), (4, 5)
+    cov, shape, step = torch.eye(3), (4, 5), rng.step_tensor(0, DEVICE)
     if bad == "dtype":
         cov = cov.double()
     elif bad == "shape":
         cov = cov[:2]
-    else:
+    elif bad == "empty":
         shape = (0, 5)
+    elif bad == "host_step":
+        step = 0
+    else:
+        step = step.to(torch.int32)
     with pytest.raises((TypeError, ValueError)):
-        FilteredNoise()(1, cov, shape, (1.0, 0.0, 0.0))
+        FilteredNoise()(1, step, cov, shape, (1.0, 0.0, 0.0))

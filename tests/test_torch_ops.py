@@ -13,7 +13,7 @@ import torch
 
 from mjmpc_tpu import ops as jops
 from mjmpc_tpu.oracle import cpp_oracle, numpy_ref
-from mjmpc_tpu_torch import ops
+from mjmpc_tpu_torch import ops, rng
 
 ATOL = 1e-6
 DEVICE = "cpu"   # the port defaults to the card; these tests run on the CPU
@@ -69,15 +69,18 @@ def test_colouring_matches_jax_gaussian_noise():
 
 
 def test_filtered_noise_is_seeded_by_its_generator():
+    """The plain sampler's stream is Philox under (key, step): the same pair
+    draws the same noise, another key or step other noise."""
     cov = torch.eye(3) * 0.5
 
-    def draw(seed):
-        g = torch.Generator().manual_seed(seed)
-        return ops.filtered_noise(g, cov, (8, 6), (0.25, 0.8, 0.0))
+    def draw(seed, step=0):
+        return ops.filtered_noise(rng.stream_key(seed, 0), rng.step_tensor(step, "cpu"), cov,
+                                  (8, 6), (0.25, 0.8, 0.0))
 
     assert draw(0).shape == (8, 6, 3)
     torch.testing.assert_close(draw(0), draw(0), rtol=0, atol=0)
     assert not torch.equal(draw(0), draw(1))
+    assert not torch.equal(draw(0), draw(0, step=1))
 
 
 def _gauss_inputs(seed, n=3, m=5):

@@ -52,7 +52,7 @@ from mjmpc_tpu.ops import pallas_kernels as pk
 from mjmpc_tpu.rollout.engine import rollout_open_loop as jax_rollout_open_loop
 from mjmpc_tpu.solvers.base import GaussianState as JaxGaussianState
 from mjmpc_tpu.solvers.mppi import MPPI as JaxMPPI
-from mjmpc_tpu_torch import bounds, convert, envs, solvers
+from mjmpc_tpu_torch import bounds, convert, envs, rng, solvers
 from mjmpc_tpu_torch.envs import pendulum
 from mjmpc_tpu_torch.harness import config as cfg
 from mjmpc_tpu_torch.harness.episode import _fused_mode
@@ -172,13 +172,19 @@ extern "C" void host_rollout(const float* s, const float* mean, const float* noi
     pendulum::rollout_particle(s, mean, noise + (size_t)b * horizon,
                                costs + (size_t)b * horizon, horizon);
 }
-extern "C" void host_solve_particles(uint64_t seed, const float* s, const float* mean,
-                                     int n, int horizon, float b0, float b1, float b2,
-                                     int filter, float sigma, float gamma, float* eps,
-                                     float* costs, float* acc) {
+// kernel #8's phases 1 and 2 over all n particles as one CTA: the items
+// into the [H, n] eps tile, then each particle's row
+extern "C" void host_solve_particles(uint64_t key, uint32_t step, const float* s,
+                                     const float* mean, int n, int horizon, float b0,
+                                     float b1, float b2, int filter, float sigma, float gamma,
+                                     float* eps, float* costs, float* acc) {
+  for (int k = 0; k < n * ((horizon + 1) / 2); ++k)
+    pendulum::noise_item((uint32_t)key, (uint32_t)(key >> 32), step, k % n, k / n,
+                         eps + k % n, n, horizon);
+  const pendulum::Model m = pendulum::model(s);
   for (int i = 0; i < n; ++i)
-    acc[i] = pendulum::solve_particle(seed, s, mean, i, horizon, b0, b1, b2, filter != 0,
-                                      sigma, gamma, eps, costs);
+    acc[i] = pendulum::solve_row(m, s[pendulum::TH0], s[pendulum::THDOT0], mean, eps + i,
+                                 costs + i, n, horizon, b0, b1, b2, filter != 0, sigma, gamma);
 }
 '''
 # the one line of the floor modulo; the wrong build keeps fmodf's remainder
@@ -197,8 +203,8 @@ def _build_host(tmp, source_dir):
     lib = ctypes.CDLL(str(lib_path))
     p = ctypes.c_void_p
     lib.host_rollout.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int]
-    lib.host_solve_particles.argtypes = ([ctypes.c_uint64, p, p, ctypes.c_int, ctypes.c_int]
-                                         + [ctypes.c_float] * 3 + [ctypes.c_int]
+    lib.host_solve_particles.argtypes = ([ctypes.c_uint64, ctypes.c_uint32, p, p, ctypes.c_int,
+                                          ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_int]
                                          + [ctypes.c_float] * 2 + [p, p, p])
     return lib
 
@@ -245,25 +251,26 @@ def test_host_build_matches_plain_and_fmodf_build_fails(jenv, host_libs, n, h):
 
 @pytest.mark.parametrize("coeffs,horizon", [(FILTER, H), ((1.0, 0.0, 0.0), 7)])
 def test_host_solve_particles_match_plain(jenv, host_libs, coeffs, horizon):
-    """Kernel #8's per-particle pass: Philox noise in the filtered-noise
-    kernel's counter layout, the filter and sigma, the rollout and the
-    cost-to-go."""
+    """Kernel #8's per-item noise (Philox in the filtered-noise kernel's
+    counter layout, at step 9) and per-particle row (the filter and sigma,
+    the rollout and the cost-to-go) on its [H, n] tiles, against the plain
+    version given the step as a tensor."""
     right, _ = host_libs
     _, st = _crossing(jenv)
     params = _params(jenv)
-    n, seed, gamma = 128, 2 ** 40 + 17, 0.98
+    n, key, step, gamma = 128, 2 ** 40 + 17, 9, 0.98
     mean = np.asarray(0.4 * np.random.default_rng(3).normal(size=(horizon, 1)), np.float32)
-    eps = np.empty((n, horizon), np.float32)
-    costs = np.empty((n, horizon), np.float32)
+    eps = np.empty((horizon, n), np.float32)
+    costs = np.empty((horizon, n), np.float32)
     acc = np.empty(n, np.float32)
     use_filter = coeffs != (1.0, 0.0, 0.0) and horizon > 2
     scalars = _scalars(st, params)
-    right.host_solve_particles(seed, scalars.ctypes.data, mean.ctypes.data, n,
+    right.host_solve_particles(key, step, scalars.ctypes.data, mean.ctypes.data, n,
                                horizon, *coeffs, int(use_filter), SIGMA, gamma,
                                eps.ctypes.data, costs.ctypes.data, acc.ctypes.data)
-    want_eps = SIGMA * noise_ops.ar_filter(noise_ops.philox_normals(seed, n, horizon, 1, DEVICE),
-                                           coeffs)
-    np.testing.assert_allclose(eps, want_eps[..., 0].numpy(), rtol=0, atol=1e-6)
+    white = noise_ops.philox_normals(key, rng.step_tensor(step, DEVICE), n, horizon, 1)
+    want_eps = SIGMA * noise_ops.ar_filter(white, coeffs)
+    np.testing.assert_allclose(eps.T, want_eps[..., 0].numpy(), rtol=0, atol=1e-6)
     want_costs = P.pendulum_rollout_plain(params, st, torch.as_tensor(mean), want_eps)
     want_acc = want_costs[:, -1]
     for t in range(horizon - 2, -1, -1):
@@ -309,14 +316,17 @@ def test_mppi_solve_plain_draws_the_kernel_noise(jenv):
     _, st = _crossing(jenv)
     params = _params(jenv)
     mean = torch.zeros(H, 1)
+    step = rng.step_tensor(3, DEVICE)
     before = P.MppiPendulumSolve.launches
-    got = P.mppi_pendulum_solve(params, st, mean, 1000, 24, FILTER, SIGMA, 0.01, 0.55, 1.0)
+    got = P.mppi_pendulum_solve(params, st, mean, 1000, step, 24, FILTER, SIGMA, 0.01, 0.55,
+                                1.0)
     assert P.MppiPendulumSolve.launches == before    # the plain version on CPU tensors
-    white = noise_ops.philox_normals(1000, 128, H, 1, DEVICE)[..., 0]
+    white = noise_ops.philox_normals(1000, step, 128, H, 1)[..., 0]
     want = P.mppi_pendulum_update_plain(params, st, mean, white, FILTER, SIGMA, 0.01, 0.55, 1.0)
     assert got.shape == (H, 1) and torch.equal(got, want)
-    assert not torch.equal(got, P.mppi_pendulum_solve_plain(params, st, mean, 1001, 24, FILTER,
-                                                            SIGMA, 0.01, 0.55, 1.0))
+    for key, other_step in ((1001, step), (1000, step + 1)):   # another key, another step
+        assert not torch.equal(got, P.mppi_pendulum_solve_plain(
+            params, st, mean, key, other_step, 24, FILTER, SIGMA, 0.01, 0.55, 1.0))
 
 
 def test_one_kernel_solve_plain_swings_up(env):
@@ -324,10 +334,11 @@ def test_one_kernel_solve_plain_swings_up(env):
     (tests/test_pallas_kernels.py test_one_kernel_mppi_solve_controls),
     through the plain version: 100 steps at N = 1024."""
     st = env.init(env.params, 1)
-    mean, total = torch.zeros(H, 1), 0.0
-    for t in range(100):
-        mean = P.mppi_pendulum_solve(env.params, st, mean, 1000 + t, 1024, FILTER, SIGMA, 0.01,
+    mean, total, step = torch.zeros(H, 1), 0.0, rng.step_tensor(0, DEVICE)
+    for _ in range(100):
+        mean = P.mppi_pendulum_solve(env.params, st, mean, 1000, step, 1024, FILTER, SIGMA, 0.01,
                                      0.55, 1.0)
+        step = step + 1
         st, _, r, _ = env.step(env.params, st, env.clip_action(mean[0]))
         total += float(r)
         mean = torch.cat([mean[1:], torch.zeros(1, 1)])
@@ -371,7 +382,10 @@ def test_wrappers_reject_bad_arguments(env):
         P.pendulum_rollout(env.params, st, torch.zeros(5, 1), torch.zeros(4, 5, 1,
                                                                          dtype=torch.float64))
     with pytest.raises(ValueError):
-        P.mppi_pendulum_solve(env.params, st, torch.zeros(5, 1), 0, 64, lam=0.0)
+        P.mppi_pendulum_solve(env.params, st, torch.zeros(5, 1), 0, rng.step_tensor(0, DEVICE),
+                              64, lam=0.0)
+    with pytest.raises(TypeError):     # a host step
+        P.mppi_pendulum_solve(env.params, st, torch.zeros(5, 1), 0, 0, 64)
 
 
 def test_convert_round_trip(jenv):

@@ -24,7 +24,7 @@ from mjmpc_tpu import solvers as jsolvers
 from mjmpc_tpu.envs.reacher_7dof import ReacherState as JReacherState
 from mjmpc_tpu.oracle import numpy_ref
 from mjmpc_tpu.rollout.engine import Trajectories as JTrajectories
-from mjmpc_tpu_torch import convert, envs, solvers
+from mjmpc_tpu_torch import convert, envs, rng, solvers
 from mjmpc_tpu_torch.rollout import Trajectories
 
 SOLVE_ATOL = 2e-5
@@ -152,7 +152,8 @@ def test_noise_streams_follow_seed_and_step():
     n0 = solver.sample_noise(s)
     torch.testing.assert_close(solver.sample_noise(solver.init_state(3)), n0,
                                rtol=0, atol=0)
-    assert not torch.equal(solver.sample_noise(dataclasses.replace(s, step=1)), n0)
+    assert not torch.equal(
+        solver.sample_noise(dataclasses.replace(s, step=rng.step_tensor(1, DEVICE))), n0)
     assert not torch.equal(solver.sample_noise(solver.init_state(4)), n0)
 
 

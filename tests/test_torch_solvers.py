@@ -22,7 +22,7 @@ import torch
 from mjmpc_tpu import solvers as jsolvers
 from mjmpc_tpu.oracle import numpy_ref
 from mjmpc_tpu.rollout.engine import Trajectories as JTrajectories
-from mjmpc_tpu_torch import envs, policies, rng, solvers
+from mjmpc_tpu_torch import envs, ops, policies, rng, solvers
 from mjmpc_tpu_torch.rollout import Trajectories
 
 DEVICE = "cpu"   # the port defaults to the card; these tests run on the CPU
@@ -53,7 +53,7 @@ def _pair(jcls, cls, data, **cfg):
     jstate = jsolvers.GaussianState(mean=jnp.asarray(mean), cov=jnp.asarray(cov),
                                     step=jnp.array(0, jnp.int32), key=jax.random.PRNGKey(0))
     state = solvers.GaussianState(mean=torch.as_tensor(mean), cov=torch.as_tensor(cov),
-                                  step=0, seed=0)
+                                  step=rng.step_tensor(0, DEVICE), seed=0)
     jtraj = JTrajectories(jnp.asarray(obs), jnp.asarray(actions), jnp.asarray(costs),
                           None, None, None)
     traj = Trajectories(torch.as_tensor(obs), torch.as_tensor(actions),
@@ -190,11 +190,11 @@ def test_pfmpc_update_act_and_shift():
     _, _, actions, costs, _ = data
     jsolver, solver = _pf_pair(data, base_action="repeat")
     state = solvers.PFState(action_samples=torch.as_tensor(actions),
-                            mean=torch.zeros(H, DA), step=2, seed=9)
+                            mean=torch.zeros(H, DA), step=rng.step_tensor(2, DEVICE), seed=9)
     traj = Trajectories(None, torch.as_tensor(actions), torch.as_tensor(costs),
                         None, None, None)
     new = solver.update(state, traj)
-    r = torch.rand((), generator=rng.generator(rng.derive_seed(9, 10, 2), DEVICE)) / N
+    r = ops.uniforms(rng.stream_key(9, 10), state.step, 1)[0] / N
     jw = jax.nn.softmax((-1.0 / 0.3) * np.asarray(
         numpy_ref.cost_to_go(costs.astype(np.float64), solver.gamma_seq))[:, 0])
     want = np.asarray(jsolver.systematic_resample(jnp.asarray(actions), jw, jnp.float32(r)))
@@ -279,7 +279,7 @@ def _nan_particles(env, solver, s0):
 def test_guard_finite_resets_a_solve_that_went_non_finite(env, make, poison):
     solver = make()
     es = env.init(env.params, 1)
-    good_s0 = dataclasses.replace(solver.init_state(3), step=4)
+    good_s0 = dataclasses.replace(solver.init_state(3), step=rng.step_tensor(4, DEVICE))
     bad_env, s0 = poison(env, solver, good_s0)
     bad = solvers.make_solve_fn(solver, bad_env)(env.params, es, s0)
     assert not bool(torch.isfinite(bad[0]).all())
@@ -288,8 +288,8 @@ def test_guard_finite_resets_a_solve_that_went_non_finite(env, make, poison):
     assert float(value) == 0.0 and s.step == 5 and s.seed == s0.seed
     torch.testing.assert_close(action, torch.zeros(7), rtol=0, atol=0)
     fresh = solver.init_state(3)
-    for f in dataclasses.fields(s):
-        if isinstance(getattr(s, f.name), torch.Tensor):
+    for f in dataclasses.fields(s):     # the reset state, but for the step checked above
+        if f.name != "step" and isinstance(getattr(s, f.name), torch.Tensor):
             torch.testing.assert_close(getattr(s, f.name), getattr(fresh, f.name),
                                        rtol=0, atol=0)
     # a finite solve passes through unchanged

@@ -1,5 +1,6 @@
-"""The team-of-lanes rollout kernels and the solves that run them, timed on
-one CUDA card for one or more checkouts of this repository, in turns, so
+"""The hand-written kernels (the team-of-lanes rollouts, the one-kernel
+pendulum solve and the filtered noise) and the solves that run them, timed
+on one CUDA card for one or more checkouts of this repository, in turns, so
 that versions are compared on the same card in the same run.
 
     python3 tools/kernel_ab.py --checkout OLD --checkout . [--family chain] [--rounds 2]
@@ -22,7 +23,15 @@ source:
   H=32 and the cheetah at N=512 H=16; then MPPI on the main path (the
   reacher at N=4096 H=32, kernel noise), on configs/reacher_7dof-v0.yml
   (N=128 H=16) and on both locomotion configs, and Reinforce on the
-  reacher and the peg config.
+  reacher and the peg config;
+- pendulum: kernel #8 (csrc/pendulum.cu, the one-kernel MPPI solve) at
+  N = 128, 1024, 2048 and 8192, H=32, on chip_smoke.py's inputs, with the
+  cluster size its checkout picks;
+- noise: kernel #2 (csrc/filtered_noise.cu, uncoloured) at (N, H, dA) =
+  (37, 5, 7), (4096, 32, 7) and (512, 32, 30); then MPPI on the main path
+  with the kernel noise.
+Both call each checkout's API as it is: a seed by value, or a key and a
+step tensor (at step 0, which draws the same normals as the seed did).
 
 A run builds its family's libraries (one nvcc each, in parallel), prints
 their ptxas lines, nvcc seconds and SASS instructions (cuobjdump), times
@@ -44,6 +53,21 @@ and the peg at N=256 H=16, chain for #1, #3, #4 and #5 at the sizes above.
 It fails unless every kind of phase that the kernel runs counted cycles
 and the outputs are the plain build's, bit for bit.
 
+    python3 tools/kernel_ab.py --cluster-sweep
+
+instead times this checkout's kernel #8 at every cluster size it can take
+(1, 2, 4, 8 and 16 CTAs; those whose CTA does not fit are reported as
+such) at N = 128, 1024, 2048 and 8192, H=32, then one line per N with the
+fastest size and the one ops/pendulum.py solve_cluster picks. It fails
+unless every size gives the plain version's mean to 1e-5.
+
+    python3 tools/kernel_ab.py --noise-sweep
+
+instead times this checkout's kernel #2 (uncoloured) at the noise shapes
+above with 1, 2, 4, 8, 16 and 32 particles a block and its default, one line
+per time and one per shape with the fastest. It fails unless every
+partition gives the default's output bit for bit.
+
     python3 tools/kernel_ab.py --sweep
 
 instead times this checkout's costs and obs rollouts (#1, #3) at every
@@ -59,6 +83,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -68,7 +93,10 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-FAMILIES = ("forest", "chain")
+FAMILIES = ("forest", "chain", "pendulum", "noise")
+NOISE_SHAPES = ((37, 5, 7), (4096, 32, 7), (512, 32, 30))
+PENDULUM_N = (128, 1024, 2048, 8192)
+NOISE_PER_BLOCK = (0, 1, 2, 4, 8, 16, 32)    # 0: the kernel's default
 FOREST_SIZES = (("pen-v0", 64, 16), ("pen-v0", 256, 16), ("pen-v0", 1024, 16),
                 ("pen-v0", 4096, 16), ("sawyer_peg_insertion-v0", 256, 16))
 # chain kernels: name -> (wrapper key, N, H)
@@ -292,6 +320,65 @@ def solve_rate(smoke, smi, solve, s, e, **labels):
     smoke.profile(solve, e, es, s.init_state(0), smi, **labels)
 
 
+def _takes_step(fn) -> bool:
+    """Whether a noise or #8 entry point takes a step tensor (else a seed)."""
+    return "step" in inspect.signature(fn).parameters
+
+
+def _print_build(name, lib):
+    print(json.dumps({"build": name, "nvcc_seconds": lib.build_seconds,
+                      "ptxas": [ln.strip() for ln in lib.ptxas.splitlines()
+                                if re.search(r"registers|spill|stack|smem", ln)]}), flush=True)
+
+
+def pendulum_timings(smoke, smi, device, outputs):
+    import torch
+    from mjmpc_tpu_torch import envs
+    from mjmpc_tpu_torch.ops import pendulum as pend
+    _print_build("pendulum", pend.library())
+    keyed = _takes_step(type(pend.mppi_pendulum_solve).__call__)
+    step = torch.zeros((), dtype=torch.int64, device=device)
+    params, state, mean, _ = smoke.pendulum_inputs(envs.make("SimplePendulum-v0", device=device),
+                                                   1, smoke.HORIZON, 34, device)
+    for n in PENDULUM_N:
+        cfg = dict(smoke.ONE_KERNEL, num_particles=n)
+        head = (params, state, mean, 77) + ((step,) if keyed else ())
+        got = pend.mppi_pendulum_solve(*head, **cfg)
+        torch.cuda.synchronize()
+        outputs[f"mppi_pendulum_solve_{n}"] = got.cpu().numpy()
+        ctas = pend.solve_cluster(pend.sampled_particles(n)) if keyed else 1
+        print(json.dumps({"kernel": "mppi_pendulum_solve", "n": n, "h": smoke.HORIZON,
+                          "ctas": ctas, "card": smi,
+                          "ms": smoke.cuda_ms(lambda: pend.mppi_pendulum_solve(*head, **cfg),
+                                              50)}), flush=True)
+
+
+def noise_timings(smoke, smi, device, outputs):
+    import torch
+    from mjmpc_tpu_torch import envs, solvers
+    from mjmpc_tpu_torch.ops.noise import FilteredNoise
+    sampler = FilteredNoise()
+    _print_build("filtered_noise", sampler.library())
+    keyed = _takes_step(sampler.white)
+    step = torch.zeros((), dtype=torch.int64, device=device)
+    for n, h, d in NOISE_SHAPES:
+        args = ((5, step, n, h, d, smoke.FILTER) if keyed
+                else (5, n, h, d, smoke.FILTER, device))
+        got = sampler.white(*args)
+        torch.cuda.synchronize()
+        outputs[f"filtered_noise_{n}_{h}_{d}"] = got.cpu().numpy()
+        print(json.dumps({"kernel": "filtered_noise", "n": n, "h": h, "d_action": d,
+                          "card": smi, "ms": smoke.cuda_ms(lambda: sampler.white(*args), 50)}),
+              flush=True)
+    e = envs.make("reacher_7dof-v0", device=device)     # the main path, kernel noise
+    s = solvers.MPPI(d_action=e.d_action, horizon=smoke.HORIZON,
+                     num_particles=smoke.NUM_PARTICLES, init_cov=3.0,
+                     filter_coeffs=smoke.FILTER, base_action="repeat", device=device, lam=0.01,
+                     step_size=0.55, gamma=1.0, noise_impl="kernel")
+    solve_rate(smoke, smi, solvers.make_solve_fn(s, e), s, e, solver="mppi", env=e.name,
+               noise_impl="kernel")
+
+
 def run_timings(out_path: str, smi: str, families) -> None:
     """One checkout's run (from its root): each family's kernels, then its
     solves; the kernels' outputs saved to out_path."""
@@ -302,6 +389,10 @@ def run_timings(out_path: str, smi: str, families) -> None:
         forest_timings(smoke, smi, device, outputs)
     if "chain" in families:
         chain_timings(smoke, smi, device, outputs)
+    if "pendulum" in families:
+        pendulum_timings(smoke, smi, device, outputs)
+    if "noise" in families:
+        noise_timings(smoke, smi, device, outputs)
     np.savez(out_path, **outputs)
 
 
@@ -380,6 +471,73 @@ def run_sweep() -> None:
                               "identical": True}), flush=True)
 
 
+def run_cluster_sweep() -> None:
+    """This checkout's kernel #8 at every cluster size (CLUSTER_SIZES)."""
+    import torch
+    from mjmpc_tpu_torch import envs, rng
+    from mjmpc_tpu_torch.ops import pendulum as pend
+    smoke, device = load_smoke(), torch.device("cuda")
+    _print_build("pendulum", pend.library())
+    step = rng.step_tensor(0, device)
+    params, state, mean, _ = smoke.pendulum_inputs(envs.make("SimplePendulum-v0", device=device),
+                                                   1, smoke.HORIZON, 34, device)
+    for n in PENDULUM_N:
+        cfg = dict(smoke.ONE_KERNEL, num_particles=n)
+        args = (params, state, mean, 77, step)
+        want = pend.mppi_pendulum_solve.plain(*args, **cfg)
+        sampled, times = pend.sampled_particles(n), {}
+        for ctas in pend.CLUSTER_SIZES:
+            try:
+                threads, smem = pend.solve_shape(sampled, smoke.HORIZON, ctas)
+            except ValueError as e:
+                print(json.dumps({"cluster_sweep": n, "ctas": ctas, "fits": False,
+                                  "why": str(e)}), flush=True)
+                continue
+            active = pend.max_active_clusters(sampled, smoke.HORIZON, ctas)
+            if active < 1:
+                print(json.dumps({"cluster_sweep": n, "ctas": ctas, "fits": False,
+                                  "max_active_clusters": active}), flush=True)
+                continue
+            got = pend.mppi_pendulum_solve(*args, **cfg, ctas=ctas)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not err <= 1e-5:
+                raise RuntimeError(f"kernel #8 at {ctas} CTAs disagrees at N={n}: {err}")
+            times[ctas] = smoke.cuda_ms(lambda: pend.mppi_pendulum_solve(*args, **cfg,
+                                                                         ctas=ctas), 50)
+            print(json.dumps({"cluster_sweep": n, "ctas": ctas, "threads": threads,
+                              "smem_bytes": smem, "max_active_clusters": active,
+                              "max_abs_err": err, "ms": times[ctas]}), flush=True)
+        print(json.dumps({"cluster_sweep": n, "fastest": min(times, key=times.get),
+                          "rule": pend.solve_cluster(sampled), "ms": times}), flush=True)
+
+
+def run_noise_sweep() -> None:
+    """This checkout's kernel #2 at several particles per block."""
+    import torch
+    from mjmpc_tpu_torch import rng
+    from mjmpc_tpu_torch.ops.noise import FilteredNoise
+    smoke, device = load_smoke(), torch.device("cuda")
+    sampler = FilteredNoise()
+    _print_build("filtered_noise", sampler.library())
+    step = rng.step_tensor(0, device)
+    for n, h, d in NOISE_SHAPES:
+        want = sampler.white(5, step, n, h, d, smoke.FILTER)
+        times = {}
+        for per_block in NOISE_PER_BLOCK:
+            args = (5, step, n, h, d, smoke.FILTER, per_block)
+            got = sampler.white(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"kernel #2 at {per_block} particles a block differs at "
+                                   f"{(n, h, d)}")
+            times[per_block] = smoke.cuda_ms(lambda: sampler.white(*args), 50)
+            print(json.dumps({"noise_sweep": [n, h, d], "per_block": per_block,
+                              "ms": times[per_block]}), flush=True)
+        print(json.dumps({"noise_sweep": [n, h, d], "fastest": min(times, key=times.get),
+                          "ms": times, "identical": True}), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--checkout", action="append", default=None,
@@ -391,6 +549,10 @@ def main() -> int:
                         help="this checkout's phase clocks instead of the timings")
     parser.add_argument("--sweep", action="store_true",
                         help="this checkout's costs and obs rollouts at every team size")
+    parser.add_argument("--cluster-sweep", action="store_true",
+                        help="this checkout's kernel #8 at every cluster size")
+    parser.add_argument("--noise-sweep", action="store_true",
+                        help="this checkout's kernel #2 at several particles per block")
     parser.add_argument("--run", nargs=3, metavar=("OUTPUTS_NPZ", "CARD", "FAMILIES"),
                         help=argparse.SUPPRESS)    # one checkout's run, from its root
     args = parser.parse_args()
@@ -398,9 +560,16 @@ def main() -> int:
     if args.run:
         run_timings(args.run[0], args.run[1], args.run[2].split(","))
         return 0
-    if args.phases or args.sweep:
+    if args.phases or args.sweep or args.cluster_sweep or args.noise_sweep:
         sys.path.insert(0, str(ROOT))
-        run_sweep() if args.sweep else run_phases(families)
+        if args.cluster_sweep:
+            run_cluster_sweep()
+        elif args.noise_sweep:
+            run_noise_sweep()
+        elif args.sweep:
+            run_sweep()
+        else:
+            run_phases(tuple(f for f in families if f in CLOCK_FLAGS))
         return 0
     checkouts = [Path(c).resolve() for c in (args.checkout or [str(ROOT)])]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
