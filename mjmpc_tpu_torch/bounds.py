@@ -12,8 +12,9 @@ arithmetic on shapes, not a measurement; it runs anywhere. chip_smoke.py
 reports the same bounds for the kernels beside their measured times,
 kernel #4's peg instance at the closed-loop peg config's size, kernel #5
 at the swimmer's and the half cheetah's config sizes, kernel #6 at
-pen-v0's and the sawyer peg's (N=256, H=16 each) and kernels #7 and #8 at
-the sizes it times (PENDULUM_SIZES).
+pen-v0's, the sawyer peg's, relocate-v0's and hammer-v0's config sizes
+(FOREST_SIZES) and kernels #7 and #8 at the sizes it times
+(PENDULUM_SIZES).
 """
 from __future__ import annotations
 
@@ -122,17 +123,21 @@ def ext_instance(roll: ChainExtRollout, n: int, h: int) -> dict:
                 bound_ms=ms, bound_by=by)
 
 
-# Kernel #6's calls at the configs' sizes: configs/hand/pen-v0.yml's mppi
-# block (8 x 32 particles, H=16; 5 substeps) and
-# configs/sawyer/sawyer_peg_insertion-v0.yml's (8 x 32, H=16; 2 substeps).
-FOREST_SIZES = {"pen-v0": (256, 16), "sawyer_peg_insertion-v0": (256, 16)}
+# Kernel #6's calls at the configs' sizes (their mppi blocks):
+# configs/hand/pen-v0.yml (8 x 32 particles, H=16; 5 substeps),
+# configs/sawyer/sawyer_peg_insertion-v0.yml (8 x 32, H=16; 2 substeps),
+# configs/hand/relocate-v0.yml (8 x 64, H=32; 5 substeps) and
+# configs/hand/hammer-v0.yml (8 x 64, H=20; 5 substeps).
+FOREST_SIZES = {"pen-v0": (256, 16), "sawyer_peg_insertion-v0": (256, 16),
+                "relocate-v0": (512, 32), "hammer-v0": (512, 20)}
 
 
 def _forest_rollout(name: str) -> ForestRollout:
-    """Kernel #6's wrapper for pen-v0 or the sawyer peg, on the CPU."""
+    """Kernel #6's wrapper for one of FOREST_SIZES' envs, on the CPU."""
     from . import envs
-    from .envs import pen, sawyer_tasks
-    module = pen if name == "pen-v0" else sawyer_tasks
+    from .envs import hammer, pen, relocate, sawyer_tasks
+    module = {"pen-v0": pen, "sawyer_peg_insertion-v0": sawyer_tasks, "relocate-v0": relocate,
+              "hammer-v0": hammer}[name]
     return module.build_rollout(envs.make(name, device="cpu").params.model)
 
 

@@ -4,7 +4,8 @@ Plain functions over numpy arrays, or objects whose fields convert with
 np.asarray (a JAX ChainModel, GaussianState, ReacherState, PegParams,
 PegState, ReinforceState, VFParams, LGPolicyParams, SwimmerParams,
 CheetahParams, SwimmerState, CheetahState, PenParams, PenState,
-PendulumParams or PendulumState does;
+RelocateParams, RelocateState, HammerParams, HammerState, PendulumParams
+or PendulumState does;
 models with ball and free joints keep the JAX layout: qpos [nq] with
 quaternions in wxyz order, per-DOF arrays [nv], limits [nq]). This module
 never imports jax; tests use it so that both packages compute on the same
@@ -18,9 +19,11 @@ import torch
 from . import rng
 from .engine.chain import ChainModel
 from .envs.half_cheetah import CheetahParams, CheetahState
+from .envs.hammer import HammerParams, HammerState
 from .envs.pen import PenParams, PenState
 from .envs.pendulum import PendulumParams, PendulumState
 from .envs.reacher_7dof import ReacherState
+from .envs.relocate import RelocateParams, RelocateState
 from .envs.sawyer_tasks import PegParams, PegState
 from .envs.swimmer import _VEL_LIMIT, SwimmerParams, SwimmerState
 from .ops.pendulum import PARAM_FIELDS as _PENDULUM_FIELDS
@@ -142,6 +145,37 @@ def pen_state_from_reference(state, device="cuda") -> PenState:
     return PenState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
                     desired=_t(state.desired, device),
                     timestep=int(np.asarray(state.timestep)))
+
+
+def relocate_params_from_reference(params, device="cuda") -> RelocateParams:
+    """A reference RelocateParams (the arm, hand and free-ball model, kp,
+    kd, mu, ball radius) as the port's."""
+    return RelocateParams(model=chain_model_from_reference(params.model, device),
+                          kp=_t(params.kp, device), kd=_t(params.kd, device),
+                          mu=_t(params.mu, device), ball_r=_t(params.ball_r, device))
+
+
+def relocate_state_from_reference(state, device="cuda") -> RelocateState:
+    """A reference RelocateState (qpos [34] with the ball's quaternion in
+    wxyz order, qvel [33], target [3], timestep) as the port's."""
+    return RelocateState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
+                         target=_t(state.target, device),
+                         timestep=int(np.asarray(state.timestep)))
+
+
+def hammer_params_from_reference(params, device="cuda") -> HammerParams:
+    """A reference HammerParams (the arm, hand, free-hammer and nail model,
+    kp, kd, mu) as the port's."""
+    return HammerParams(model=chain_model_from_reference(params.model, device),
+                        kp=_t(params.kp, device), kd=_t(params.kd, device),
+                        mu=_t(params.mu, device))
+
+
+def hammer_state_from_reference(state, device="cuda") -> HammerState:
+    """A reference HammerState (qpos [35] with the hammer's quaternion in
+    wxyz order, qvel [34], timestep) as the port's."""
+    return HammerState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
+                       timestep=int(np.asarray(state.timestep)))
 
 
 def pendulum_params_from_reference(params, device="cuda") -> PendulumParams:

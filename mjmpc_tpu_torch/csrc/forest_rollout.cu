@@ -72,17 +72,22 @@
 namespace {
 
 // A block is two warps holding 32 / TEAM teams: warp g holds every team's
-// group g. Their particles and the tables sit in static shared
-// memory, at most 48 KB a block (ptxas refuses more).
+// group g. The model's tables sit in static shared memory (at most 48 KB a
+// block, which ptxas refuses to pass), the teams' particles in dynamic
+// shared memory beside them: the arm-mounted hand's tables take 36 KB, and
+// the two together pass 48 KB (forest_rollout_setup lets the kernel take
+// them).
 constexpr int kTeams = 32 / forest::TEAM;
 constexpr int kBlock = 32 * forest_rollout::GROUPS;
+constexpr size_t kParticleBytes = kTeams * sizeof(forest_rollout::Particle);
 
 __global__ void __launch_bounds__(kBlock)
     forest_rollout_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
                           const float* __restrict__ extras, const float* __restrict__ mean,
                           const float* __restrict__ noise, float* __restrict__ costs, int n,
                           int horizon) {
-    __shared__ forest_rollout::Particle particles[kTeams];
+    extern __shared__ float4 particle_smem[];
+    auto* particles = reinterpret_cast<forest_rollout::Particle*>(particle_smem);
     forest::load_tables(threadIdx.x, kBlock);
     __syncthreads();
     const int in_warp = threadIdx.x % 32;
@@ -107,10 +112,19 @@ extern "C" {
 int forest_rollout_launch(const float* q0, const float* qd0, const float* extras,
                           const float* mean, const float* noise, float* costs, int n,
                           int horizon, void* stream) {
-    forest_rollout_kernel<<<(n + kTeams - 1) / kTeams, kBlock, 0,
+    forest_rollout_kernel<<<(n + kTeams - 1) / kTeams, kBlock, kParticleBytes,
                             static_cast<cudaStream_t>(stream)>>>(q0, qd0, extras, mean, noise,
                                                                  costs, n, horizon);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Once, before any launch (and before any graph capture): lets the kernel
+// take its particles' dynamic shared memory beside its static tables.
+// Returns 0 or a cudaError_t.
+int forest_rollout_setup() {
+    return static_cast<int>(cudaFuncSetAttribute(
+        forest_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kParticleBytes)));
 }
 
 // The build's (task, nq, nv, dA, n_extras, team), checked by the wrapper.

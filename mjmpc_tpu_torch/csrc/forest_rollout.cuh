@@ -36,14 +36,17 @@
 //
 // Tasks (forest::TASK, and FOREST_TASK for the preprocessor): Pen (the
 // 12-point pen contact and the pen cost, envs/pen.py), Peg (no contact, the
-// depth-progress insertion cost of peg_cost.cuh) and GroundSpheres
-// (spheres against the plane z = 0). A task gives N_EXTRAS, load() of its
-// extras, point_force() of one contact point (its first N_FIRST points on
-// a team's first group, the rest on its last; for a force law that sums
-// over points, N_SUMS sums in sum_forces()), joint_torque() (the
-// optional hook on each joint's generalized force) and cost() of a
-// post-step state. The contact primitives follow envs/contact.py formula
-// for formula.
+// depth-progress insertion cost of peg_cost.cuh), GroundSpheres (spheres
+// against the plane z = 0), Relocate (the 12-point ball contact, the hand's
+// weight on the arm's z slide and the relocate cost, envs/relocate.py) and
+// Hammer (the 15-point handle, table and strike contact, the hand's weight
+// and the nail's dry friction, the hammer cost, envs/hammer.py). A task
+// gives N_EXTRAS, load() of its extras, point_force() of one contact point
+// (its first N_FIRST points on a team's first group, the rest on its last;
+// for a force law that sums over points, N_SUMS sums in sum_forces()),
+// joint_torque() (the optional hook on a scalar joint's generalized force,
+// after the contact forces) and cost() of a post-step state. The contact
+// primitives follow envs/contact.py formula for formula.
 
 #pragma once
 
@@ -589,6 +592,164 @@ struct GroundSpheres : NoJointTorque {
     }
 };
 using BuildTask = GroundSpheres;
+#elif FOREST_TASK == 3
+// relocate-v0 (envs/relocate.py): extras = [target 3, kp, kd, mu, ball
+// radius]. Points: the tip and mid sphere of each digit (N_TIPS), the ball's
+// centre, then the palm pad on the arm's z slide (body 2). Each finger
+// sphere and the palm pad push the ball (the push kept for the ball's sum)
+// and the table holds them up; the table holds up the ball; only the
+// finger-on-ball and palm-on-ball forces react onto the ball. The z slide
+// carries the hand's weight.
+struct Relocate {
+    static constexpr int N_EXTRAS = 7;
+    static constexpr int N_SUMS = 1;  // the ball's sum over the tips and the palm
+    static constexpr int N_FIRST = forest_task::N_TIPS;  // the tips; then the ball, the palm
+    static constexpr int BALL = forest_task::N_TIPS, PALM = forest_task::N_TIPS + 1;
+
+    struct Extras {
+        V3 target;
+        float kp, kd, mu, ball_r;
+    };
+
+    static FOREST_FN Extras load(const float* __restrict__ e) {
+        return {{e[0], e[1], e[2]}, e[3], e[4], e[5], e[6]};
+    }
+
+    static FOREST_FN void point_force(Particle& s, const Extras& ex, int k) {
+        using namespace forest_task;
+        if (k < N_TIPS) {
+            const V3 f_ball = sphere_sphere_force(s.p[k], s.v[k], tip_radius(k), s.p[BALL],
+                                                  s.v[BALL], ex.ball_r, ex.kp, ex.kd, ex.mu);
+            s.pf[k] = f_ball;
+            s.f[k] = add(f_ball, sphere_plane_force(s.p[k], s.v[k], tip_radius(k), ex.kp, ex.kd,
+                                                    ex.mu));
+        } else if (k == BALL) {
+            s.pf[BALL] = sphere_plane_force(s.p[BALL], s.v[BALL], ex.ball_r, ex.kp, ex.kd, ex.mu);
+        } else {
+            const V3 f_ball = sphere_sphere_force(s.p[PALM], s.v[PALM], PALM_R, s.p[BALL],
+                                                  s.v[BALL], ex.ball_r, ex.kp, ex.kd, ex.mu);
+            s.pf[PALM] = f_ball;
+            s.f[PALM] = add(f_ball, sphere_plane_force(s.p[PALM], s.v[PALM], PALM_R, ex.kp,
+                                                       ex.kd, ex.mu));
+        }
+    }
+
+    // The ball takes the tips' and then the palm's reactions.
+    static FOREST_FN void sum_forces(Particle& s, int) {
+        V3 f = s.pf[BALL];
+#pragma unroll
+        for (int k = 0; k < forest_task::N_TIPS; ++k) f = sub(f, s.pf[k]);
+        s.f[BALL] = sub(f, s.pf[PALM]);
+    }
+
+    static FOREST_FN void joint_torque(const Particle&, const Extras&, int i, float& tau) {
+        if (i == 2) tau = tau + forest_task::HAND_WEIGHT;
+    }
+
+    // -reward: -0.1 |palm - ball|, once the ball is above LIFT_Z 1 - 0.5
+    // |palm - target| - 0.5 |ball - target|, +10 / +20 with the ball within
+    // 0.10 / 0.05 of the target.
+    static FOREST_FN float cost(const Particle& s, const Extras& ex) {
+        using namespace forest_task;
+        const V3 palm = add(s.P[2], mv(s.R[2], {palm_local(0), palm_local(1), palm_local(2)}));
+        const V3 ball = s.P[BALL_BODY];
+        const V3 d_reach = sub(palm, ball), d_carry = sub(ball, ex.target),
+                 d_palm = sub(palm, ex.target);
+        const float reach = sqrtf(dot(d_reach, d_reach));
+        const float carry = sqrtf(dot(d_carry, d_carry));
+        const float palm_t = sqrtf(dot(d_palm, d_palm));
+        const float reward = -0.1f * reach
+                           + (ball.z > LIFT_Z ? 1.0f - 0.5f * palm_t - 0.5f * carry : 0.0f)
+                           + (carry < 0.10f ? 10.0f : 0.0f) + (carry < 0.05f ? 20.0f : 0.0f);
+        return -reward;
+    }
+};
+using BuildTask = Relocate;
+#elif FOREST_TASK == 4
+// hammer-v0 (envs/hammer.py): extras = [kp, kd, mu]. Points: the tip and mid
+// sphere of each digit (N_TIPS), the handle capsule's two ends, the head's
+// centre, the nail's head and the palm pad. Each finger sphere and the palm
+// pad push the handle (the reaction split by t onto the two ends), the
+// table holds up the fingers, the handle's ends and the head, and the head
+// strikes the nail's head, the strike reacting onto the nail; only the
+// finger-on-handle and palm-on-handle forces react onto the hammer. The z
+// slide carries the hand's weight; the nail's slide takes its dry friction.
+// The hammer's com sits off its joint origin: free_substep's coupled branch.
+struct Hammer {
+    static constexpr int N_EXTRAS = 3;
+    static constexpr int N_SUMS = 2;  // the two ends' sums over the tips and the palm
+    static constexpr int N_FIRST = forest_task::N_TIPS;  // the tips; then the rest
+
+    struct Extras {
+        float kp, kd, mu;
+    };
+
+    static FOREST_FN Extras load(const float* __restrict__ e) { return {e[0], e[1], e[2]}; }
+
+    // A tip's or the palm's push on the handle (its weight t kept for the
+    // ends' sums); each end's plane force; the head's plane force and strike,
+    // whose reaction is the nail's whole force (the nail's own call adds
+    // nothing).
+    static FOREST_FN void point_force(Particle& s, const Extras& ex, int k) {
+        using namespace forest_task;
+        if (k < N_TIPS || k == PALM) {
+            const float r = k < N_TIPS ? tip_radius(k) : PALM_R;
+            float t;
+            const V3 f_handle = sphere_segment_force(s.p[k], s.v[k], r, s.p[CAP_A], s.p[CAP_B],
+                                                     s.v[CAP_A], s.v[CAP_B], HANDLE_R, ex.kp,
+                                                     ex.kd, ex.mu, t);
+            s.pf[k] = f_handle;
+            s.pt[k] = t;
+            s.f[k] = k < N_TIPS ? add(f_handle, sphere_plane_force(s.p[k], s.v[k], r, ex.kp,
+                                                                   ex.kd, ex.mu))
+                                : f_handle;
+        } else if (k == CAP_A || k == CAP_B) {
+            s.pf[k] = sphere_plane_force(s.p[k], s.v[k], HANDLE_R, ex.kp, ex.kd, ex.mu);
+        } else if (k == HEAD) {
+            const V3 f_strike = sphere_sphere_force(s.p[HEAD], s.v[HEAD], HEAD_R, s.p[NAIL],
+                                                    s.v[NAIL], NAIL_R, ex.kp, ex.kd, ex.mu);
+            s.f[HEAD] = add(sphere_plane_force(s.p[HEAD], s.v[HEAD], HEAD_R, ex.kp, ex.kd, ex.mu),
+                            f_strike);
+            s.f[NAIL] = scale(-1.0f, f_strike);
+        }
+    }
+
+    // End e (0: a, 1: b) takes the tips' reactions, in tip order, then the
+    // palm's.
+    static FOREST_FN void sum_forces(Particle& s, int e) {
+        using namespace forest_task;
+        const int end = CAP_A + e;
+        V3 f = s.pf[end];
+#pragma unroll
+        for (int k = 0; k < N_TIPS; ++k)
+            f = sub(f, scale(e == 0 ? 1.0f - s.pt[k] : s.pt[k], s.pf[k]));
+        s.f[end] = sub(f, scale(e == 0 ? 1.0f - s.pt[PALM] : s.pt[PALM], s.pf[PALM]));
+    }
+
+    static FOREST_FN void joint_torque(const Particle& s, const Extras&, int i, float& tau) {
+        using namespace forest_task;
+        if (i == 2) tau = tau + HAND_WEIGHT;
+        if (i == NAIL_BODY)
+            tau = tau + -NAIL_RESIST * tanhf(s.qd[forest::voff(i)] / NAIL_V_SLIP);
+    }
+
+    // -reward: -0.1 |palm - hammer| - |head - nail| + 2 depth / travel, +25
+    // / +75 with the nail past half / 95% of its travel.
+    static FOREST_FN float cost(const Particle& s, const Extras&) {
+        using namespace forest_task;
+        const V3 palm = add(s.P[2], mv(s.R[2], {palm_local(0), palm_local(1), palm_local(2)}));
+        const V3 hammer = s.P[HAMMER_BODY];
+        const V3 head = add(hammer, mv(s.R[HAMMER_BODY],
+                                       {head_local(0), head_local(1), head_local(2)}));
+        const V3 d_palm = sub(palm, hammer), d_head = sub(head, s.P[NAIL_BODY]);
+        const float depth = -s.q[forest::qoff(NAIL_BODY)];
+        const float reward = -0.1f * sqrtf(dot(d_palm, d_palm)) - sqrtf(dot(d_head, d_head))
+                           + 2.0f * depth / NAIL_TRAVEL + (depth > HALF_DEPTH ? 25.0f : 0.0f)
+                           + (depth > FULL_DEPTH ? 75.0f : 0.0f);
+        return -reward;
+    }
+};
+using BuildTask = Hammer;
 #endif
 
 static_assert(BuildTask::N_EXTRAS == forest::N_EXTRAS, "the task's extras and the header's differ");

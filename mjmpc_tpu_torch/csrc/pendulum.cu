@@ -3,11 +3,23 @@
 // Kernel #7, pendulum_rollout_kernel, replaces the TPU kernel
 // mjmpc_tpu/ops/pallas_kernels.py `_pendulum_kernel` (built by
 // `pendulum_rollout_pallas`): the open-loop rollout of N particles over H
-// steps, costs [N, H] taken at each step's pre-step state. One thread per
-// particle keeps (th, thdot) in registers across the H steps
-// (pendulum.cuh rollout_particle). The TPU kernel's [H, N] lane panels
-// padded to 256 particles become the [N, H] layout the port's rollouts
-// use, with no padding: a thread past N returns.
+// steps, costs [N, H] taken at each step's pre-step state. The TPU kernel's
+// [H, N] lane panels padded to 256 particles become the [N, H] layout the
+// port's rollouts use, with no padding. A block owns `per_block` whole
+// particles, whose noise and costs are each one contiguous per_block * H
+// run of floats (pendulum_rollout_per_block picks per_block from N, or the
+// caller gives it), in three phases:
+//   1. every thread clips actions: element k of the block's noise run, read
+//      coalesced, plus mean[t] (read through the cache), clipped
+//      (pendulum.cuh control) into a shared [per_block, H] tile;
+//   2. one lane per particle runs only the serial recurrence (pendulum.cuh
+//      rollout_states: sinf and the clamp), writing each step's pre-step
+//      (th, thdot) into two more shared tiles;
+//   3. every thread takes the cost of element k from the tiles (pendulum.cuh
+//      state_cost: the angle wrap by fmodf and the cost's products) and
+//      stores it coalesced.
+// The tiles' rows are H | 1 floats apart, an odd stride, so that the lanes
+// of phase 2, each on its own row, hit 32 different banks.
 //
 // Kernel #8, mppi_pendulum_solve_kernel, replaces `_mppi_solve_kernel`
 // (built by `mppi_pendulum_solve_pallas`): one whole MPPI solve in one
@@ -44,10 +56,11 @@
 // only 2 H + 8 floats against about 100 operations per particle-step
 // (noise and Philox, the step, the weighted sum), so the operations bound
 // it. Limits:
-//   - #7's thread reads its noise row and writes its cost row, H floats
-//     apart from the next thread's, so a warp's accesses are not coalesced;
-//     each thread runs its H steps serially, so the kernel takes one
-//     thread's latency at any N the card holds at once;
+//   - #7's particle runs its H steps as one dependent chain of IEEE sinf
+//     and a few products: a launch takes about that chain's latency plus
+//     one coalesced load and one store of its tiles, the clip's and the
+//     cost's items spread over every SM by small blocks (4 particles a
+//     block up to 8 blocks an SM), at any N up to 8 blocks an SM;
 //   - #8's particle runs its H steps serially on one thread, and the
 //     cluster syncs four times.
 //
@@ -66,7 +79,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRolloutBlock = 128;
+// Kernel #7's threads a block: at least kRolloutMinBlock (phases 1 and 3
+// spread the tile over them), at least one per particle.
+constexpr int kRolloutMinBlock = 128;
+constexpr int kRolloutMaxBlock = 1024;
+constexpr int kRolloutBlocksPerSM = 8;
 constexpr int kSolveMaxBlock = 1024;
 constexpr int kWarp = 32;
 
@@ -81,14 +98,61 @@ int max_dynamic_smem() {
     return bytes;
 }
 
-__global__ void pendulum_rollout_kernel(const float* __restrict__ scalars,
-                                        const float* __restrict__ mean,
-                                        const float* __restrict__ noise,
-                                        float* __restrict__ costs, int n, int horizon) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= n) return;
-    const size_t row = static_cast<size_t>(b) * horizon;
-    pendulum::rollout_particle(scalars, mean, noise + row, costs + row, horizon);
+// The card's SM count, read once.
+int sm_count() {
+    static int count = -1;
+    if (count < 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return count;
+}
+
+// Kernel #7's shared tiles, in floats: the clipped actions, th and thdot,
+// each [per_block] rows of rollout_stride(horizon) floats.
+__host__ __device__ constexpr int rollout_stride(int horizon) { return horizon | 1; }
+
+__host__ __device__ constexpr size_t rollout_smem_floats(int per_block, int horizon) {
+    return 3 * static_cast<size_t>(per_block) * rollout_stride(horizon);
+}
+
+__global__ void __launch_bounds__(kRolloutMaxBlock)
+    pendulum_rollout_kernel(const float* __restrict__ scalars, const float* __restrict__ mean,
+                            const float* __restrict__ noise, float* __restrict__ costs, int n,
+                            int horizon, int per_block) {
+    extern __shared__ float smem[];
+    const int stride = rollout_stride(horizon);
+    float* u = smem;
+    float* th = u + static_cast<size_t>(per_block) * stride;
+    float* thdot = th + static_cast<size_t>(per_block) * stride;
+    const int first = blockIdx.x * per_block;
+    const int count = min(per_block, n - first);
+    const int items = count * horizon;
+    const size_t run = static_cast<size_t>(first) * horizon;
+    const float* __restrict__ nz = noise + run;
+    float* __restrict__ out = costs + run;
+    const pendulum::Model m = pendulum::model(scalars);
+    const int tid = threadIdx.x;
+
+    // 1. the clipped actions, coalesced from the block's noise run
+    for (int k = tid; k < items; k += blockDim.x) {
+        const int i = k / horizon, t = k - i * horizon;
+        u[i * stride + t] = pendulum::control(m, __ldg(mean + t) + nz[k]);
+    }
+    __syncthreads();
+    // 2. the recurrence, one lane per particle
+    if (tid < count) {
+        const int row = tid * stride;
+        pendulum::rollout_states(m, scalars[pendulum::TH0], scalars[pendulum::THDOT0], u + row,
+                                 th + row, thdot + row, horizon);
+    }
+    __syncthreads();
+    // 3. the costs of the pre-step states, coalesced into the block's run
+    for (int k = tid; k < items; k += blockDim.x) {
+        const int i = k / horizon, at = i * stride + (k - i * horizon);
+        out[k] = pendulum::state_cost(th[at], thdot[at], u[at]);
+    }
 }
 
 __device__ float warp_max(float v) {
@@ -214,20 +278,56 @@ extern "C" {
 // cudaGetLastError() after the launch (0 on success). They do not
 // synchronise.
 
+// Kernel #7's particles a block for n particles: the fewest of 4, 8, 16,
+// ... that keeps the grid within kRolloutBlocksPerSM blocks an SM (4 up to
+// N = 4224 on a 132-SM card), and at most what the tiles of a block fit
+// in shared memory (0 when not one particle fits). Fewer particles a block
+// spread the clip and the cost over more SMs, while the recurrence takes
+// one lane's chain at any size. From the sweep of 1-128 particles a block
+// at N = 24 to 8192 (tools/kernel_ab.py --pendulum-sweep; PERF.md §6):
+// within 1.1% of the fastest size at every N.
+int pendulum_rollout_per_block(int n, int horizon) {
+    int per_block = 4;
+    while (per_block < kRolloutMaxBlock &&
+           (n + per_block - 1) / per_block > kRolloutBlocksPerSM * sm_count())
+        per_block *= 2;
+    while (per_block > 0 &&
+           rollout_smem_floats(per_block, horizon) * sizeof(float) >
+               static_cast<size_t>(max_dynamic_smem()))
+        per_block /= 2;
+    return per_block;
+}
+
+// per_block: the particles a block owns (0: pendulum_rollout_per_block's).
+// Returns cudaErrorInvalidValue, without launching, when a block of
+// per_block particles does not fit (more than kRolloutMaxBlock, or its
+// tiles beyond the card's shared memory).
 int pendulum_rollout_launch(const float* scalars, const float* mean, const float* noise,
-                            float* costs, int n, int horizon, void* stream) {
-    const int grid = (n + kRolloutBlock - 1) / kRolloutBlock;
-    pendulum_rollout_kernel<<<grid, kRolloutBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-        scalars, mean, noise, costs, n, horizon);
+                            float* costs, int n, int horizon, int per_block, void* stream) {
+    if (per_block < 1) per_block = pendulum_rollout_per_block(n, horizon);
+    const size_t bytes = rollout_smem_floats(per_block, horizon) * sizeof(float);
+    if (per_block < 1 || per_block > kRolloutMaxBlock ||
+        bytes > static_cast<size_t>(max_dynamic_smem()))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = per_block < kRolloutMinBlock ? kRolloutMinBlock
+                                                     : (per_block + kWarp - 1) / kWarp * kWarp;
+    const int grid = (n + per_block - 1) / per_block;
+    pendulum_rollout_kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
+        scalars, mean, noise, costs, n, horizon, per_block);
     return static_cast<int>(cudaGetLastError());
 }
 
-// Once, before any launch (and before any graph capture): lets kernel #8
-// take clusters of up to 16 CTAs and the card's largest dynamic shared
-// memory. Returns 0 or a cudaError_t.
-int mppi_pendulum_solve_setup() {
-    cudaError_t rc = cudaFuncSetAttribute(mppi_pendulum_solve_kernel,
-                                          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+// Once, before any launch (and before any graph capture): lets both kernels
+// take the card's largest dynamic shared memory and kernel #8 clusters of
+// up to 16 CTAs. Returns 0 or a cudaError_t.
+int pendulum_setup() {
+    sm_count();
+    cudaError_t rc = cudaFuncSetAttribute(pendulum_rollout_kernel,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          max_dynamic_smem());
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    rc = cudaFuncSetAttribute(mppi_pendulum_solve_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     return static_cast<int>(cudaFuncSetAttribute(mppi_pendulum_solve_kernel,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,

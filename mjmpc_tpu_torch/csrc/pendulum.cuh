@@ -1,6 +1,8 @@
 // Per-thread arithmetic of the pendulum kernels (pendulum.cu): the
-// analytic pendulum's control step, one particle's open-loop rollout
-// (kernel #7) and the one-kernel MPPI solve's noise item and particle row
+// analytic pendulum's control step, split into the torque's clip, the cost
+// of a pre-step state and the recurrence; kernel #7's three phases (the
+// clip of one element, one particle's recurrence, the cost of one
+// element) and the one-kernel MPPI solve's noise item and particle row
 // (kernel #8). Host-and-device code, so the same source also compiles as
 // plain C++ (tests/test_torch_pendulum.py checks it on the CPU that way);
 // the plain PyTorch version is mjmpc_tpu_torch/ops/pendulum.py, which
@@ -54,26 +56,46 @@ PENDULUM_FN float floor_mod(float x, float y) {
     return (r != 0.0f && (r < 0.0f) != (y < 0.0f)) ? r + y : r;
 }
 
-// One control step under the commanded torque a: the torque is clipped,
-// the cost is taken at the pre-step state, th advances with the unclamped
-// new thdot, and thdot is clamped last (mjmpc_tpu/envs/pendulum.py step).
-PENDULUM_FN float step(const Model& m, float a, float& th, float& thdot) {
-    const float u = clip(a, -m.max_torque, m.max_torque);
+// The torque that the commanded action a applies: a clipped to
+// [-max_torque, max_torque].
+PENDULUM_FN float control(const Model& m, float a) { return clip(a, -m.max_torque, m.max_torque); }
+
+// The cost of the pre-step state (th, thdot) under the clipped torque u.
+PENDULUM_FN float state_cost(float th, float thdot, float u) {
     const float ang = floor_mod(th + kPi, kTwoPi) - kPi;
-    const float cost = ang * ang + 0.1f * (thdot * thdot) + 0.001f * (u * u);
+    return ang * ang + 0.1f * (thdot * thdot) + 0.001f * (u * u);
+}
+
+// One step of the recurrence under the clipped torque u: th advances with
+// the unclamped new thdot, and thdot is clamped last.
+PENDULUM_FN void advance(const Model& m, float u, float& th, float& thdot) {
     thdot = thdot + (m.c_grav * sinf(th + kPi) + m.c_torque * u) * m.dt;
     th = th + thdot * m.dt;
     thdot = clip(thdot, -m.max_speed, m.max_speed);
+}
+
+// One control step under the commanded torque a: the torque is clipped,
+// the cost is taken at the pre-step state, then the state advances
+// (mjmpc_tpu/envs/pendulum.py step).
+PENDULUM_FN float step(const Model& m, float a, float& th, float& thdot) {
+    const float u = control(m, a);
+    const float cost = state_cost(th, thdot, u);
+    advance(m, u, th, thdot);
     return cost;
 }
 
-// Kernel #7, particle b: costs[t] of the rollout of mean[t] + noise[t]
-// from (th0, thdot0); noise and costs point at the particle's row.
-PENDULUM_FN void rollout_particle(const float* s, const float* mean, const float* noise,
-                                  float* costs, int horizon) {
-    const Model m = model(s);
-    float th = s[TH0], thdot = s[THDOT0];
-    for (int t = 0; t < horizon; ++t) costs[t] = step(m, mean[t] + noise[t], th, thdot);
+// Kernel #7, phase 2, one particle: its pre-step states (ths[t], thdots[t])
+// of the rollout from (th, thdot) under its clipped torques u[t]. Only this
+// recurrence is serial; the clip before it and the cost after it
+// (state_cost) are per element.
+PENDULUM_FN void rollout_states(const Model& m, float th, float thdot, const float* u,
+                                float* ths, float* thdots, int horizon) {
+    for (int t = 0;; ++t) {
+        ths[t] = th;
+        thdots[t] = thdot;
+        if (t + 1 == horizon) return;
+        advance(m, u[t], th, thdot);
+    }
 }
 
 // Kernel #8, phase 1, item (particle i, step pair p): its two white

@@ -13,7 +13,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from . import half_cheetah, pen, pendulum, reacher_7dof, sawyer_tasks, swimmer
+from . import (half_cheetah, hammer, pen, pendulum, reacher_7dof, relocate, sawyer_tasks,
+               swimmer)
 from .base import Env
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {
@@ -28,14 +29,16 @@ _REGISTRY: Dict[str, Callable[..., Env]] = {
     "Swimmer-v0": swimmer.make,
     "HalfCheetah-v0": half_cheetah.make,
     "pen-v0": pen.make,
+    "relocate-v0": relocate.make,
+    "hammer-v0": hammer.make,
 }
 
 # Envs of the JAX package's registry that the port lacks so far.
 NOT_PORTED = (
-    "LQR-v0", "acrobot-v0", "cartpole-v0", "continual_maze-v0", "door-v0", "hammer-v0",
-    "maze-v0", "mjrl_point_mass-v0", "panda_tray_glass-v0", "panda_tray_glass-v1",
-    "panda_tray_glass_fixed-v1", "point_mass-v0", "pusher-v0", "relocate-v0",
-    "sawyer_door-v0", "sawyer_pusher-v0", "trajopt_reacher-v0",
+    "LQR-v0", "acrobot-v0", "cartpole-v0", "continual_maze-v0", "door-v0", "maze-v0",
+    "mjrl_point_mass-v0", "panda_tray_glass-v0", "panda_tray_glass-v1",
+    "panda_tray_glass_fixed-v1", "point_mass-v0", "pusher-v0", "sawyer_door-v0",
+    "sawyer_pusher-v0", "trajopt_reacher-v0",
 )
 
 _CACHE: Dict[Tuple[str, str], Env] = {}

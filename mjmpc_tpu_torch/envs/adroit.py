@@ -192,6 +192,13 @@ def arm_hand_bodies(bases=None, arm_gear: float = 8.0,
     return bodies, [(b + 3, tip, mid) for (b, tip, mid) in digits]
 
 
+def arm_hand_weight(model: rb.ChainModel) -> np.float32:
+    """The weight that the arm's z slide carries in an arm_hand_bodies
+    model: its first 3 + N_HAND_BODIES bodies (the slides and the hand) under
+    9.81 m/s^2, as one float32."""
+    return np.float32(9.81) * np.float32(model.mass[:3 + N_HAND_BODIES].sum().item())
+
+
 def hand_joint_names() -> List[str]:
     """MuJoCo-style joint names for the dyn-randomize name tables, in
     body/DOF order (wrist pair first, then digits)."""

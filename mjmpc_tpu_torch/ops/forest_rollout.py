@@ -47,6 +47,13 @@ Tasks (ForestTask; `extras` carries their call-time data):
 - ground spheres: spheres on bodies against the plane z = 0, extras = [kp,
   kd, mu, target 3]; cost = |site - target|. A small general task (the
   tests' forest with a coupled free body).
+- relocate (envs/relocate.py): extras = [target 3, kp, kd, mu, ball
+  radius]; 12 contact points; the hand's weight on the arm's z slide as a
+  joint torque; cost = -the relocate reward of the palm and the ball.
+- hammer (envs/hammer.py): extras = [kp, kd, mu]; 15 contact points; the
+  hand's weight and the nail's dry friction as joint torques; the hammer
+  is the free body with an offset com (the coupled 6x6 solve); cost = -the
+  hammer reward.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
@@ -318,8 +325,8 @@ class ForestTask:
     force_ops: int = 0                # per substep
     cost_ops: int = 0                 # per control step
     # the optional joint-torque hook, (q, qd, extras, (rots, poss, axes)) ->
-    # {scalar body: [N]} added to the joints' generalized forces each
-    # substep (no task of the port has one yet)
+    # {scalar body: [N] or a float} added to the joints' generalized forces
+    # each substep after the contact forces (relocate's and hammer's)
     joint_torque: Optional[Callable] = None
 
 
@@ -386,16 +393,108 @@ def ground_spheres_task(points: Sequence[Tuple[int, Sequence[float]]],
                       (("sphere_radius", "float", radii_f32),), len(pts) * _FORCE_PLANE, 27)
 
 
+def relocate_task(hand_weight: float) -> ForestTask:
+    """relocate-v0's task: the 12 contact points and force law of
+    envs/relocate.py's relocate_forces, `hand_weight` on the arm's z slide
+    (body 2) as a joint torque, extras [target 3, kp, kd, mu, ball radius],
+    cost = -relocate reward of the palm pad and the ball."""
+    from ..envs import relocate as rl
+    weight = float(np.float32(hand_weight))
+
+    def forces(pos, vel, extras):
+        return rl.relocate_forces(pos, vel, extras[3], extras[4], extras[5], extras[6])
+
+    def joint_torque(q, qd, extras, fk):
+        return {2: weight}
+
+    def cost(model, q, qd, rots, poss, extras):
+        return -rl.relocate_reward(rl.palm_position(rots, poss), poss[:, rl.BALL_BODY],
+                                   extras[0:3])
+
+    header = (
+        f"constexpr int N_TIPS = {rl.N_TIPS};",
+        f"constexpr int BALL_BODY = {rl.BALL_BODY};",
+        f"constexpr float PALM_R = {_f(rl.PALM_R)};",
+        f"constexpr float HAND_WEIGHT = {_f(weight)};",
+        f"constexpr float LIFT_Z = {_f(rl.LIFT_Z)};",
+    )
+    tables = (("tip_radius", "float", rl.C_RADII), ("palm_local", "float", rl.PALM_LOCAL))
+    points = tuple((int(b), tuple(float(x) for x in p)) for b, p in zip(rl.C_BODIES, rl.C_POINTS))
+    # counted from forest_rollout.cuh as written: the ball's plane force; per
+    # tip a sphere-sphere force, a sphere-plane force and their sum (3) and
+    # its subtraction from the ball's sum (3); the palm's sphere-sphere and
+    # plane forces, their sum and its subtraction (6); the hand's weight (1).
+    # The cost: the palm (18), three distances (27), the lift compare and
+    # its term (5), two gates (4), the sum and the sign (5).
+    force_ops = (_FORCE_PLANE + rl.N_TIPS * (_SPHERE_SPHERE + _FORCE_PLANE + 6)
+                 + _SPHERE_SPHERE + _FORCE_PLANE + 6 + 1)
+    return ForestTask("relocate", 3, 7, points, forces, cost, header, tables, force_ops, 59,
+                      joint_torque)
+
+
+def hammer_task(hand_weight: float) -> ForestTask:
+    """hammer-v0's task: the 15 contact points and force law of
+    envs/hammer.py's hammer_forces, `hand_weight` on the arm's z slide (body
+    2) and the nail's dry friction on its slide as joint torques, extras
+    [kp, kd, mu], cost = -hammer reward of the palm pad, the hammer, its
+    head, the nail and the nail's depth."""
+    from ..envs import hammer as hm
+    weight = float(np.float32(hand_weight))
+
+    def forces(pos, vel, extras):
+        return hm.hammer_forces(pos, vel, extras[0], extras[1], extras[2])
+
+    def joint_torque(q, qd, extras, fk):
+        return {2: weight, hm.NAIL_BODY: hm.nail_friction(qd[:, hm.NAIL_V])}
+
+    def cost(model, q, qd, rots, poss, extras):
+        return -hm.hammer_reward(*hm.hammer_frames(rots, poss), -q[:, hm.NAIL_Q])
+
+    header = (
+        f"constexpr int N_TIPS = {hm.N_TIPS};",
+        f"constexpr int CAP_A = {hm.CAP_A}, CAP_B = {hm.CAP_B}, HEAD = {hm.HEAD}, "
+        f"NAIL = {hm.NAIL}, PALM = {hm.PALM};",
+        f"constexpr int HAMMER_BODY = {hm.HAMMER_BODY};",
+        f"constexpr int NAIL_BODY = {hm.NAIL_BODY};",
+        f"constexpr float HANDLE_R = {_f(hm.HANDLE_R)};",
+        f"constexpr float HEAD_R = {_f(hm.HEAD_R)};",
+        f"constexpr float NAIL_R = {_f(hm.NAIL_R)};",
+        f"constexpr float PALM_R = {_f(hm.PALM_R)};",
+        f"constexpr float HAND_WEIGHT = {_f(weight)};",
+        f"constexpr float NAIL_RESIST = {_f(hm.NAIL_RESIST)};",
+        f"constexpr float NAIL_V_SLIP = {_f(hm.NAIL_V_SLIP)};",
+        f"constexpr float NAIL_TRAVEL = {_f(hm.NAIL_TRAVEL)};",
+        f"constexpr float HALF_DEPTH = {_f(0.5 * hm.NAIL_TRAVEL)};",
+        f"constexpr float FULL_DEPTH = {_f(0.95 * hm.NAIL_TRAVEL)};",
+    )
+    tables = (("tip_radius", "float", hm.C_RADII), ("palm_local", "float", hm.PALM_LOCAL),
+              ("head_local", "float", hm.HEAD_LOCAL))
+    points = tuple((int(b), tuple(float(x) for x in p)) for b, p in zip(hm.C_BODIES, hm.C_POINTS))
+    # counted from forest_rollout.cuh as written: a sphere-plane force per
+    # handle end; per tip a sphere-segment force, a sphere-plane force and
+    # their sum (3) and its split onto the ends (13); the head's plane and
+    # strike forces, their sum and the nail's negation (6); the palm's
+    # sphere-segment force and its split (13); the joint torques (hand 1,
+    # the nail's friction 4). The cost: the palm and the head (36), two
+    # distances (18), the depth and its term (3), two gates (4), the sum
+    # and the sign (6).
+    force_ops = (2 * _FORCE_PLANE + hm.N_TIPS * (_SPHERE_SEG + _FORCE_PLANE + 16)
+                 + _FORCE_PLANE + _SPHERE_SPHERE + 6 + _SPHERE_SEG + 13 + 5)
+    return ForestTask("hammer", 4, 3, points, forces, cost, header, tables, force_ops, 67,
+                      joint_torque)
+
+
 # Operation counts of csrc/forest_rollout.cuh's contact primitives as
 # written (a multiply, an add, a compare, a division or a transcendental is
 # one): force_along, penalty_force, sphere_plane_force, sphere_segment_force
-# (with closest_on_segment) and capsule_capsule_force (with
-# segment_segment_closest).
+# (with closest_on_segment), capsule_capsule_force (with
+# segment_segment_closest) and sphere_sphere_force.
 _FORCE_ALONG = 37
 _PENALTY = 10 + _FORCE_ALONG
 _FORCE_PLANE = 2 + _FORCE_ALONG
 _SPHERE_SEG = 26 + 24 + _PENALTY
 _CAPSULE = 68 + 21 + _PENALTY
+_SPHERE_SPHERE = 14 + _PENALTY
 
 
 # ---------------------------------------------------------------------------
@@ -725,6 +824,13 @@ def rollout_forest_plain(model: ChainModel, n_substeps: int, act_bodies: Sequenc
 # by a signed sum of these steps.
 PEN_BONUS_STEPS = tuple(sorted({a * 5 + b * 10 + c * 50 for a in (-1, 0, 1)
                                 for b in (-1, 0, 1) for c in (-1, 0, 1)} - {0}))
+# The relocate cost's constant gates: +10 and +20 at the carry distances
+# 0.10 and 0.05 (its lift gate adds a term that depends on the state, not a
+# constant step); the hammer cost's: +25 and +75 at half and 95% depth.
+RELOCATE_BONUS_STEPS = tuple(sorted({b * 10 + c * 20 for b in (-1, 0, 1)
+                                     for c in (-1, 0, 1)} - {0}))
+HAMMER_BONUS_STEPS = tuple(sorted({b * 25 + c * 75 for b in (-1, 0, 1)
+                                   for c in (-1, 0, 1)} - {0}))
 
 
 def gated_cost_agreement(got, want, atol: float = 1e-3,
@@ -1015,7 +1121,9 @@ class ForestRollout:
         self._lib = None
 
     def library(self) -> build.KernelLibrary:
-        """Build (at first use) and load the kernel for this model and task."""
+        """Build (at first use) and load the kernel for this model and task,
+        and let it take its particles' shared memory (before any launch, so
+        that no launch does it inside a captured graph)."""
         if self._lib is None:
             lib = build.load("forest_rollout", "forest_rollout.cu",
                              {"forest_model.h": self.header}, self.nvcc_flags)
@@ -1027,6 +1135,7 @@ class ForestRollout:
             lib.lib.forest_rollout_error_string.restype = ctypes.c_char_p
             lib.lib.forest_rollout_layout.argtypes = [ctypes.c_void_p]
             lib.lib.forest_rollout_layout.restype = None
+            lib.lib.forest_rollout_setup.restype = ctypes.c_int
             layout = (ctypes.c_int * 6)()
             lib.lib.forest_rollout_layout(layout)
             want = (self.task.index, self.consts["nq"], self.consts["nv"],
@@ -1034,6 +1143,10 @@ class ForestRollout:
             if tuple(layout) != want:
                 raise RuntimeError(f"{lib.path} was built for (task, nq, nv, dA, n_extras, "
                                    f"team) = {tuple(layout)}, not {want}")
+            rc = lib.lib.forest_rollout_setup()
+            if rc != 0:
+                raise RuntimeError("ForestRollout kernel setup failed: "
+                                   + lib.lib.forest_rollout_error_string(rc).decode())
             self._lib = lib
         return self._lib
 

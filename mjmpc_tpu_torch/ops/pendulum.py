@@ -161,6 +161,9 @@ def solve_bytes(horizon: int) -> int:
 # ---------------------------------------------------------------------------
 
 _LIB: Optional[build.KernelLibrary] = None
+# Kernel #7's particles a block that the sweep times (tools/kernel_ab.py
+# --pendulum-sweep) and that chip_smoke.py checks.
+ROLLOUT_PER_BLOCK = (1, 2, 4, 8, 16, 32, 64, 128)
 # Kernel #8's cluster sizes (CTAs of one cluster): 16 needs the card's
 # non-portable cluster sizes, which csrc/pendulum.cu's setup allows.
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
@@ -179,8 +182,8 @@ def solve_cluster(n: int) -> int:
 
 
 def library() -> build.KernelLibrary:
-    """Build (at first use) and load both kernels, and let #8 take clusters
-    of 16 and the card's largest shared memory (before any launch, so that
+    """Build (at first use) and load both kernels, let both take the card's
+    largest shared memory and #8 clusters of 16 (before any launch, so that
     no launch does it inside a captured graph). -fmad=false keeps every
     multiply and add rounded on its own, as the plain version's operations
     are."""
@@ -188,21 +191,22 @@ def library() -> build.KernelLibrary:
     if _LIB is None:
         lib = build.load("pendulum", "pendulum.cu", {}, flags=("-fmad=false",))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lib.pendulum_rollout_launch.argtypes = [p, p, p, p, i, i, p]
+        lib.lib.pendulum_rollout_launch.argtypes = [p, p, p, p, i, i, i, p]
+        lib.lib.pendulum_rollout_per_block.argtypes = [i, i]
         lib.lib.mppi_pendulum_solve_launch.argtypes = (
             [ctypes.c_ulonglong, p, p, p, p, i, i, i] + [ctypes.c_float] * 3 + [i]
             + [ctypes.c_float] * 5 + [p])
         lib.lib.mppi_pendulum_solve_shape.argtypes = [i, i, i, p, p]
         lib.lib.mppi_pendulum_solve_max_clusters.argtypes = [i, i, i, p]
-        for fn in (lib.lib.pendulum_rollout_launch, lib.lib.mppi_pendulum_solve_launch,
-                   lib.lib.mppi_pendulum_solve_setup, lib.lib.mppi_pendulum_solve_shape,
-                   lib.lib.mppi_pendulum_solve_max_clusters):
+        for fn in (lib.lib.pendulum_rollout_launch, lib.lib.pendulum_rollout_per_block,
+                   lib.lib.mppi_pendulum_solve_launch, lib.lib.pendulum_setup,
+                   lib.lib.mppi_pendulum_solve_shape, lib.lib.mppi_pendulum_solve_max_clusters):
             fn.restype = i
         lib.lib.pendulum_error_string.argtypes = [i]
         lib.lib.pendulum_error_string.restype = ctypes.c_char_p
-        rc = lib.lib.mppi_pendulum_solve_setup()
+        rc = lib.lib.pendulum_setup()
         if rc != 0:
-            raise RuntimeError("one-kernel MPPI solve setup failed: "
+            raise RuntimeError("pendulum kernels' setup failed: "
                                + lib.lib.pendulum_error_string(rc).decode())
         _LIB = lib
     return _LIB
@@ -221,6 +225,13 @@ def solve_shape(n: int, horizon: int, ctas: int):
         raise ValueError(f"kernel #8 cannot hold N={n} H={horizon} in clusters of {ctas} CTAs "
                          f"(at most 1024 particles a CTA, its tiles in shared memory)")
     return threads.value, smem.value
+
+
+def rollout_per_block(n: int, horizon: int) -> int:
+    """Kernel #7's particles a block at n particles, H steps: the fewest of
+    4, 8, 16, ... that keeps the grid within 8 blocks an SM (4 up to N =
+    4224 on an H100; csrc/pendulum.cu pendulum_rollout_per_block)."""
+    return int(library().lib.pendulum_rollout_per_block(int(n), int(horizon)))
 
 
 def max_active_clusters(n: int, horizon: int, ctas: int) -> int:
@@ -271,6 +282,10 @@ class PendulumRollout:
     version on the CPU. It reads all six params at call time
     (`dynamic_fields`), so it plans against any PendulumParams.
 
+    `per_block` is the particles a block of the kernel owns (0: the
+    kernel's rule, rollout_per_block); it changes no bit of the costs,
+    since each particle's arithmetic is the same in every partition.
+
     `PendulumRollout.launches` counts kernel launches; it rises by one per
     launch and nowhere else (the plain version on CPU tensors does not
     count).
@@ -279,7 +294,7 @@ class PendulumRollout:
     dynamic_fields = PARAM_FIELDS
     plain = staticmethod(pendulum_rollout_plain)
 
-    def __call__(self, params, state, mean, noise):
+    def __call__(self, params, state, mean, noise, per_block: int = 0):
         if not isinstance(noise, torch.Tensor) or noise.dtype != torch.float32:
             raise TypeError("noise must be a float32 torch.Tensor")
         if noise.dim() != 3 or noise.shape[2] != 1 or noise.shape[0] < 1:
@@ -297,7 +312,7 @@ class PendulumRollout:
             stream = torch.cuda.current_stream(noise.device).cuda_stream
             rc = lib.pendulum_rollout_launch(
                 scalars.data_ptr(), mean.data_ptr(), noise.data_ptr(), costs.data_ptr(), n,
-                horizon, stream)
+                horizon, int(per_block), stream)
         _raise_on(rc, "pendulum-rollout")
         PendulumRollout.launches += 1
         return costs

@@ -4,8 +4,10 @@ filtered noise, the locomotion rollout for the swimmer and the half
 cheetah (#1, #3, #4 and #5 a team of lanes per particle: ragged N, two
 launches bit for bit, zeroed actions failing the check, their phase
 clocks; #1 and #3 at every team size bit for bit), the
-forest rollout for pen-v0 and the sawyer peg, the pendulum
-rollout and the one-kernel pendulum MPPI solve, a thread-block cluster):
+forest rollout for pen-v0, the sawyer peg, relocate-v0 and hammer-v0 (its
+coupled free-body branch), the pendulum rollout (every particles-a-block
+size bit for bit) and the one-kernel pendulum MPPI solve, a thread-block
+cluster):
 each against its plain PyTorch version, their launch counts on sync-free
 solves, and the wrappers' checks; and one solve of each family captured as
 a CUDA graph and replayed against eager solves (chip_smoke.py graph_check),
@@ -33,9 +35,15 @@ from a pinch in which every fingertip presses on the pen (so that the
 costs follow the hand's dynamics through contact), 1e-4 at (37, 5); at its
 config's (256, 16), 80 substeps of contact, at least 99% of the costs
 within 1e-3 and every other one off by a bonus step of the gated pen cost
-(a signed sum of 5, 10 and 50) to within 1e-3. Pendulum rollout: atol
-1e-5 from a start that crosses -pi (th0 = -3.0, thdot0 = -8), at (37, 5)
-and (4096, 32). One-kernel MPPI solve: atol 1e-5 on the new mean at N =
+(a signed sum of 5, 10 and 50) to within 1e-3. relocate-v0 from the grasp
+and hammer-v0 with the hammer held on the nail or spinning (chip_smoke.py
+forest_inputs): 1e-4 at (37, 4) and N=1, the configs' (512, 32) and
+(512, 20) by the gated rule with their bonuses, two launches bit for bit,
+the plain version with the actions zeroed, or with the hammer's coupled
+solve replaced by the decoupled one, off by more than 10x. Pendulum
+rollout: atol 1e-5 from a start that crosses -pi (th0 = -3.0, thdot0 =
+-8), at (37, 5) and (4096, 32); every particles-a-block size and two
+launches bit for bit. One-kernel MPPI solve: atol 1e-5 on the new mean at N =
 128, 1024, 2048 and 8192, H = 32, lam 0.01 and 1.0, and at every cluster
 size (the same Philox normals and the same rollout operations; only the
 order of the particle sums differs), two launches bit for bit. Graph
@@ -51,7 +59,7 @@ import torch
 
 from mjmpc_tpu_torch import envs, ops, rng, solvers
 from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
-from mjmpc_tpu_torch.envs import half_cheetah, pen, sawyer_tasks, swimmer
+from mjmpc_tpu_torch.envs import half_cheetah, hammer, pen, relocate, sawyer_tasks, swimmer
 from mjmpc_tpu_torch.ops.chain_rollout import (TEAM_SIZES, ChainClRollout, ChainExtRollout,
                                                ChainObsRollout, ChainRollout,
                                                build_chain_cl_rollout, build_chain_obs_rollout,
@@ -59,9 +67,10 @@ from mjmpc_tpu_torch.ops.chain_rollout import (TEAM_SIZES, ChainClRollout, Chain
 from mjmpc_tpu_torch.ops.forest_rollout import (ForestRollout, build_forest_rollout,
                                                 gated_cost_agreement)
 from mjmpc_tpu_torch.ops.noise import FilteredNoise
-from mjmpc_tpu_torch.ops.pendulum import (CLUSTER_SIZES, MppiPendulumSolve, PendulumRollout,
-                                          max_active_clusters, mppi_pendulum_solve,
-                                          pendulum_rollout, sampled_particles, solve_cluster,
+from mjmpc_tpu_torch.ops.pendulum import (CLUSTER_SIZES, ROLLOUT_PER_BLOCK, MppiPendulumSolve,
+                                          PendulumRollout, max_active_clusters,
+                                          mppi_pendulum_solve, pendulum_rollout,
+                                          rollout_per_block, sampled_particles, solve_cluster,
                                           solve_shape)
 
 pytestmark = pytest.mark.cuda
@@ -515,7 +524,8 @@ def test_forest_kernel_launches_agree_bit_for_bit(device, name):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("name", ["pen-v0", "sawyer_peg_insertion-v0"])
+@pytest.mark.parametrize("name", ["pen-v0", "sawyer_peg_insertion-v0", "relocate-v0",
+                                  "hammer-v0"])
 def test_forest_solves_launch_the_kernel_without_host_syncs(device, name):
     env = envs.make(name, device=device)
     solver = solvers.MPPI(d_action=env.d_action, horizon=8, num_particles=64, lam=0.05,
@@ -558,6 +568,22 @@ def test_pendulum_kernel_matches_plain(device, n, h):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     zeroed = pendulum_rollout.plain(env.params, state, mean, torch.zeros_like(noise))
     assert float((zeroed - got).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("n", [24, 64, 2048])
+def test_pendulum_kernel_every_per_block_size_agrees(device, n):
+    """A block owns per_block whole particles; every size the sweep times
+    gives the default's costs bit for bit (each particle's arithmetic is
+    the same in every partition), and so does a second launch."""
+    env, state, mean, noise = _pendulum_case(n, 32, 11, device)
+    got = pendulum_rollout(env.params, state, mean, noise)
+    torch.testing.assert_close(got, pendulum_rollout.plain(env.params, state, mean, noise),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(pendulum_rollout(env.params, state, mean, noise), got)
+    for per_block in ROLLOUT_PER_BLOCK:
+        assert torch.equal(pendulum_rollout(env.params, state, mean, noise, per_block=per_block),
+                           got), per_block
+    assert rollout_per_block(n, 32) == 4         # 4 a block up to 8 blocks an SM
 
 
 @pytest.mark.parametrize("n", [128, 1024, 2048, 8192])
@@ -634,6 +660,68 @@ def _chip_smoke():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     return smoke
+
+
+def _hand_case(name, start, n, h, seed, device):
+    """Kernel #6's wrapper for relocate-v0 or hammer-v0 and chip_smoke.py's
+    inputs for it (the grasp; the hammer held on the nail or spinning)."""
+    env = envs.make(name, device=device)
+    roll = (relocate if name == "relocate-v0" else hammer).build_rollout(env.params.model)
+    return roll, _chip_smoke().forest_inputs(env, roll, n, h, seed, device, start)
+
+
+HAND_CASES = [("relocate-v0", "grasp"), ("hammer-v0", "held"), ("hammer-v0", "spin")]
+
+
+@pytest.mark.parametrize("name,start", HAND_CASES)
+@pytest.mark.parametrize("n", [1, 37])
+def test_hand_forest_kernel_matches_plain(device, name, start, n):
+    """relocate's and hammer's tasks at (N, 4) to 1e-4, two launches bit for
+    bit; at N=37 the plain version with the actions zeroed (not for the
+    spin, which no hand touches) misses by more than 10x."""
+    roll, args = _hand_case(name, start, n, 4, 12, device)
+    before = ForestRollout.launches
+    got = roll(*args)
+    assert ForestRollout.launches == before + 1
+    want = roll.plain(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(roll(*args), got)
+    if n == 37 and start != "spin":
+        zeroed = roll.plain(*args[:3], torch.zeros_like(args[3]), torch.zeros_like(args[4]))
+        assert float((zeroed - want).abs().max()) > 10 * 1e-4
+
+
+def test_hammer_kernel_runs_the_coupled_free_body_solve(device):
+    """hammer's header turns the coupled 6x6 branch on for the hammer, and
+    with the hammer spinning the kernel agrees with the plain version while
+    the plain version with the decoupled branch in its place misses by more
+    than 10x the tolerance."""
+    import copy
+    from mjmpc_tpu_torch.ops.forest_rollout import rollout_forest_plain
+    roll, args = _hand_case("hammer-v0", "spin", 37, 4, 13, device)
+    assert "constexpr bool HAS_COUPLED = true;" in roll.header
+    got = roll(*args)
+    torch.testing.assert_close(got, roll.plain(*args), rtol=0, atol=1e-4)
+    consts = copy.deepcopy(roll.consts)
+    consts["free_consts"][hammer.HAMMER_BODY]["coupled"] = False
+    decoupled = rollout_forest_plain(roll.model, roll.n_substeps, roll.act_bodies, roll.task,
+                                     roll.ulow, roll.uhigh, *args, consts=consts)
+    assert float((decoupled - got).abs().max()) > 10 * 1e-4
+
+
+@pytest.mark.parametrize("name,start,n,h", [("relocate-v0", "grasp", 512, 32),
+                                            ("hammer-v0", "held", 512, 20)])
+def test_hand_forest_kernel_config_size_agrees_up_to_bonus_steps(device, name, start, n, h):
+    """At the configs' sizes: at least 99% of the costs within 1e-3 and
+    every other one off by a bonus step of the gated cost; two launches
+    bit for bit."""
+    from mjmpc_tpu_torch.ops import forest_rollout as fr
+    roll, args = _hand_case(name, start, n, h, 14, device)
+    got, want = roll(*args), roll.plain(*args)
+    assert bool(torch.isfinite(got).all()) and torch.equal(roll(*args), got)
+    steps = fr.RELOCATE_BONUS_STEPS if name == "relocate-v0" else fr.HAMMER_BONUS_STEPS
+    agree = gated_cost_agreement(got, want, 1e-3, steps)
+    assert agree["share_within"] >= 0.99 and agree["other"] == 0, agree
 
 
 def _graph_family(name, device):

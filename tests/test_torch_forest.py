@@ -9,7 +9,11 @@ one after another) for the pen, peg and ground-spheres tasks and the
 cheetah's tree on spheres against the plain version, and at two team
 sizes against itself; a repeated act body taking its last action; the
 generated header's work tables; the wrapper's
-checks, forest_consts' refusals and the work counts. The kernel itself
+checks, forest_consts' refusals and the work counts. The host build also
+runs the relocate and hammer tasks (envs/relocate.py, envs/hammer.py:
+the joint-torque hook, the hammer's coupled free-body branch), where a
+build with the actions zeroed, or with the hammer on the decoupled branch,
+must fail. The kernel itself
 runs only on a CUDA card
 (tests/test_torch_cuda.py). Each JAX reference is computed once per
 module; no test calls the JAX pen or peg fused rollout (an interpret-mode
@@ -52,7 +56,7 @@ from mjmpc_tpu.envs import contact as jcontact
 from mjmpc_tpu.rollout.engine import rollout_open_loop as jax_rollout
 from mjmpc_tpu_torch import bounds, convert, envs
 from mjmpc_tpu_torch.engine import chain as rb
-from mjmpc_tpu_torch.envs import contact, pen, sawyer_tasks
+from mjmpc_tpu_torch.envs import contact, hammer, pen, relocate, sawyer_tasks
 from mjmpc_tpu_torch.kernels.build import CSRC
 from mjmpc_tpu_torch.ops import forest_rollout as fr
 from mjmpc_tpu_torch.ops.chain_rollout import ChainRollout
@@ -369,6 +373,22 @@ def _kernel_case(name, n, h, seed):
                 np.asarray(rs.normal(size=7) * 0.1, np.float32),
                 sawyer_tasks.peg_extras(env.params).numpy()]
         tol, d = 5e-5, 7
+    elif name in ("relocate", "hammer", "hammer_spin"):
+        # the grasp of the lifted ball; the hammer held on the nail, or
+        # spinning in the air; the hand's joints perturbed
+        env = envs.make("relocate-v0" if name == "relocate" else "hammer-v0", device=DEVICE)
+        st = env.init(env.params, seed)
+        if name == "relocate":
+            roll, extras = relocate.build_rollout(env.params.model), relocate.relocate_extras(
+                env.params, st)
+            q0, qd0 = relocate.grasp_qpos(st.qpos), st.qvel
+        else:
+            roll, extras = hammer.build_rollout(env.params.model), hammer.hammer_extras(env.params)
+            q0, qd0 = ((hammer.held_qpos(st.qpos), st.qvel) if name == "hammer"
+                       else hammer.spin_state(st.qpos, st.qvel))
+        q0[3:27] += torch.as_tensor(rs.uniform(-0.03, 0.03, 24), dtype=torch.float32)
+        args = [q0.numpy(), qd0.numpy(), extras.numpy()]
+        tol, d = 1e-4, 27
     elif name == "ground_spheres":
         model = _synthetic(rb, device=DEVICE)
         roll = fr.build_forest_rollout(model, 4, [0, 1], fr.ground_spheres_task(SYN_POINTS,
@@ -397,7 +417,8 @@ def _host_costs(lib, args, n, h):
     return costs
 
 
-@pytest.mark.parametrize("name", ["pen", "peg", "ground_spheres", "cheetah_spheres"])
+@pytest.mark.parametrize("name", ["pen", "peg", "ground_spheres", "cheetah_spheres", "relocate",
+                                  "hammer", "hammer_spin"])
 def test_kernel_source_compiled_for_the_host_matches_plain(name, tmp_path):
     n, h = 37, 5
     roll, args, tol = _kernel_case(name, n, h, 3)
@@ -556,6 +577,33 @@ def test_pen_check_fails_for_a_kernel_whose_actions_are_zeroed(tmp_path):
     n, h = 37, 5
     roll, args, tol = _kernel_case("pen", n, h, 3)
     costs = _host_costs(_host_library(roll.header, tmp_path, zero_actions=True), args, n, h)
+    want = roll(*(torch.as_tensor(a) for a in args)).numpy()
+    assert np.abs(costs - want).max() > 10 * tol
+
+
+@pytest.mark.parametrize("name", ["relocate", "hammer"])
+def test_hand_check_fails_for_a_kernel_whose_actions_are_zeroed(name, tmp_path):
+    """The relocate check from the grasp and the hammer check with the
+    hammer held on the nail, at (37, 5), have the power to catch a kernel
+    that ignores the actions."""
+    n, h = 37, 5
+    roll, args, tol = _kernel_case(name, n, h, 3)
+    costs = _host_costs(_host_library(roll.header, tmp_path, zero_actions=True), args, n, h)
+    want = roll(*(torch.as_tensor(a) for a in args)).numpy()
+    assert np.abs(costs - want).max() > 10 * tol
+
+
+@pytest.mark.parametrize("name", ["hammer", "hammer_spin"])
+def test_hammer_check_fails_for_a_kernel_on_the_decoupled_branch(name, tmp_path):
+    """hammer's header turns the coupled 6x6 solve on for its free body; a
+    build whose header turns it off (the decoupled 3x3 solves) misses the
+    plain version by more than 10x the tolerance, held and spinning."""
+    n, h = 37, 5
+    roll, args, tol = _kernel_case(name, n, h, 3)
+    on = "constexpr bool HAS_COUPLED = true;"
+    assert roll.header.count(on) == 1
+    off = roll.header.replace(on, "constexpr bool HAS_COUPLED = false;")
+    costs = _host_costs(_host_library(off, tmp_path), args, n, h)
     want = roll(*(torch.as_tensor(a) for a in args)).numpy()
     assert np.abs(costs - want).max() > 10 * tol
 

@@ -165,12 +165,22 @@ def test_truncating_modulo_fails_the_rollout_check(jenv, monkeypatch):
 
 
 _HOST_CPP = '''
+#include <vector>
 #include "pendulum.cuh"
+// kernel #7's three phases over all n particles as one block: the clipped
+// actions per element, the recurrence per particle, the cost per element
 extern "C" void host_rollout(const float* s, const float* mean, const float* noise,
                              float* costs, int n, int horizon) {
-  for (int b = 0; b < n; ++b)
-    pendulum::rollout_particle(s, mean, noise + (size_t)b * horizon,
-                               costs + (size_t)b * horizon, horizon);
+  const pendulum::Model m = pendulum::model(s);
+  const size_t items = (size_t)n * horizon;
+  std::vector<float> u(items), th(items), thdot(items);
+  for (size_t k = 0; k < items; ++k) u[k] = pendulum::control(m, mean[k % horizon] + noise[k]);
+  for (int b = 0; b < n; ++b) {
+    const size_t row = (size_t)b * horizon;
+    pendulum::rollout_states(m, s[pendulum::TH0], s[pendulum::THDOT0], &u[row], &th[row],
+                             &thdot[row], horizon);
+  }
+  for (size_t k = 0; k < items; ++k) costs[k] = pendulum::state_cost(th[k], thdot[k], u[k]);
 }
 // kernel #8's phases 1 and 2 over all n particles as one CTA: the items
 // into the [H, n] eps tile, then each particle's row

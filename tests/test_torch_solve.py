@@ -185,9 +185,10 @@ def test_registry():
         envs.make("no_such_env-v0", device=DEVICE)
     assert envs.make("reacher_7dof-v0", device=DEVICE) is envs.make("reacher_7dof-v0", device=DEVICE)
     assert envs.available() == ["HalfCheetah-v0", "SimplePendulum-v0", "Swimmer-v0",
-                                "continual_reacher-v0", "panda_reacher-v0", "pen-v0",
-                                "reacher_7dof-v0", "sawyer_peg_insertion-v0",
-                                "sawyer_peg_insertion-v1", "sawyer_reacher-v0"]
+                                "continual_reacher-v0", "hammer-v0", "panda_reacher-v0",
+                                "pen-v0", "reacher_7dof-v0", "relocate-v0",
+                                "sawyer_peg_insertion-v0", "sawyer_peg_insertion-v1",
+                                "sawyer_reacher-v0"]
     with pytest.raises(NotImplementedError):    # a JAX env not ported yet
         envs.make("cartpole-v0", device=DEVICE)
     with pytest.raises(NotImplementedError):

@@ -24,9 +24,10 @@ source:
   reacher at N=4096 H=32, kernel noise), on configs/reacher_7dof-v0.yml
   (N=128 H=16) and on both locomotion configs, and Reinforce on the
   reacher and the peg config;
-- pendulum: kernel #8 (csrc/pendulum.cu, the one-kernel MPPI solve) at
+- pendulum: kernel #7 (csrc/pendulum.cu, the pendulum rollout) at N = 24,
+  64, 2048 and 4096, H=32, and kernel #8 (the one-kernel MPPI solve) at
   N = 128, 1024, 2048 and 8192, H=32, on chip_smoke.py's inputs, with the
-  cluster size its checkout picks;
+  particles a block and cluster size its checkout picks;
 - noise: kernel #2 (csrc/filtered_noise.cu, uncoloured) at (N, H, dA) =
   (37, 5, 7), (4096, 32, 7) and (512, 32, 30); then MPPI on the main path
   with the kernel noise.
@@ -60,6 +61,14 @@ instead times this checkout's kernel #8 at every cluster size it can take
 such) at N = 128, 1024, 2048 and 8192, H=32, then one line per N with the
 fastest size and the one ops/pendulum.py solve_cluster picks. It fails
 unless every size gives the plain version's mean to 1e-5.
+
+    python3 tools/kernel_ab.py --pendulum-sweep
+
+instead times this checkout's kernel #7 at 1, 2, 4, 8, 16, 32, 64 and
+128 particles a block and its default at N = 24, 64, 256, 1024, 2048,
+4096 and 8192, H=32, one line per time and one per N with the fastest size and the
+one csrc/pendulum.cu pendulum_rollout_per_block picks. It fails unless
+every size gives the default's costs bit for bit.
 
     python3 tools/kernel_ab.py --noise-sweep
 
@@ -96,6 +105,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FAMILIES = ("forest", "chain", "pendulum", "noise")
 NOISE_SHAPES = ((37, 5, 7), (4096, 32, 7), (512, 32, 30))
 PENDULUM_N = (128, 1024, 2048, 8192)
+PENDULUM_ROLLOUT_N = (24, 64, 2048, 4096)
+PENDULUM_SWEEP_N = (24, 64, 256, 1024, 2048, 4096, 8192)
 NOISE_PER_BLOCK = (0, 1, 2, 4, 8, 16, 32)    # 0: the kernel's default
 FOREST_SIZES = (("pen-v0", 64, 16), ("pen-v0", 256, 16), ("pen-v0", 1024, 16),
                 ("pen-v0", 4096, 16), ("sawyer_peg_insertion-v0", 256, 16))
@@ -338,8 +349,16 @@ def pendulum_timings(smoke, smi, device, outputs):
     _print_build("pendulum", pend.library())
     keyed = _takes_step(type(pend.mppi_pendulum_solve).__call__)
     step = torch.zeros((), dtype=torch.int64, device=device)
-    params, state, mean, _ = smoke.pendulum_inputs(envs.make("SimplePendulum-v0", device=device),
-                                                   1, smoke.HORIZON, 34, device)
+    pend_env = envs.make("SimplePendulum-v0", device=device)
+    for n in PENDULUM_ROLLOUT_N:       # kernel #7
+        args = smoke.pendulum_inputs(pend_env, n, smoke.HORIZON, 36, device)
+        got = pend.pendulum_rollout(*args)
+        torch.cuda.synchronize()
+        outputs[f"pendulum_rollout_{n}"] = got.cpu().numpy()
+        print(json.dumps({"kernel": "pendulum_rollout", "n": n, "h": smoke.HORIZON, "card": smi,
+                          "ms": smoke.cuda_ms(lambda: pend.pendulum_rollout(*args), 50)}),
+              flush=True)
+    params, state, mean, _ = smoke.pendulum_inputs(pend_env, 1, smoke.HORIZON, 34, device)
     for n in PENDULUM_N:
         cfg = dict(smoke.ONE_KERNEL, num_particles=n)
         head = (params, state, mean, 77) + ((step,) if keyed else ())
@@ -512,6 +531,33 @@ def run_cluster_sweep() -> None:
                           "rule": pend.solve_cluster(sampled), "ms": times}), flush=True)
 
 
+def run_pendulum_sweep() -> None:
+    """This checkout's kernel #7 at every particles-a-block size."""
+    import torch
+    from mjmpc_tpu_torch import envs
+    from mjmpc_tpu_torch.ops import pendulum as pend
+    smoke, device = load_smoke(), torch.device("cuda")
+    _print_build("pendulum", pend.library())
+    pend_env = envs.make("SimplePendulum-v0", device=device)
+    for n in PENDULUM_SWEEP_N:
+        args = smoke.pendulum_inputs(pend_env, n, smoke.HORIZON, 37, device)
+        want = pend.pendulum_rollout(*args)
+        times = {}
+        for per_block in (0,) + pend.ROLLOUT_PER_BLOCK:
+            got = pend.pendulum_rollout(*args, per_block=per_block)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"kernel #7 at {per_block} particles a block differs at N={n}")
+            times[per_block] = smoke.cuda_ms(
+                lambda: pend.pendulum_rollout(*args, per_block=per_block), 50)
+            print(json.dumps({"pendulum_sweep": n, "h": smoke.HORIZON, "per_block": per_block,
+                              "ms": times[per_block]}), flush=True)
+        print(json.dumps({"pendulum_sweep": n, "h": smoke.HORIZON,
+                          "fastest": min(times, key=times.get),
+                          "rule": pend.rollout_per_block(n, smoke.HORIZON), "ms": times,
+                          "identical": True}), flush=True)
+
+
 def run_noise_sweep() -> None:
     """This checkout's kernel #2 at several particles per block."""
     import torch
@@ -553,6 +599,8 @@ def main() -> int:
                         help="this checkout's kernel #8 at every cluster size")
     parser.add_argument("--noise-sweep", action="store_true",
                         help="this checkout's kernel #2 at several particles per block")
+    parser.add_argument("--pendulum-sweep", action="store_true",
+                        help="this checkout's kernel #7 at several particles per block")
     parser.add_argument("--run", nargs=3, metavar=("OUTPUTS_NPZ", "CARD", "FAMILIES"),
                         help=argparse.SUPPRESS)    # one checkout's run, from its root
     args = parser.parse_args()
@@ -560,12 +608,14 @@ def main() -> int:
     if args.run:
         run_timings(args.run[0], args.run[1], args.run[2].split(","))
         return 0
-    if args.phases or args.sweep or args.cluster_sweep or args.noise_sweep:
+    if args.phases or args.sweep or args.cluster_sweep or args.noise_sweep or args.pendulum_sweep:
         sys.path.insert(0, str(ROOT))
         if args.cluster_sweep:
             run_cluster_sweep()
         elif args.noise_sweep:
             run_noise_sweep()
+        elif args.pendulum_sweep:
+            run_pendulum_sweep()
         elif args.sweep:
             run_sweep()
         else:
