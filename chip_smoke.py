@@ -13,8 +13,9 @@ exit and no final line:
                three entries, peg's site and obs/cost) likewise, the
                swimmer's and the half cheetah's (the external-force entry),
                the filtered-noise library, the forest-rollout libraries of
-               pen-v0, the sawyer peg, relocate-v0 and hammer-v0 and the
-               pendulum library (kernels #7 and #8) from csrc/; ptxas
+               pen-v0, the sawyer peg, relocate-v0, hammer-v0, the sawyer
+               door, the pusher, tray-glass v0, v1 and fixed-v1 and door-v0
+               and the pendulum library (kernels #7 and #8) from csrc/; ptxas
                register, stack, spill and shared-memory lines.
 3. kernel   -- each kernel against its plain PyTorch version on the card:
                chain and obs rollouts (kernels #1 and #3, a team of
@@ -116,15 +117,30 @@ exit and no final line:
                also with the hammer spinning in the air at N=37 H=4, to
                1e-4, where the plain version with the hammer's coupled 6x6
                solve replaced by the decoupled one misses the kernel by
-               more than 10x; its header has the coupled branch on. A
-               second launch on the same inputs must give the same costs
-               bit for bit (no atomics, a fixed order of every sum).
-11. hand    -- configs/hand/pen-v0.yml, configs/hand/relocate-v0.yml,
-               configs/hand/hammer-v0.yml and
-               configs/sawyer/sawyer_peg_insertion-v0.yml (mppi) through
+               more than 10x; its header has the coupled branch on. The
+               tasks added since, each from a start where its force law,
+               hook and gates act (forest_inputs): the sawyer door with its
+               grab spring live, the pusher's block against the hand,
+               tray-glass v0 and v1 with the glass past the tray's edge (the
+               fall penalty live), fixed-v1 from its start, door-v0 with the
+               hand hooking the handle and the latch near its threshold and
+               with the door past 0.2 rad: to 1e-4 at N=37 H=4 and N=1, and
+               at their mppi blocks' sizes (the sawyer door 256x16 and the
+               pusher 512x24 to 1e-3; tray-glass v0 1024x20, v1 and fixed-v1
+               256x16 and door-v0 256x48 by the gated rule with the fall
+               penalty's step and the door's bonuses, 2, 8 and 10); the
+               plain version with the actions zeroed must fail each check
+               but N=1, at N=37 by more than 10x. A second launch on the
+               same inputs must give the same costs bit for bit (no
+               atomics, a fixed order of every sum); the plain version's
+               call at each config's size is timed here (plain_ms).
+11. hand    -- every forest config (FOREST_CONFIGS: pen, the sawyer peg,
+               relocate, hammer, the sawyer door, the pusher, tray-glass
+               v0, v1 and fixed-v1, door-v0; mppi) through
                harness.config.make_solver_for_env at their full sizes: 3
                chained sync-free solves each, kernel #6's count rising by
-               exactly 3 and every other count by 0, finite actions.
+               exactly 3 times the solver's iterations (2 for tray-glass v0
+               and door-v0) and every other count by 0, finite actions.
 12. pendulum -- configs/SimplePendulum-v0.yml through
                harness.config.make_solver_for_env at full size, each of its
                five controllers: 3 chained sync-free solves, kernel #7's
@@ -139,8 +155,9 @@ exit and no final line:
                guard_finite, which rebuilds the fresh state inside the
                captured solve) and with the plain sampler, PFMPC (the zoo's),
                Reinforce with the peg closed-loop config, kernel #8's
-               closed-loop step at N=1024 and MPPI on the relocate and
-               hammer configs (kernel #6). Each graph is replayed 5 times,
+               closed-loop step at N=1024 and MPPI on the relocate, hammer,
+               sawyer door, pusher, tray-glass (v0, v1, fixed-v1) and
+               door-v0 configs (kernel #6). Each graph is replayed 5 times,
                each replay's state fed to the next, and every replay's
                action, value and state tensors must equal 5 eager solves'
                from the same start bit for bit (the eager solves sync-free);
@@ -156,19 +173,23 @@ exit and no final line:
                rewards; every pendulum controller for one episode of 200
                steps, its reward printed beside the JAX package's records
                (RESULTS.md:207; no gate: the RNG streams differ); then
-               run_mpc.main on the relocate and hammer configs' mppi at full
-               size, one episode cut to 3 control steps, finite rewards.
+               run_mpc.main on the mppi of the relocate, hammer, sawyer door,
+               pusher, tray-glass v0, v1 and fixed-v1, door-v0 and
+               tray-glass-v1-biased-model (planning on fixed-v1) configs at
+               full size, one episode cut to 3 control steps: finite
+               rewards, kernel #6's count rising by exactly 3 times the
+               solver's iterations.
 15. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
                for each solver of the zoo, for Reinforce on the reacher
-               and the peg and for MPPI on both locomotion configs and both
-               forest configs; MPPI on the pendulum through kernel #7 at
+               and the peg and for MPPI on both locomotion configs and every
+               forest config; MPPI on the pendulum through kernel #7 at
                the config's N=24 and at N=2048 (the config's plain sampler,
                and the kernel sampler) against kernel #8's one-launch solve
                at N=2048; the real env step's ms per control step on
-               the locomotion configs and on pen-v0, relocate-v0 and
-               hammer-v0; each kernel
+               the locomotion configs and on every forest config's env but
+               the peg's; each kernel
                and its plain version timed with CUDA events (kernel #1 also
                at the reacher configs' N=128 H=16 and N=256 H=32; #1 and #3
                on a `kernel_open_loop` line per size with its team, bound
@@ -184,7 +205,8 @@ Every launch count is set to 0 just before a path runs and read just after.
 The last lines are the kernels' summary (kernel #5 with the swimmer's
 numbers, its cheetah instance on the `kernel_loco` line before it; kernel
 #6 with pen-v0's and once more for each of its other instances (the peg,
-relocate-v0, hammer-v0), each also on a `kernel_forest` line; #7 at the
+relocate-v0, hammer-v0, the sawyer door, the pusher, tray-glass v0, v1 and
+fixed-v1, door-v0), each also on a `kernel_forest` line; #7 at the
 pendulum mppi block's N=24, #8 at the closed loop's N=1024, each size on a
 `kernel_pendulum` line, with #7's particles a block and #8's cluster
 size), the nvidia-smi line and {"ok": true, "device": {...}}.
@@ -239,15 +261,34 @@ LOCO_CHECKS = {"Swimmer-v0": ((37, 5, 5e-5, False, 10), (512, 32, 1e-3, False, 1
                "HalfCheetah-v0": ((37, 5, 5e-4, True, 10), (512, 16, 1e-2, True, 11),
                                   (1, 5, 5e-4, True, 12))}
 HARNESS_STEPS = 10
-# The forest configs, run as written, at full size (mppi blocks: pen and the
-# peg 8 x 32 particles, H=16; relocate 8 x 64, H=32; hammer 8 x 64, H=20),
-# the pen's controllers for the harness phase and the control steps of the
-# cut relocate and hammer run_mpc episodes.
+# The forest configs, run as written, at full size (mppi blocks: pen, the
+# peg and the sawyer door 8 x 32 particles, H=16; relocate 8 x 64, H=32;
+# hammer 8 x 64, H=20; the pusher 8 x 64, H=24; tray-glass v0 8 x 128, H=20,
+# two iterations; v1 and fixed-v1 8 x 32, H=16; door-v0 8 x 32, H=48, two
+# iterations), the pen's controllers for the harness phase and the control
+# steps of the cut run_mpc episodes (relocate, hammer and every config of
+# the tasks added since: RUN_MPC_CONFIGS, the biased-model tray config among
+# them, which plans on fixed-v1).
 FOREST_CONFIGS = {"pen-v0": "configs/hand/pen-v0.yml",
                   "sawyer_peg_insertion-v0": "configs/sawyer/sawyer_peg_insertion-v0.yml",
                   "relocate-v0": "configs/hand/relocate-v0.yml",
-                  "hammer-v0": "configs/hand/hammer-v0.yml"}
-HAND_ENVS = ("pen-v0", "relocate-v0", "hammer-v0")
+                  "hammer-v0": "configs/hand/hammer-v0.yml",
+                  "sawyer_door-v0": "configs/sawyer/sawyer_door-v0.yml",
+                  "sawyer_pusher-v0": "configs/sawyer/sawyer_pusher-v0.yml",
+                  "panda_tray_glass-v0": "configs/panda/tray_glass-v0.yml",
+                  "panda_tray_glass-v1": "configs/panda/tray_glass-v1.yml",
+                  "panda_tray_glass_fixed-v1": "configs/panda/tray_glass_fixed-v1.yml",
+                  "door-v0": "configs/hand/door-v0.yml"}
+RUN_MPC_CONFIGS = {name: FOREST_CONFIGS[name] for name in (
+    "relocate-v0", "hammer-v0", "sawyer_door-v0", "sawyer_pusher-v0", "panda_tray_glass-v0",
+    "panda_tray_glass-v1", "panda_tray_glass_fixed-v1", "door-v0")}
+RUN_MPC_CONFIGS["panda_tray_glass-v1 (planning on fixed-v1)"] = (
+    "configs/panda/tray_glass-v1_biased_model.yml")
+HAND_ENVS = ("pen-v0", "relocate-v0", "hammer-v0", "door-v0")
+ARM_ENVS = ("sawyer_door-v0", "sawyer_pusher-v0", "panda_tray_glass-v0", "panda_tray_glass-v1",
+            "panda_tray_glass_fixed-v1")
+# door-v0's check starts: (latch, door) with the hand hooking the handle
+DOOR_STARTS = {"hook": (0.5, 0.0), "open": (0.6, 0.3)}
 PEN_CONTROLLERS = ("mppi", "mppiq", "pfmpc", "random_shooting", "cem", "dmd")
 PEN_STEPS = 3
 RUN_MPC_STEPS = 3
@@ -262,7 +303,26 @@ FOREST_CHECKS = (("sawyer_peg_insertion-v0", None, 37, 5, 5e-5, 20),
                  ("hammer-v0", "held", 37, 4, 1e-4, 27),
                  ("hammer-v0", "held", 1, 4, 1e-4, 28),
                  ("hammer-v0", "held", 512, 20, None, 29),
-                 ("hammer-v0", "spin", 37, 4, 1e-4, 30))
+                 ("hammer-v0", "spin", 37, 4, 1e-4, 30),
+                 ("sawyer_door-v0", "grab", 37, 4, 1e-4, 31),
+                 ("sawyer_door-v0", "grab", 1, 4, 1e-4, 32),
+                 ("sawyer_door-v0", "grab", 256, 16, 1e-3, 33),
+                 ("sawyer_pusher-v0", "contact", 37, 4, 1e-4, 34),
+                 ("sawyer_pusher-v0", "contact", 1, 4, 1e-4, 35),
+                 ("sawyer_pusher-v0", "contact", 512, 24, 1e-3, 36),
+                 ("panda_tray_glass-v0", "fallen", 37, 4, 1e-4, 37),
+                 ("panda_tray_glass-v0", "fallen", 1, 4, 1e-4, 38),
+                 ("panda_tray_glass-v0", "fallen", 1024, 20, None, 39),
+                 ("panda_tray_glass-v1", "fallen", 37, 4, 1e-4, 40),
+                 ("panda_tray_glass-v1", "fallen", 1, 4, 1e-4, 41),
+                 ("panda_tray_glass-v1", "fallen", 256, 16, None, 42),
+                 ("panda_tray_glass_fixed-v1", "arm", 37, 4, 1e-4, 43),
+                 ("panda_tray_glass_fixed-v1", "arm", 1, 4, 1e-4, 44),
+                 ("panda_tray_glass_fixed-v1", "arm", 256, 16, None, 45),
+                 ("door-v0", "hook", 37, 4, 1e-4, 46),
+                 ("door-v0", "hook", 1, 4, 1e-4, 47),
+                 ("door-v0", "hook", 256, 48, None, 48),
+                 ("door-v0", "open", 37, 4, 1e-4, 49))
 # The pendulum config, run as written, at full size (mppi 4 x 6 particles,
 # the others 4 x 16; H=32), and the JAX package's closed loop on kernel #8
 # (tests/test_pallas_kernels.py test_one_kernel_mppi_solve_controls).
@@ -330,8 +390,15 @@ def forest_inputs(env, roll, n: int, h: int, seed: int, device, start=None):
     fingertip pressing on the resting pen) with the hand's joints
     perturbed by U(-0.05, 0.05); for relocate-v0 the grasp of the ball
     lifted 0.1 (start "grasp"), for hammer-v0 the hammer held with its head
-    on the nail ("held") or spinning in the air ("spin"), the hand's joints
-    perturbed by U(-0.03, 0.03); for the peg q0, qd0 * 0.1."""
+    on the nail ("held") or spinning in the air ("spin"), for door-v0 the
+    hand hooking the handle with the latch near its threshold ("hook") or
+    with the door past 0.2 rad ("open"), the hand's joints perturbed by
+    U(-0.03, 0.03); for the arm tasks the arm's joints perturbed by U(-0.1,
+    0.1) (the tray's by U(-0.2, 0.2)) from the sawyer door's grab (the
+    spring acting), the pusher's block against the hand ("contact") or the
+    tray's glass past its edge ("fallen"; fixed-v1 from its start, "arm");
+    for the peg q0, qd0 * 0.1. (Each task's module is imported where it is
+    used: tools/kernel_ab.py calls this for checkouts that lack some.)"""
     import torch
     from mjmpc_tpu_torch.envs import hammer, pen, relocate, sawyer_tasks
     rng = np.random.default_rng(seed)
@@ -343,6 +410,10 @@ def forest_inputs(env, roll, n: int, h: int, seed: int, device, start=None):
         elif env.name == "relocate-v0":
             q0, extras = relocate.grasp_qpos(st.qpos), relocate.relocate_extras(env.params, st)
             spread = 0.03
+        elif env.name == "door-v0":
+            from mjmpc_tpu_torch.envs import hand_door
+            q0 = hand_door.hook_qpos(env.params.model, st.qpos, *DOOR_STARTS[start])
+            extras, spread = hand_door.door_extras(env.params), 0.03
         elif start == "held":
             q0, extras, spread = hammer.held_qpos(st.qpos), hammer.hammer_extras(env.params), 0.03
         else:
@@ -352,6 +423,23 @@ def forest_inputs(env, roll, n: int, h: int, seed: int, device, start=None):
         q0[d - 24:d] += torch.as_tensor(rng.uniform(-spread, spread, 24), dtype=torch.float32,
                                         device=device)
         head = [q0, qd0, extras]
+    elif env.name in ARM_ENVS:
+        st = env.init(env.params, seed)
+        spread = 0.2 if env.name.startswith("panda") else 0.1
+        q0 = st.qpos.clone()
+        q0[:7] += torch.as_tensor(rng.uniform(-spread, spread, 7), dtype=torch.float32,
+                                  device=device)
+        if env.name == "sawyer_door-v0":
+            params, q0 = sawyer_tasks.door_grab_state(env.params, q0)
+            extras = sawyer_tasks.door_extras(params)
+        elif env.name == "sawyer_pusher-v0":
+            q0 = sawyer_tasks.pusher_contact_qpos(env.params.model, q0)
+            extras = sawyer_tasks.pusher_extras(env.params, st)
+        else:
+            from mjmpc_tpu_torch.envs import panda_tasks
+            q0 = panda_tasks.fallen_qpos(q0) if start == "fallen" else q0
+            extras = panda_tasks.tray_extras(env.params, st)
+        head = [q0, st.qvel, extras]
     else:
         head = [torch.as_tensor(np.asarray(rng.normal(size=7) * 0.1, np.float32), device=device)
                 for _ in range(2)] + [sawyer_tasks.peg_extras(env.params)]
@@ -359,6 +447,14 @@ def forest_inputs(env, roll, n: int, h: int, seed: int, device, start=None):
     return head + [torch.as_tensor(np.asarray(rng.normal(size=shape) * scale, np.float32),
                                    device=device)
                    for shape, scale in (((h, d), 0.2), ((n, h, d), 0.3))]
+
+
+def forest_row_name(env_name: str, task_name: str) -> str:
+    """The `kernels` line's name of one of kernel #6's instances past pen's:
+    forest_rollout_<task>, and for the tray's variants (one task on three
+    models) the variant's suffix."""
+    suffix = {"panda_tray_glass-v1": "_v1", "panda_tray_glass_fixed-v1": "_fixed_v1"}
+    return f"forest_rollout_{task_name}{suffix.get(env_name, '')}"
 
 
 def pendulum_inputs(env, n: int, h: int, seed: int, device):
@@ -373,25 +469,30 @@ def pendulum_inputs(env, n: int, h: int, seed: int, device):
     return [env.params, state, mean, noise]
 
 
-def cuda_ms(fn, reps: int, warm: bool = True) -> float:
-    """Mean device time of fn() over `reps` calls, by CUDA events, after one
-    warm-up call (`warm`; a plain version that takes seconds a call skips
-    it). A spin kernel queued first holds the stream while the host
-    enqueues the calls, so a kernel shorter than its own host-side launch
-    is timed on the device, not at the host's enqueue rate."""
+def cuda_call_ms(fn, reps: int = 1):
+    """(fn()'s last result, the mean time of `reps` calls in ms by CUDA
+    events), with no warm-up. A spin kernel queued first holds the stream
+    while the host enqueues the calls, so a kernel shorter than its own
+    host-side launch is timed on the device, not at the host's enqueue
+    rate; a plain version that takes seconds a call is timed as it runs."""
     import torch
-    if warm:
-        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end) / reps
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` calls (cuda_call_ms) after one
+    warm-up call."""
+    fn()
+    return cuda_call_ms(fn, reps)[1]
 
 
 def solves_per_s(solve, env, env_state, state, k: int, windows: int):
@@ -652,8 +753,7 @@ def main() -> int:
         return 1
     try:
         from mjmpc_tpu_torch import bounds, envs, ops, rng, solvers
-        from mjmpc_tpu_torch.envs import (half_cheetah, hammer, pen, relocate, sawyer_tasks,
-                                          swimmer)
+        from mjmpc_tpu_torch.envs import half_cheetah, hammer, swimmer
         from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
         from mjmpc_tpu_torch.harness import config as hconfig
         from mjmpc_tpu_torch.harness import run_mpc
@@ -710,9 +810,8 @@ def main() -> int:
                   for name, module in (("Swimmer-v0", swimmer),
                                        ("HalfCheetah-v0", half_cheetah))}
     forest_envs = {name: envs.make(name, device=device) for name in FOREST_CONFIGS}
-    forest_rolls = {name: module.build_rollout(forest_envs[name].params.model)
-                    for name, module in (("pen-v0", pen), ("sawyer_peg_insertion-v0", sawyer_tasks),
-                                         ("relocate-v0", relocate), ("hammer-v0", hammer))}
+    forest_rolls = {name: bounds.forest_builder(name)(forest_envs[name].params.model)
+                    for name in FOREST_CONFIGS}
     pend_env = envs.make("SimplePendulum-v0", device=device)
     t0 = time.perf_counter()
     # (task, team, builder): the chain libraries at every team size, then
@@ -722,11 +821,8 @@ def main() -> int:
     builders += [(task, None, build) for task, build in (
         (None, sampler.library), ("swimmer", loco_rolls["Swimmer-v0"].library),
         ("cheetah", loco_rolls["HalfCheetah-v0"].library),
-        ("forest_pen", forest_rolls["pen-v0"].library),
-        ("forest_peg", forest_rolls["sawyer_peg_insertion-v0"].library),
-        ("forest_relocate", forest_rolls["relocate-v0"].library),
-        ("forest_hammer", forest_rolls["hammer-v0"].library),
         ("pendulum", pend.library))]
+    builders += [(f"forest_{name}", None, r.library) for name, r in forest_rolls.items()]
     with concurrent.futures.ThreadPoolExecutor(len(builders)) as pool:
         futures = [pool.submit(b) for _, _, b in builders]
         libs = [f.result() for f in futures]
@@ -1095,15 +1191,21 @@ def main() -> int:
             raise RuntimeError(f"loco {name}: launches {got}, expected {want}")
 
     # 10. kernel #6 against its plain version, every task
-    forest_args = {}
+    forest_args, forest_plain_ms = {}, {}
     bonus_steps = {"pen-v0": fr.PEN_BONUS_STEPS, "relocate-v0": fr.RELOCATE_BONUS_STEPS,
-                   "hammer-v0": fr.HAMMER_BONUS_STEPS}
+                   "hammer-v0": fr.HAMMER_BONUS_STEPS, "door-v0": fr.DOOR_BONUS_STEPS,
+                   "panda_tray_glass-v0": fr.TRAY_FALL_STEPS,
+                   "panda_tray_glass-v1": fr.TRAY_FALL_STEPS,
+                   "panda_tray_glass_fixed-v1": fr.TRAY_FALL_STEPS}
     for name, start, n, h, tol, seed in FOREST_CHECKS:
         r = forest_rolls[name]
         args = forest_inputs(forest_envs[name], r, n, h, seed, device, start)
+        got, again = r(*args), r(*args)
+        # the plain version timed as it runs: at the config's size this is
+        # the `kernels` line's plain_ms (a call takes up to seconds)
+        want, forest_plain_ms[(name, n, h)] = cuda_call_ms(lambda: r.plain(*args))
         if start != "spin":
             forest_args[(name, n, h)] = args
-        got, again, want = r(*args), r(*args), r.plain(*args)
         torch.cuda.synchronize()
         if got.shape != (n, h) or not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"forest kernel output bad for {name} at N={n} H={h}")
@@ -1127,7 +1229,7 @@ def main() -> int:
                 entries_off_otherwise=agree["other"])
 
         ok, more = check(got)
-        if name in HAND_ENVS and n > 1 and start != "spin":
+        if name != "sawyer_peg_insertion-v0" and n > 1 and start != "spin":
             # the check's power: a kernel that ignores the actions fails it
             zeroed = r.plain(*args[:3], torch.zeros_like(args[3]), torch.zeros_like(args[4]))
             zeroed_ok, zeroed_fields = check(zeroed)
@@ -1168,7 +1270,7 @@ def main() -> int:
         hand_runs[name] = (solve, s, e, es, state, exp)
         emit("hand", env=name, config=path, n=s.num_particles, h=s.horizon, solves=ZOO_SOLVES,
              launches=got, action=action_host.tolist(), step=int(state.step))
-        want = expected(forest=ZOO_SOLVES, **noise_launches(s, ZOO_SOLVES))
+        want = expected(forest=ZOO_SOLVES * s.n_iters, **noise_launches(s, ZOO_SOLVES))
         if got != want or action_host.shape != (e.d_action,):
             raise RuntimeError(f"hand {name}: launches {got}, expected {want}")
 
@@ -1233,9 +1335,9 @@ def main() -> int:
         "one_kernel_n1024": (one_kernel_solve_fn(ONE_KERNEL["num_particles"]), pend_env,
                              loop_start, one_kernel_start(device)),
     }
-    for name in ("relocate-v0", "hammer-v0"):
+    for name in ("relocate-v0", "hammer-v0") + ARM_ENVS + ("door-v0",):
         solve, s, e, es, _, _ = hand_runs[name]
-        graph_solves[f"mppi_{name.split('-')[0]}"] = (solve, e, es, s.init_state(0))
+        graph_solves[f"mppi_{name}"] = (solve, e, es, s.init_state(0))
     graph_results = {}
     for name, (solve, e, es, state) in graph_solves.items():
         reset_counts(*counters)
@@ -1265,21 +1367,25 @@ def main() -> int:
              steps=steps, ep_reward=float(out["ep_rewards"][0]), seconds=seconds, **extra)
         if out["rewards"].shape != (1, steps) or not np.isfinite(out["rewards"]).all():
             raise RuntimeError(f"harness {name} {controller}: rewards not finite")
-    # run_mpc itself on the relocate and hammer configs, full size, one
-    # episode cut to RUN_MPC_STEPS control steps
+    # run_mpc itself on the relocate and hammer configs and on every config
+    # of the tasks added since, full size, one episode cut to RUN_MPC_STEPS
+    # control steps; the forest kernel's count rises by the solves' launches
     with tempfile.TemporaryDirectory() as out_dir:
-        for name in ("relocate-v0", "hammer-v0"):
-            exp = dict(hand_runs[name][5], n_episodes=1, max_ep_length=RUN_MPC_STEPS)
-            path = f"{out_dir}/{name}.yml"
+        for k, (name, config) in enumerate(RUN_MPC_CONFIGS.items()):
+            exp = dict(hconfig.load_config(config), n_episodes=1, max_ep_length=RUN_MPC_STEPS)
+            path = f"{out_dir}/{k}.yml"
             with open(path, "w") as f:
                 json.dump(exp, f)           # YAML reads JSON
+            reset_counts(*counters)
             t0 = time.perf_counter()
             out = run_mpc.main(["--config", path, "--controller", "mppi", "--save_dir", out_dir])
             rewards = out["mppi"]["rewards"]
-            emit("run_mpc", env=name, config=FOREST_CONFIGS[name], controller="mppi",
+            emit("run_mpc", env=name, config=config, controller="mppi",
                  n=exp["mppi"]["num_cpu"] * exp["mppi"]["particles_per_cpu"],
                  h=exp["mppi"]["horizon"], steps=RUN_MPC_STEPS, rewards=rewards[0].tolist(),
-                 seconds=time.perf_counter() - t0)
+                 launches=counts(), seconds=time.perf_counter() - t0)
+            if counts()["forest"] != RUN_MPC_STEPS * exp["mppi"]["n_iters"]:
+                raise RuntimeError(f"run_mpc {name}: launches {counts()}")
             if rewards.shape != (1, RUN_MPC_STEPS) or not np.isfinite(rewards).all():
                 raise RuntimeError(f"run_mpc {name}: rewards not finite")
 
@@ -1387,10 +1493,10 @@ def main() -> int:
         r = forest_rolls[name]
         args = forest_args[(name, s.num_particles, s.horizon)]
         forest_times[name] = (cuda_ms(lambda: r(*args), 10),
-                              cuda_ms(lambda: r.plain(*args), 1, warm=name == "pen-v0"))
+                              forest_plain_ms[(name, s.num_particles, s.horizon)])
         rate, windows, _ = solves_per_s(solve, e, es, state, 10, 5)
         fields = {}
-        if name in HAND_ENVS:
+        if name != "sawyer_peg_insertion-v0":
             step_ms, st = [], es
             zero = torch.zeros(e.d_action, device=device)
             for _ in range(3):
@@ -1571,7 +1677,7 @@ def main() -> int:
         if name == "pen-v0":
             continue
         inst = bounds.forest_instance(forest_rolls[name], *bounds.FOREST_SIZES[name])
-        kname = f"forest_rollout_{forest_rolls[name].task.name}"
+        kname = forest_row_name(name, forest_rolls[name].task.name)
         rows.append((kname, "mjmpc_tpu_torch/csrc/forest_rollout.cu",
                      "mjmpc_tpu/ops/pallas_forest.py:667", hand_counts[name]["forest"],
                      errors[("forest", name, *bounds.FOREST_SIZES[name])],

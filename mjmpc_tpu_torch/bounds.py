@@ -11,9 +11,8 @@ multiply, an add, a compare or a transcendental is one). This is
 arithmetic on shapes, not a measurement; it runs anywhere. chip_smoke.py
 reports the same bounds for the kernels beside their measured times,
 kernel #4's peg instance at the closed-loop peg config's size, kernel #5
-at the swimmer's and the half cheetah's config sizes, kernel #6 at
-pen-v0's, the sawyer peg's, relocate-v0's and hammer-v0's config sizes
-(FOREST_SIZES) and kernels #7 and #8 at the sizes it times
+at the swimmer's and the half cheetah's config sizes, kernel #6 at each
+of its tasks' config sizes (FOREST_SIZES) and kernels #7 and #8 at the sizes it times
 (PENDULUM_SIZES).
 """
 from __future__ import annotations
@@ -126,19 +125,38 @@ def ext_instance(roll: ChainExtRollout, n: int, h: int) -> dict:
 # Kernel #6's calls at the configs' sizes (their mppi blocks):
 # configs/hand/pen-v0.yml (8 x 32 particles, H=16; 5 substeps),
 # configs/sawyer/sawyer_peg_insertion-v0.yml (8 x 32, H=16; 2 substeps),
-# configs/hand/relocate-v0.yml (8 x 64, H=32; 5 substeps) and
-# configs/hand/hammer-v0.yml (8 x 64, H=20; 5 substeps).
+# configs/hand/relocate-v0.yml (8 x 64, H=32; 5 substeps),
+# configs/hand/hammer-v0.yml (8 x 64, H=20; 5 substeps),
+# configs/sawyer/sawyer_door-v0.yml (8 x 32, H=16; 2 substeps),
+# configs/sawyer/sawyer_pusher-v0.yml (8 x 64, H=24; 2 substeps),
+# configs/panda/tray_glass-v0.yml (8 x 128, H=20, two iterations; 2
+# substeps), tray_glass-v1.yml and tray_glass_fixed-v1.yml (8 x 32, H=16)
+# and configs/hand/door-v0.yml (8 x 32, H=48, two iterations; 5 substeps).
 FOREST_SIZES = {"pen-v0": (256, 16), "sawyer_peg_insertion-v0": (256, 16),
-                "relocate-v0": (512, 32), "hammer-v0": (512, 20)}
+                "relocate-v0": (512, 32), "hammer-v0": (512, 20),
+                "sawyer_door-v0": (256, 16), "sawyer_pusher-v0": (512, 24),
+                "panda_tray_glass-v0": (1024, 20), "panda_tray_glass-v1": (256, 16),
+                "panda_tray_glass_fixed-v1": (256, 16), "door-v0": (256, 48)}
+
+
+def forest_builder(name: str):
+    """The function that builds kernel #6's wrapper from the model of env
+    `name` (one of FOREST_SIZES')."""
+    from .envs import hammer, hand_door, panda_tasks, pen, relocate, sawyer_tasks
+    return {"pen-v0": pen.build_rollout, "sawyer_peg_insertion-v0": sawyer_tasks.build_rollout,
+            "relocate-v0": relocate.build_rollout, "hammer-v0": hammer.build_rollout,
+            "sawyer_door-v0": sawyer_tasks.build_door_rollout,
+            "sawyer_pusher-v0": sawyer_tasks.build_pusher_rollout,
+            "panda_tray_glass-v0": panda_tasks.build_rollout,
+            "panda_tray_glass-v1": panda_tasks.build_rollout,
+            "panda_tray_glass_fixed-v1": panda_tasks.build_rollout,
+            "door-v0": hand_door.build_rollout}[name]
 
 
 def _forest_rollout(name: str) -> ForestRollout:
     """Kernel #6's wrapper for one of FOREST_SIZES' envs, on the CPU."""
     from . import envs
-    from .envs import hammer, pen, relocate, sawyer_tasks
-    module = {"pen-v0": pen, "sawyer_peg_insertion-v0": sawyer_tasks, "relocate-v0": relocate,
-              "hammer-v0": hammer}[name]
-    return module.build_rollout(envs.make(name, device="cpu").params.model)
+    return forest_builder(name)(envs.make(name, device="cpu").params.model)
 
 
 def forest_instance(roll: ForestRollout, n: int, h: int) -> dict:

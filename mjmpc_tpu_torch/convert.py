@@ -4,8 +4,9 @@ Plain functions over numpy arrays, or objects whose fields convert with
 np.asarray (a JAX ChainModel, GaussianState, ReacherState, PegParams,
 PegState, ReinforceState, VFParams, LGPolicyParams, SwimmerParams,
 CheetahParams, SwimmerState, CheetahState, PenParams, PenState,
-RelocateParams, RelocateState, HammerParams, HammerState, PendulumParams
-or PendulumState does;
+RelocateParams, RelocateState, HammerParams, HammerState, PusherParams,
+PusherState, the sawyer and the hand DoorParams and DoorState,
+TrayGlassParams, TrayGlassState, PendulumParams or PendulumState does;
 models with ball and free joints keep the JAX layout: qpos [nq] with
 quaternions in wxyz order, per-DOF arrays [nv], limits [nq]). This module
 never imports jax; tests use it so that both packages compute on the same
@@ -19,7 +20,9 @@ import torch
 from . import rng
 from .engine.chain import ChainModel
 from .envs.half_cheetah import CheetahParams, CheetahState
+from .envs import hand_door, sawyer_tasks
 from .envs.hammer import HammerParams, HammerState
+from .envs.panda_tasks import TrayGlassParams, TrayGlassState
 from .envs.pen import PenParams, PenState
 from .envs.pendulum import PendulumParams, PendulumState
 from .envs.reacher_7dof import ReacherState
@@ -176,6 +179,67 @@ def hammer_state_from_reference(state, device="cuda") -> HammerState:
     wxyz order, qvel [34], timestep) as the port's."""
     return HammerState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
                        timestep=int(np.asarray(state.timestep)))
+
+
+def pusher_params_from_reference(params, device="cuda") -> sawyer_tasks.PusherParams:
+    """A reference PusherParams (the arm and block model, k_contact) as the
+    port's."""
+    return sawyer_tasks.PusherParams(model=chain_model_from_reference(params.model, device),
+                                     k_contact=_t(params.k_contact, device))
+
+
+def pusher_state_from_reference(state, device="cuda") -> sawyer_tasks.PusherState:
+    """A reference PusherState (qpos [9], qvel [9], target [2], timestep) as
+    the port's."""
+    return sawyer_tasks.PusherState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
+                                    target=_t(state.target, device),
+                                    timestep=int(np.asarray(state.timestep)))
+
+
+def sawyer_door_params_from_reference(params, device="cuda") -> sawyer_tasks.DoorParams:
+    """A reference sawyer DoorParams (the arm and door model, k_grab,
+    grab_radius, target_angle) as the port's."""
+    return sawyer_tasks.DoorParams(model=chain_model_from_reference(params.model, device),
+                                   k_grab=_t(params.k_grab, device),
+                                   grab_radius=_t(params.grab_radius, device),
+                                   target_angle=_t(params.target_angle, device))
+
+
+def sawyer_door_state_from_reference(state, device="cuda") -> sawyer_tasks.DoorState:
+    """A reference sawyer DoorState (qpos [8], qvel [8], timestep) as the
+    port's."""
+    return sawyer_tasks.DoorState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
+                                  timestep=int(np.asarray(state.timestep)))
+
+
+def tray_params_from_reference(params, device="cuda") -> TrayGlassParams:
+    """A reference TrayGlassParams (the arm, tray and glass model, the fall
+    penalty) as the port's."""
+    return TrayGlassParams(model=chain_model_from_reference(params.model, device),
+                           fall_penalty=_t(params.fall_penalty, device))
+
+
+def tray_state_from_reference(state, device="cuda") -> TrayGlassState:
+    """A reference TrayGlassState (qpos [9], qvel [9], target [3], timestep)
+    as the port's."""
+    return TrayGlassState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
+                          target=_t(state.target, device),
+                          timestep=int(np.asarray(state.timestep)))
+
+
+def hand_door_params_from_reference(params, device="cuda") -> hand_door.DoorParams:
+    """A reference door-v0 DoorParams (the arm, hand, door and latch model,
+    kp, kd, mu) as the port's."""
+    return hand_door.DoorParams(model=chain_model_from_reference(params.model, device),
+                                kp=_t(params.kp, device), kd=_t(params.kd, device),
+                                mu=_t(params.mu, device))
+
+
+def hand_door_state_from_reference(state, device="cuda") -> hand_door.DoorState:
+    """A reference door-v0 DoorState (qpos [29], qvel [29], timestep) as the
+    port's."""
+    return hand_door.DoorState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
+                               timestep=int(np.asarray(state.timestep)))
 
 
 def pendulum_params_from_reference(params, device="cuda") -> PendulumParams:

@@ -38,9 +38,14 @@
 // 12-point pen contact and the pen cost, envs/pen.py), Peg (no contact, the
 // depth-progress insertion cost of peg_cost.cuh), GroundSpheres (spheres
 // against the plane z = 0), Relocate (the 12-point ball contact, the hand's
-// weight on the arm's z slide and the relocate cost, envs/relocate.py) and
+// weight on the arm's z slide and the relocate cost, envs/relocate.py),
 // Hammer (the 15-point handle, table and strike contact, the hand's weight
-// and the nail's dry friction, the hammer cost, envs/hammer.py). A task
+// and the nail's dry friction, the hammer cost, envs/hammer.py), SawyerDoor
+// (the grab spring on the door's handle) and Pusher (the hand-block
+// contact between two scalar trees), both envs/sawyer_tasks.py, Tray (no
+// contact, the arm's gravity feed-forward from the FK's frames,
+// envs/panda_tasks.py) and Door (the 13-point handle contact, the hand's
+// weight, the latch's spring and the strike plate, envs/hand_door.py). A task
 // gives N_EXTRAS, load() of its extras, point_force() of one contact point
 // (its first N_FIRST points on a team's first group, the rest on its last;
 // for a force law that sums over points, N_SUMS sums in sum_forces()),
@@ -750,6 +755,217 @@ struct Hammer {
     }
 };
 using BuildTask = Hammer;
+#elif FOREST_TASK == 5
+// sawyer_door-v0 (envs/sawyer_tasks.py): extras = [k_grab, grab radius,
+// target angle]. Points: the hand (the wrist's origin) and the handle on the
+// door. The grab spring k_grab (hand - handle), while |hand - handle| +
+// 1e-8 < grab radius, acts on the handle only: the hand gets no force.
+struct SawyerDoor : NoJointTorque {
+    static constexpr int N_EXTRAS = 3;
+    static constexpr int N_SUMS = 0;
+    static constexpr int N_FIRST = forest::N_POINTS;  // both on the first group
+
+    struct Extras {
+        float k_grab, grab_r, target_angle;
+    };
+
+    static FOREST_FN Extras load(const float* __restrict__ e) { return {e[0], e[1], e[2]}; }
+
+    static FOREST_FN void point_force(Particle& s, const Extras& ex, int k) {
+        if (k == 0) {
+            s.f[0] = {0.f, 0.f, 0.f};
+            return;
+        }
+        const V3 diff = sub(s.p[0], s.p[1]);
+        const float dist = sqrtf(dot(diff, diff)) + 1e-8f;
+        const float gain = dist < ex.grab_r ? ex.k_grab : 0.0f;
+        s.f[1] = scale(gain, diff);
+    }
+
+    static FOREST_FN void sum_forces(Particle&, int) {}
+
+    // -reward: 2 |target angle - q_door| + 0.5 |hand - handle|.
+    static FOREST_FN float cost(const Particle& s, const Extras& ex) {
+        using namespace forest_task;
+        const V3 handle = add(s.P[DOOR_BODY], mv(s.R[DOOR_BODY], {handle_local(0), handle_local(1),
+                                                                  handle_local(2)}));
+        const V3 d = sub(s.P[HAND_BODY], handle);
+        const float reach = sqrtf(dot(d, d));
+        return fabsf(ex.target_angle - s.q[forest::qoff(DOOR_BODY)]) * 2.0f + 0.5f * reach;
+    }
+};
+using BuildTask = SawyerDoor;
+#elif FOREST_TASK == 6
+// sawyer_pusher-v0 (envs/sawyer_tasks.py): extras = [target 2, k_contact].
+// Points: the hand sphere's and the block's centres, on two scalar trees
+// (the arm; the block's x and y slides). Their overlap (CONTACT_R -
+// distance) pushes with k_contact * overlap along the centres' line: +f on
+// the block, -f on the hand (the first point's lane writes both).
+struct Pusher : NoJointTorque {
+    static constexpr int N_EXTRAS = 3;
+    static constexpr int N_SUMS = 0;
+    static constexpr int N_FIRST = forest::N_POINTS;
+
+    struct Extras {
+        float tx, ty, k;
+    };
+
+    static FOREST_FN Extras load(const float* __restrict__ e) { return {e[0], e[1], e[2]}; }
+
+    static FOREST_FN void point_force(Particle& s, const Extras& ex, int k) {
+        if (k != 0) return;
+        const V3 diff = sub(s.p[1], s.p[0]);
+        const float dist = sqrtf(dot(diff, diff)) + 1e-8f;
+        const float overlap = forest_task::CONTACT_R - dist;
+        const float fmag = overlap > 0.0f ? ex.k * overlap : 0.0f;
+        const float r = fmag / dist;
+        const V3 f = {r * diff.x, r * diff.y, r * diff.z};
+        s.f[0] = {-f.x, -f.y, -f.z};
+        s.f[1] = f;
+    }
+
+    static FOREST_FN void sum_forces(Particle&, int) {}
+
+    // -reward: |hand - block| + 2 |block_xy - target|.
+    static FOREST_FN float cost(const Particle& s, const Extras& ex) {
+        using namespace forest_task;
+        const V3 block = s.P[BLOCK_BODY];
+        const V3 d = sub(s.P[HAND_BODY], block);
+        const float dx = block.x - ex.tx, dy = block.y - ex.ty;
+        return sqrtf(dot(d, d)) + 2.0f * sqrtf(dx * dx + dy * dy);
+    }
+};
+using BuildTask = Pusher;
+#elif FOREST_TASK == 7
+// The tray-glass family (envs/panda_tasks.py): extras = [target 3, fall
+// penalty]; no contact. Each arm dof d (d < N_ARM) gets the gravity
+// feed-forward -sum_i m_i g . J_d(c_i) over the bodies i it moves, in
+// increasing order (the header's desc list: d, then its descendants), with
+// J_d(c) = a_d x (c - o_d) for a hinge and a_d for a slide and c_i = P_i +
+// R_i com_i, all from the FK pass of this substep's state.
+struct Tray {
+    static constexpr int N_EXTRAS = 4;
+    static constexpr int N_SUMS = 0;
+    static constexpr int N_FIRST = 0;
+
+    struct Extras {
+        V3 target;
+        float fall;
+    };
+
+    static FOREST_FN Extras load(const float* __restrict__ e) {
+        return {{e[0], e[1], e[2]}, e[3]};
+    }
+
+    static FOREST_FN void point_force(Particle&, const Extras&, int) {}
+
+    static FOREST_FN void sum_forces(Particle&, int) {}
+
+    static FOREST_FN void joint_torque(const Particle& s, const Extras&, int d, float& tau) {
+        if (d >= forest_task::N_ARM) return;
+        const V3 g = {forest::gravity(0), forest::gravity(1), forest::gravity(2)};
+        const bool hinge = is_hinge(d);
+        float total = 0.0f;
+#pragma unroll 1
+        for (int e = forest::desc_start(d); e < forest::desc_start(d + 1); ++e) {
+            const int i = forest::desc(e);
+            const V3 ci = add(s.P[i], s.rc[i]);
+            const V3 jv = hinge ? cross(s.A[d], sub(ci, s.P[d])) : s.A[d];
+            const float gdot = g.x * jv.x + g.y * jv.y + g.z * jv.z;
+            total = total + -forest::mass(i) * gdot;
+        }
+        tau = tau + total;
+    }
+
+    // -reward: |tray - target| + 2 slide, + the fall penalty once slide >
+    // TRAY_R.
+    static FOREST_FN float cost(const Particle& s, const Extras& ex) {
+        using namespace forest_task;
+        const V3 d = sub(site_of(s), ex.target);
+        const float gx = s.q[GLASS_Q], gy = s.q[GLASS_Q + 1];
+        const float slide = sqrtf(gx * gx + gy * gy);
+        return sqrtf(dot(d, d)) + 2.0f * slide + (slide > TRAY_R ? ex.fall : 0.0f);
+    }
+};
+using BuildTask = Tray;
+#elif FOREST_TASK == 8
+// door-v0 (envs/hand_door.py): extras = [kp, kd, mu]. Points: the tip and
+// mid sphere of each digit (N_TIPS), the handle capsule's two ends and the
+// palm pad. Each finger sphere and the palm pad push the handle (the
+// reaction split by t onto the two ends); there is no table. The z slide
+// carries the hand's weight, the latch its return spring, the door its
+// closing spring and the strike plate, gated by the latch's and the door's
+// angles.
+struct Door {
+    static constexpr int N_EXTRAS = 3;
+    static constexpr int N_SUMS = 2;  // the two ends' sums over the tips and the palm
+    static constexpr int N_FIRST = forest_task::N_TIPS;  // the tips; then the ends, the palm
+
+    struct Extras {
+        float kp, kd, mu;
+    };
+
+    static FOREST_FN Extras load(const float* __restrict__ e) { return {e[0], e[1], e[2]}; }
+
+    // A tip's or the palm's push on the handle, its weight t kept for the
+    // ends' sums; the ends' own calls add nothing.
+    static FOREST_FN void point_force(Particle& s, const Extras& ex, int k) {
+        using namespace forest_task;
+        if (k < N_TIPS || k == PALM) {
+            const float r = k < N_TIPS ? tip_radius(k) : PALM_R;
+            float t;
+            const V3 f = sphere_segment_force(s.p[k], s.v[k], r, s.p[CAP_A], s.p[CAP_B],
+                                              s.v[CAP_A], s.v[CAP_B], HANDLE_R, ex.kp, ex.kd,
+                                              ex.mu, t);
+            s.pf[k] = f;
+            s.pt[k] = t;
+            s.f[k] = f;
+        }
+    }
+
+    // End e (0: a, 1: b) takes the tips' reactions, in tip order, then the
+    // palm's.
+    static FOREST_FN void sum_forces(Particle& s, int e) {
+        using namespace forest_task;
+        V3 f = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < N_TIPS; ++k)
+            f = sub(f, scale(e == 0 ? 1.0f - s.pt[k] : s.pt[k], s.pf[k]));
+        s.f[CAP_A + e] = sub(f, scale(e == 0 ? 1.0f - s.pt[PALM] : s.pt[PALM], s.pf[PALM]));
+    }
+
+    static FOREST_FN float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+    static FOREST_FN void joint_torque(const Particle& s, const Extras&, int i, float& tau) {
+        using namespace forest_task;
+        if (i == 2) tau = tau + HAND_WEIGHT;
+        const float q_latch = s.q[forest::qoff(LATCH_BODY)];
+        if (i == LATCH_BODY) tau = tau + -LATCH_SPRING * q_latch;
+        if (i == DOOR_BODY) {
+            const float q_door = s.q[forest::qoff(DOOR_BODY)];
+            const float gate = sigmoid((LATCH_THRESH - q_latch) / 0.05f)
+                             * sigmoid((0.12f - q_door) / 0.04f);
+            tau = tau + (-DOOR_SPRING * q_door - BLOCK_K * tanhf(q_door / 0.03f) * gate);
+        }
+    }
+
+    // -reward: 0.1 |palm - handle| - 0.5 q_latch - 2 q_door, -2 / -8 / -10
+    // with the door past 0.2 / 1.0 / 1.35 rad.
+    static FOREST_FN float cost(const Particle& s, const Extras&) {
+        using namespace forest_task;
+        const V3 palm = add(s.P[2], mv(s.R[2], {palm_local(0), palm_local(1), palm_local(2)}));
+        const V3 handle = add(s.P[LATCH_BODY], mv(s.R[LATCH_BODY],
+                                                  {handle_mid(0), handle_mid(1), handle_mid(2)}));
+        const V3 d = sub(palm, handle);
+        const float q_door = s.q[forest::qoff(DOOR_BODY)];
+        const float q_latch = s.q[forest::qoff(LATCH_BODY)];
+        const float reward = -0.1f * sqrtf(dot(d, d)) + 0.5f * q_latch + 2.0f * q_door
+                           + (q_door > 0.2f ? 2.0f : 0.0f) + (q_door > 1.0f ? 8.0f : 0.0f)
+                           + (q_door > 1.35f ? 10.0f : 0.0f);
+        return -reward;
+    }
+};
+using BuildTask = Door;
 #endif
 
 static_assert(BuildTask::N_EXTRAS == forest::N_EXTRAS, "the task's extras and the header's differ");

@@ -407,6 +407,12 @@ def _potential_energy_at(model: ChainModel, q, delta) -> torch.Tensor:
     return -torch.sum(model.mass * (coms_w @ model.gravity), dim=-1)
 
 
+def potential_energy(model: ChainModel, q: torch.Tensor) -> torch.Tensor:
+    """V(q) = -sum_i m_i g . c_i(q) [...] (zero when model.gravity is zero,
+    as in the reference arm model)."""
+    return _potential_energy_at(model, q, None)
+
+
 def bias_forces(model: ChainModel, q: torch.Tensor,
                 qd: torch.Tensor) -> torch.Tensor:
     """Coriolis/centrifugal/gyroscopic + gravity generalized forces

@@ -13,8 +13,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from . import (half_cheetah, hammer, pen, pendulum, reacher_7dof, relocate, sawyer_tasks,
-               swimmer)
+from . import (half_cheetah, hammer, hand_door, panda_tasks, pen, pendulum, reacher_7dof,
+               relocate, sawyer_tasks, swimmer)
 from .base import Env
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {
@@ -26,19 +26,25 @@ _REGISTRY: Dict[str, Callable[..., Env]] = {
     "panda_reacher-v0": reacher_7dof.make,
     "sawyer_peg_insertion-v0": sawyer_tasks.make_peg_insertion,
     "sawyer_peg_insertion-v1": sawyer_tasks.make_peg_insertion_v1,
+    "sawyer_pusher-v0": sawyer_tasks.make_pusher,
+    "pusher-v0": sawyer_tasks.make_pusher,
+    "sawyer_door-v0": sawyer_tasks.make_door,
+    "panda_tray_glass-v0": panda_tasks.make,
+    "panda_tray_glass-v1": panda_tasks.make_v1,
+    "panda_tray_glass_fixed-v1": panda_tasks.make_fixed_v1,
     "Swimmer-v0": swimmer.make,
     "HalfCheetah-v0": half_cheetah.make,
     "pen-v0": pen.make,
     "relocate-v0": relocate.make,
     "hammer-v0": hammer.make,
+    "door-v0": hand_door.make,
 }
 
-# Envs of the JAX package's registry that the port lacks so far.
+# Envs of the JAX package's registry that the port lacks so far: the
+# analytic envs, which run no TPU kernel.
 NOT_PORTED = (
-    "LQR-v0", "acrobot-v0", "cartpole-v0", "continual_maze-v0", "door-v0", "maze-v0",
-    "mjrl_point_mass-v0", "panda_tray_glass-v0", "panda_tray_glass-v1",
-    "panda_tray_glass_fixed-v1", "point_mass-v0", "pusher-v0", "sawyer_door-v0",
-    "sawyer_pusher-v0", "trajopt_reacher-v0",
+    "LQR-v0", "acrobot-v0", "cartpole-v0", "continual_maze-v0", "maze-v0",
+    "mjrl_point_mass-v0", "point_mass-v0", "trajopt_reacher-v0",
 )
 
 _CACHE: Dict[Tuple[str, str], Env] = {}

@@ -54,6 +54,18 @@ Tasks (ForestTask; `extras` carries their call-time data):
   hand's weight and the nail's dry friction as joint torques; the hammer
   is the free body with an offset com (the coupled 6x6 solve); cost = -the
   hammer reward.
+- sawyer_door (envs/sawyer_tasks.py): extras = [k_grab, grab radius,
+  target angle]; 2 points, the hand and the handle; a gated grab spring
+  on the handle only; cost = -the door reward.
+- pusher (envs/sawyer_tasks.py): extras = [target 2, k_contact]; 2
+  points, the hand and the block (two scalar trees, the arm and the
+  block's two slides, in contact); cost = -the pusher reward.
+- tray (envs/panda_tasks.py, one task per variant's model): extras =
+  [target 3, fall penalty]; no contact; the arm's gravity feed-forward
+  from the FK's frames as joint torques; cost = -the tray reward.
+- door (envs/hand_door.py): extras = [kp, kd, mu]; 13 contact points; the
+  hand's weight, the latch's spring and the door's spring and strike plate
+  as joint torques; cost = -the door reward.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
@@ -484,6 +496,148 @@ def hammer_task(hand_weight: float) -> ForestTask:
                       joint_torque)
 
 
+def sawyer_door_task() -> ForestTask:
+    """sawyer_door-v0's task: the hand (the wrist's origin, body 6) and the
+    handle on the door (body 7), the grab spring of envs/sawyer_tasks.py's
+    door_forces on the handle only, extras [k_grab, grab radius, target
+    angle], cost = -the door reward."""
+    from ..envs import sawyer_tasks as st
+
+    def forces(pos, vel, extras):
+        return st.door_forces(pos, extras[0], extras[1])
+
+    def cost(model, q, qd, rots, poss, extras):
+        return -st.door_reward(poss[:, st.HAND_BODY], st.handle_position(rots, poss),
+                               q[:, st.DOOR_BODY], extras[2])
+
+    header = (f"constexpr int HAND_BODY = {st.HAND_BODY};",
+              f"constexpr int DOOR_BODY = {st.DOOR_BODY};")
+    tables = (("handle_local", "float", np.asarray(st.HANDLE_LOCAL, _F32)),)
+    points = ((st.HAND_BODY, (0.0, 0.0, 0.0)),
+              (st.DOOR_BODY, tuple(float(x) for x in st.HANDLE_LOCAL)))
+    # counted from forest_rollout.cuh as written: the difference, its norm
+    # and the 1e-8, the gate and the spring (14). The cost: the handle (18),
+    # the reach (9), the angle's error, its size and the sum (5).
+    return ForestTask("sawyer_door", 5, 3, points, forces, cost, header, tables, 14, 32)
+
+
+def pusher_task() -> ForestTask:
+    """sawyer_pusher-v0's task: the hand sphere (body 6) and the block (body
+    8, its y slide), the penalty contact of envs/sawyer_tasks.py's
+    pusher_forces (-f on the hand, +f on the block), extras [target 2,
+    k_contact], cost = -the pusher reward of the block's planar target."""
+    from ..envs import sawyer_tasks as st
+
+    def forces(pos, vel, extras):
+        return st.pusher_forces(pos, extras[2])
+
+    def cost(model, q, qd, rots, poss, extras):
+        return -st.pusher_reward(poss[:, st.HAND_BODY], poss[:, st.BLOCK_BODY], extras[0:2])
+
+    header = (f"constexpr float CONTACT_R = {_f(st.HAND_R + st.BLOCK_R)};",
+              f"constexpr int HAND_BODY = {st.HAND_BODY};",
+              f"constexpr int BLOCK_BODY = {st.BLOCK_BODY};")
+    points = ((st.HAND_BODY, (0.0, 0.0, 0.0)), (st.BLOCK_BODY, (0.0, 0.0, 0.0)))
+    # counted from forest_rollout.cuh as written: the difference, its norm
+    # and the 1e-8, the overlap, its gate and the push, the force and its
+    # negation (20). The cost: the reach (9), the planar distance (6), its
+    # weight and the sum (2).
+    return ForestTask("pusher", 6, 3, points, forces, cost, header, (), 20, 17)
+
+
+def tray_task(model: ChainModel) -> ForestTask:
+    """The tray-glass task of envs/panda_tasks.py for `model` (each variant's
+    own): no contact; the arm's gravity feed-forward as the joint-torque
+    hook, for each arm dof d -sum_i m_i g . J_d(c_i) over the bodies i that
+    d moves (a_d x (c_i - o_d) for a hinge, a_d for a slide), from the FK's
+    frames; extras [target 3, fall penalty]; cost = -the tray reward."""
+    from ..envs import panda_tasks as pt
+    c = forest_consts(model)
+    mass, com = c["mass"], c["com"]
+    grav = [float(x) for x in c["gravity"]]
+    paths = [_ancestors(c, i) + [i] for i in range(c["n"])]
+    below = {d: [i for i in range(c["n"]) if d in paths[i]] for d in range(pt.N_ARM)}
+
+    def joint_torque(q, qd, extras, fk):
+        rots, poss, axes = fk
+        out = {}
+        for d, bodies in below.items():
+            total = None
+            for i in bodies:
+                ci = poss[:, i] + _mv(rots[:, i], torch.as_tensor(com[i], device=poss.device))
+                jv = (_cross(axes[d], ci - poss[:, d]) if c["jtype"][d] == HINGE
+                      else axes[d])
+                term = float(-mass[i]) * (grav[0] * jv[:, 0] + grav[1] * jv[:, 1]
+                                          + grav[2] * jv[:, 2])
+                total = term if total is None else total + term
+            out[d] = total
+        return out
+
+    def cost(model_, q, qd, rots, poss, extras):
+        tray = poss[:, pt.TRAY_BODY] + _mv(rots[:, pt.TRAY_BODY], model_.site_pos)
+        return -pt.tray_reward(tray, extras[0:3], pt.glass_offset(q), extras[3])
+
+    header = (f"constexpr int N_ARM = {pt.N_ARM};",
+              f"constexpr int TRAY_BODY = {pt.TRAY_BODY};",
+              f"constexpr int GLASS_Q = {pt.GLASS_Q};",
+              f"constexpr float TRAY_R = {_f(pt.TRAY_R)};")
+    # counted from forest_rollout.cuh as written: each body's com (3), per
+    # (arm dof, body below it) the column (12 for a hinge), g . column (5),
+    # its weight and the sum (2), per arm dof the add to tau (1). The cost:
+    # the tray (18), the reach (9), the offset (4), the gate and the sums (4).
+    force_ops = (3 * c["n"] + sum(len(b) * ((12 if c["jtype"][d] == HINGE else 0) + 7)
+                                  for d, b in below.items()) + pt.N_ARM)
+    return ForestTask("tray", 7, 4, (), None, cost, header, (), force_ops, 35, joint_torque)
+
+
+def door_task(hand_weight: float) -> ForestTask:
+    """door-v0's task: the 13 contact points and force law of
+    envs/hand_door.py's door_forces, `hand_weight` on the arm's z slide
+    (body 2), the latch's return spring and the door's spring and strike
+    plate as joint torques, extras [kp, kd, mu], cost = -the door reward of
+    the palm pad, the handle's middle, the door's and the latch's angles."""
+    from ..envs import hand_door as hd
+    weight = float(np.float32(hand_weight))
+
+    def forces(pos, vel, extras):
+        return hd.door_forces(pos, vel, extras[0], extras[1], extras[2])
+
+    def joint_torque(q, qd, extras, fk):
+        q_door, q_latch = q[:, hd.DOOR_BODY], q[:, hd.LATCH_BODY]
+        return {2: weight, hd.DOOR_BODY: hd.door_torque(q_door, q_latch),
+                hd.LATCH_BODY: hd.latch_torque(q_latch)}
+
+    def cost(model, q, qd, rots, poss, extras):
+        return -hd.door_reward(*hd.door_frames(rots, poss), q[:, hd.DOOR_BODY],
+                               q[:, hd.LATCH_BODY])
+
+    header = (
+        f"constexpr int N_TIPS = {hd.N_TIPS};",
+        f"constexpr int CAP_A = {hd.CAP_A}, CAP_B = {hd.CAP_B}, PALM = {hd.PALM};",
+        f"constexpr int DOOR_BODY = {hd.DOOR_BODY};",
+        f"constexpr int LATCH_BODY = {hd.LATCH_BODY};",
+        f"constexpr float HANDLE_R = {_f(hd.HANDLE_R)};",
+        f"constexpr float PALM_R = {_f(hd.PALM_R)};",
+        f"constexpr float HAND_WEIGHT = {_f(weight)};",
+        f"constexpr float LATCH_THRESH = {_f(hd.LATCH_THRESH)};",
+        f"constexpr float LATCH_SPRING = {_f(hd.LATCH_SPRING)};",
+        f"constexpr float DOOR_SPRING = {_f(hd.DOOR_SPRING)};",
+        f"constexpr float BLOCK_K = {_f(hd.BLOCK_K)};",
+    )
+    tables = (("tip_radius", "float", hd.C_RADII), ("palm_local", "float", hd.PALM_LOCAL),
+              ("handle_mid", "float", hd.HANDLE_MID))
+    points = tuple((int(b), tuple(float(x) for x in p)) for b, p in zip(hd.C_BODIES, hd.C_POINTS))
+    # counted from forest_rollout.cuh as written: per tip and for the palm a
+    # sphere-segment force and its split onto the ends (13); the joint
+    # torques: the hand's weight (1), the latch's spring (2), the door's
+    # gates (11), strike plate (4) and spring (3). The cost: the palm and the
+    # handle (36), the reach (9), the weighted sum (6), three gates and
+    # their terms (6).
+    force_ops = (hd.N_TIPS + 1) * (_SPHERE_SEG + 13) + 1 + 2 + 18
+    return ForestTask("door", 8, 3, points, forces, cost, header, tables, force_ops, 57,
+                      joint_torque)
+
+
 # Operation counts of csrc/forest_rollout.cuh's contact primitives as
 # written (a multiply, an add, a compare, a division or a transcendental is
 # one): force_along, penalty_force, sphere_plane_force, sphere_segment_force
@@ -831,6 +985,12 @@ RELOCATE_BONUS_STEPS = tuple(sorted({b * 10 + c * 20 for b in (-1, 0, 1)
                                      for c in (-1, 0, 1)} - {0}))
 HAMMER_BONUS_STEPS = tuple(sorted({b * 25 + c * 75 for b in (-1, 0, 1)
                                    for c in (-1, 0, 1)} - {0}))
+# door-v0's: +2, +8 and +10 at the door angles 0.2, 1.0 and 1.35.
+DOOR_BONUS_STEPS = tuple(sorted({a * 2 + b * 8 + c * 10 for a in (-1, 0, 1)
+                                 for b in (-1, 0, 1) for c in (-1, 0, 1)} - {0}))
+# The tray's fall penalty at a glass offset of 0.12 is its extras' value (5
+# in every variant), one step either way.
+TRAY_FALL_STEPS = (-5.0, 5.0)
 
 
 def gated_cost_agreement(got, want, atol: float = 1e-3,

@@ -42,12 +42,17 @@ def _experiments():
 EXPERIMENTS = _experiments()
 # The configs whose env and every controller are ported.
 LOADING = ["configs/HalfCheetah-v0.yml", "configs/SimplePendulum-v0.yml",
-           "configs/Swimmer-v0.yml", "configs/hand/hammer-v0.yml", "configs/hand/pen-v0.yml",
-           "configs/hand/relocate-v0.yml", "configs/panda/reacher-v0.yml",
-           "configs/reacher_7dof-v0.yml", "configs/sawyer/sawyer_peg_insertion-v0.yml",
+           "configs/Swimmer-v0.yml", "configs/hand/door-v0.yml", "configs/hand/hammer-v0.yml",
+           "configs/hand/pen-v0.yml", "configs/hand/relocate-v0.yml",
+           "configs/panda/reacher-v0.yml", "configs/panda/tray_glass-v0.yml",
+           "configs/panda/tray_glass-v1.yml", "configs/panda/tray_glass-v1_biased_model.yml",
+           "configs/panda/tray_glass_fixed-v1.yml", "configs/reacher_7dof-v0.yml",
+           "configs/sawyer/sawyer_door-v0.yml", "configs/sawyer/sawyer_peg_insertion-v0.yml",
            "configs/sawyer/sawyer_peg_insertion-v0_cl.yml",
-           "configs/sawyer/sawyer_peg_insertion-v1.yml", "configs/tune/hammer-v0.yml",
-           "configs/tune/relocate-v0.yml"]
+           "configs/sawyer/sawyer_peg_insertion-v1.yml", "configs/sawyer/sawyer_pusher-v0.yml",
+           "configs/tune/door-v0.yml", "configs/tune/door-v0_grid3.yml",
+           "configs/tune/hammer-v0.yml", "configs/tune/relocate-v0.yml",
+           "configs/tune/tray_glass-v0.yml"]
 
 
 def _not_ported(exp, controller):

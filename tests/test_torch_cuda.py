@@ -4,8 +4,9 @@ filtered noise, the locomotion rollout for the swimmer and the half
 cheetah (#1, #3, #4 and #5 a team of lanes per particle: ragged N, two
 launches bit for bit, zeroed actions failing the check, their phase
 clocks; #1 and #3 at every team size bit for bit), the
-forest rollout for pen-v0, the sawyer peg, relocate-v0 and hammer-v0 (its
-coupled free-body branch), the pendulum rollout (every particles-a-block
+forest rollout for pen-v0, the sawyer peg, relocate-v0, hammer-v0 (its
+coupled free-body branch), the sawyer door, the pusher, the three
+tray-glass models and door-v0, the pendulum rollout (every particles-a-block
 size bit for bit) and the one-kernel pendulum MPPI solve, a thread-block
 cluster):
 each against its plain PyTorch version, their launch counts on sync-free
@@ -40,7 +41,12 @@ and hammer-v0 with the hammer held on the nail or spinning (chip_smoke.py
 forest_inputs): 1e-4 at (37, 4) and N=1, the configs' (512, 32) and
 (512, 20) by the gated rule with their bonuses, two launches bit for bit,
 the plain version with the actions zeroed, or with the hammer's coupled
-solve replaced by the decoupled one, off by more than 10x. Pendulum
+solve replaced by the decoupled one, off by more than 10x. The sawyer door
+from its grab, the pusher from contact, the tray's glass past its edge
+(fixed-v1 from its start) and door-v0 hooking the handle or opened past 0.2
+rad (chip_smoke.py forest_inputs) likewise at (37, 4) and N=1; door-v0 and
+tray-glass v0 at their configs' (256, 48) and (1024, 20) by the gated rule
+(the door's bonuses, the tray's fall penalty). Pendulum
 rollout: atol 1e-5 from a start that crosses -pi (th0 = -3.0, thdot0 =
 -8), at (37, 5) and (4096, 32); every particles-a-block size and two
 launches bit for bit. One-kernel MPPI solve: atol 1e-5 on the new mean at N =
@@ -57,9 +63,9 @@ import numpy as np
 import pytest
 import torch
 
-from mjmpc_tpu_torch import envs, ops, rng, solvers
+from mjmpc_tpu_torch import bounds, envs, ops, rng, solvers
 from mjmpc_tpu_torch.envs.sawyer_tasks import peg_extras
-from mjmpc_tpu_torch.envs import half_cheetah, hammer, pen, relocate, sawyer_tasks, swimmer
+from mjmpc_tpu_torch.envs import half_cheetah, hammer, pen, sawyer_tasks, swimmer
 from mjmpc_tpu_torch.ops.chain_rollout import (TEAM_SIZES, ChainClRollout, ChainExtRollout,
                                                ChainObsRollout, ChainRollout,
                                                build_chain_cl_rollout, build_chain_obs_rollout,
@@ -525,7 +531,9 @@ def test_forest_kernel_launches_agree_bit_for_bit(device, name):
 
 
 @pytest.mark.parametrize("name", ["pen-v0", "sawyer_peg_insertion-v0", "relocate-v0",
-                                  "hammer-v0"])
+                                  "hammer-v0", "sawyer_door-v0", "sawyer_pusher-v0",
+                                  "panda_tray_glass-v0", "panda_tray_glass-v1",
+                                  "panda_tray_glass_fixed-v1", "door-v0"])
 def test_forest_solves_launch_the_kernel_without_host_syncs(device, name):
     env = envs.make(name, device=device)
     solver = solvers.MPPI(d_action=env.d_action, horizon=8, num_particles=64, lam=0.05,
@@ -663,22 +671,27 @@ def _chip_smoke():
 
 
 def _hand_case(name, start, n, h, seed, device):
-    """Kernel #6's wrapper for relocate-v0 or hammer-v0 and chip_smoke.py's
-    inputs for it (the grasp; the hammer held on the nail or spinning)."""
+    """Kernel #6's wrapper for one of HAND_CASES' envs and chip_smoke.py's
+    inputs for it (the grasp; the hammer held on the nail or spinning; the
+    sawyer door's grab, the pusher's contact, the tray's glass off its edge;
+    door-v0 hooking the handle or opened)."""
     env = envs.make(name, device=device)
-    roll = (relocate if name == "relocate-v0" else hammer).build_rollout(env.params.model)
+    roll = bounds.forest_builder(name)(env.params.model)
     return roll, _chip_smoke().forest_inputs(env, roll, n, h, seed, device, start)
 
 
-HAND_CASES = [("relocate-v0", "grasp"), ("hammer-v0", "held"), ("hammer-v0", "spin")]
+HAND_CASES = [("relocate-v0", "grasp"), ("hammer-v0", "held"), ("hammer-v0", "spin"),
+              ("sawyer_door-v0", "grab"), ("sawyer_pusher-v0", "contact"),
+              ("panda_tray_glass-v0", "fallen"), ("panda_tray_glass-v1", "fallen"),
+              ("panda_tray_glass_fixed-v1", "arm"), ("door-v0", "hook"), ("door-v0", "open")]
 
 
 @pytest.mark.parametrize("name,start", HAND_CASES)
 @pytest.mark.parametrize("n", [1, 37])
 def test_hand_forest_kernel_matches_plain(device, name, start, n):
-    """relocate's and hammer's tasks at (N, 4) to 1e-4, two launches bit for
-    bit; at N=37 the plain version with the actions zeroed (not for the
-    spin, which no hand touches) misses by more than 10x."""
+    """Each task of HAND_CASES at (N, 4) to 1e-4, two launches bit for bit;
+    at N=37 the plain version with the actions zeroed (not for the spin,
+    which no hand touches) misses by more than 10x."""
     roll, args = _hand_case(name, start, n, 4, 12, device)
     before = ForestRollout.launches
     got = roll(*args)
@@ -710,16 +723,19 @@ def test_hammer_kernel_runs_the_coupled_free_body_solve(device):
 
 
 @pytest.mark.parametrize("name,start,n,h", [("relocate-v0", "grasp", 512, 32),
-                                            ("hammer-v0", "held", 512, 20)])
+                                            ("hammer-v0", "held", 512, 20),
+                                            ("panda_tray_glass-v0", "fallen", 1024, 20),
+                                            ("door-v0", "hook", 256, 48)])
 def test_hand_forest_kernel_config_size_agrees_up_to_bonus_steps(device, name, start, n, h):
     """At the configs' sizes: at least 99% of the costs within 1e-3 and
-    every other one off by a bonus step of the gated cost; two launches
-    bit for bit."""
+    every other one off by a bonus step of the gated cost (the tray's: its
+    fall penalty); two launches bit for bit."""
     from mjmpc_tpu_torch.ops import forest_rollout as fr
     roll, args = _hand_case(name, start, n, h, 14, device)
     got, want = roll(*args), roll.plain(*args)
     assert bool(torch.isfinite(got).all()) and torch.equal(roll(*args), got)
-    steps = fr.RELOCATE_BONUS_STEPS if name == "relocate-v0" else fr.HAMMER_BONUS_STEPS
+    steps = {"relocate-v0": fr.RELOCATE_BONUS_STEPS, "hammer-v0": fr.HAMMER_BONUS_STEPS,
+             "panda_tray_glass-v0": fr.TRAY_FALL_STEPS, "door-v0": fr.DOOR_BONUS_STEPS}[name]
     agree = gated_cost_agreement(got, want, 1e-3, steps)
     assert agree["share_within"] >= 0.99 and agree["other"] == 0, agree
 

@@ -56,7 +56,8 @@ from mjmpc_tpu.envs import contact as jcontact
 from mjmpc_tpu.rollout.engine import rollout_open_loop as jax_rollout
 from mjmpc_tpu_torch import bounds, convert, envs
 from mjmpc_tpu_torch.engine import chain as rb
-from mjmpc_tpu_torch.envs import contact, hammer, pen, relocate, sawyer_tasks
+from mjmpc_tpu_torch.envs import (contact, hammer, hand_door, panda_tasks, pen, relocate,
+                                  sawyer_tasks)
 from mjmpc_tpu_torch.kernels.build import CSRC
 from mjmpc_tpu_torch.ops import forest_rollout as fr
 from mjmpc_tpu_torch.ops.chain_rollout import ChainRollout
@@ -389,6 +390,47 @@ def _kernel_case(name, n, h, seed):
         q0[3:27] += torch.as_tensor(rs.uniform(-0.03, 0.03, 24), dtype=torch.float32)
         args = [q0.numpy(), qd0.numpy(), extras.numpy()]
         tol, d = 1e-4, 27
+    elif name in ("sawyer_door", "pusher"):
+        # the grab spring live (the door open, the radius widened); the block
+        # against the hand; the arm's joints perturbed
+        env = envs.make("sawyer_door-v0" if name == "sawyer_door" else "sawyer_pusher-v0",
+                        device=DEVICE)
+        st = env.init(env.params, seed)
+        q0 = st.qpos.clone()
+        q0[:7] += torch.as_tensor(rs.uniform(-0.1, 0.1, 7), dtype=torch.float32)
+        if name == "sawyer_door":
+            params, q0 = sawyer_tasks.door_grab_state(env.params, q0)
+            roll = sawyer_tasks.build_door_rollout(env.params.model)
+            extras = sawyer_tasks.door_extras(params)
+        else:
+            q0 = sawyer_tasks.pusher_contact_qpos(env.params.model, q0)
+            roll = sawyer_tasks.build_pusher_rollout(env.params.model)
+            extras = sawyer_tasks.pusher_extras(env.params, st)
+        args = [q0.numpy(), np.asarray(rs.normal(size=q0.shape[0]) * 0.1, np.float32),
+                extras.numpy()]
+        tol, d = 1e-4, 7
+    elif name in TRAY_ENVS:
+        # the glass past the tray's edge (the fall penalty live; fixed-v1's
+        # clamp takes it back at once), the arm's joints perturbed
+        env = envs.make(TRAY_ENVS[name], device=DEVICE)
+        st = env.init(env.params, seed)
+        q0 = panda_tasks.fallen_qpos(st.qpos)
+        q0[:7] += torch.as_tensor(rs.uniform(-0.2, 0.2, 7), dtype=torch.float32)
+        roll = panda_tasks.build_rollout(env.params.model)
+        args = [q0.numpy(), st.qvel.numpy(), panda_tasks.tray_extras(env.params, st).numpy()]
+        tol, d = 1e-4, 7
+    elif name in ("door", "door_open"):
+        # the hand hooking the handle, the latch near its threshold; or the
+        # door past 0.2 rad with the latch released; the hand's joints
+        # perturbed
+        env = envs.make("door-v0", device=DEVICE)
+        st = env.init(env.params, seed)
+        latch, door = (0.5, 0.0) if name == "door" else (0.6, 0.3)
+        q0 = hand_door.hook_qpos(env.params.model, st.qpos, latch, door)
+        q0[3:27] += torch.as_tensor(rs.uniform(-0.03, 0.03, 24), dtype=torch.float32)
+        roll = hand_door.build_rollout(env.params.model)
+        args = [q0.numpy(), st.qvel.numpy(), hand_door.door_extras(env.params).numpy()]
+        tol, d = 1e-4, 27
     elif name == "ground_spheres":
         model = _synthetic(rb, device=DEVICE)
         roll = fr.build_forest_rollout(model, 4, [0, 1], fr.ground_spheres_task(SYN_POINTS,
@@ -410,6 +452,13 @@ def _kernel_case(name, n, h, seed):
     return roll, args, tol
 
 
+# the tray-glass variants' tasks, each on its own model
+TRAY_ENVS = {"tray": "panda_tray_glass-v0", "tray_v1": "panda_tray_glass-v1",
+             "tray_fixed_v1": "panda_tray_glass_fixed-v1"}
+# the tasks added with the sawyer, panda and hand-door envs
+NEW_TASKS = ["sawyer_door", "pusher", *TRAY_ENVS, "door", "door_open"]
+
+
 def _host_costs(lib, args, n, h):
     costs = np.empty((n, h), np.float32)
     ptr = lambda a: np.ascontiguousarray(a).ctypes.data_as(ctypes.c_void_p)
@@ -426,6 +475,26 @@ def test_kernel_source_compiled_for_the_host_matches_plain(name, tmp_path):
     want = roll(*(torch.as_tensor(a) for a in args)).numpy()
     assert np.isfinite(want).all()
     np.testing.assert_allclose(costs, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("name", NEW_TASKS)
+def test_new_task_host_build_matches_plain_and_fails_with_actions_zeroed(name, tmp_path):
+    """Each task of the sawyer door, the pusher, the three tray-glass models
+    and door-v0 (hooking the handle, and the door opened past 0.2 rad),
+    compiled for the host, against its plain version at (37, 4) from a
+    state where its force law, hook and gates act; a build whose actions
+    are zeroed misses the plain version by more than 10x the tolerance."""
+    n, h = 37, 4
+    roll, args, tol = _kernel_case(name, n, h, 3)
+    want = roll(*(torch.as_tensor(a) for a in args)).numpy()
+    assert np.isfinite(want).all()
+    for sub in ("build", "zeroed"):
+        (tmp_path / sub).mkdir()
+    costs = _host_costs(_host_library(roll.header, tmp_path / "build"), args, n, h)
+    np.testing.assert_allclose(costs, want, rtol=0, atol=tol)
+    zeroed = _host_costs(_host_library(roll.header, tmp_path / "zeroed", zero_actions=True), args,
+                         n, h)
+    assert np.abs(zeroed - want).max() > 10 * tol
 
 
 @pytest.mark.parametrize("name,team", [("pen", 8), ("ground_spheres", 1)])
@@ -487,10 +556,13 @@ def _schedule_case(name):
             envs.make("sawyer_peg_insertion-v0", device=DEVICE).params.model)
     if name == "ground_spheres":
         return _kernel_case("cheetah_spheres", 1, 1, 0)[0]
+    if name in NEW_TASKS:
+        return _kernel_case(name, 1, 1, 0)[0]
     return _kernel_case("ground_spheres", 1, 1, 0)[0]     # the synthetic coupled forest
 
 
-@pytest.mark.parametrize("name", ["pen", "peg", "ground_spheres", "coupled"])
+@pytest.mark.parametrize("name", ["pen", "peg", "ground_spheres", "coupled", "pusher", "tray",
+                                  "door"])
 def test_header_schedule_covers_every_item_once(name):
     """The team's work tables as the header carries them: every body once
     in the levels, after its parent; every Cholesky row once; every packed

@@ -185,9 +185,12 @@ def test_registry():
         envs.make("no_such_env-v0", device=DEVICE)
     assert envs.make("reacher_7dof-v0", device=DEVICE) is envs.make("reacher_7dof-v0", device=DEVICE)
     assert envs.available() == ["HalfCheetah-v0", "SimplePendulum-v0", "Swimmer-v0",
-                                "continual_reacher-v0", "hammer-v0", "panda_reacher-v0",
-                                "pen-v0", "reacher_7dof-v0", "relocate-v0",
-                                "sawyer_peg_insertion-v0", "sawyer_peg_insertion-v1",
+                                "continual_reacher-v0", "door-v0", "hammer-v0",
+                                "panda_reacher-v0", "panda_tray_glass-v0",
+                                "panda_tray_glass-v1", "panda_tray_glass_fixed-v1", "pen-v0",
+                                "pusher-v0", "reacher_7dof-v0", "relocate-v0",
+                                "sawyer_door-v0", "sawyer_peg_insertion-v0",
+                                "sawyer_peg_insertion-v1", "sawyer_pusher-v0",
                                 "sawyer_reacher-v0"]
     with pytest.raises(NotImplementedError):    # a JAX env not ported yet
         envs.make("cartpole-v0", device=DEVICE)
@@ -204,6 +207,7 @@ def test_import_leaves_jax_out():
             "mjmpc_tpu_torch.envs.half_cheetah, mjmpc_tpu_torch.harness.run_mpc, "
             "mjmpc_tpu_torch.utils, mjmpc_tpu_torch.envs.pen, mjmpc_tpu_torch.envs.adroit, "
             "mjmpc_tpu_torch.envs.contact, mjmpc_tpu_torch.ops.forest_rollout, "
-            "mjmpc_tpu_torch.envs.pendulum, mjmpc_tpu_torch.ops.pendulum; "
+            "mjmpc_tpu_torch.envs.pendulum, mjmpc_tpu_torch.ops.pendulum, "
+            "mjmpc_tpu_torch.envs.hand_door, mjmpc_tpu_torch.envs.panda_tasks; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], check=True)

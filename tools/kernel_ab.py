@@ -13,8 +13,11 @@ inputs that chip_smoke.py's gates hold. A family is the kernels of one
 source:
 
 - forest: kernel #6 (csrc/forest_rollout.cu), pen-v0 at N = 64, 256, 1024
-  and 4096 and the sawyer peg at N = 256, all H = 16; then the MPPI solves
-  of configs/hand/pen-v0.yml and the peg config;
+  and 4096 and the sawyer peg at N = 256, all H = 16, and every other task
+  at its config's size (relocate-v0, hammer-v0, the sawyer door, the
+  pusher, the three tray-glass models, door-v0: bounds.FOREST_SIZES); then
+  the MPPI solves of every forest config (chip_smoke.FOREST_CONFIGS). A
+  checkout that lacks a task skips it;
 - chain: csrc/chain_rollout.cu, #1 (costs) on the reacher at N=4096 H=32
   and at the run_mpc reacher configs' N=128 H=16 and N=256 H=32, #3 (obs)
   on the reacher at N=4096 H=32 and with the peg task at the peg config's
@@ -109,7 +112,16 @@ PENDULUM_ROLLOUT_N = (24, 64, 2048, 4096)
 PENDULUM_SWEEP_N = (24, 64, 256, 1024, 2048, 4096, 8192)
 NOISE_PER_BLOCK = (0, 1, 2, 4, 8, 16, 32)    # 0: the kernel's default
 FOREST_SIZES = (("pen-v0", 64, 16), ("pen-v0", 256, 16), ("pen-v0", 1024, 16),
-                ("pen-v0", 4096, 16), ("sawyer_peg_insertion-v0", 256, 16))
+                ("pen-v0", 4096, 16), ("sawyer_peg_insertion-v0", 256, 16),
+                ("relocate-v0", 512, 32), ("hammer-v0", 512, 20), ("sawyer_door-v0", 256, 16),
+                ("sawyer_pusher-v0", 512, 24), ("panda_tray_glass-v0", 1024, 20),
+                ("panda_tray_glass-v1", 256, 16), ("panda_tray_glass_fixed-v1", 256, 16),
+                ("door-v0", 256, 48))
+# kernel #6's check starts (chip_smoke.forest_inputs) of the tasks that have one
+FOREST_STARTS = {"relocate-v0": "grasp", "hammer-v0": "held", "sawyer_door-v0": "grab",
+                 "sawyer_pusher-v0": "contact", "panda_tray_glass-v0": "fallen",
+                 "panda_tray_glass-v1": "fallen", "panda_tray_glass_fixed-v1": "arm",
+                 "door-v0": "hook"}
 # chain kernels: name -> (wrapper key, N, H)
 CHAIN_SIZES = {"chain_costs_reacher": ("costs", 4096, 32),
                "chain_costs_reacher_n128_h16": ("costs", 128, 16),
@@ -206,14 +218,17 @@ def build_all(builds):
               flush=True)
 
 
-def forest_setup(device):
-    """(envs, rollouts) of pen-v0 and the sawyer peg."""
-    from mjmpc_tpu_torch import envs
+def forest_setup(device, names):
+    """(envs, rollouts) of kernel #6's tasks among the env `names` that this
+    checkout has (one from before bounds.forest_builder: pen-v0 and the
+    sawyer peg)."""
+    from mjmpc_tpu_torch import bounds, envs
     from mjmpc_tpu_torch.envs import pen, sawyer_tasks
-    made = {name: envs.make(name, device=device) for name in ("pen-v0", "sawyer_peg_insertion-v0")}
-    rolls = {"pen-v0": pen.build_rollout(made["pen-v0"].params.model),
-             "sawyer_peg_insertion-v0": sawyer_tasks.build_rollout(
-                 made["sawyer_peg_insertion-v0"].params.model)}
+    builders = {"pen-v0": pen.build_rollout, "sawyer_peg_insertion-v0": sawyer_tasks.build_rollout}
+    if hasattr(bounds, "forest_builder"):
+        builders = {name: bounds.forest_builder(name) for name in bounds.FOREST_SIZES}
+    made = {name: envs.make(name, device=device) for name in names if name in builders}
+    rolls = {name: builders[name](e.params.model) for name, e in made.items()}
     return made, rolls
 
 
@@ -261,11 +276,13 @@ def forest_timings(smoke, smi, device, outputs):
     from mjmpc_tpu_torch import solvers
     from mjmpc_tpu_torch.harness import config as hconfig
     import torch
-    made, rolls = forest_setup(device)
+    made, rolls = forest_setup(device, list(smoke.FOREST_CONFIGS))
     build_all({name: (r, r.team) for name, r in rolls.items()})
     for name, n, h in FOREST_SIZES:
+        if name not in rolls:
+            continue
         roll = rolls[name]
-        args = smoke.forest_inputs(made[name], roll, n, h, 23, device)
+        args = smoke.forest_inputs(made[name], roll, n, h, 23, device, FOREST_STARTS.get(name))
         got = roll(*args)
         torch.cuda.synchronize()
         outputs[f"{name}_{n}_{h}"] = got.cpu().numpy()
@@ -273,6 +290,8 @@ def forest_timings(smoke, smi, device, outputs):
                           "ms": smoke.cuda_ms(lambda: roll(*args), 20),
                           "finite": bool(torch.isfinite(got).all())}), flush=True)
     for name, path in smoke.FOREST_CONFIGS.items():
+        if name not in made:
+            continue
         e = made[name]
         s = hconfig.make_solver_for_env(hconfig.load_config(path), "mppi", e)
         solve_rate(smoke, smi, solvers.make_solve_fn(s, e), s, e, solver="mppi", env=name,
@@ -422,7 +441,7 @@ def run_phases(families) -> None:
     smoke, device = load_smoke(), torch.device("cuda")
     cases = []
     if "forest" in families:
-        made, rolls = forest_setup(device)
+        made, rolls = forest_setup(device, ("pen-v0", "sawyer_peg_insertion-v0"))
         cases += [("forest", name, rolls[name], n, h,
                    smoke.forest_inputs(made[name], rolls[name], n, h, 23, device))
                   for name, n, h in (("pen-v0", 256, 16), ("sawyer_peg_insertion-v0", 256, 16))]
@@ -648,7 +667,8 @@ def main() -> int:
         for k, path in saved.items():
             other = np.load(path)
             print(json.dumps({"checkout": str(checkouts[k]), "max_abs_diff_from_first": {
-                key: float(np.abs(other[key] - first[key]).max()) for key in first.files}}),
+                key: float(np.abs(other[key] - first[key]).max()) for key in first.files
+                if key in other.files}}),
                 flush=True)
     return 0
 
