@@ -150,21 +150,45 @@ exit and no final line:
                solves at N=1024, filter (0.25, 0.8, 0), sigma sqrt(3.5),
                lam 0.01, step size 0.55, sync-free, kernel #8's count
                rising by exactly 100 and the total reward above -400.
-13. graph   -- one solve of each family captured as a torch.cuda.CUDAGraph:
+13. analytic -- every controller the port runs of the analytic configs
+               (ANALYTIC_CONFIGS: point_mass, trajopt_reacher, acrobot,
+               cartpole with iLQR, the cartpole CL config's Reinforce with
+               its critic) at the config's own N and H, and the maze's MPPI
+               (N=256, H=24) on maze-v0 and continual_maze-v0 from t = 40,
+               the continual goal's switch at t = 50 inside the horizon
+               (shown on the real env: it moves at t = 50 exactly, maze-v0's
+               never): 3 chained sync-free solves each, the noise kernel's
+               count rising by each solve's draws (noise_launches) and iLQR
+               launching none of the eight kernels.
+14. ilqr_lqr -- iLQR (H=30, 3 iterations, mu 1e-6) on LQR-v0 from (1.5,
+               -0.8), sync-free: the first action within rtol 1e-3 and the
+               plan's cost within rtol 1e-4 of the finite-horizon dynamic
+               program's (float64 numpy), no kernel launched.
+15. checkpoint -- harness.checkpoint on MPPI (the main path with the kernel
+               noise), iLQR on cartpole and Reinforce on the cartpole CL
+               config, each after 2 solves: saved, loaded onto the card, the
+               next solve's action, value and state equal bit for bit to the
+               solve that continues without them; run_mpc --checkpoint with
+               cartpole's iLQR for 3 control steps writes both files (under
+               run_mpc's guard every solve draws init_state's mean: one
+               noise launch a solve, and one at the episode's start).
+16. graph   -- one solve of each family captured as a torch.cuda.CUDAGraph:
                MPPI on the main path with the kernel noise (under
                guard_finite, which rebuilds the fresh state inside the
                captured solve) and with the plain sampler, PFMPC (the zoo's),
                Reinforce with the peg closed-loop config, kernel #8's
                closed-loop step at N=1024 and MPPI on the relocate, hammer,
                sawyer door, pusher, tray-glass (v0, v1, fixed-v1) and
-               door-v0 configs (kernel #6). Each graph is replayed 5 times,
+               door-v0 configs (kernel #6), iLQR on the cartpole config
+               and MPPI on the acrobot config (the engine's general
+               rollout). Each graph is replayed 5 times,
                each replay's state fed to the next, and every replay's
                action, value and state tensors must equal 5 eager solves'
                from the same start bit for bit (the eager solves sync-free);
                then two replays from the same start but for the step (which
                the graph advances on the device) must differ: they drew
-               different noise.
-14. harness -- harness.episode.run_episodes with each locomotion config's
+               different noise (iLQR, which draws none, must agree).
+17. harness -- harness.episode.run_episodes with each locomotion config's
                own solver and with every controller of
                configs/reacher_7dof-v0.yml, one episode of 10 steps, and
                with every controller of configs/hand/pen-v0.yml and the peg
@@ -179,7 +203,17 @@ exit and no final line:
                full size, one episode cut to 3 control steps: finite
                rewards, kernel #6's count rising by exactly 3 times the
                solver's iterations.
-15. timing  -- read-verified solves/s (each window ends by reading a value
+18. run_mpc_cl -- run_mpc_cl.main on configs/cartpole-v0_cl.yml and
+               configs/sawyer/sawyer_peg_insertion-v0_cl.yml, one episode
+               cut to 3 control steps: finite rewards and baseline fit
+               error, the noise kernel's count rising by 3 x n_iters and, on
+               the peg, kernel #4's by 3 x n_iters (4 a solve).
+19. jobs    -- jobs.main in tune mode on configs/tune/tray_glass-v0.yml
+               cut to 2 cells (lam 0.02 and 0.05 at N=512, H=20) x 1
+               episode x 2 steps, kernel #6's count rising by 4; in sweep
+               mode on configs/point_mass-v0.yml as it is (1 cell, 5
+               episodes x 25 steps).
+20. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
                for each solver of the zoo, for Reinforce on the reacher
@@ -199,7 +233,13 @@ exit and no final line:
                breakdown with each noise sampler and of the Reinforce
                solves; a torch.profiler count of kernels and device time
                per solve, with the six kernels that take the most device
-               time. Printed, not asserted.
+               time; solves/s of every run of phases 13 and 14 but the
+               engine envs' (acrobot, trajopt_reacher: their `analytic`
+               lines carry the rate of their 3 sync-free solves), a profile
+               of the light ones (`analytic_solves_per_s`; the heavy ones in
+               tools/analytic_episodes.py --only profile) and the real env
+               step of every analytic env (`analytic_env_step`). Printed,
+               not asserted.
 
 Every launch count is set to 0 just before a path runs and read just after.
 The last lines are the kernels' summary (kernel #5 with the swimmer's
@@ -218,6 +258,7 @@ import copy
 import dataclasses
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -339,6 +380,35 @@ GRAPH_REPLAYS = 5
 CROSSING = (-3.0, -8.0)
 # The JAX package's pendulum rewards over 200 steps (RESULTS.md:207).
 JAX_PENDULUM_REWARDS = {"mppi": -173.0, "cem": -131.0, "pfmpc": -122.0}
+# The analytic envs' configs and the controllers of each that the port runs
+# (cartpole's softq is not ported).
+ANALYTIC_CONFIGS = {
+    "configs/point_mass-v0.yml": ("random_shooting", "mppi", "cem"),
+    "configs/trajopt_reacher-v0.yml": ("mppi", "random_shooting", "cem"),
+    "configs/classic_control/acrobot-v0.yml": ("random_shooting", "mppi"),
+    "configs/classic_control/cartpole-v0.yml": ("ilqr", "random_shooting", "mppi", "mppiq",
+                                                "dmd", "reinforce"),
+    "configs/cartpole-v0_cl.yml": ("reinforce",),
+}
+# The maze's MPPI (the JAX package's tests/test_maze_and_guard.py), from a
+# start at t = 40: the continual goal's switch at t = 50 falls inside H.
+MAZE_MPPI = dict(horizon=24, num_particles=256, lam=0.05, init_cov=0.6, step_size=0.7,
+                 gamma=1.0, filter_coeffs=FILTER, base_action="repeat")
+MAZE_START = 40
+# The analytic envs on the chain engine: their general rollout (eager AD
+# steps) takes 1.7-4 s a solve on the card
+ENGINE_ENVS = ("acrobot-v0", "trajopt_reacher-v0")
+# (env, controller) of the analytic runs of a few thousand launches a
+# solve or fewer, profiled in the timing phase
+LIGHT_PROFILES = {("point_mass-v0", c) for c in ("random_shooting", "mppi", "cem")} | {
+    ("cartpole-v0", c) for c in ("random_shooting", "mppi", "mppiq", "dmd")} | {
+    ("maze-v0", "mppi")}
+LQR_H, LQR_X0 = 30, (1.5, -0.8)
+CL_CONFIGS = ("configs/cartpole-v0_cl.yml", "configs/sawyer/sawyer_peg_insertion-v0_cl.yml")
+CL_STEPS = 3
+JOBS_TUNE = "configs/tune/tray_glass-v0.yml"
+JOBS_SWEEP = "configs/point_mass-v0.yml"
+JOBS_STEPS = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -644,7 +714,8 @@ def graph_solves_per_s(solve, e, es, state, k: int, windows: int):
     return statistics.median(rates), rates
 
 
-def graph_check(name: str, solve, e, es, state, k: int = GRAPH_REPLAYS) -> dict:
+def graph_check(name: str, solve, e, es, state, k: int = GRAPH_REPLAYS,
+                draws_noise: bool = True) -> dict:
     """One solve captured as a CUDA graph, against eager solves.
 
     k eager solves from `state` (sync-free), then the solve captured on a
@@ -653,8 +724,9 @@ def graph_check(name: str, solve, e, es, state, k: int = GRAPH_REPLAYS) -> dict:
     must equal the eager solve's bit for bit. Then the static state is set
     back to `state` but for its step (which the replays advanced on the
     device) and the graph replayed twice, the step alone fed back between:
-    the two results must differ (fresh noise each replay). Returns the
-    fields of the `graph` line; raises on a failed check."""
+    the two results must differ (fresh noise each replay), unless the solve
+    draws no noise (iLQR): then they must agree but for the step. Returns
+    the fields of the `graph` line; raises on a failed check."""
     import torch
     start = {k_: v.clone() for k_, v in state_tensors(state).items()}
 
@@ -708,23 +780,26 @@ def graph_check(name: str, solve, e, es, state, k: int = GRAPH_REPLAYS) -> dict:
     emit("graph", **fields)
     if not identical:
         raise RuntimeError(f"graph {name}: replays differ from eager solves: {diffs}")
-    if not fresh > 0.0:
+    if draws_noise and not fresh > 0.0:
         raise RuntimeError(f"graph {name}: two replays at successive steps drew the same noise")
+    if not draws_noise and fresh != 0.0:
+        raise RuntimeError(f"graph {name}: a solve that draws no noise depends on the step")
     return fields
 
 
-def profile(solve, e, es, state, smi: str, **labels) -> None:
-    """Kernels and device time per solve: torch.profiler over N_SOLVES
-    chained solves after 3 warm-up solves; one `profile` line beside the
-    card's name and power limit `smi`."""
+def profile(solve, e, es, state, smi: str, solves: int = N_SOLVES, warmup: int = 3,
+            **labels) -> None:
+    """Kernels and device time per solve: torch.profiler over `solves`
+    chained solves after `warmup` warm-up solves; one `profile` line beside
+    the card's name and power limit `smi`."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         _, _, state = solve(e.params, es, state)
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for _ in range(N_SOLVES):
+        for _ in range(solves):
             _, _, state = solve(e.params, es, state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -736,14 +811,276 @@ def profile(solve, e, es, state, smi: str, **labels) -> None:
         us, count = by_name.get(ev.name, (0.0, 0))
         by_name[ev.name] = (us + device_time_us(ev), count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    emit("profile", **labels, card=smi, solves=N_SOLVES,
-         top_kernels=[{"kernel": k[:90], "ms_per_solve": us / 1e3 / N_SOLVES,
-                       "launches_per_solve": count / N_SOLVES}
+    emit("profile", **labels, card=smi, solves=solves,
+         top_kernels=[{"kernel": k[:90], "ms_per_solve": us / 1e3 / solves,
+                       "launches_per_solve": count / solves}
                       for k, (us, count) in top],
-         device_kernels_per_solve=len(kernels) / N_SOLVES,
-         device_ms_per_solve=device_us / 1e3 / N_SOLVES,
-         wall_ms_per_solve=wall * 1e3 / N_SOLVES,
+         device_kernels_per_solve=len(kernels) / solves,
+         device_ms_per_solve=device_us / 1e3 / solves,
+         wall_ms_per_solve=wall * 1e3 / solves,
          device_busy_share=(device_us / 1e6) / wall if wall > 0 else None)
+
+
+def lqr_dp(params, h: int, x0):
+    """(first optimal action, optimal cost) of the finite-horizon LQR from
+    x0 with zero terminal cost, in float64 numpy."""
+    a_m, b_m, q_m, r_m = (getattr(params, k).double().cpu().numpy() for k in "ABQR")
+    pp, ks = np.zeros_like(a_m), []
+    for _ in range(h):
+        k = np.linalg.solve(r_m + b_m.T @ pp @ b_m, b_m.T @ pp @ a_m)
+        pp = q_m + k.T @ r_m @ k + (a_m - b_m @ k).T @ pp @ (a_m - b_m @ k)
+        ks.append(k)
+    ks = ks[::-1]
+    x, cost = np.asarray(x0, np.float64), 0.0
+    for t in range(h):
+        u = -ks[t] @ x
+        cost += x @ q_m @ x + u @ r_m @ u
+        x = a_m @ x + b_m @ u
+    return float((-ks[0] @ np.asarray(x0))[0]), cost
+
+
+def cut_config(exp: dict, out_dir: str, name: str, **top) -> str:
+    """exp with its top-level keys updated by `top`, written as YAML (JSON)
+    to out_dir/name; its path."""
+    path = f"{out_dir}/{name}"
+    with open(path, "w") as f:
+        json.dump(dict(exp, **top), f)
+    return path
+
+
+def analytic_phases(device, counters, counts, expected, smi: str):
+    """Phases 13-15 of the docstring: the analytic envs, iLQR on LQR,
+    checkpoints. Returns (runs, graph solves): runs maps (config or env
+    name, controller) to (solve, solver, env, env state, state) for the
+    timings (analytic_timing); the graph solves are iLQR on cartpole and
+    MPPI on acrobot (phase 16)."""
+    import torch
+    from mjmpc_tpu_torch import envs, rng, solvers
+    from mjmpc_tpu_torch.envs.lqr import LQRState
+    from mjmpc_tpu_torch.harness import checkpoint, jobs, run_mpc, run_mpc_cl
+    from mjmpc_tpu_torch.harness import config as hconfig
+
+    def launches_of(s, solves):
+        """iLQR launches none of the eight kernels; every other solver its
+        noise draws."""
+        return expected() if isinstance(s, solvers.ILQR) else expected(
+            **noise_launches(s, solves))
+
+    # 13. every analytic config's controllers at the config's own N and H;
+    # the maze's MPPI across the continual goal's switch
+    runs = {}
+    for path, controllers in ANALYTIC_CONFIGS.items():
+        exp = hconfig.load_config(path)
+        e = envs.make(exp["env_name"], device=device)
+        es = e.init(e.params, 1)
+        for c in controllers:
+            s = (run_mpc_cl.build_cl_solver(exp, c, e) if "actor_params" in exp
+                 else hconfig.make_solver_for_env(exp, c, e))
+            solve, state = solvers.make_solve_fn(s, e), s.init_state(0)
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            action_host, state = sync_free(solve, e, es, state, ZOO_SOLVES)
+            seconds = time.perf_counter() - t0
+            got = counts()
+            runs[(path, c)] = (solve, s, e, es, state)
+            emit("analytic", config=path, env=e.name, controller=c,
+                 n=getattr(s, "num_particles", 1), h=s.horizon, n_iters=s.n_iters,
+                 solves=ZOO_SOLVES, launches=got, action=action_host.tolist(),
+                 step=int(state.step), seconds=seconds, solves_per_s=ZOO_SOLVES / seconds,
+                 card=smi)
+            if got != launches_of(s, ZOO_SOLVES) or action_host.shape != (e.d_action,):
+                raise RuntimeError(f"analytic {path} {c}: launches {got}, expected "
+                                   f"{launches_of(s, ZOO_SOLVES)}")
+    for name in ("maze-v0", "continual_maze-v0"):
+        e = envs.make(name, device=device)
+        es = dataclasses.replace(e.init(e.params, 1),
+                                 timestep=rng.step_tensor(MAZE_START, device))
+        st, goals = es, []
+        for _ in range(2 * (50 - MAZE_START)):       # the real env across t = 50
+            st, _, _, _ = e.step(e.params, st, torch.zeros(2, device=device))
+            goals.append(st.goal)
+        moved = [bool((g != es.goal).any()) for g in goals]
+        switch_at = MAZE_START + 1 + moved.index(True) if any(moved) else None
+        s = solvers.MPPI(d_action=2, device=device, **MAZE_MPPI)
+        solve = solvers.make_solve_fn(s, e)
+        reset_counts(*counters)
+        action_host, state = sync_free(solve, e, es, s.init_state(0), ZOO_SOLVES)
+        got = counts()
+        runs[(name, "mppi")] = (solve, s, e, es, state)
+        emit("analytic", env=name, controller="mppi", n=s.num_particles, h=s.horizon,
+             start_step=MAZE_START, goal_switch_at=switch_at, solves=ZOO_SOLVES,
+             launches=got, action=action_host.tolist())
+        want_switch = 50 if name == "continual_maze-v0" else None
+        if (got != launches_of(s, ZOO_SOLVES) or switch_at != want_switch
+                or not MAZE_START < 50 < MAZE_START + s.horizon):
+            raise RuntimeError(f"analytic {name}: launches {got}, goal switch at {switch_at}")
+
+    # 14. iLQR on LQR against the finite-horizon dynamic program
+    lqr_env = envs.make("LQR-v0", device=device)
+    u0_opt, cost_opt = lqr_dp(lqr_env.params, LQR_H, LQR_X0)
+    ilqr = solvers.ILQR(d_action=1, horizon=LQR_H, n_iters=3, mu=1e-6, device=device)
+    lqr_solve = solvers.make_solve_fn(ilqr, lqr_env)
+    lqr_state = LQRState(x=torch.tensor(LQR_X0, dtype=torch.float32, device=device))
+    state0 = ilqr.init_state(0)
+    reset_counts(*counters)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        action, plan_cost, state = lqr_solve(lqr_env.params, lqr_state, state0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    a0, c0 = float(action[0]), float(plan_cost)
+    fields = dict(h=LQR_H, n_iters=3, action=a0, action_dp=u0_opt, plan_cost=c0,
+                  cost_dp=cost_opt, action_rel_err=abs(a0 - u0_opt) / abs(u0_opt),
+                  cost_rel_err=abs(c0 - cost_opt) / abs(cost_opt), launches=counts())
+    emit("ilqr_lqr", **fields)
+    if (not fields["action_rel_err"] <= 1e-3 or not fields["cost_rel_err"] <= 1e-4
+            or counts() != expected()):
+        raise RuntimeError(f"iLQR on LQR misses the dynamic program: {fields}")
+    runs[("LQR-v0", "ilqr")] = (lqr_solve, ilqr, lqr_env, lqr_state, state)
+
+    # 15. checkpoints: save, load onto the card, the next solve bit for bit
+    # (MPPI on the main path with the kernel noise, iLQR on cartpole,
+    # Reinforce on the cartpole CL config); run_mpc --checkpoint
+    reacher = envs.make("reacher_7dof-v0", device=device)
+    mppi_k = solvers.MPPI(d_action=7, horizon=HORIZON, num_particles=NUM_PARTICLES,
+                          init_cov=3.0, filter_coeffs=FILTER, base_action="repeat",
+                          lam=0.01, step_size=0.55, noise_impl="kernel", device=device)
+    cases = {"mppi_main_path": (solvers.make_solve_fn(mppi_k, reacher), mppi_k, reacher,
+                                reacher.init(reacher.params, 1), mppi_k.init_state(0))}
+    for key, path in (("ilqr_cartpole", "configs/classic_control/cartpole-v0.yml"),
+                      ("reinforce_cartpole_cl", "configs/cartpole-v0_cl.yml")):
+        solve, s, e, es, _ = runs[(path, key.split("_")[0])]
+        cases[key] = (solve, s, e, es, s.init_state(0))
+    with tempfile.TemporaryDirectory() as out_dir:
+        for key, (solve, s, e, es, state) in cases.items():
+            for _ in range(2):
+                _, _, state = solve(e.params, es, state)
+            ckpt = f"{out_dir}/{key}"
+            checkpoint.save_solver_state(ckpt, state, metadata=dict(family=key))
+            restored = checkpoint.load_solver_state(ckpt, s.init_state(1))
+            cont, rest = solve(e.params, es, state), solve(e.params, es, restored)
+            torch.cuda.synchronize()
+            names = ["action", "value"] + list(state_tensors(cont[2]))
+            pairs = list(zip(cont[:2], rest[:2])) + list(zip(
+                state_tensors(cont[2]).values(), state_tensors(rest[2]).values()))
+            differ = [n for n, (a, b) in zip(names, pairs) if not torch.equal(a, b)]
+            on_card = all(v.device.type == torch.device(device).type
+                          for v in state_tensors(restored).values())
+            ok = not differ and restored.seed == state.seed and on_card
+            emit("checkpoint", family=key, step=int(restored.step), seed=restored.seed,
+                 restored_on_card=on_card, fields_differing=differ, identical=ok)
+            if not ok:
+                raise RuntimeError(f"checkpoint {key}: the restored state's solve differs")
+        # under run_mpc's guard each solve draws init_state's mean (one noise
+        # launch), and the episode's start one more
+        exp = hconfig.load_config("configs/classic_control/cartpole-v0.yml")
+        path = cut_config(exp, out_dir, "cartpole.yml", n_episodes=1, max_ep_length=CL_STEPS)
+        reset_counts(*counters)
+        out = run_mpc.main(["--config", path, "--controller", "ilqr", "--checkpoint",
+                            "--save_dir", out_dir])["ilqr"]
+        ckpt = os.path.join(out["log_dir"], "solver_state")
+        written = [os.path.exists(ckpt + ext) for ext in (".npz", ".manifest.json")]
+        emit("run_mpc", env="cartpole-v0", config="configs/classic_control/cartpole-v0.yml",
+             controller="ilqr", steps=CL_STEPS, checkpoint=written,
+             rewards=out["rewards"][0].tolist(), launches=counts())
+        if (not all(written) or not np.isfinite(out["rewards"]).all()
+                or counts() != expected(noise=CL_STEPS + 1)):
+            raise RuntimeError("run_mpc --checkpoint on cartpole's iLQR failed")
+
+    graph = {"ilqr_cartpole": runs[("configs/classic_control/cartpole-v0.yml", "ilqr")],
+             "mppi_acrobot": runs[("configs/classic_control/acrobot-v0.yml", "mppi")]}
+    return runs, {k: (solve, e, es, s.init_state(0)) for k, (solve, s, e, es, _) in graph.items()}
+
+
+def driver_phases(device, counters, counts, expected):
+    """18. run_mpc_cl.main on both closed-loop configs, one episode cut to
+    CL_STEPS control steps; 19. jobs.main in tune mode on the tray-glass
+    tune config cut to 2 cells x 1 episode x JOBS_STEPS steps (kernel #6)
+    and in sweep mode on the point-mass config as it is."""
+    from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.harness import jobs, run_mpc_cl
+    with tempfile.TemporaryDirectory() as out_dir:
+        for k, src in enumerate(CL_CONFIGS):
+            exp = hconfig.load_config(src)
+            path = cut_config(exp, out_dir, f"cl{k}.yml", n_episodes=1, max_ep_length=CL_STEPS)
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            out = run_mpc_cl.main(["--config", path, "--save_dir", out_dir])["reinforce"]
+            got, n_iters = counts(), exp["reinforce"]["n_iters"]
+            fused = exp["env_name"] == "sawyer_peg_insertion-v0"
+            want = expected(noise=CL_STEPS * n_iters, cl=CL_STEPS * n_iters if fused else 0)
+            emit("run_mpc_cl", config=src, env=exp["env_name"], steps=CL_STEPS, n_iters=n_iters,
+                 ep_reward=float(out["ep_rewards"][0]), fit_error=float(out["fit_errors"][0]),
+                 launches=got, seconds=time.perf_counter() - t0)
+            if (got != want or not np.isfinite(out["ep_rewards"]).all()
+                    or not np.isfinite(out["fit_errors"]).all()):
+                raise RuntimeError(f"run_mpc_cl {src}: launches {got}, expected {want}, "
+                                   f"{out}")
+        exp = hconfig.load_config(JOBS_TUNE)
+        section = dict(exp["mppi"], horizon=exp["mppi"]["horizon"][:1],
+                       n_iters=exp["mppi"]["n_iters"][:1],
+                       particles_per_cpu=exp["mppi"]["particles_per_cpu"][:1])
+        path = cut_config(exp, out_dir, "tune.yml", n_episodes=1, max_ep_length=JOBS_STEPS,
+                          mppi=section)
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        best, history = jobs.main(["--config", path, "--controller", "mppi", "--job_mode",
+                                   "tune", "--save_dir", out_dir])["mppi"]
+        got, cells = counts(), len(history)
+        want = expected(forest=cells * JOBS_STEPS, noise=cells * JOBS_STEPS)
+        emit("jobs", mode="tune", config=JOBS_TUNE, cells=cells, steps=JOBS_STEPS, best=best,
+             history=history, launches=got, seconds=time.perf_counter() - t0)
+        if (cells != 2 or got != want
+                or not all(np.isfinite(r["average_reward"]) for r in history)):
+            raise RuntimeError(f"jobs tune: {cells} cells, launches {got}, expected {want}")
+        exp = hconfig.load_config(JOBS_SWEEP)
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        rows = jobs.main(["--config", JOBS_SWEEP, "--controller", "mppi", "--job_mode", "sweep",
+                          "--save_dir", out_dir])["mppi"]
+        solves = exp["n_episodes"] * exp["max_ep_length"]
+        got = counts()
+        emit("jobs", mode="sweep", config=JOBS_SWEEP, rows=rows, launches=got,
+             seconds=time.perf_counter() - t0)
+        if len(rows) != 1 or got != expected(noise=solves) or not np.isfinite(
+                rows[0]["average_reward"]):
+            raise RuntimeError(f"jobs sweep: {rows}, launches {got}")
+
+
+def analytic_timing(runs, smi: str, device) -> None:
+    """Read-verified solves/s of every analytic run but the engine's (whose
+    3 sync-free solves of phase 13 give theirs), the profiler's device ms
+    per solve of the light runs (LIGHT_PROFILES; a solve of tens of
+    thousands of launches takes the profiler minutes to read back, so the
+    heavy runs are profiled by tools/analytic_episodes.py --only profile),
+    and the real env step of every analytic env. Printed, not asserted."""
+    import torch
+    from mjmpc_tpu_torch import envs
+    for (config, controller), (solve, s, e, es, state) in runs.items():
+        if e.name in ENGINE_ENVS:
+            continue
+        light = (e.name, controller) in LIGHT_PROFILES
+        rate, windows, _ = solves_per_s(solve, e, es, state, *((5, 3) if light else (2, 1)))
+        emit("analytic_solves_per_s", config=config, env=e.name, controller=controller,
+             n=getattr(s, "num_particles", 1), h=s.horizon, n_iters=s.n_iters, card=smi,
+             solves_per_s=rate, windows=windows)
+        if light:
+            profile(solve, e, es, s.init_state(0), smi, 5, 1, solver=controller, env=e.name,
+                    config=config)
+    for name in ("LQR-v0", "point_mass-v0", "cartpole-v0", "acrobot-v0", "trajopt_reacher-v0",
+                 "maze-v0", "continual_maze-v0"):
+        e = envs.make(name, device=device)
+        st, step_ms = e.init(e.params, 1), []
+        zero = torch.zeros(e.d_action, device=e.device)
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _, _, _ = e.step(e.params, st, zero)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        emit("analytic_env_step", env=name, card=smi, env_step_ms=statistics.median(step_ms),
+             env_step_ms_all=step_ms)
 
 
 def main() -> int:
@@ -1322,7 +1659,10 @@ def main() -> int:
     if loop_counts != expected(one_kernel_solve=ONE_KERNEL_STEPS) or not total > -400.0:
         raise RuntimeError(f"one-kernel closed loop: launches {loop_counts}, total reward {total}")
 
-    # 13. one solve of each family captured as a CUDA graph and replayed
+    # 13-15. the analytic envs' configs, iLQR on LQR, checkpoints
+    analytic_runs, analytic_graph = analytic_phases(device, counters, counts, expected, smi)
+
+    # 16. one solve of each family captured as a CUDA graph and replayed
     graph_solves = {
         "mppi_kernel_noise_guarded": (solvers.guard_finite(solvers.make_solve_fn(solver_k, env),
                                                            solver_k), env, env_state,
@@ -1338,12 +1678,14 @@ def main() -> int:
     for name in ("relocate-v0", "hammer-v0") + ARM_ENVS + ("door-v0",):
         solve, s, e, es, _, _ = hand_runs[name]
         graph_solves[f"mppi_{name}"] = (solve, e, es, s.init_state(0))
+    graph_solves.update(analytic_graph)
     graph_results = {}
     for name, (solve, e, es, state) in graph_solves.items():
         reset_counts(*counters)
-        graph_results[name] = graph_check(name, solve, e, es, state)
+        graph_results[name] = graph_check(name, solve, e, es, state,
+                                          draws_noise=not name.startswith("ilqr"))
 
-    # 14. the episode runner with each config's own solver(s)
+    # 17. the episode runner with each config's own solver(s)
     reacher_exp = hconfig.load_config("configs/reacher_7dof-v0.yml")
     harness_runs = [(name, "mppi", run[5], run[2]) for name, run in loco_runs.items()]
     harness_runs += [("reacher_7dof-v0", c, reacher_exp, env)
@@ -1373,9 +1715,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         for k, (name, config) in enumerate(RUN_MPC_CONFIGS.items()):
             exp = dict(hconfig.load_config(config), n_episodes=1, max_ep_length=RUN_MPC_STEPS)
-            path = f"{out_dir}/{k}.yml"
-            with open(path, "w") as f:
-                json.dump(exp, f)           # YAML reads JSON
+            path = cut_config(exp, out_dir, f"{k}.yml")
             reset_counts(*counters)
             t0 = time.perf_counter()
             out = run_mpc.main(["--config", path, "--controller", "mppi", "--save_dir", out_dir])
@@ -1389,7 +1729,10 @@ def main() -> int:
             if rewards.shape != (1, RUN_MPC_STEPS) or not np.isfinite(rewards).all():
                 raise RuntimeError(f"run_mpc {name}: rewards not finite")
 
-    # 15. timing (printed, not asserted)
+    # 18-19. run_mpc_cl on both closed-loop configs, jobs in tune and sweep mode
+    driver_phases(device, counters, counts, expected)
+
+    # 20. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
     times = {
         "chain_rollout": (cuda_ms(lambda: roll(*args), 20), cuda_ms(lambda: roll.plain(*args), 2)),
@@ -1537,6 +1880,9 @@ def main() -> int:
          kernel_ms={f"#{k} N={n}": v[0] for (k, n), v in pend_times.items()},
          plain_ms={f"#{k} N={n}": v[1] for (k, n), v in pend_times.items()},
          solves_per_s=pend_rates, one_kernel_loop_seconds=loop_seconds)
+
+    # the analytic configs' solves, iLQR on LQR and the analytic env steps
+    analytic_timing(analytic_runs, smi, device)
 
     # where a solve's time goes: host clock per stage, synchronised
     for which, s in (("plain_noise", solver), ("kernel_noise", solver_k)):

@@ -6,7 +6,10 @@ PegState, ReinforceState, VFParams, LGPolicyParams, SwimmerParams,
 CheetahParams, SwimmerState, CheetahState, PenParams, PenState,
 RelocateParams, RelocateState, HammerParams, HammerState, PusherParams,
 PusherState, the sawyer and the hand DoorParams and DoorState,
-TrayGlassParams, TrayGlassState, PendulumParams or PendulumState does;
+TrayGlassParams, TrayGlassState, PendulumParams, PendulumState, LQRParams,
+LQRState, PointMassParams, PointMassState, CartpoleParams, CartpoleState,
+MazeParams, MazeState, AcrobotParams, AcrobotState, TrajoptReacherParams,
+TrajoptReacherState or ILQRState does;
 models with ball and free joints keep the JAX layout: qpos [nq] with
 quaternions in wxyz order, per-DOF arrays [nv], limits [nq]). This module
 never imports jax; tests use it so that both packages compute on the same
@@ -19,6 +22,7 @@ import torch
 
 from . import rng
 from .engine.chain import ChainModel
+from .envs import acrobot, cartpole, lqr, maze, point_mass, trajopt_reacher
 from .envs.half_cheetah import CheetahParams, CheetahState
 from .envs import hand_door, sawyer_tasks
 from .envs.hammer import HammerParams, HammerState
@@ -32,6 +36,7 @@ from .envs.swimmer import _VEL_LIMIT, SwimmerParams, SwimmerState
 from .ops.pendulum import PARAM_FIELDS as _PENDULUM_FIELDS
 from .policies.linear_gaussian import LGPolicyParams
 from .solvers.base import GaussianState
+from .solvers.ilqr import ILQRState
 from .solvers.reinforce import ReinforceState
 from .value_functions import VFParams
 
@@ -253,3 +258,83 @@ def pendulum_state_from_reference(state, device="cuda") -> PendulumState:
     """A reference PendulumState (th, thdot; any leading batch shape) as the
     port's."""
     return PendulumState(th=_t(state.th, device), thdot=_t(state.thdot, device))
+
+
+def lqr_params_from_reference(params, device="cuda") -> lqr.LQRParams:
+    """A reference LQRParams (A, B, Q, R) as the port's."""
+    return lqr.LQRParams(**{k: _t(getattr(params, k), device) for k in "ABQR"})
+
+
+def lqr_state_from_reference(state, device="cuda") -> lqr.LQRState:
+    return lqr.LQRState(x=_t(state.x, device))
+
+
+def point_mass_params_from_reference(params, device="cuda") -> point_mass.PointMassParams:
+    """A reference PointMassParams (dt, mass, goal) as the port's."""
+    return point_mass.PointMassParams(dt=_t(params.dt, device), mass=_t(params.mass, device),
+                                      goal=_t(params.goal, device))
+
+
+def point_mass_state_from_reference(state, device="cuda") -> point_mass.PointMassState:
+    return point_mass.PointMassState(pos=_t(state.pos, device), vel=_t(state.vel, device))
+
+
+def cartpole_params_from_reference(params, device="cuda") -> cartpole.CartpoleParams:
+    """A reference CartpoleParams as the port's, 0-d float32 tensors."""
+    return cartpole.CartpoleParams(**{f: _t(getattr(params, f), device)
+                                      for f in cartpole.PARAM_FIELDS})
+
+
+def cartpole_state_from_reference(state, device="cuda") -> cartpole.CartpoleState:
+    """A reference CartpoleState (x, x_dot, theta, theta_dot; any leading
+    batch shape) as the port's."""
+    return cartpole.CartpoleState(x=_t(state.x, device), x_dot=_t(state.x_dot, device),
+                                  theta=_t(state.theta, device),
+                                  theta_dot=_t(state.theta_dot, device))
+
+
+def maze_params_from_reference(params, device="cuda") -> maze.MazeParams:
+    """A reference MazeParams (obstacles, continual_period) as the port's;
+    the period becomes a host integer."""
+    return maze.MazeParams(obstacles=_t(params.obstacles, device),
+                           continual_period=int(np.asarray(params.continual_period)))
+
+
+def maze_state_from_reference(state, key: int = 0, device="cuda") -> maze.MazeState:
+    """A reference MazeState (pos, vel, goal, timestep, key) as the port's:
+    the goal is kept; the reference PRNG key has no torch counterpart, so
+    the port's goal draws take the host key `key`."""
+    t = np.asarray(state.timestep).astype(np.int64)
+    return maze.MazeState(pos=_t(state.pos, device), vel=_t(state.vel, device),
+                          goal=_t(state.goal, device),
+                          timestep=torch.as_tensor(t, device=device), key=int(key))
+
+
+def acrobot_params_from_reference(params, device="cuda") -> acrobot.AcrobotParams:
+    return acrobot.AcrobotParams(model=chain_model_from_reference(params.model, device))
+
+
+def acrobot_state_from_reference(state, device="cuda") -> acrobot.AcrobotState:
+    return acrobot.AcrobotState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device))
+
+
+def trajopt_reacher_params_from_reference(params, device="cuda"
+                                          ) -> trajopt_reacher.TrajoptReacherParams:
+    return trajopt_reacher.TrajoptReacherParams(
+        model=chain_model_from_reference(params.model, device))
+
+
+def trajopt_reacher_state_from_reference(state, device="cuda"
+                                         ) -> trajopt_reacher.TrajoptReacherState:
+    """A reference TrajoptReacherState (qpos, qvel, target, timestep) as the
+    port's; the timestep becomes a host integer."""
+    return trajopt_reacher.TrajoptReacherState(
+        qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
+        target=_t(state.target, device), timestep=int(np.asarray(state.timestep)))
+
+
+def ilqr_state_from_reference(state, seed: int = 0, device="cuda") -> ILQRState:
+    """A reference ILQRState (mean, step, key) as the port's; the port's
+    streams start from `seed`."""
+    return ILQRState(mean=_t(state.mean, device),
+                     step=rng.step_tensor(int(np.asarray(state.step)), device), seed=int(seed))

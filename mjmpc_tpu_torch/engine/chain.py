@@ -40,6 +40,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.control import capturable_linalg
+
 _SCALAR_JOINTS = ("hinge", "slide")
 _JOINT_NQ = {"hinge": 1, "slide": 1, "ball": 4, "free": 7}
 _JOINT_NV = {"hinge": 1, "slide": 1, "ball": 3, "free": 6}
@@ -79,6 +81,10 @@ class ChainModel:
         for t in self.joint_types:
             if t not in _JOINT_NQ:
                 raise ValueError(f"unknown joint type {t!r}")
+        # the device constants now, with the model: built at first use
+        # inside a solve, their host-to-device copies would sync it and
+        # break its capture as a CUDA graph
+        self._masks, self._scalar_index
 
     @property
     def n_joints(self) -> int:
@@ -566,8 +572,9 @@ def step(model: ChainModel, q: torch.Tensor, qd: torch.Tensor,
                - model.stiffness * _scalar_q(model, q))
         if ext_force_fn is not None:
             rhs = rhs + ext_force_fn(model, q, qd)
-        chol = torch.linalg.cholesky_ex(m).L
-        qacc = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
+        with capturable_linalg(q.device):   # a rollout's steps stay capturable
+            chol = torch.linalg.cholesky_ex(m).L
+            qacc = torch.cholesky_solve(rhs[..., None], chol)[..., 0]
         qd = qd + model.dt * qacc
         q = integrate_qpos(model, q, qd, model.dt)
         q, qd = _project_limits(model, q, qd)

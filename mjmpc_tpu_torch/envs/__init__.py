@@ -3,8 +3,8 @@
 Counterpart of mjmpc_tpu/envs/__init__.py for the ported envs. Every env
 module is imported directly: an ImportError from an in-repo module is a
 bug and propagates, it is never swallowed. A name that the JAX package
-registers but the port has not ported yet (NOT_PORTED) raises
-NotImplementedError, as an unported controller does
+registers but the port has not ported (NOT_PORTED, empty since every
+name is ported) raises NotImplementedError, as an unported controller does
 (solvers.solver_class); a name neither package knows raises ValueError.
 """
 from __future__ import annotations
@@ -13,8 +13,9 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from . import (half_cheetah, hammer, hand_door, panda_tasks, pen, pendulum, reacher_7dof,
-               relocate, sawyer_tasks, swimmer)
+from . import (acrobot, cartpole, half_cheetah, hammer, hand_door, lqr, maze, panda_tasks, pen,
+               pendulum, point_mass, reacher_7dof, relocate, sawyer_tasks, swimmer,
+               trajopt_reacher)
 from .base import Env
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {
@@ -38,14 +39,19 @@ _REGISTRY: Dict[str, Callable[..., Env]] = {
     "relocate-v0": relocate.make,
     "hammer-v0": hammer.make,
     "door-v0": hand_door.make,
+    "LQR-v0": lqr.make,
+    "point_mass-v0": point_mass.make,
+    # the point-mass config names the mjrl-registered id
+    "mjrl_point_mass-v0": point_mass.make,
+    "cartpole-v0": cartpole.make,
+    "acrobot-v0": acrobot.make,
+    "trajopt_reacher-v0": trajopt_reacher.make,
+    "maze-v0": maze.make,
+    "continual_maze-v0": maze.make_continual,
 }
 
-# Envs of the JAX package's registry that the port lacks so far: the
-# analytic envs, which run no TPU kernel.
-NOT_PORTED = (
-    "LQR-v0", "acrobot-v0", "cartpole-v0", "continual_maze-v0", "maze-v0",
-    "mjrl_point_mass-v0", "point_mass-v0", "trajopt_reacher-v0",
-)
+# Envs of the JAX package's registry that the port lacks: none.
+NOT_PORTED: Tuple[str, ...] = ()
 
 _CACHE: Dict[Tuple[str, str], Env] = {}
 

@@ -3,12 +3,17 @@ mjmpc_tpu/harness/run_mpc.py, reference examples/example_mpc.py).
 
 Usage:
     python -m mjmpc_tpu_torch.harness.run_mpc --config configs/Swimmer-v0.yml \
-        --controller mppi [--save_dir DIR] [--save_trajectories] [--device cuda]
+        --controller mppi [--save_dir DIR] [--save_trajectories] [--checkpoint] \
+        [--device cuda]
 
 The same flags and YAML schema as the JAX run_mpc, plus --device (the
 card unless the caller asks for the CPU). The config's episodes run one
 after another (harness/episode.py run_episodes); each controller's log
-(.log and .csv) goes to <save_dir>/<env>/<date>/<controller>/.
+(.log and .csv) goes to <save_dir>/<env>/<date>/<controller>/, and with
+--checkpoint the final solver state of every episode to solver_state.npz
+and solver_state.manifest.json there (harness/checkpoint.py). Every
+controller's solver is built before the first episode runs, so a
+controller or flag the port lacks raises before anything runs.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 
 from .. import envs
 from ..utils import get_logger, timeit
+from . import checkpoint
 from . import config as cfg
 from .episode import run_episodes
 
@@ -29,7 +35,6 @@ from .episode import run_episodes
 _NOT_PORTED = {
     "dyn_randomize_config": "dynamics randomization needs envs/randomize.py (ROADMAP slice 8)",
     "dump_vids": "videos need render/ (ROADMAP slice 8)",
-    "checkpoint": "solver-state checkpoints need harness/checkpoint.py (ROADMAP slice 3)",
 }
 
 
@@ -47,8 +52,7 @@ def main(argv=None):
     parser.add_argument("--save_trajectories", action="store_true",
                         help="dump episode arrays to npz")
     parser.add_argument("--checkpoint", action="store_true",
-                        help="save final solver state (not ported yet: raises "
-                             "NotImplementedError)")
+                        help="save the final solver state of every episode")
     parser.add_argument("--dump_vids", action="store_true",
                         help="render episode videos (not ported yet: raises "
                              "NotImplementedError)")
@@ -72,16 +76,18 @@ def main(argv=None):
     sim_env = envs.make(exp_params.get("sim_env_name", exp_params["env_name"]),
                         device=args.device)
 
+    names = [c.strip() for c in args.controller.split(",")]
+    built = {c: cfg.make_solver_for_env(exp_params, c, env) for c in names}
+
     date_time = datetime.now().strftime("%m_%d_%Y_%H_%M_%S")
     results = {}
-    for controller_name in args.controller.split(","):
-        controller_name = controller_name.strip()
+    for controller_name in names:
         log_dir = os.path.join(args.save_dir, exp_params["env_name"], date_time,
                                controller_name)
         os.makedirs(log_dir, exist_ok=True)
         logger = get_logger(f"{controller_name}_{exp_params['env_name']}", log_dir)
 
-        solver = cfg.make_solver_for_env(exp_params, controller_name, env)
+        solver = built[controller_name]
         logger.info("%s", exp_params[controller_name])
 
         timeit.start("start_" + controller_name)
@@ -106,6 +112,12 @@ def main(argv=None):
         if args.save_trajectories:
             np.savez(os.path.join(log_dir, "trajectories.npz"), rewards=out["rewards"],
                      actions=out["actions"], successes=out["successes"])
+        if args.checkpoint:
+            checkpoint.save_solver_state(
+                os.path.join(log_dir, "solver_state"), out["final_solver_states"],
+                metadata=dict(controller=controller_name, env=env.name,
+                              n_episodes=exp_params["n_episodes"]))
+            logger.info("saved solver-state checkpoint")
         out["log_dir"] = log_dir
         results[controller_name] = out
     return results

@@ -1,10 +1,12 @@
 """Solvers: the open-loop family (GaussianMPC: MPPI, MPPIQ, RandomShooting,
-CEM, DMD), PFMPC and the closed-loop Reinforce, with the registry of
+CEM, DMD), PFMPC, the closed-loop Reinforce and iLQR, with the registry of
 mjmpc_tpu/solvers/__init__.py for the ported names."""
 from .base import (GaussianMPC, GaussianState, build_optimal_value_fn,
                    build_solve_fn, evaluate_episode, guard_finite)
 from .cem import CEM
 from .dmd import DMDMPC
+from .ilqr import ILQR, ILQRState
+from .ilqr import build_solve_fn as build_ilqr_solve_fn
 from .mppi import MPPI
 from .mppiq import MPPIQ
 from .pfmpc import PFMPC, PFState
@@ -22,10 +24,11 @@ REGISTRY = {
     "gaussian_dmd": DMDMPC,
     "pfmpc": PFMPC,
     "reinforce": Reinforce,
+    "ilqr": ILQR,
 }
 
 # Controllers of the JAX package's registry that the port lacks so far.
-NOT_PORTED = ("softqmpc", "softq", "random_shooting_nn", "ilqr")
+NOT_PORTED = ("softqmpc", "softq", "random_shooting_nn")
 
 
 def solver_class(name: str):
@@ -53,6 +56,10 @@ def make_solve_fn(solver, env, **kwargs):
         kwargs.pop("calc_val", None)
         kwargs.pop("hotstart", None)   # the reference's shift is a no-op
         return build_reinforce_solve_fn(solver, env, **kwargs)
+    if isinstance(solver, ILQR):
+        for k in ("calc_val", "hotstart", "fused"):   # iLQR samples and fuses nothing
+            kwargs.pop(k, None)
+        return build_ilqr_solve_fn(solver, env, **kwargs)
     if isinstance(solver, GaussianMPC):
         return build_solve_fn(solver, env, **kwargs)
     raise NotImplementedError(f"no solve builder ported for {type(solver).__name__}")
@@ -61,6 +68,7 @@ def make_solve_fn(solver, env, **kwargs):
 __all__ = [
     "GaussianMPC", "GaussianState", "build_solve_fn", "evaluate_episode",
     "build_optimal_value_fn", "guard_finite", "MPPI", "MPPIQ", "RandomShooting",
-    "CEM", "DMDMPC", "PFMPC", "PFState", "Reinforce", "ReinforceState", "REGISTRY",
+    "CEM", "DMDMPC", "PFMPC", "PFState", "Reinforce", "ReinforceState", "ILQR",
+    "ILQRState", "REGISTRY",
     "NOT_PORTED", "solver_class", "make_solver", "make_solve_fn",
 ]

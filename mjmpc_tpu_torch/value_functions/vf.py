@@ -16,12 +16,13 @@ delta_reg) -> params (and the relative errors before and after).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 
 import numpy as np
 import torch
+
+from ..ops.control import capturable_linalg
 
 # Escalations after the first attempt (JAX vf.py _solve_retry).
 N_RETRIES = 10
@@ -48,24 +49,6 @@ def _ladder_tensor(delta_reg: float, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(reg_ladder(delta_reg), device=device)
 
 
-@contextlib.contextmanager
-def _capturable_linalg(device: torch.device):
-    """On a CUDA device, let the batched solve take cuSOLVER's looped LU,
-    whose calls run on the current stream and can be captured in a CUDA
-    graph; at the fit's sizes (11 systems of ~170 x 170 on the peg) the
-    default backend picks MAGMA's batched LU, which synchronises the host
-    and invalidates a capture. Restores the caller's choice after."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.preferred_linalg_library(prev)
-
-
 def solve_retry(gram: torch.Tensor, moment: torch.Tensor, delta_reg: float):
     """(x, k): the solution of (gram + reg_k I) x = moment [..., d] with k
     the first rung of reg_ladder(delta_reg) whose solution is finite, or
@@ -80,7 +63,7 @@ def solve_retry(gram: torch.Tensor, moment: torch.Tensor, delta_reg: float):
     eye = torch.eye(d, dtype=gram.dtype, device=gram.device)
     systems = gram[..., None, :, :] + regs[:, None, None] * eye          # [..., K, d, d]
     rhs = moment[..., None, :, None].expand(*moment.shape[:-1], regs.shape[0], d, 1)
-    with _capturable_linalg(gram.device):
+    with capturable_linalg(gram.device):
         xs = torch.linalg.solve_ex(systems, rhs, check_errors=False).result[..., 0]
     finite = torch.isfinite(xs).all(-1)                                   # [..., K]
     k = torch.where(finite.any(-1), torch.argmax(finite.to(torch.int32), -1),

@@ -12,7 +12,10 @@ cluster):
 each against its plain PyTorch version, their launch counts on sync-free
 solves, and the wrappers' checks; and one solve of each family captured as
 a CUDA graph and replayed against eager solves (chip_smoke.py graph_check),
-two replays drawing different noise.
+two replays drawing different noise; iLQR on LQR against the dynamic
+program (rtol 1e-3 on the action, 1e-4 on the cost), iLQR on cartpole and
+MPPI on the continual maze replayed as CUDA graphs, and their checkpoints
+restoring the next solve bit for bit.
 
 Needs a CUDA card and skips without one (the kernel has no CPU mode). This
 file imports no jax, so it also runs where jax is not installed:
@@ -781,3 +784,70 @@ def test_solve_replays_as_a_cuda_graph(device, name):
     fields = _chip_smoke().graph_check(name, solve, env, es, state)
     assert fields["identical"] and fields["steps"] == [1, 2, 3, 4, 5]
     assert fields["max_abs_diff_next_step"] > 0.0
+
+
+def test_ilqr_on_lqr_matches_the_dynamic_program_without_host_syncs(device):
+    """iLQR (H=30, 3 iterations) on LQR-v0: the first action within rtol
+    1e-3 and the plan's cost within rtol 1e-4 of the finite-horizon dynamic
+    program's, sync-free, no kernel launched."""
+    from mjmpc_tpu_torch.envs.lqr import LQRState
+    smoke = _chip_smoke()
+    env = envs.make("LQR-v0", device=device)
+    u0_opt, cost_opt = smoke.lqr_dp(env.params, smoke.LQR_H, smoke.LQR_X0)
+    solver = solvers.ILQR(d_action=1, horizon=smoke.LQR_H, n_iters=3, mu=1e-6, device=device)
+    solve = solvers.make_solve_fn(solver, env)
+    state = solver.init_state(0)
+    x0 = LQRState(x=torch.tensor(smoke.LQR_X0, dtype=torch.float32, device=device))
+    before = FilteredNoise.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        action, cost, state = solve(env.params, x0, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert FilteredNoise.launches == before and int(state.step) == 1
+    np.testing.assert_allclose(float(action[0]), u0_opt, rtol=1e-3)
+    np.testing.assert_allclose(float(cost), cost_opt, rtol=1e-4)
+
+
+def _analytic_family(name, device):
+    smoke = _chip_smoke()
+    if name == "ilqr_cartpole":
+        env = envs.make("cartpole-v0", device=device)
+        solver = solvers.ILQR(d_action=1, horizon=32, n_iters=5, action_lows=env.action_lows,
+                              action_highs=env.action_highs, device=device)
+        return solvers.make_solve_fn(solver, env), env, env.init(env.params, 1), solver
+    env = envs.make("continual_maze-v0", device=device)
+    es = dataclasses.replace(env.init(env.params, 1),
+                             timestep=rng.step_tensor(smoke.MAZE_START, device))
+    solver = solvers.MPPI(d_action=2, device=device, **smoke.MAZE_MPPI)
+    return solvers.make_solve_fn(solver, env), env, es, solver
+
+
+@pytest.mark.parametrize("name", ["ilqr_cartpole", "mppi_continual_maze"])
+def test_analytic_solve_replays_as_a_cuda_graph(device, name):
+    """iLQR on cartpole and MPPI on the continual maze across its goal's
+    switch: 5 replays equal 5 eager solves bit for bit; iLQR draws no noise,
+    so two replays from one start agree, the maze's differ."""
+    solve, env, es, solver = _analytic_family(name, device)
+    ilqr = name.startswith("ilqr")
+    fields = _chip_smoke().graph_check(name, solve, env, es, solver.init_state(0),
+                                       draws_noise=not ilqr)
+    assert fields["identical"] and fields["steps"] == [1, 2, 3, 4, 5]
+    assert (fields["max_abs_diff_next_step"] == 0.0) == ilqr
+
+
+@pytest.mark.parametrize("name", ["ilqr_cartpole", "mppi_continual_maze"])
+def test_checkpoint_restores_the_next_solve_bit_for_bit(device, name, tmp_path):
+    from mjmpc_tpu_torch.harness import checkpoint
+    solve, env, es, solver = _analytic_family(name, device)
+    state = solver.init_state(3)
+    for _ in range(2):
+        _, _, state = solve(env.params, es, state)
+    checkpoint.save_solver_state(str(tmp_path / "state"), state)
+    restored = checkpoint.load_solver_state(str(tmp_path / "state"), solver.init_state(0))
+    assert restored.seed == 3 and restored.step.device.type == "cuda"
+    cont, rest = solve(env.params, es, state), solve(env.params, es, restored)
+    for a, b in zip(cont[:2], rest[:2]):
+        assert torch.equal(a, b)
+    assert torch.equal(cont[2].mean, rest[2].mean) and torch.equal(cont[2].step, rest[2].step)

@@ -159,11 +159,14 @@ def test_run_mpc_runs_every_reacher_controller(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--dyn_randomize_config", "d.yml"], ["--dump_vids"],
-                                  ["--checkpoint"]])
+                                  ["--checkpoint", "--dump_vids"]])
 def test_run_mpc_flags_not_ported_raise(flag, tmp_path):
+    """The flags still to port raise before anything runs, --checkpoint
+    (ported) beside them too (its own test: tests/test_torch_drivers.py)."""
     with pytest.raises(NotImplementedError):
         run_mpc.main(["--config", "configs/Swimmer-v0.yml", "--device", DEVICE,
                       "--save_dir", str(tmp_path), *flag])
+    assert not list(tmp_path.iterdir())
 
 
 def test_logger_tabular_round_trip_and_timer(tmp_path):

@@ -184,16 +184,17 @@ def test_registry():
     with pytest.raises(ValueError):
         envs.make("no_such_env-v0", device=DEVICE)
     assert envs.make("reacher_7dof-v0", device=DEVICE) is envs.make("reacher_7dof-v0", device=DEVICE)
-    assert envs.available() == ["HalfCheetah-v0", "SimplePendulum-v0", "Swimmer-v0",
-                                "continual_reacher-v0", "door-v0", "hammer-v0",
-                                "panda_reacher-v0", "panda_tray_glass-v0",
+    assert envs.available() == ["HalfCheetah-v0", "LQR-v0", "SimplePendulum-v0", "Swimmer-v0",
+                                "acrobot-v0", "cartpole-v0", "continual_maze-v0",
+                                "continual_reacher-v0", "door-v0", "hammer-v0", "maze-v0",
+                                "mjrl_point_mass-v0", "panda_reacher-v0", "panda_tray_glass-v0",
                                 "panda_tray_glass-v1", "panda_tray_glass_fixed-v1", "pen-v0",
-                                "pusher-v0", "reacher_7dof-v0", "relocate-v0",
+                                "point_mass-v0", "pusher-v0", "reacher_7dof-v0", "relocate-v0",
                                 "sawyer_door-v0", "sawyer_peg_insertion-v0",
                                 "sawyer_peg_insertion-v1", "sawyer_pusher-v0",
-                                "sawyer_reacher-v0"]
-    with pytest.raises(NotImplementedError):    # a JAX env not ported yet
-        envs.make("cartpole-v0", device=DEVICE)
+                                "sawyer_reacher-v0", "trajopt_reacher-v0"]
+    assert envs.NOT_PORTED == ()                # every JAX env is ported
+    assert envs.make("cartpole-v0", device=DEVICE).name == "cartpole-v0"
     with pytest.raises(NotImplementedError):
         solvers.make_solve_fn(object(), envs.make("reacher_7dof-v0", device=DEVICE))
 
@@ -208,6 +209,12 @@ def test_import_leaves_jax_out():
             "mjmpc_tpu_torch.utils, mjmpc_tpu_torch.envs.pen, mjmpc_tpu_torch.envs.adroit, "
             "mjmpc_tpu_torch.envs.contact, mjmpc_tpu_torch.ops.forest_rollout, "
             "mjmpc_tpu_torch.envs.pendulum, mjmpc_tpu_torch.ops.pendulum, "
-            "mjmpc_tpu_torch.envs.hand_door, mjmpc_tpu_torch.envs.panda_tasks; "
+            "mjmpc_tpu_torch.envs.hand_door, mjmpc_tpu_torch.envs.panda_tasks, "
+            "mjmpc_tpu_torch.envs.lqr, mjmpc_tpu_torch.envs.point_mass, "
+            "mjmpc_tpu_torch.envs.cartpole, mjmpc_tpu_torch.envs.acrobot, "
+            "mjmpc_tpu_torch.envs.trajopt_reacher, mjmpc_tpu_torch.envs.maze, "
+            "mjmpc_tpu_torch.solvers.ilqr, mjmpc_tpu_torch.harness.checkpoint, "
+            "mjmpc_tpu_torch.harness.run_mpc_cl, mjmpc_tpu_torch.harness.jobs, "
+            "mjmpc_tpu_torch.utils.helpers; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], check=True)

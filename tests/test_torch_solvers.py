@@ -305,7 +305,9 @@ def test_registry_dispatch_and_errors(env):
     assert isinstance(solvers.make_solver("cem", **cfg), solvers.CEM)
     assert solvers.make_solver("gaussian_dmd", **cfg) == solvers.make_solver("dmd", **cfg)
     assert sorted(solvers.REGISTRY) == sorted(["mppi", "mppiq", "random_shooting", "cem",
-                                               "dmd", "gaussian_dmd", "pfmpc", "reinforce"])
+                                               "dmd", "gaussian_dmd", "pfmpc", "reinforce",
+                                               "ilqr"])
+    assert sorted(solvers.NOT_PORTED) == ["random_shooting_nn", "softq", "softqmpc"]
     assert set(jsolvers.REGISTRY) == set(solvers.REGISTRY) | set(solvers.NOT_PORTED)
     with pytest.raises(NotImplementedError, match="softqmpc"):
         solvers.make_solver("softqmpc", **cfg)
