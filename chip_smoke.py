@@ -181,7 +181,10 @@ exit and no final line:
                sawyer door, pusher, tray-glass (v0, v1, fixed-v1) and
                door-v0 configs (kernel #6), iLQR on the cartpole config
                and MPPI on the acrobot config (the engine's general
-               rollout). Each graph is replayed 5 times,
+               rollout), SoftQMPC with the cartpole config's softq block
+               and RandomShootingNN on the pendulum (their Q's and MLP's
+               nested parameters fed back with the rest of the state).
+               Each graph is replayed 5 times,
                each replay's state fed to the next, and every replay's
                action, value and state tensors must equal 5 eager solves'
                from the same start bit for bit (the eager solves sync-free);
@@ -190,7 +193,7 @@ exit and no final line:
                different noise (iLQR, which draws none, must agree).
 17. harness -- harness.episode.run_episodes with each locomotion config's
                own solver and with every controller of
-               configs/reacher_7dof-v0.yml, one episode of 10 steps, and
+               configs/reacher_7dof-v0.yml, one episode of 3 steps, and
                with every controller of configs/hand/pen-v0.yml and the peg
                config's mppi, one episode of 3 steps (the real pen step is
                the eager AD engine), all overridden in memory: finite
@@ -213,6 +216,29 @@ exit and no final line:
                episode x 2 steps, kernel #6's count rising by 4; in sweep
                mode on configs/point_mass-v0.yml as it is (1 cell, 5
                episodes x 25 steps).
+21. softq   -- SoftQMPC with the softq blocks of
+               configs/classic_control/cartpole-v0.yml (N=64, H=16, lam 0.2,
+               lr 0.01) and configs/sawyer/sawyer_reacher-v0.yml (N=64,
+               H=16, lam 0.05, lr 0.1, 8 gradient steps, clip 10; the
+               engine's general rollout, as the JAX package's) through
+               harness.config: one warm-up solve, then 3 chained sync-free
+               solves, the noise kernel's count rising by exactly 3 (one
+               draw of white noise a solve) and every other count by 0, the
+               Q parameters moved and finite.
+22. rsnn    -- RandomShootingNN on SimplePendulum-v0 (N=64, H=32, MLP
+               (64, 64)): 3 sync-free solves after a warm-up, the noise
+               kernel's count rising by exactly 3 and every other by 0.
+23. sac_mpc -- SACMPC on reacher_7dof-v0 at its defaults (H=16, N=256, SAC
+               (256, 256), batch 128): 3 sync-free solves of its MPPIQ with
+               the SAC Q (kernel #3 and the noise kernel once a solve);
+               train for 200 control steps in episodes of 100, SAC updates
+               from 100 transitions on: #3 and the noise kernel exactly 200
+               times, 101 updates, the mean of the last 10 Q-losses below the
+               first 10's; then harness/sacq_eval.main on the reacher (40
+               training steps, one 20-step episode per arm, H=16, N=256):
+               #3 60 times (training and the mppiq+sacq arm), #1 40 (the
+               mppi and mppiq arms), the noise kernel 100. Phases 21-23 run
+               after phase 15, before the graph phase.
 20. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
@@ -238,7 +264,11 @@ exit and no final line:
                lines carry the rate of their 3 sync-free solves), a profile
                of the light ones (`analytic_solves_per_s`; the heavy ones in
                tools/analytic_episodes.py --only profile) and the real env
-               step of every analytic env (`analytic_env_step`). Printed,
+               step of every analytic env (`analytic_env_step`); solves/s
+               and a profile of each run of phases 21-23 but softq on
+               the sawyer reacher (`learned_solves_per_s`; that run's
+               `softq` line carries the rate of its 3 sync-free solves, and
+               tools/learned_runs.py --only profile profiles it). Printed,
                not asserted.
 
 Every launch count is set to 0 just before a path runs and read just after.
@@ -301,7 +331,7 @@ LOCO_CHECKS = {"Swimmer-v0": ((37, 5, 5e-5, False, 10), (512, 32, 1e-3, False, 1
                               (1, 5, 5e-5, False, 12)),
                "HalfCheetah-v0": ((37, 5, 5e-4, True, 10), (512, 16, 1e-2, True, 11),
                                   (1, 5, 5e-4, True, 12))}
-HARNESS_STEPS = 10
+HARNESS_STEPS = 3
 # The forest configs, run as written, at full size (mppi blocks: pen, the
 # peg and the sawyer door 8 x 32 particles, H=16; relocate 8 x 64, H=32;
 # hammer 8 x 64, H=20; the pusher 8 x 64, H=24; tray-glass v0 8 x 128, H=20,
@@ -409,6 +439,16 @@ CL_STEPS = 3
 JOBS_TUNE = "configs/tune/tray_glass-v0.yml"
 JOBS_SWEEP = "configs/point_mass-v0.yml"
 JOBS_STEPS = 2
+# 21-23. the learned-model family: softq with the two configs' blocks, RSNN
+# on the pendulum, SACMPC on the reacher at its defaults, sacq_eval cut short
+SOFTQ_CONFIGS = {"cartpole-v0": "configs/classic_control/cartpole-v0.yml",
+                 "sawyer_reacher-v0": "configs/sawyer/sawyer_reacher-v0.yml"}
+RSNN = dict(horizon=32, num_particles=64, hidden=(64, 64))
+SAC_TRAIN = dict(n_steps=200, episode_length=100, min_buffer=100)
+SACQ_STEPS, SACQ_TRAIN = 20, 40
+SACQ_EVAL = ["--env", "reacher_7dof-v0", "--train_steps", str(SACQ_TRAIN),
+             "--episodes", "1", "--episode_length", str(SACQ_STEPS), "--horizon", "16",
+             "--num_particles", "256"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -657,9 +697,10 @@ def noise_launches(s, solves: int) -> dict:
 
 
 def state_tensors(state) -> dict:
-    import torch
-    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
-            if isinstance(getattr(state, f.name), torch.Tensor)}
+    """{path: tensor} of every tensor of a solver state, those nested in
+    its parameters too (solvers.tensor_leaves)."""
+    from mjmpc_tpu_torch import solvers
+    return solvers.tensor_leaves(state)
 
 
 def capture(solve, e, es, state):
@@ -671,9 +712,10 @@ def capture(solve, e, es, state):
     feed.static is the static state."""
     import torch
 
+    from mjmpc_tpu_torch import solvers
+
     def fresh():
-        return dataclasses.replace(state, **{k: v.clone()
-                                             for k, v in state_tensors(state).items()})
+        return solvers.map_tensors(lambda v: v.clone(), state)
 
     static = fresh()
     side = torch.cuda.Stream()
@@ -1046,6 +1088,125 @@ def driver_phases(device, counters, counts, expected):
         if len(rows) != 1 or got != expected(noise=solves) or not np.isfinite(
                 rows[0]["average_reward"]):
             raise RuntimeError(f"jobs sweep: {rows}, launches {got}")
+
+
+def learned_phases(device, counters, counts, expected, smi: str):
+    """Phases 21-23 of the docstring: softq, rsnn, sac_mpc (with
+    sacq_eval). Returns (runs, graph solves): runs maps a label to (solve,
+    solver, env, env state) for learned_timing; the graph solves are
+    SoftQMPC on cartpole and RandomShootingNN on the pendulum (phase 16)."""
+    import torch
+    from mjmpc_tpu_torch import envs, solvers
+    from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.harness import sacq_eval
+    from mjmpc_tpu_torch.rl import SACMPC
+
+    def sync_free_run(phase, solve, s, e, es, state0, **fields):
+        """One warm-up solve (a new env's kernel wrappers load their
+        libraries, torch.func traces), then ZOO_SOLVES sync-free solves
+        from state0 with the counts from 0."""
+        solve(e.params, es, state0)
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        action_host, state = sync_free(solve, e, es, state0, ZOO_SOLVES)
+        seconds = time.perf_counter() - t0
+        got = counts()
+        emit(phase, env=e.name, n=s.num_particles, h=s.horizon, solves=ZOO_SOLVES,
+             launches=got, action=action_host.tolist(), step=int(state.step), seconds=seconds,
+             solves_per_s=ZOO_SOLVES / seconds, card=smi, **fields)
+        return got, state
+
+    # 21. softq: each config's block, sync-free; its Q moves and stays finite
+    runs = {}
+    for name, path in SOFTQ_CONFIGS.items():
+        exp = hconfig.load_config(path)
+        e = envs.make(exp["env_name"], device=device)
+        es = e.init(e.params, 1)
+        s = hconfig.make_solver_for_env(exp, "softq", e)
+        solve, state0 = solvers.make_solve_fn(s, e), s.init_state(0)
+        got, state = sync_free_run("softq", solve, s, e, es, state0, config=path, lam=s.lam,
+                                   lr=s.lr, n_grad_steps=s.n_grad_steps, grad_clip=s.grad_clip)
+        moved = max(float((a - b).abs().max()) for a, b in zip(state.q_params, state0.q_params))
+        finite = all(bool(torch.isfinite(x).all()) for x in state.q_params)
+        emit("softq_q", env=name, q_moved=moved, q_finite=finite)
+        if got != expected(noise=ZOO_SOLVES * s.n_iters) or not moved > 0 or not finite:
+            raise RuntimeError(f"softq {name}: launches {got}, Q moved {moved}, finite {finite}")
+        runs[f"softq_{name}"] = (solve, s, e, es)
+
+    # 22. RandomShootingNN on the pendulum: one noise-kernel launch a solve
+    pend = envs.make("SimplePendulum-v0", device=device)
+    s = solvers.RandomShootingNN(d_obs=pend.d_obs, d_action=pend.d_action, device=device, **RSNN)
+    solve, es = solvers.make_solve_fn(s, pend), pend.init(pend.params, 1)
+    got, state = sync_free_run("rsnn", solve, s, pend, es, s.init_state(0),
+                               hidden=list(RSNN["hidden"]))
+    if got != expected(noise=ZOO_SOLVES) or not bool(torch.isfinite(state.mean).all()):
+        raise RuntimeError(f"rsnn: launches {got}, expected {expected(noise=ZOO_SOLVES)}")
+    runs["rsnn_SimplePendulum-v0"] = (solve, s, pend, es)
+
+    # 23. SACMPC on the reacher at its defaults: MPPIQ with the SAC Q on
+    # kernel #3, once a control step; the SAC Q-loss falls; then sacq_eval
+    reacher = envs.make("reacher_7dof-v0", device=device)
+    m = SACMPC(reacher, seed=0)
+    es = reacher.init(reacher.params, 1)
+
+    def sac_solve(params, env_state, state):
+        return m.solve_with_q(params, env_state, state, m.sac_params.q)
+
+    got, _ = sync_free_run("sac_mpc_solve", sac_solve, m.solver, reacher, es,
+                           m.solver.init_state(0))
+    if got != expected(obs=ZOO_SOLVES, noise=ZOO_SOLVES):
+        raise RuntimeError(f"sac_mpc solve: launches {got}")
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    rewards = m.train(**SAC_TRAIN)
+    seconds = time.perf_counter() - t0
+    got, steps = counts(), SAC_TRAIN["n_steps"]
+    losses = [float(i["q_loss"]) for i in m.update_info]
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    emit("sac_mpc", env=reacher.name, h=m.horizon, n=m.num_particles, batch=m.batch_size,
+         **SAC_TRAIN, launches=got, obs_launches_per_control_step=got["obs"] / steps,
+         episode_rewards=rewards, updates=len(losses), q_loss_first10=first,
+         q_loss_last10=last, alpha=float(m.update_info[-1]["alpha"]), seconds=seconds,
+         control_steps_per_s=steps / seconds, card=smi)
+    want = expected(obs=steps, noise=steps)
+    if (got != want or len(rewards) != 2 or not np.isfinite(rewards).all()
+            or len(losses) != steps - SAC_TRAIN["min_buffer"] + 1 or not last < first):
+        raise RuntimeError(f"sac_mpc train: launches {got}, expected {want}, rewards {rewards}, "
+                           f"Q-loss {first} -> {last}")
+    runs["sac_mpc_reacher_7dof-v0"] = (sac_solve, m.solver, reacher, es)
+    reset_counts(*counters)
+    t0 = time.perf_counter()
+    rows = sacq_eval.main(SACQ_EVAL)
+    got = counts()
+    # training's control steps and the MPPIQ+SAC-Q arm on #3, the other two
+    # arms on #1, one noise launch every solve
+    want = expected(obs=SACQ_TRAIN + SACQ_STEPS, chain=2 * SACQ_STEPS,
+                    noise=SACQ_TRAIN + 3 * SACQ_STEPS)
+    emit("sacq_eval", args=SACQ_EVAL, rows=rows, launches=got, seconds=time.perf_counter() - t0)
+    if got != want or [r["arm"] for r in rows] != ["mppi", "mppiq", "mppiq+sacq"] or not all(
+            np.isfinite(r["avg_reward"]) for r in rows):
+        raise RuntimeError(f"sacq_eval: launches {got}, expected {want}, rows {rows}")
+    graph = {k: runs[k] for k in ("softq_cartpole-v0", "rsnn_SimplePendulum-v0")}
+    return runs, {k: (solve, e, es, s.init_state(0)) for k, (solve, s, e, es) in graph.items()}
+
+
+LEARNED_HEAVY = "softq_sawyer_reacher-v0"
+
+
+def learned_timing(runs, smi: str) -> None:
+    """Read-verified solves/s and the profiler's kernels, device ms and
+    busy share per solve of the learned-model runs but LEARNED_HEAVY: its
+    solve runs the engine's general rollout, tens of thousands of launches
+    that take the profiler minutes to read back, so its rate is that of
+    its 3 sync-free solves of phase 21 and tools/learned_runs.py --only
+    profile profiles it. Printed, not asserted."""
+    for key, (solve, s, e, es) in runs.items():
+        if key == LEARNED_HEAVY:
+            continue
+        rate, windows, _ = solves_per_s(solve, e, es, s.init_state(0), 5, 3)
+        emit("learned_solves_per_s", run=key, env=e.name, n=s.num_particles, h=s.horizon,
+             card=smi, solves_per_s=rate, windows=windows)
+        profile(solve, e, es, s.init_state(0), smi, 5, 1, run=key, env=e.name)
 
 
 def analytic_timing(runs, smi: str, device) -> None:
@@ -1662,6 +1823,9 @@ def main() -> int:
     # 13-15. the analytic envs' configs, iLQR on LQR, checkpoints
     analytic_runs, analytic_graph = analytic_phases(device, counters, counts, expected, smi)
 
+    # 21-23. the learned-model family: softq, RSNN, SACMPC and sacq_eval
+    learned_runs, learned_graph = learned_phases(device, counters, counts, expected, smi)
+
     # 16. one solve of each family captured as a CUDA graph and replayed
     graph_solves = {
         "mppi_kernel_noise_guarded": (solvers.guard_finite(solvers.make_solve_fn(solver_k, env),
@@ -1679,6 +1843,7 @@ def main() -> int:
         solve, s, e, es, _, _ = hand_runs[name]
         graph_solves[f"mppi_{name}"] = (solve, e, es, s.init_state(0))
     graph_solves.update(analytic_graph)
+    graph_solves.update(learned_graph)
     graph_results = {}
     for name, (solve, e, es, state) in graph_solves.items():
         reset_counts(*counters)
@@ -1883,6 +2048,8 @@ def main() -> int:
 
     # the analytic configs' solves, iLQR on LQR and the analytic env steps
     analytic_timing(analytic_runs, smi, device)
+    # the learned-model runs
+    learned_timing(learned_runs, smi)
 
     # where a solve's time goes: host clock per stage, synchronised
     for which, s in (("plain_noise", solver), ("kernel_noise", solver_k)):

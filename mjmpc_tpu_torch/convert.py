@@ -9,7 +9,8 @@ PusherState, the sawyer and the hand DoorParams and DoorState,
 TrayGlassParams, TrayGlassState, PendulumParams, PendulumState, LQRParams,
 LQRState, PointMassParams, PointMassState, CartpoleParams, CartpoleState,
 MazeParams, MazeState, AcrobotParams, AcrobotState, TrajoptReacherParams,
-TrajoptReacherState or ILQRState does;
+TrajoptReacherState, ILQRState, QuadraticQParams, an MLP or ensemble layer
+list, SACParams, SoftQState or RSNNState does;
 models with ball and free joints keep the JAX layout: qpos [nq] with
 quaternions in wxyz order, per-DOF arrays [nv], limits [nq]). This module
 never imports jax; tests use it so that both packages compute on the same
@@ -33,10 +34,14 @@ from .envs.reacher_7dof import ReacherState
 from .envs.relocate import RelocateParams, RelocateState
 from .envs.sawyer_tasks import PegParams, PegState
 from .envs.swimmer import _VEL_LIMIT, SwimmerParams, SwimmerState
+from .models import EnsembleLayerParams, MLPLayerParams, QuadraticQParams
 from .ops.pendulum import PARAM_FIELDS as _PENDULUM_FIELDS
 from .policies.linear_gaussian import LGPolicyParams
+from .rl.sac import SACParams, adam_init
 from .solvers.base import GaussianState
 from .solvers.ilqr import ILQRState
+from .solvers.random_shooting_nn import RSNNState
+from .solvers.softq import SoftQState
 from .solvers.reinforce import ReinforceState
 from .value_functions import VFParams
 
@@ -337,4 +342,52 @@ def ilqr_state_from_reference(state, seed: int = 0, device="cuda") -> ILQRState:
     """A reference ILQRState (mean, step, key) as the port's; the port's
     streams start from `seed`."""
     return ILQRState(mean=_t(state.mean, device),
+                     step=rng.step_tensor(int(np.asarray(state.step)), device), seed=int(seed))
+
+
+def quadratic_q_params_from_reference(params, device="cuda") -> QuadraticQParams:
+    """A reference QuadraticQParams (l_packed, j, c) as the port's."""
+    return QuadraticQParams(l_packed=_t(params.l_packed, device), j=_t(params.j, device),
+                            c=_t(params.c, device))
+
+
+def mlp_params_from_reference(layers, device="cuda"):
+    """A reference MLP's layer list (weight [in, out], bias [out]) as the
+    port's list of MLPLayerParams."""
+    return [MLPLayerParams(weight=_t(lyr.weight, device), bias=_t(lyr.bias, device))
+            for lyr in layers]
+
+
+def ensemble_params_from_reference(layers, device="cuda"):
+    """A reference EnsembleMLP's layer list (weight [E, in, out], bias [E,
+    1, out]) as the port's list of EnsembleLayerParams."""
+    return [EnsembleLayerParams(weight=_t(lyr.weight, device), bias=_t(lyr.bias, device))
+            for lyr in layers]
+
+
+def sac_params_from_reference(params, device="cuda") -> SACParams:
+    """A reference SACParams' networks and log_alpha as the port's, with
+    fresh optimiser states (the optax states are not carried over)."""
+    policy = mlp_params_from_reference(params.policy, device)
+    q = tuple(mlp_params_from_reference(net, device) for net in params.q)
+    log_alpha = _t(params.log_alpha, device)
+    return SACParams(policy=policy, q=q,
+                     q_target=tuple(mlp_params_from_reference(net, device)
+                                    for net in params.q_target),
+                     log_alpha=log_alpha, policy_opt=adam_init(policy), q_opt=adam_init(q),
+                     alpha_opt=adam_init(log_alpha))
+
+
+def softq_state_from_reference(state, seed: int = 0, device="cuda") -> SoftQState:
+    """A reference SoftQState as the port's; the port's streams start from
+    `seed` (the reference PRNG key has no torch counterpart)."""
+    return SoftQState(q_params=quadratic_q_params_from_reference(state.q_params, device),
+                      step=rng.step_tensor(int(np.asarray(state.step)), device), seed=int(seed))
+
+
+def rsnn_state_from_reference(state, seed: int = 0, device="cuda") -> RSNNState:
+    """A reference RSNNState as the port's; the port's streams start from
+    `seed`."""
+    return RSNNState(mean=_t(state.mean, device),
+                     policy_params=mlp_params_from_reference(state.policy_params, device),
                      step=rng.step_tensor(int(np.asarray(state.step)), device), seed=int(seed))

@@ -55,8 +55,9 @@ def _decode(entry, like, npz, where: str):
     if isinstance(like, (list, tuple)):
         if len(entry.get("list", ())) != len(like):
             raise mismatch(f"expected a list of {len(like)}")
-        return type(like)(_decode(e, v, npz, f"{where}[{i}]")
-                          for i, (e, v) in enumerate(zip(entry["list"], like)))
+        items = [_decode(e, v, npz, f"{where}[{i}]")
+                 for i, (e, v) in enumerate(zip(entry["list"], like))]
+        return type(like)(*items) if hasattr(like, "_fields") else type(like)(items)
     if "value" not in entry:
         raise mismatch("expected a host value")
     return entry["value"]

@@ -1,3 +1,5 @@
-from .engine import Trajectories, rollout_closed_loop_linear, rollout_open_loop
+from .engine import (Trajectories, make_rollout_fn, rollout_closed_loop_linear,
+                     rollout_closed_loop_policy, rollout_open_loop)
 
-__all__ = ["Trajectories", "rollout_closed_loop_linear", "rollout_open_loop"]
+__all__ = ["Trajectories", "make_rollout_fn", "rollout_closed_loop_linear",
+           "rollout_closed_loop_policy", "rollout_open_loop"]

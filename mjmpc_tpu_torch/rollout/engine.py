@@ -6,6 +6,7 @@ Counterpart of mjmpc_tpu/rollout/engine.py, with the same semantics:
 - open loop, u[b, t] = mean[t] + noise[b, t];
 - closed-loop-linear, u[b, t] = W^T [obs_b(t); 1] + noise[b, t], with
   obs_b(t) the observation of the state entering step t;
+- closed-loop under any policy, u[b, t] = policy(obs_b(t)) + noise[b, t];
 - recorded actions are the pre-clip commanded actions (the env clips);
 - costs are negated rewards, taken on the post-step state.
 """
@@ -73,3 +74,29 @@ def rollout_closed_loop_linear(env: Env, params, state0, weights: torch.Tensor,
     u = [obs; 1] @ weights + noise."""
     return _scan_rollout(env, params, state0, noise,
                          lambda t, obs: obs @ weights[:-1] + weights[-1])
+
+
+def rollout_closed_loop_policy(env: Env, params, state0, policy_fn,
+                               noise: torch.Tensor) -> Trajectories:
+    """Closed-loop rollout under any policy: u = policy_fn(obs) + noise,
+    policy_fn mapping an observation batch [N, d_obs] to actions [N, dA]
+    (an MLP policy, SoftQMPC's Q-induced mean)."""
+    return _scan_rollout(env, params, state0, noise, lambda t, obs: policy_fn(obs))
+
+
+def make_rollout_fn(env: Env, mode: str = "open_loop"):
+    """The env bound into a rollout (params, state0, mean, noise) ->
+    Trajectories, the reference's injected rollout_fn contract; `mean` is
+    the open-loop mean [H, dA], the linear weights [d_obs + 1, dA] or the
+    policy callable, by mode."""
+    rollouts = {"open_loop": rollout_open_loop,
+                "closed_loop_linear": rollout_closed_loop_linear,
+                "closed_loop_policy": rollout_closed_loop_policy}
+    if mode not in rollouts:
+        raise ValueError(f"unknown rollout mode {mode!r}")
+    rollout = rollouts[mode]
+
+    def fn(params, state0, mean, noise):
+        return rollout(env, params, state0, mean, noise)
+
+    return fn

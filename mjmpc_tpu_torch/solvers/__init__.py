@@ -1,8 +1,10 @@
 """Solvers: the open-loop family (GaussianMPC: MPPI, MPPIQ, RandomShooting,
-CEM, DMD), PFMPC, the closed-loop Reinforce and iLQR, with the registry of
-mjmpc_tpu/solvers/__init__.py for the ported names."""
+CEM, DMD), PFMPC, the closed-loop Reinforce and iLQR, and the learned-model
+family (SoftQMPC, RandomShootingNN), with the registry of
+mjmpc_tpu/solvers/__init__.py."""
 from .base import (GaussianMPC, GaussianState, build_optimal_value_fn,
-                   build_solve_fn, evaluate_episode, guard_finite)
+                   build_solve_fn, evaluate_episode, guard_finite, map_tensors,
+                   tensor_leaves)
 from .cem import CEM
 from .dmd import DMDMPC
 from .ilqr import ILQR, ILQRState
@@ -14,6 +16,10 @@ from .pfmpc import build_solve_fn as build_pf_solve_fn
 from .random_shooting import RandomShooting
 from .reinforce import Reinforce, ReinforceState
 from .reinforce import build_solve_fn as build_reinforce_solve_fn
+from .random_shooting_nn import RandomShootingNN, RSNNState
+from .random_shooting_nn import build_solve_fn as build_rsnn_solve_fn
+from .softq import SoftQMPC, SoftQState
+from .softq import build_solve_fn as build_softq_solve_fn
 
 REGISTRY = {
     "mppi": MPPI,
@@ -24,11 +30,15 @@ REGISTRY = {
     "gaussian_dmd": DMDMPC,
     "pfmpc": PFMPC,
     "reinforce": Reinforce,
+    "softqmpc": SoftQMPC,
+    "softq": SoftQMPC,       # the reference configs' section name
+    "random_shooting_nn": RandomShootingNN,
     "ilqr": ILQR,
 }
 
-# Controllers of the JAX package's registry that the port lacks so far.
-NOT_PORTED = ("softqmpc", "softq", "random_shooting_nn")
+# Controllers of the JAX package's registry that the port lacks: none since
+# the learned-model family landed.
+NOT_PORTED = ()
 
 
 def solver_class(name: str):
@@ -56,6 +66,11 @@ def make_solve_fn(solver, env, **kwargs):
         kwargs.pop("calc_val", None)
         kwargs.pop("hotstart", None)   # the reference's shift is a no-op
         return build_reinforce_solve_fn(solver, env, **kwargs)
+    if isinstance(solver, (SoftQMPC, RandomShootingNN)):
+        for k in ("calc_val", "hotstart", "fused"):   # no value, a fixed shift, no kernel
+            kwargs.pop(k, None)
+        build = build_softq_solve_fn if isinstance(solver, SoftQMPC) else build_rsnn_solve_fn
+        return build(solver, env, **kwargs)
     if isinstance(solver, ILQR):
         for k in ("calc_val", "hotstart", "fused"):   # iLQR samples and fuses nothing
             kwargs.pop(k, None)
@@ -69,6 +84,7 @@ __all__ = [
     "GaussianMPC", "GaussianState", "build_solve_fn", "evaluate_episode",
     "build_optimal_value_fn", "guard_finite", "MPPI", "MPPIQ", "RandomShooting",
     "CEM", "DMDMPC", "PFMPC", "PFState", "Reinforce", "ReinforceState", "ILQR",
-    "ILQRState", "REGISTRY",
+    "ILQRState", "SoftQMPC", "SoftQState", "RandomShootingNN", "RSNNState",
+    "tensor_leaves", "map_tensors", "REGISTRY",
     "NOT_PORTED", "solver_class", "make_solver", "make_solve_fn",
 ]

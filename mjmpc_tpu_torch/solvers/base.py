@@ -243,11 +243,49 @@ def build_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False,
     return solve
 
 
+def tensor_leaves(x, prefix: str = "") -> dict:
+    """{path: tensor} of every tensor in a solver state: the tensor fields
+    of a dataclass and, nested in them, the fields of NamedTuples and the
+    items of tuples and lists (the learned-model solvers' parameters and
+    layer lists), each under its dotted path."""
+    if isinstance(x, torch.Tensor):
+        return {prefix: x}
+    if dataclasses.is_dataclass(x):
+        items = [(f.name, getattr(x, f.name)) for f in dataclasses.fields(x)]
+    elif isinstance(x, tuple) and hasattr(x, "_fields"):
+        items = list(zip(x._fields, x))
+    elif isinstance(x, (tuple, list)):
+        items = list(enumerate(x))
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(tensor_leaves(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def map_tensors(fn, x, *others):
+    """x with every tensor leaf t replaced by fn(t, *the same leaf of each
+    of `others`), which share x's structure; other values as in x."""
+    if isinstance(x, torch.Tensor):
+        return fn(x, *others)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: map_tensors(fn, getattr(x, f.name), *(getattr(o, f.name) for o in others))
+            for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        items = [map_tensors(fn, v, *(o[i] for o in others)) for i, v in enumerate(x)]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return x
+
+
 def guard_finite(solve, solver):
     """Failure-recovery wrapper (JAX base.py guard_finite): when a solve
     gives a non-finite action, value or state tensor (a diverged rollout, a
     collapsed covariance), play a zero action with value 0 and reset the
     control distribution to init_state's; `step` advances in every case.
+    Tensors nested in the state (the learned-model solvers' parameters) are
+    checked and reset with the rest.
 
     The check is one device-side boolean and the choice a torch.where per
     tensor, and the step advances by a device add, so the guard reads
@@ -262,17 +300,16 @@ def guard_finite(solve, solver):
     def guarded(env_params, env_state, solver_state):
         action, value, new_state = solve(env_params, env_state, solver_state)
         ok = torch.isfinite(action).all() & torch.isfinite(value).all()
-        tensors = {f.name: getattr(new_state, f.name)
-                   for f in dataclasses.fields(new_state)
-                   if f.name != "step"
-                   and isinstance(getattr(new_state, f.name), torch.Tensor)}
-        for x in tensors.values():
-            if x.is_floating_point():
-                ok = ok & torch.isfinite(x).all()
+        names = [f.name for f in dataclasses.fields(new_state) if f.name != "step"]
+        for name in names:
+            for x in tensor_leaves(getattr(new_state, name)).values():
+                if x.is_floating_point():
+                    ok = ok & torch.isfinite(x).all()
         fresh = solver.init_state(solver_state.seed)
+        where = lambda good, bad: torch.where(ok, good, bad)
         recovered = dataclasses.replace(
             new_state, step=solver_state.step + 1,
-            **{k: torch.where(ok, x, getattr(fresh, k)) for k, x in tensors.items()})
+            **{k: map_tensors(where, getattr(new_state, k), getattr(fresh, k)) for k in names})
         return (torch.where(ok, action, torch.zeros_like(action)),
                 torch.where(ok, value, torch.zeros_like(value)), recovered)
 

@@ -2,11 +2,12 @@
 (harness/config.py, run_mpc.py), after tests/test_reference_configs.py:
 each controller section builds its solver, cut to N = 8, H = 4, and its
 solve, or raises NotImplementedError because the port lacks the env
-(envs.NOT_PORTED) or the controller (solvers.NOT_PORTED). A ValueError
-(an unknown env or controller) fails. The configs whose every part is
-ported also run through run_mpc, cut to one step; SimplePendulum-v0's
-five controllers among them, and the analytic configs' (cartpole's iLQR
-among them).
+(envs.NOT_PORTED) or the controller (solvers.NOT_PORTED); both lists are
+empty since the learned-model family landed, so every section builds. A
+ValueError (an unknown env or controller) fails. The configs' controllers
+also run through run_mpc, cut to one step; SimplePendulum-v0's five
+controllers among them, the analytic configs' (cartpole's iLQR and softq
+among them) and the sawyer reacher's softq.
 
 The port's env names and its not-ported list together are the JAX
 package's registry, so the two cannot drift apart.
@@ -41,22 +42,10 @@ def _experiments():
 
 
 EXPERIMENTS = _experiments()
-# The configs whose env and every controller are ported.
-LOADING = ["configs/HalfCheetah-v0.yml", "configs/SimplePendulum-v0.yml",
-           "configs/Swimmer-v0.yml", "configs/cartpole-v0_cl.yml",
-           "configs/classic_control/acrobot-v0.yml", "configs/hand/door-v0.yml",
-           "configs/hand/hammer-v0.yml", "configs/hand/pen-v0.yml",
-           "configs/hand/relocate-v0.yml", "configs/panda/reacher-v0.yml",
-           "configs/panda/tray_glass-v0.yml", "configs/panda/tray_glass-v1.yml",
-           "configs/panda/tray_glass-v1_biased_model.yml",
-           "configs/panda/tray_glass_fixed-v1.yml", "configs/point_mass-v0.yml",
-           "configs/reacher_7dof-v0.yml", "configs/sawyer/sawyer_door-v0.yml",
-           "configs/sawyer/sawyer_peg_insertion-v0.yml",
-           "configs/sawyer/sawyer_peg_insertion-v0_cl.yml",
-           "configs/sawyer/sawyer_peg_insertion-v1.yml", "configs/sawyer/sawyer_pusher-v0.yml",
-           "configs/trajopt_reacher-v0.yml", "configs/tune/door-v0.yml",
-           "configs/tune/door-v0_grid3.yml", "configs/tune/hammer-v0.yml",
-           "configs/tune/relocate-v0.yml", "configs/tune/tray_glass-v0.yml"]
+# The configs whose env and every controller are ported: all of them since
+# the learned-model family (softq) landed.
+LOADING = sorted(p for p in glob.glob("configs/**/*.yml", recursive=True)
+                 if "env_name" in cfg.load_config(p))
 
 
 def _not_ported(exp, controller):
@@ -68,7 +57,8 @@ def test_every_experiment_config_is_enumerated():
     assert len(paths) == 29 and len(EXPERIMENTS) == 70
     loading = sorted(p for p in paths if not any(
         _not_ported(cfg.load_config(p), c) for q, c in EXPERIMENTS if q == p))
-    assert loading == LOADING
+    assert loading == LOADING and len(LOADING) == 29
+    assert solvers.NOT_PORTED == () and envs.NOT_PORTED == ()
 
 
 @pytest.mark.parametrize("path,controller", EXPERIMENTS,
@@ -105,7 +95,7 @@ def _one_step_config(tmp_path, src):
     ("configs/point_mass-v0.yml", ("random_shooting", "mppi", "cem")),
     ("configs/trajopt_reacher-v0.yml", ("mppi", "random_shooting", "cem")),
     ("configs/classic_control/acrobot-v0.yml", ("random_shooting", "mppi")),
-    ("configs/classic_control/cartpole-v0.yml", ("ilqr", "mppi", "reinforce")),
+    ("configs/classic_control/cartpole-v0.yml", ("ilqr", "mppi", "reinforce", "softq")),
 ])
 def test_run_mpc_runs_a_step_of_each_controller(tmp_path, src, controllers):
     path = _one_step_config(tmp_path, src)
@@ -118,13 +108,21 @@ def test_run_mpc_runs_a_step_of_each_controller(tmp_path, src, controllers):
 
 @pytest.mark.parametrize("controllers", ["ilqr,softq", "softq"], ids=["ilqr", "softq"])
 def test_run_mpc_raises_for_the_sawyer_reacher_controllers_not_ported(tmp_path, controllers):
-    """softq is not ported: run_mpc raises, and builds every controller's
-    solver before it runs any, so with ilqr (ported since) first in the
-    list it raises before an iLQR episode starts."""
-    with pytest.raises(NotImplementedError, match="softq"):
-        run_mpc.main(["--config", "configs/sawyer/sawyer_reacher-v0.yml", "--controller",
-                      controllers, "--device", DEVICE, "--save_dir", str(tmp_path)])
-    assert not list(tmp_path.iterdir())     # no log directory: nothing ran
+    """softq is ported: run_mpc builds and runs the sawyer reacher's softq
+    section (after ilqr when both are asked for), cut to N = 8, H = 4 and
+    one step, with finite rewards; its solver is a SoftQMPC with the
+    section's 8 gradient steps and clip. (The name is the test's from
+    before softq was ported, when these cases had to raise.)"""
+    path = _one_step_config(tmp_path, "configs/sawyer/sawyer_reacher-v0.yml")
+    results = run_mpc.main(["--config", path, "--controller", controllers, "--device", DEVICE,
+                            "--save_dir", str(tmp_path)])
+    assert tuple(results) == tuple(controllers.split(","))
+    for out in results.values():
+        assert out["rewards"].shape == (1, 1) and np.isfinite(out["rewards"]).all()
+    exp = cfg.load_config("configs/sawyer/sawyer_reacher-v0.yml")
+    solver = cfg.make_solver_for_env(exp, "softq", envs.make(exp["env_name"], device=DEVICE))
+    assert isinstance(solver, solvers.SoftQMPC)
+    assert (solver.n_grad_steps, solver.grad_clip, solver.num_particles) == (8, 10.0, 64)
 
 
 def test_env_names_are_the_jax_registry():

@@ -851,3 +851,92 @@ def test_checkpoint_restores_the_next_solve_bit_for_bit(device, name, tmp_path):
     for a, b in zip(cont[:2], rest[:2]):
         assert torch.equal(a, b)
     assert torch.equal(cont[2].mean, rest[2].mean) and torch.equal(cont[2].step, rest[2].step)
+
+
+def _learned_family(name, device):
+    """(solve, env, env state, solver state) of the learned-model family at
+    the sizes chip_smoke.py runs them: SoftQMPC with the cartpole config's
+    softq block, RandomShootingNN on the pendulum, SACMPC's MPPIQ solve with
+    its SAC Q on the reacher (kernel #3)."""
+    from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.rl import SACMPC
+    smoke = _chip_smoke()
+    if name == "softq_cartpole-v0":
+        exp = hconfig.load_config(smoke.SOFTQ_CONFIGS["cartpole-v0"])
+        env = envs.make("cartpole-v0", device=device)
+        solver = hconfig.make_solver_for_env(exp, "softq", env)
+        return solvers.make_solve_fn(solver, env), env, env.init(env.params, 1), solver
+    if name == "rsnn_SimplePendulum-v0":
+        env = envs.make("SimplePendulum-v0", device=device)
+        solver = solvers.RandomShootingNN(d_obs=3, d_action=1, device=device, **smoke.RSNN)
+        return solvers.make_solve_fn(solver, env), env, env.init(env.params, 1), solver
+    env = envs.make("reacher_7dof-v0", device=device)
+    m = SACMPC(env, seed=0)
+
+    def solve(params, es, state):
+        return m.solve_with_q(params, es, state, m.sac_params.q)
+
+    return solve, env, env.init(env.params, 1), m.solver
+
+
+LEARNED = {"softq_cartpole-v0": dict(noise=3), "rsnn_SimplePendulum-v0": dict(noise=3),
+           "sac_mpc_reacher_7dof-v0": dict(noise=3, obs=3)}
+
+
+@pytest.mark.parametrize("name", sorted(LEARNED))
+def test_learned_solves_launch_their_kernels_without_host_syncs(device, name):
+    """3 solves after a warm-up, under set_sync_debug_mode("error"): the
+    noise kernel (#2) once a solve; SACMPC's MPPIQ with the SAC Q also the
+    obs rollout (#3) once a solve and no costs-only rollout."""
+    solve, env, es, solver = _learned_family(name, device)
+    state = solver.init_state(0)
+    solve(env.params, es, state)
+    before = (FilteredNoise.launches, ChainObsRollout.launches, ChainRollout.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            action, _, state = solve(env.params, es, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = dict(noise=FilteredNoise.launches - before[0], obs=ChainObsRollout.launches - before[1],
+               chain=ChainRollout.launches - before[2])
+    assert got == dict(dict(noise=0, obs=0, chain=0), **LEARNED[name])
+    assert bool(torch.isfinite(action).all()) and int(state.step) == 3
+
+
+def test_sacmpc_solve_replays_as_a_cuda_graph_with_the_q_of_each_call(device):
+    """SACMPC's solve_with_q captured as a CUDA graph with static Q params:
+    replays from the same start, with the static Q set to the SAC Q and
+    then to a shifted one, equal the eager solves with those Qs bit for bit
+    and differ from each other (the planner never reads a stale Q)."""
+    from mjmpc_tpu_torch.rl import SACMPC
+    smoke = _chip_smoke()
+    env = envs.make("reacher_7dof-v0", device=device)
+    m = SACMPC(env, seed=0)
+    es, start = env.init(env.params, 1), m.solver.init_state(0)
+    q = m.sac_params.q
+    shifted = solvers.map_tensors(lambda x: x + 0.05, q)
+    static_q = solvers.map_tensors(torch.clone, q)
+    graph, out, feed = smoke.capture(
+        lambda p, e, st: m.solve_with_q(p, e, st, static_q), env, es, start)
+    actions = []
+    for q_now in (q, shifted):
+        solvers.map_tensors(lambda buf, x: buf.copy_(x), static_q, q_now)
+        solvers.map_tensors(lambda buf, x: buf.copy_(x), feed.static, start)
+        graph.replay()
+        eager = m.solve_with_q(env.params, es, solvers.map_tensors(torch.clone, start), q_now)
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[2].mean, eager[2].mean)
+        actions.append(out[0].clone())
+    assert not torch.equal(actions[0], actions[1])
+
+
+@pytest.mark.parametrize("name", ["softq_cartpole-v0", "rsnn_SimplePendulum-v0"])
+def test_learned_solve_replays_as_a_cuda_graph(device, name):
+    """5 replays equal 5 eager solves bit for bit (the Q's and the MLP's
+    nested parameters fed back with the rest of the state); two replays at
+    successive steps draw different noise."""
+    solve, env, es, solver = _learned_family(name, device)
+    fields = _chip_smoke().graph_check(name, solve, env, es, solver.init_state(0))
+    assert fields["identical"] and fields["steps"] == [1, 2, 3, 4, 5]
+    assert fields["max_abs_diff_next_step"] > 0.0

@@ -70,10 +70,20 @@ def test_config_helpers_match_jax():
 
 
 def test_unported_and_unknown_controllers_raise():
+    """An unknown controller or a missing section raises ValueError; the
+    learned-model controllers (ported now) build their solvers from a
+    section, d_obs injected."""
     env = envs.make("Swimmer-v0", device=DEVICE)
-    exp = {"softqmpc": {"horizon": 8}, "mppi": {"horizon": 8}}
-    with pytest.raises(NotImplementedError):
-        cfg.solver_params_from_config(exp, "softqmpc", env)
+    exp = {"softqmpc": {"horizon": 8, "num_particles": 16},
+           "softq": {"horizon": 8, "n_rollouts": 16, "lam": 0.2},
+           "random_shooting_nn": {"horizon": 8, "num_cpu": 2, "particles_per_cpu": 4},
+           "mppi": {"horizon": 8}}
+    for name, cls in (("softqmpc", solvers.SoftQMPC), ("softq", solvers.SoftQMPC),
+                      ("random_shooting_nn", solvers.RandomShootingNN)):
+        solver = cfg.make_solver_for_env(exp, name, env)
+        assert isinstance(solver, cls) and solver.d_obs == env.d_obs
+        assert solver.num_particles == (16 if cls is solvers.SoftQMPC else 8)
+        assert solver.device == env.device and callable(solvers.make_solve_fn(solver, env))
     with pytest.raises(ValueError):
         cfg.solver_params_from_config(exp, "no_such_controller", env)
     with pytest.raises(ValueError):

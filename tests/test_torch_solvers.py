@@ -306,11 +306,15 @@ def test_registry_dispatch_and_errors(env):
     assert solvers.make_solver("gaussian_dmd", **cfg) == solvers.make_solver("dmd", **cfg)
     assert sorted(solvers.REGISTRY) == sorted(["mppi", "mppiq", "random_shooting", "cem",
                                                "dmd", "gaussian_dmd", "pfmpc", "reinforce",
-                                               "ilqr"])
-    assert sorted(solvers.NOT_PORTED) == ["random_shooting_nn", "softq", "softqmpc"]
-    assert set(jsolvers.REGISTRY) == set(solvers.REGISTRY) | set(solvers.NOT_PORTED)
-    with pytest.raises(NotImplementedError, match="softqmpc"):
-        solvers.make_solver("softqmpc", **cfg)
+                                               "ilqr", "softqmpc", "softq",
+                                               "random_shooting_nn"])
+    assert solvers.NOT_PORTED == ()
+    assert set(jsolvers.REGISTRY) == set(solvers.REGISTRY)
+    sq = solvers.make_solver("softqmpc", d_obs=env.d_obs, **cfg)
+    assert isinstance(sq, solvers.SoftQMPC) and solvers.REGISTRY["softq"] is solvers.SoftQMPC
+    action, value, s = solvers.make_solve_fn(sq, env, calc_val=True, hotstart=True)(
+        env.params, env.init(env.params, 0), sq.init_state(0))
+    assert action.shape == (7,) and float(value) == 0.0 and s.step == 1
     rf = solvers.make_solver("reinforce", d_obs=env.d_obs, **cfg)
     assert isinstance(rf, solvers.Reinforce)
     action, value, s = solvers.make_solve_fn(rf, env, calc_val=True, hotstart=False)(

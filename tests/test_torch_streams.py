@@ -48,6 +48,11 @@ SOLVERS = {
                                            .d_obs, d_action=DA, horizon=H, num_particles=N,
                                            filter_coeffs=FILTER, baseline_type=None,
                                            device=DEVICE),
+    "softqmpc": lambda: solvers.SoftQMPC(d_obs=20, d_action=DA, horizon=H, num_particles=N,
+                                         lam=0.1, device=DEVICE),
+    "random_shooting_nn": lambda: solvers.RandomShootingNN(
+        d_obs=20, d_action=DA, horizon=H, num_particles=N, hidden=(8,),
+        filter_coeffs=FILTER, device=DEVICE),
 }
 
 
@@ -127,6 +132,19 @@ def _draw_reinforce(what):
     return draw
 
 
+def _draw_learned(what):
+    solver = SOLVERS["random_shooting_nn" if what == "rsnn" else "softqmpc"]()
+    obs = torch.full((20,), 0.1)
+
+    def draw(seed, step):
+        state = _mppi_state(solver, seed, step)
+        if what == "rsnn":
+            return solver.sample_noise(state)
+        return solver.white_noise(state) if what == "white" else solver.act(state, obs, "sample")
+
+    return draw
+
+
 STREAMS = {
     "mppi_plain_noise": lambda: _draw_mppi("plain"),
     "mppi_kernel_noise": lambda: _draw_mppi("kernel"),
@@ -137,6 +155,9 @@ STREAMS = {
     "pfmpc_random_base_action": lambda: _draw_pf("random"),
     "reinforce_noise": lambda: _draw_reinforce("noise"),
     "reinforce_act_sample": lambda: _draw_reinforce("act"),
+    "softq_white_noise": lambda: _draw_learned("white"),
+    "softq_act_sample": lambda: _draw_learned("act"),
+    "rsnn_noise": lambda: _draw_learned("rsnn"),
 }
 
 
