@@ -204,18 +204,23 @@ exit and no final line:
                pusher, tray-glass v0, v1 and fixed-v1, door-v0 and
                tray-glass-v1-biased-model (planning on fixed-v1) configs at
                full size, one episode cut to 3 control steps: finite
-               rewards, kernel #6's count rising by exactly 3 times the
-               solver's iterations.
+               rewards, kernel #6's count rising by exactly 2 times the
+               solver's iterations. Every episode here and below is a
+               captured control step replayed (harness/episode.py): the
+               host launches its first step, run eagerly, and the captured
+               one; the graph's replays launch the rest (episode_solves).
 18. run_mpc_cl -- run_mpc_cl.main on configs/cartpole-v0_cl.yml and
                configs/sawyer/sawyer_peg_insertion-v0_cl.yml, one episode
                cut to 3 control steps: finite rewards and baseline fit
-               error, the noise kernel's count rising by 3 x n_iters and, on
-               the peg, kernel #4's by 3 x n_iters (4 a solve).
+               error, the noise kernel's count rising by 2 x n_iters and, on
+               the peg, kernel #4's by 2 x n_iters (4 a solve): the
+               replayed episode's host launches.
 19. jobs    -- jobs.main in tune mode on configs/tune/tray_glass-v0.yml
                cut to 2 cells (lam 0.02 and 0.05 at N=512, H=20) x 1
                episode x 2 steps, kernel #6's count rising by 4; in sweep
                mode on configs/point_mass-v0.yml as it is (1 cell, 5
-               episodes x 25 steps).
+               episodes x 25 steps, the noise kernel's count rising by 2 an
+               episode).
 21. softq   -- SoftQMPC with the softq blocks of
                configs/classic_control/cartpole-v0.yml (N=64, H=16, lam 0.2,
                lr 0.01) and configs/sawyer/sawyer_reacher-v0.yml (N=64,
@@ -235,10 +240,46 @@ exit and no final line:
                from 100 transitions on: #3 and the noise kernel exactly 200
                times, 101 updates, the mean of the last 10 Q-losses below the
                first 10's; then harness/sacq_eval.main on the reacher (40
-               training steps, one 20-step episode per arm, H=16, N=256):
-               #3 60 times (training and the mppiq+sacq arm), #1 40 (the
-               mppi and mppiq arms), the noise kernel 100. Phases 21-23 run
-               after phase 15, before the graph phase.
+               training steps, one 20-step episode per arm, H=16, N=256,
+               each replayed): #3 42 times (training and the mppiq+sacq
+               arm), #1 4 (the mppi and mppiq arms), the noise kernel 46.
+               Phases 21-23 run after phase 15, before the graph phase.
+24. dyn_kernel -- kernels built from perturbed models (envs.
+               randomize_dynamics from seed 123, each env's kernels rebuilt
+               from its own model by Env.with_params; their libraries built
+               with the others in phase 2): #1 for the reacher
+               (configs/dyn_randomize/reacher_7dof.yml) at (37, 5) and N=1,
+               #6 for pen-v0 (hand_pen.yml, from the pinch) and hammer-v0
+               (hand_hammer.yml, held on the nail; the arm-mounted hand, its
+               ptxas smem line printed) at (37, 3) and N=1: each against
+               its plain version (5e-5 for #1, 1e-4 for #6, the nominal
+               checks' tolerances), two launches bit for bit, and against
+               the general rollout (the eager engine) on the perturbed
+               params at the kernel-against-engine tolerance 5e-5; the
+               header differs from the nominal model's, the nominal
+               model's kernel misses the general rollout by more than 10x
+               the tolerance, and the plain version with the actions zeroed
+               misses by more than 10x its tolerance; then the perturbed
+               reacher at the main path's size (1e-3) and both rows' times.
+25. dyn_run_mpc -- run_mpc.main --dyn_randomize_config
+               configs/dyn_randomize/reacher_7dof.yml on the reacher config
+               cut to one 3-step episode: the planner's params are the
+               spec's draw from the config's seed, the real env's are
+               nominal, the perturbed model's #1 launched by every solve
+               the host launches (2) and nothing else but the noise kernel.
+26. episode_replay -- build_episode_fn eager (replay=False) and replayed:
+               the main path (reacher_7dof-v0, MPPI H=32 N=4096, 12 steps)
+               and pen-v0's mppi (4 steps) planning on the perturbed pen:
+               the records, the stacked env states and the final solver
+               state equal bit for bit; control steps/s eager (host clock)
+               and replayed (one replay's device time by CUDA events), with
+               the card's name and power limit.
+27. parallel -- parallel.make_mesh() (the card alone): 3 solves of
+               build_sharded_solve_fn on the main path equal the plain
+               solves bit for bit (#1 once a solve each); the records of
+               build_batch_episode_fn (the reacher config's mppi, seeds 1
+               and 2, 4 steps) equal the single episodes' bit for bit.
+               Phases 24-27 run after phase 19, before the timing.
 20. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
@@ -279,7 +320,10 @@ relocate-v0, hammer-v0, the sawyer door, the pusher, tray-glass v0, v1 and
 fixed-v1, door-v0), each also on a `kernel_forest` line; #7 at the
 pendulum mppi block's N=24, #8 at the closed loop's N=1024, each size on a
 `kernel_pendulum` line, with #7's particles a block and #8's cluster
-size), the nvidia-smi line and {"ok": true, "device": {...}}.
+size; then the two kernels built from perturbed models that the
+randomization and episode paths launch: #1 for the reacher, launched by phase 25, and #6 for pen,
+launched by phase 26's replayed episode), the nvidia-smi line and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -449,6 +493,20 @@ SACQ_STEPS, SACQ_TRAIN = 20, 40
 SACQ_EVAL = ["--env", "reacher_7dof-v0", "--train_steps", str(SACQ_TRAIN),
              "--episodes", "1", "--episode_length", str(SACQ_STEPS), "--horizon", "16",
              "--num_particles", "256"]
+# 24-27. dynamics randomization, the captured episode and parallel/: the
+# specs whose perturbed models get kernels of their own (the configs' seed),
+# the checks of those kernels (N, H), the episodes replayed against eager
+# ones and the mesh of one card's runs
+DYN_SEED = 123
+DYN_REACHER = ("reacher_7dof-v0", "configs/dyn_randomize/reacher_7dof.yml")
+DYN_FOREST = {"pen-v0": ("configs/dyn_randomize/hand_pen.yml", None),
+              "hammer-v0": ("configs/dyn_randomize/hand_hammer.yml", "held")}
+DYN_CHECKS = ((37, 5), (1, 5))           # the reacher's kernel #1
+DYN_FOREST_CHECKS = ((37, 3), (1, 3))    # kernel #6, from the forest checks' starts
+KERNEL_ENGINE_ATOL = 5e-5                # a kernel against the general rollout
+DYN_STEPS = 3                            # run_mpc --dyn_randomize_config's episode
+EPISODE_STEPS = {"reacher_7dof-v0": 12, "pen-v0": 4, "reacher_7dof-v0 perturbed": 6}
+PARALLEL_STEPS = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -863,6 +921,275 @@ def profile(solve, e, es, state, smi: str, solves: int = N_SOLVES, warmup: int =
          device_busy_share=(device_us / 1e6) / wall if wall > 0 else None)
 
 
+def episode_solves(steps: int) -> int:
+    """The solves a replayed episode of `steps` control steps launches from
+    the host: its first step, run eagerly, and the captured one (the
+    replays launch the graph); a one-step episode runs eagerly."""
+    return min(steps, 2)
+
+
+def load_yaml(path: str) -> dict:
+    import yaml
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def tensors_equal(a, b) -> bool:
+    """Whether two states (or records) hold the same tensors bit for bit."""
+    import torch
+    from mjmpc_tpu_torch import solvers
+    la, lb = solvers.tensor_leaves(a), solvers.tensor_leaves(b)
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+
+
+def dyn_envs(device) -> dict:
+    """The perturbed envs of the randomization phases: the reacher and the
+    forest tasks of DYN_FOREST, each env.with_params(the spec's draw from
+    DYN_SEED), with kernels built from the perturbed model."""
+    from mjmpc_tpu_torch import envs
+    out = {}
+    for name, spec in [DYN_REACHER] + [(k, v[0]) for k, v in DYN_FOREST.items()]:
+        out[name] = envs.randomize_dynamics(envs.make(name, device=device), load_yaml(spec),
+                                            base_seed=DYN_SEED)[0]
+    return out
+
+
+def dyn_kernel_phase(device, dyn: dict, errors: dict) -> dict:
+    """24. Kernels built from perturbed models against their plain
+    versions and the general rollout on the perturbed params; returns the
+    `kernels` rows' timings ({name: (ms, plain_ms)})."""
+    import torch
+    from mjmpc_tpu_torch import envs
+    from mjmpc_tpu_torch.rollout.engine import rollout_open_loop
+    cases = [(DYN_REACHER[0], None, n, h) for n, h in DYN_CHECKS]
+    cases += [(name, start, n, h) for name, (_, start) in DYN_FOREST.items()
+              for n, h in DYN_FOREST_CHECKS]
+    for name, start, n, h in cases:
+        e, nominal = dyn[name], envs.make(name, device=device)
+        r, r0 = e.fused_rollout.kernel, nominal.fused_rollout.kernel
+        if name == DYN_REACHER[0]:
+            args = reacher_inputs(n, h, 3, device)
+            state = dataclasses.replace(e.init(e.params, 3), qpos=args[0], qvel=args[1],
+                                        target=args[2])
+            tol = 5e-5
+        else:
+            args = forest_inputs(e, r, n, h, 3, device, start)
+            state = dataclasses.replace(e.init(e.params, 3), qpos=args[0], qvel=args[1])
+            tol = 1e-4      # kernel #6 against its plain version (the forest checks')
+        mean, noise = args[3], args[4]
+        got, again, want = r(*args), r(*args), r.plain(*args)
+        general = rollout_open_loop(e, e.params, state, mean, noise).costs
+        nominal_costs = r0(*args)
+        zeroed = r.plain(*args[:3], torch.zeros_like(mean), torch.zeros_like(noise))
+        torch.cuda.synchronize()
+        diff = lambda a, b: float((a - b).abs().max())
+        team = r.team_for(n, device) if hasattr(r, "team_for") else r.team
+        fields = dict(env=name, n=n, h=h, team=team, max_abs_err=diff(got, want),
+                      engine_err=diff(got, general), nominal_kernel_err=diff(nominal_costs, general),
+                      zeroed_actions_err=diff(zeroed, want), launches_identical=torch.equal(got, again),
+                      atol=tol, engine_atol=KERNEL_ENGINE_ATOL,
+                      header_differs=r.header != r0.header)
+        lib = r.library(team) if hasattr(r, "team_for") else r.library()
+        ptxas = [ln.strip() for ln in lib.ptxas.splitlines()
+                 if re.search(r"registers|spill|smem", ln)]
+        emit("dyn_kernel", **fields, ptxas=ptxas)
+        errors[("dyn", name, n, h)] = fields["max_abs_err"]
+        if not (fields["launches_identical"] and fields["header_differs"]
+                and fields["max_abs_err"] <= tol and fields["engine_err"] <= KERNEL_ENGINE_ATOL):
+            raise RuntimeError(f"perturbed kernel check failed: {fields}")
+        if n > 1 and not (fields["zeroed_actions_err"] > 10 * tol
+                          and fields["nominal_kernel_err"] > 10 * KERNEL_ENGINE_ATOL):
+            raise RuntimeError(f"perturbed kernel check too weak: {fields}")
+    # the `kernels` rows: the reacher at the main path's size, pen at its config's
+    times = {}
+    r = dyn[DYN_REACHER[0]].fused_rollout.kernel
+    args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
+    got = r(*args)
+    want, plain_ms = cuda_call_ms(lambda: r.plain(*args))
+    errors[("dyn", DYN_REACHER[0], NUM_PARTICLES, HORIZON)] = float((got - want).abs().max())
+    if not errors[("dyn", DYN_REACHER[0], NUM_PARTICLES, HORIZON)] <= 1e-3:
+        raise RuntimeError("perturbed reacher kernel disagrees at the main path's size")
+    times["chain_rollout_reacher_perturbed"] = (cuda_ms(lambda: r(*args), N_SOLVES), plain_ms)
+    from mjmpc_tpu_torch import bounds
+    from mjmpc_tpu_torch.ops import forest_rollout as fr
+    r = dyn["pen-v0"].fused_rollout.kernel
+    n, h = bounds.FOREST_SIZES["pen-v0"]
+    args = forest_inputs(dyn["pen-v0"], r, n, h, 0, device)
+    got = r(*args)
+    want, plain_ms = cuda_call_ms(lambda: r.plain(*args))
+    # the nominal pen's rule at this size (phase 10): entries within 1e-3
+    # but for ones a bonus step apart, 99% of them within
+    agree = fr.gated_cost_agreement(got, want, 1e-3, fr.PEN_BONUS_STEPS)
+    errors[("dyn", "pen-v0", n, h)] = float((got - want).abs().max())
+    emit("dyn_kernel", env="pen-v0", n=n, h=h, max_abs_err=errors[("dyn", "pen-v0", n, h)],
+         atol=1e-3, share_within=agree["share_within"],
+         entries_off_by_a_bonus_step=agree["bonus_steps"], entries_off_otherwise=agree["other"])
+    if not (got.shape == (n, h) and agree["share_within"] >= 0.99 and agree["other"] == 0):
+        raise RuntimeError(f"perturbed pen kernel disagrees at its path's size: {agree}")
+    times["forest_rollout_pen_perturbed"] = (cuda_ms(lambda: r(*args), N_SOLVES), plain_ms)
+    return times
+
+
+def dyn_run_mpc_phase(device, counters, counts, expected) -> dict:
+    """25. run_mpc --dyn_randomize_config on the reacher spec, the
+    reacher config cut to one episode of DYN_STEPS steps: the planner's
+    params are the spec's draw from the config's seed, the real env that
+    run_mpc stepped is nominal and its rewards are those of a nominal real
+    env planned on the perturbed one (run_episodes, the same seed), and
+    the perturbed model's kernel #1 runs every solve the host launches."""
+    import torch
+    from mjmpc_tpu_torch import envs, solvers
+    from mjmpc_tpu_torch.envs import randomize
+    from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.harness import run_mpc
+    from mjmpc_tpu_torch.harness.episode import run_episodes
+    name, spec = DYN_REACHER
+    config = "configs/reacher_7dof-v0.yml"
+    real = envs.make(name, device=device)
+    with tempfile.TemporaryDirectory() as out_dir:
+        exp = dict(hconfig.load_config(config), n_episodes=1, max_ep_length=DYN_STEPS)
+        path = cut_config(exp, out_dir, "dyn.yml")
+        s = hconfig.make_solver_for_env(exp, "mppi", real)
+        reset_counts(*counters)
+        t0 = time.perf_counter()
+        out = run_mpc.main(["--config", path, "--controller", "mppi", "--dyn_randomize_config",
+                            spec, "--save_dir", out_dir])["mppi"]
+        seconds = time.perf_counter() - t0
+        got = counts()
+    solves = episode_solves(DYN_STEPS)
+    want = expected(chain=solves * s.n_iters, **noise_launches(s, solves))
+    drawn = randomize.perturbed_params(real, load_yaml(spec), base_seed=exp["seed"])[0]
+    sim = out["sim_params"]
+    sim_ok = (all(torch.equal(getattr(sim.model, f), getattr(drawn.model, f))
+                  for f in ("mass", "inertia", "damping"))
+              and not torch.equal(sim.model.mass, real.params.model.mass))
+    nominal, stepped = (solvers.tensor_leaves(p) for p in (real.params, out["real_params"]))
+    ref = run_episodes(s, real, 1, DYN_STEPS, base_seed=exp["seed"],
+                       sim_env=randomize.randomize_dynamics(real, load_yaml(spec),
+                                                            base_seed=exp["seed"])[0])
+    real_ok = (stepped.keys() == nominal.keys()
+               and all(torch.equal(stepped[k], nominal[k]) for k in nominal)
+               and np.array_equal(out["rewards"], ref["rewards"]))
+    emit("dyn_run_mpc", env=name, config=config, spec=spec, steps=DYN_STEPS,
+         rewards=out["rewards"][0].tolist(), sim_params_drawn=sim_ok, real_params_nominal=real_ok,
+         launches=got, expected=want, seconds=seconds)
+    if got != want or not (sim_ok and real_ok) or not np.isfinite(out["rewards"]).all():
+        raise RuntimeError(f"run_mpc --dyn_randomize_config: launches {got}, expected {want}, "
+                           f"sim {sim_ok}, real {real_ok}")
+    return got
+
+
+def episode_replay_phase(device, counters, counts, smi: str, main_solver, dyn: dict) -> dict:
+    """26. The captured episode against the eager one, bit for bit: the
+    main path (reacher_7dof-v0, MPPI H=32 N=4096), the main path planning
+    on the perturbed reacher (its own kernel #1) and pen-v0's mppi
+    planning on the perturbed pen (its own kernel #6), each eager
+    (replay=False) and replayed; records, stacked states and the final
+    solver state equal; the control-step rates of both (eager by the host
+    clock, replayed from one replay's device time, episode.replay_ms,
+    beside the host clock's over the same replays), after a warm-up
+    episode. Returns each episode's kernel launches: {name: {"eager":
+    the eager run's, one a kernel execution, "replayed": the replayed
+    run's host launches, its first step's and the capture's (a replay
+    executes the captured ones again without counting)}}."""
+    import torch
+    from mjmpc_tpu_torch import envs
+    from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.harness.episode import build_episode_fn
+    pen_exp = hconfig.load_config(FOREST_CONFIGS["pen-v0"])
+    pen = envs.make("pen-v0", device=device)
+    reacher = envs.make("reacher_7dof-v0", device=device)
+    runs = {"reacher_7dof-v0": (main_solver, reacher, None),
+            "reacher_7dof-v0 perturbed": (main_solver, reacher, dyn["reacher_7dof-v0"]),
+            "pen-v0": (hconfig.make_solver_for_env(pen_exp, "mppi", pen), pen, dyn["pen-v0"])}
+    launches = {}
+    for name, (s, e, sim) in runs.items():
+        steps = EPISODE_STEPS[name]
+        sim_params = (sim or e).params
+        out, seconds, launches[name] = {}, {}, {}
+        # a first 2-step replayed episode warms what a capture makes once
+        for key, replay, length in (("warm", True, 2), ("eager", False, steps),
+                                    ("replayed", True, steps)):
+            run = build_episode_fn(s, e, length, sim_env=sim, replay=replay)
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            out[key] = run(e.params, sim_params, 7)
+            torch.cuda.synchronize()
+            seconds[key] = time.perf_counter() - t0
+            launches[name][key] = counts()
+            if key == "replayed":
+                replay_ms, replay_host_ms = run.replay_ms, run.replay_host_ms
+        (rec_e, st_e, fin_e), (rec_r, st_r, fin_r) = out["eager"], out["replayed"]
+        identical = (tensors_equal(rec_e, rec_r) and tensors_equal(st_e, st_r)
+                     and tensors_equal(fin_e, fin_r))
+        kernel = "forest" if name == "pen-v0" else "chain"
+        # one execution a solver iteration, eager; the replayed run's host
+        # launches are its first step's and the capture's
+        launches_ok = (launches[name]["eager"][kernel] == steps * s.n_iters
+                       and launches[name]["replayed"][kernel] == episode_solves(steps) * s.n_iters)
+        fields = dict(env=name, planner=(sim or e).name + (" (perturbed)" if sim else ""),
+                      n=s.num_particles, h=s.horizon, steps=steps, identical=identical,
+                      ep_reward=float(rec_r["reward"].sum()),
+                      eager_steps_per_s=steps / seconds["eager"],
+                      replayed_steps_per_s=1e3 / replay_ms, replay_ms=replay_ms,
+                      replay_host_ms=replay_host_ms,
+                      replayed_episode_s=seconds["replayed"], eager_episode_s=seconds["eager"],
+                      kernel_executions_eager=launches[name]["eager"],
+                      host_launches_replayed=launches[name]["replayed"], card=smi)
+        emit("episode_replay", **fields)
+        if not identical or not bool(torch.isfinite(rec_r["reward"]).all()):
+            raise RuntimeError(f"episode replay of {name} differs from the eager episode")
+        if not launches_ok:
+            raise RuntimeError(f"episode replay of {name}: launches {launches[name]}")
+    return launches
+
+
+def parallel_phase(device, counters, counts, expected, main_solver) -> dict:
+    """27. parallel/ on a mesh of one card: build_sharded_solve_fn's solves
+    (the main path) against the plain solves bit for bit, #1 once a solve;
+    build_batch_episode_fn's records against the single episodes with the
+    same seeds bit for bit (the reacher config's mppi)."""
+    import torch
+    from mjmpc_tpu_torch import envs, parallel, solvers
+    from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.harness.episode import build_episode_fn
+    env = envs.make("reacher_7dof-v0", device=device)
+    mesh = parallel.make_mesh()
+    es = env.init(env.params, 1)
+    plain = solvers.make_solve_fn(main_solver, env)
+    sharded = parallel.build_sharded_solve_fn(main_solver, env, mesh)
+    a = b = main_solver.init_state(0)
+    same = True
+    reset_counts(*counters)
+    for _ in range(ZOO_SOLVES):
+        b_out = sharded(env.params, es, b)
+        a_out = plain(env.params, es, a)
+        same &= tensors_equal(a_out, b_out)
+        a, b = a_out[2], b_out[2]
+    got = counts()
+    want = expected(chain=2 * ZOO_SOLVES, **{k: 2 * v for k, v in
+                                           noise_launches(main_solver, ZOO_SOLVES).items()})
+    exp = hconfig.load_config("configs/reacher_7dof-v0.yml")
+    s = hconfig.make_solver_for_env(exp, "mppi", env)
+    seeds = [1, 2]
+    reset_counts(*counters)
+    batch = parallel.build_batch_episode_fn(s, env, PARALLEL_STEPS, mesh)(env.params, seeds)
+    batch_launches = counts()
+    single = build_episode_fn(s, env, PARALLEL_STEPS)
+    batch_same = all(torch.equal(batch[k][i], single(env.params, env.params, seed)[0][k])
+                     for i, seed in enumerate(seeds) for k in batch)
+    batch_want = len(seeds) * episode_solves(PARALLEL_STEPS) * s.n_iters
+    emit("parallel", mesh=[[str(d) for d in row] for row in mesh.devices],
+         sharded_solves=ZOO_SOLVES, sharded_identical=same, launches=got,
+         batch_shape={k: list(v.shape) for k, v in batch.items()}, batch_identical=batch_same,
+         batch_launches=batch_launches)
+    if not (same and batch_same) or got != want or batch_launches["chain"] != batch_want:
+        raise RuntimeError(f"parallel: sharded {same}, batch {batch_same}, launches {got}, "
+                           f"expected {want}, batch launches {batch_launches}")
+    return batch_launches
+
+
 def lqr_dp(params, h: int, x0):
     """(first optimal action, optimal cost) of the finite-horizon LQR from
     x0 with zero terminal cost, in float64 numpy."""
@@ -1015,7 +1342,8 @@ def analytic_phases(device, counters, counts, expected, smi: str):
             if not ok:
                 raise RuntimeError(f"checkpoint {key}: the restored state's solve differs")
         # under run_mpc's guard each solve draws init_state's mean (one noise
-        # launch), and the episode's start one more
+        # launch), and the episode's start one more; the replayed episode
+        # launches its first step and the captured one
         exp = hconfig.load_config("configs/classic_control/cartpole-v0.yml")
         path = cut_config(exp, out_dir, "cartpole.yml", n_episodes=1, max_ep_length=CL_STEPS)
         reset_counts(*counters)
@@ -1027,7 +1355,7 @@ def analytic_phases(device, counters, counts, expected, smi: str):
              controller="ilqr", steps=CL_STEPS, checkpoint=written,
              rewards=out["rewards"][0].tolist(), launches=counts())
         if (not all(written) or not np.isfinite(out["rewards"]).all()
-                or counts() != expected(noise=CL_STEPS + 1)):
+                or counts() != expected(noise=episode_solves(CL_STEPS) + 1)):
             raise RuntimeError("run_mpc --checkpoint on cartpole's iLQR failed")
 
     graph = {"ilqr_cartpole": runs[("configs/classic_control/cartpole-v0.yml", "ilqr")],
@@ -1051,7 +1379,8 @@ def driver_phases(device, counters, counts, expected):
             out = run_mpc_cl.main(["--config", path, "--save_dir", out_dir])["reinforce"]
             got, n_iters = counts(), exp["reinforce"]["n_iters"]
             fused = exp["env_name"] == "sawyer_peg_insertion-v0"
-            want = expected(noise=CL_STEPS * n_iters, cl=CL_STEPS * n_iters if fused else 0)
+            solves = episode_solves(CL_STEPS)    # the replayed episode's host launches
+            want = expected(noise=solves * n_iters, cl=solves * n_iters if fused else 0)
             emit("run_mpc_cl", config=src, env=exp["env_name"], steps=CL_STEPS, n_iters=n_iters,
                  ep_reward=float(out["ep_rewards"][0]), fit_error=float(out["fit_errors"][0]),
                  launches=got, seconds=time.perf_counter() - t0)
@@ -1070,7 +1399,8 @@ def driver_phases(device, counters, counts, expected):
         best, history = jobs.main(["--config", path, "--controller", "mppi", "--job_mode",
                                    "tune", "--save_dir", out_dir])["mppi"]
         got, cells = counts(), len(history)
-        want = expected(forest=cells * JOBS_STEPS, noise=cells * JOBS_STEPS)
+        solves = cells * episode_solves(JOBS_STEPS)
+        want = expected(forest=solves, noise=solves)
         emit("jobs", mode="tune", config=JOBS_TUNE, cells=cells, steps=JOBS_STEPS, best=best,
              history=history, launches=got, seconds=time.perf_counter() - t0)
         if (cells != 2 or got != want
@@ -1081,7 +1411,7 @@ def driver_phases(device, counters, counts, expected):
         t0 = time.perf_counter()
         rows = jobs.main(["--config", JOBS_SWEEP, "--controller", "mppi", "--job_mode", "sweep",
                           "--save_dir", out_dir])["mppi"]
-        solves = exp["n_episodes"] * exp["max_ep_length"]
+        solves = exp["n_episodes"] * episode_solves(exp["max_ep_length"])
         got = counts()
         emit("jobs", mode="sweep", config=JOBS_SWEEP, rows=rows, launches=got,
              seconds=time.perf_counter() - t0)
@@ -1179,9 +1509,10 @@ def learned_phases(device, counters, counts, expected, smi: str):
     rows = sacq_eval.main(SACQ_EVAL)
     got = counts()
     # training's control steps and the MPPIQ+SAC-Q arm on #3, the other two
-    # arms on #1, one noise launch every solve
-    want = expected(obs=SACQ_TRAIN + SACQ_STEPS, chain=2 * SACQ_STEPS,
-                    noise=SACQ_TRAIN + 3 * SACQ_STEPS)
+    # arms on #1, one noise launch every solve the host launches (each arm's
+    # episode is replayed)
+    arm = episode_solves(SACQ_STEPS)
+    want = expected(obs=SACQ_TRAIN + arm, chain=2 * arm, noise=SACQ_TRAIN + 3 * arm)
     emit("sacq_eval", args=SACQ_EVAL, rows=rows, launches=got, seconds=time.perf_counter() - t0)
     if got != want or [r["arm"] for r in rows] != ["mppi", "mppiq", "mppiq+sacq"] or not all(
             np.isfinite(r["avg_reward"]) for r in rows):
@@ -1311,6 +1642,8 @@ def main() -> int:
     forest_rolls = {name: bounds.forest_builder(name)(forest_envs[name].params.model)
                     for name in FOREST_CONFIGS}
     pend_env = envs.make("SimplePendulum-v0", device=device)
+    dyn = dyn_envs(device)      # the perturbed models' kernels, built with the rest
+    dyn_reacher = dyn[DYN_REACHER[0]].fused_rollout.kernel
     t0 = time.perf_counter()
     # (task, team, builder): the chain libraries at every team size, then
     # one library each
@@ -1321,6 +1654,11 @@ def main() -> int:
         ("cheetah", loco_rolls["HalfCheetah-v0"].library),
         ("pendulum", pend.library))]
     builders += [(f"forest_{name}", None, r.library) for name, r in forest_rolls.items()]
+    builders += [("reacher_perturbed", t, functools.partial(dyn_reacher.library, t))
+                 for t in sorted({dyn_reacher.team_for(n, device)
+                                  for n in [NUM_PARTICLES] + [c[0] for c in DYN_CHECKS]})]
+    builders += [(f"forest_{name}_perturbed", None, dyn[name].fused_rollout.kernel.library)
+                 for name in DYN_FOREST]
     with concurrent.futures.ThreadPoolExecutor(len(builders)) as pool:
         futures = [pool.submit(b) for _, _, b in builders]
         libs = [f.result() for f in futures]
@@ -1889,13 +2227,25 @@ def main() -> int:
                  n=exp["mppi"]["num_cpu"] * exp["mppi"]["particles_per_cpu"],
                  h=exp["mppi"]["horizon"], steps=RUN_MPC_STEPS, rewards=rewards[0].tolist(),
                  launches=counts(), seconds=time.perf_counter() - t0)
-            if counts()["forest"] != RUN_MPC_STEPS * exp["mppi"]["n_iters"]:
+            # a replayed episode launches its first step and the captured one
+            if counts()["forest"] != episode_solves(RUN_MPC_STEPS) * exp["mppi"]["n_iters"]:
                 raise RuntimeError(f"run_mpc {name}: launches {counts()}")
             if rewards.shape != (1, RUN_MPC_STEPS) or not np.isfinite(rewards).all():
                 raise RuntimeError(f"run_mpc {name}: rewards not finite")
 
     # 18-19. run_mpc_cl on both closed-loop configs, jobs in tune and sweep mode
     driver_phases(device, counters, counts, expected)
+
+    # 24-27. kernels built from perturbed models, run_mpc
+    # --dyn_randomize_config, the captured episode, parallel/ on one card
+    dyn_times = dyn_kernel_phase(device, dyn, errors)
+    dyn_run_mpc_phase(device, counters, counts, expected)
+    replay_counts = episode_replay_phase(device, counters, counts, smi, solver, dyn)
+    # the perturbed kernels' rows count executions: the eager runs of
+    # phase 26's episodes, counters zeroed just before each
+    dyn_counts = {"reacher": replay_counts["reacher_7dof-v0 perturbed"]["eager"],
+                  "pen": replay_counts["pen-v0"]["eager"]}
+    parallel_phase(device, counters, counts, expected, solver)
 
     # 20. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
@@ -2223,6 +2573,19 @@ def main() -> int:
               "mjmpc_tpu/ops/pallas_kernels.py:201", loop_counts["one_kernel_solve"],
               max(errors[("solve8", ONE_KERNEL["num_particles"], lam)] for lam in (0.01, 1.0)),
               (b8["bound_ms"], b8["bound_by"]))]
+    # the kernels built from perturbed models, launched by phases 25 and 26
+    times.update(dyn_times)
+    dyn_pen = dyn["pen-v0"].fused_rollout.kernel
+    bp = bounds.forest_instance(dyn_pen, *bounds.FOREST_SIZES["pen-v0"])
+    rows += [("chain_rollout_reacher_perturbed", "mjmpc_tpu_torch/csrc/chain_rollout.cu",
+              "mjmpc_tpu/ops/pallas_chain.py:381", dyn_counts["reacher"]["chain"],
+              errors[("dyn", DYN_REACHER[0], NUM_PARTICLES, HORIZON)],
+              bounds.bound_ms(*bounds.chain_work(dyn_reacher.model, NUM_PARTICLES, HORIZON,
+                                                 "costs", n_substeps=2))),
+             ("forest_rollout_pen_perturbed", "mjmpc_tpu_torch/csrc/forest_rollout.cu",
+              "mjmpc_tpu/ops/pallas_forest.py:667", dyn_counts["pen"]["forest"],
+              errors[("dyn", "pen-v0", *bounds.FOREST_SIZES["pen-v0"])],
+              (bp["bound_ms"], bp["bound_by"]))]
     times["pendulum_rollout"] = pend_times[(7, mppi_n)]
     times["mppi_pendulum_solve"] = pend_times[(8, ONE_KERNEL["num_particles"])]
     print(json.dumps({"kernels": [{

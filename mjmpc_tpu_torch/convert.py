@@ -22,10 +22,11 @@ import numpy as np
 import torch
 
 from . import rng
+from .engine import chain as rb
 from .engine.chain import ChainModel
 from .envs import acrobot, cartpole, lqr, maze, point_mass, trajopt_reacher
 from .envs.half_cheetah import CheetahParams, CheetahState
-from .envs import hand_door, sawyer_tasks
+from .envs import half_cheetah, hammer, hand_door, pen, relocate, sawyer_tasks, swimmer
 from .envs.hammer import HammerParams, HammerState
 from .envs.panda_tasks import TrayGlassParams, TrayGlassState
 from .envs.pen import PenParams, PenState
@@ -54,6 +55,11 @@ def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, np.float32), device=device)
 
 
+def _timestep(x, device) -> torch.Tensor:
+    """A reference timestep (int32, any shape) as the port's int64 tensor."""
+    return torch.as_tensor(np.array(x, np.int64), device=device)
+
+
 def chain_model_from_reference(model, device="cuda") -> ChainModel:
     """A reference ChainModel (array leaves plus static topology) as the
     port's ChainModel on `device`."""
@@ -80,7 +86,7 @@ def reacher_state_from_reference(state, seed: int = 0,
     port's; continual target events draw from `seed`."""
     return ReacherState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
                         target=_t(state.target, device),
-                        timestep=int(np.asarray(state.timestep)), seed=int(seed))
+                        timestep=_timestep(state.timestep, device), seed=int(seed))
 
 
 def peg_params_from_reference(params, device="cuda") -> PegParams:
@@ -96,7 +102,7 @@ def peg_params_from_reference(params, device="cuda") -> PegParams:
 def peg_state_from_reference(state, device="cuda") -> PegState:
     """A reference PegState (qpos, qvel, timestep) as the port's."""
     return PegState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
-                    timestep=int(np.asarray(state.timestep)))
+                    timestep=_timestep(state.timestep, device))
 
 
 def reinforce_state_from_reference(state, seed: int = 0, device="cuda") -> ReinforceState:
@@ -126,14 +132,16 @@ def swimmer_params_from_reference(params, device="cuda") -> SwimmerParams:
     return SwimmerParams(model=chain_model_from_reference(params.model, device),
                          drag_perp=_t(params.drag_perp, device),
                          drag_par=_t(params.drag_par, device),
-                         vel_limit=_t(_VEL_LIMIT, device))
+                         vel_limit=_t(_VEL_LIMIT, device),
+                         bodies=rb.constant(swimmer._POINT_BODIES, device))
 
 
 def cheetah_params_from_reference(params, device="cuda") -> CheetahParams:
     """A reference CheetahParams (model, kp, kd, mu) as the port's."""
     return CheetahParams(model=chain_model_from_reference(params.model, device),
                          kp=_t(params.kp, device), kd=_t(params.kd, device),
-                         mu=_t(params.mu, device))
+                         mu=_t(params.mu, device),
+                         bodies=rb.constant(half_cheetah._CONTACT_BODIES, device))
 
 
 def loco_state_from_reference(state, device="cuda"):
@@ -149,7 +157,8 @@ def pen_params_from_reference(params, device="cuda") -> PenParams:
     radius) as the port's."""
     return PenParams(model=chain_model_from_reference(params.model, device),
                      kp=_t(params.kp, device), kd=_t(params.kd, device),
-                     mu=_t(params.mu, device), pen_r=_t(params.pen_r, device))
+                     mu=_t(params.mu, device), pen_r=_t(params.pen_r, device),
+                     consts=pen.constants(device))
 
 
 def pen_state_from_reference(state, device="cuda") -> PenState:
@@ -157,7 +166,7 @@ def pen_state_from_reference(state, device="cuda") -> PenState:
     order, qvel [30], desired [3], timestep) as the port's."""
     return PenState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
                     desired=_t(state.desired, device),
-                    timestep=int(np.asarray(state.timestep)))
+                    timestep=_timestep(state.timestep, device))
 
 
 def relocate_params_from_reference(params, device="cuda") -> RelocateParams:
@@ -165,7 +174,8 @@ def relocate_params_from_reference(params, device="cuda") -> RelocateParams:
     kd, mu, ball radius) as the port's."""
     return RelocateParams(model=chain_model_from_reference(params.model, device),
                           kp=_t(params.kp, device), kd=_t(params.kd, device),
-                          mu=_t(params.mu, device), ball_r=_t(params.ball_r, device))
+                          mu=_t(params.mu, device), ball_r=_t(params.ball_r, device),
+                          consts=relocate.constants(device))
 
 
 def relocate_state_from_reference(state, device="cuda") -> RelocateState:
@@ -173,7 +183,7 @@ def relocate_state_from_reference(state, device="cuda") -> RelocateState:
     wxyz order, qvel [33], target [3], timestep) as the port's."""
     return RelocateState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
                          target=_t(state.target, device),
-                         timestep=int(np.asarray(state.timestep)))
+                         timestep=_timestep(state.timestep, device))
 
 
 def hammer_params_from_reference(params, device="cuda") -> HammerParams:
@@ -181,21 +191,23 @@ def hammer_params_from_reference(params, device="cuda") -> HammerParams:
     kp, kd, mu) as the port's."""
     return HammerParams(model=chain_model_from_reference(params.model, device),
                         kp=_t(params.kp, device), kd=_t(params.kd, device),
-                        mu=_t(params.mu, device))
+                        mu=_t(params.mu, device), consts=hammer.constants(device))
 
 
 def hammer_state_from_reference(state, device="cuda") -> HammerState:
     """A reference HammerState (qpos [35] with the hammer's quaternion in
     wxyz order, qvel [34], timestep) as the port's."""
     return HammerState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
-                       timestep=int(np.asarray(state.timestep)))
+                       timestep=_timestep(state.timestep, device))
 
 
 def pusher_params_from_reference(params, device="cuda") -> sawyer_tasks.PusherParams:
     """A reference PusherParams (the arm and block model, k_contact) as the
     port's."""
     return sawyer_tasks.PusherParams(model=chain_model_from_reference(params.model, device),
-                                     k_contact=_t(params.k_contact, device))
+                                     k_contact=_t(params.k_contact, device),
+                                     bodies=rb.constant((sawyer_tasks.HAND_BODY,
+                                                         sawyer_tasks.BLOCK_BODY), device))
 
 
 def pusher_state_from_reference(state, device="cuda") -> sawyer_tasks.PusherState:
@@ -203,7 +215,7 @@ def pusher_state_from_reference(state, device="cuda") -> sawyer_tasks.PusherStat
     the port's."""
     return sawyer_tasks.PusherState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
                                     target=_t(state.target, device),
-                                    timestep=int(np.asarray(state.timestep)))
+                                    timestep=_timestep(state.timestep, device))
 
 
 def sawyer_door_params_from_reference(params, device="cuda") -> sawyer_tasks.DoorParams:
@@ -212,14 +224,15 @@ def sawyer_door_params_from_reference(params, device="cuda") -> sawyer_tasks.Doo
     return sawyer_tasks.DoorParams(model=chain_model_from_reference(params.model, device),
                                    k_grab=_t(params.k_grab, device),
                                    grab_radius=_t(params.grab_radius, device),
-                                   target_angle=_t(params.target_angle, device))
+                                   target_angle=_t(params.target_angle, device),
+                                   handle_local=rb.constant(sawyer_tasks.HANDLE_LOCAL, device))
 
 
 def sawyer_door_state_from_reference(state, device="cuda") -> sawyer_tasks.DoorState:
     """A reference sawyer DoorState (qpos [8], qvel [8], timestep) as the
     port's."""
     return sawyer_tasks.DoorState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
-                                  timestep=int(np.asarray(state.timestep)))
+                                  timestep=_timestep(state.timestep, device))
 
 
 def tray_params_from_reference(params, device="cuda") -> TrayGlassParams:
@@ -234,7 +247,7 @@ def tray_state_from_reference(state, device="cuda") -> TrayGlassState:
     as the port's."""
     return TrayGlassState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
                           target=_t(state.target, device),
-                          timestep=int(np.asarray(state.timestep)))
+                          timestep=_timestep(state.timestep, device))
 
 
 def hand_door_params_from_reference(params, device="cuda") -> hand_door.DoorParams:
@@ -242,14 +255,14 @@ def hand_door_params_from_reference(params, device="cuda") -> hand_door.DoorPara
     kp, kd, mu) as the port's."""
     return hand_door.DoorParams(model=chain_model_from_reference(params.model, device),
                                 kp=_t(params.kp, device), kd=_t(params.kd, device),
-                                mu=_t(params.mu, device))
+                                mu=_t(params.mu, device), consts=hand_door.constants(device))
 
 
 def hand_door_state_from_reference(state, device="cuda") -> hand_door.DoorState:
     """A reference door-v0 DoorState (qpos [29], qvel [29], timestep) as the
     port's."""
     return hand_door.DoorState(qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
-                               timestep=int(np.asarray(state.timestep)))
+                               timestep=_timestep(state.timestep, device))
 
 
 def pendulum_params_from_reference(params, device="cuda") -> PendulumParams:
@@ -332,10 +345,10 @@ def trajopt_reacher_params_from_reference(params, device="cuda"
 def trajopt_reacher_state_from_reference(state, device="cuda"
                                          ) -> trajopt_reacher.TrajoptReacherState:
     """A reference TrajoptReacherState (qpos, qvel, target, timestep) as the
-    port's; the timestep becomes a host integer."""
+    port's."""
     return trajopt_reacher.TrajoptReacherState(
         qpos=_t(state.qpos, device), qvel=_t(state.qvel, device),
-        target=_t(state.target, device), timestep=int(np.asarray(state.timestep)))
+        target=_t(state.target, device), timestep=_timestep(state.timestep, device))
 
 
 def ilqr_state_from_reference(state, seed: int = 0, device="cuda") -> ILQRState:

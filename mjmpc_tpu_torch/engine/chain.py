@@ -491,11 +491,24 @@ def integrate_qpos(model: ChainModel, q: torch.Tensor, qd: torch.Tensor,
     return torch.cat(parts, -1)
 
 
+def constant(value, device) -> torch.Tensor:
+    """A host constant (a numpy array, a list or tuple of numbers) as a
+    tensor on `device`, floats as float32 and integers as int64. An env
+    makes its constants (body indices among them) with its params, so that
+    its step copies nothing from the host and can be captured in a CUDA
+    graph."""
+    arr = np.asarray(value)
+    return torch.as_tensor(arr.astype(np.float32 if arr.dtype.kind == "f" else np.int64),
+                           device=device)
+
+
 def _world_points(model: ChainModel, q, delta, bodies, points_local):
     """World positions [..., K, 3] of body-local points [K, 3] on `bodies`
-    (K body indices) at q (+) delta."""
+    (K body indices: an int64 tensor on q's device, which a step captured
+    in a CUDA graph needs, a slice, or a sequence of ints, which indexes
+    through a copy from the host) at q (+) delta."""
     rots, poss, _, _ = fk_dofs(model, q, delta)
-    idx = list(bodies)
+    idx = list(bodies) if isinstance(bodies, (tuple, list)) else bodies
     return poss[..., idx, :] + torch.einsum("...kij,kj->...ki", rots[..., idx, :, :],
                                             points_local)
 
@@ -504,8 +517,8 @@ def _as_points(body, point_local):
     """(bodies, points [K, 3], single): one body and point [3], or K bodies
     and points [K, 3]."""
     if isinstance(body, int):
-        return (body,), point_local[None], True
-    return tuple(int(b) for b in body), point_local, False
+        return slice(body, body + 1), point_local[None], True
+    return body, point_local, False
 
 
 def point_state(model: ChainModel, q: torch.Tensor, qd: torch.Tensor, body,
@@ -539,14 +552,14 @@ def point_force_to_generalized(model: ChainModel, q: torch.Tensor, body,
 
 
 def points_frame(model: ChainModel, q: torch.Tensor, qd: torch.Tensor,
-                 bodies: Sequence[int], points_local: torch.Tensor):
+                 bodies, points_local: torch.Tensor):
     """The batched kinematic front and back end of the contact models: for
-    K body-local points (`bodies` K indices, points_local [K, 3]) returns
+    K body-local points (`bodies` K indices as _world_points takes them,
+    points_local [K, 3]) returns
     (pos [..., K, 3], vel [..., K, 3], apply), where apply(forces
     [..., K, 3]) is the generalized force [..., nv] = sum_k J_k^T f_k. One
     vjp of the points' world positions gives the positions and the
     scatter, one jvp along qd the velocities."""
-    bodies = tuple(int(b) for b in bodies)
     zero = q.new_zeros(q.shape[:-1] + (model.nv,))
 
     def world(d):

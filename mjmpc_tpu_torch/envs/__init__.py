@@ -17,6 +17,8 @@ from . import (acrobot, cartpole, half_cheetah, hammer, hand_door, lqr, maze, pa
                pendulum, point_mass, reacher_7dof, relocate, sawyer_tasks, swimmer,
                trajopt_reacher)
 from .base import Env
+from .randomize import randomize_batch, randomize_dynamics, register_names, register_param_paths
+from .wrappers import frame_stack, normalize_obs
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {
     "SimplePendulum-v0": pendulum.make,
@@ -86,4 +88,6 @@ def available() -> list:
     return sorted(_REGISTRY)
 
 
-__all__ = ["Env", "NOT_PORTED", "make", "register", "available"]
+__all__ = ["Env", "NOT_PORTED", "make", "register", "available", "randomize_dynamics",
+           "randomize_batch", "register_names", "register_param_paths", "normalize_obs",
+           "frame_stack"]

@@ -65,6 +65,22 @@ class Env:
     fused_cl_rollout: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
                                         Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]]] = None
+    # Optional: params -> {fused field: rollout} built from those params (a
+    # new generated header and kernel build for another model, cached by
+    # content hash): what with_params uses to keep the kernels on a
+    # perturbed model.
+    build_fused: Optional[Callable[[Any], dict]] = None
+
+    def with_params(self, params) -> "Env":
+        """This env on other dynamics params (dynamics randomization; JAX
+        base.py with_params). The fused rollouts bake the model they were
+        built from, so they are built anew from `params` (build_fused); an
+        env without build_fused drops them and plans on the general
+        rollout. Call it outside a solve: building reads the model to the
+        host."""
+        fused = (self.build_fused(params) if self.build_fused is not None else {})
+        return dataclasses.replace(self, params=params, **{
+            k: fused.get(k) for k in ("fused_rollout", "fused_obs_rollout", "fused_cl_rollout")})
 
     def clip_action(self, action: torch.Tensor) -> torch.Tensor:
         return torch.clamp(action, self.action_lows, self.action_highs)

@@ -104,3 +104,11 @@ def make(max_episode_steps: int = 200, device="cuda") -> Env:
                action_highs=torch.full((1,), 1.0, device=device),
                params=default_params(device), init=init, step=step, observe=observe,
                device=device, success=success, max_episode_steps=max_episode_steps)
+
+
+from .randomize import register_param_paths as _register_param_paths  # noqa: E402
+
+# the reference's cartpole spec: the mass axes map onto the analytic params;
+# its zeroed axes (inertia, damping) keep their defaults through the
+# randomizer's [0, 0] rule
+_register_param_paths("cartpole-v0", {"body_mass": {"cart": "masscart", "pole": "masspole"}})

@@ -76,7 +76,7 @@ def sphere_plane_force(p: torch.Tensor, v: torch.Tensor, r_sphere, kp, kd, mu,
     plane is still pushed up."""
     overlap = r_sphere - (p[..., 2] - z_plane)
     n = torch.zeros_like(p)
-    n[..., 2] = 1.0
+    n.select(-1, 2).fill_(1.0)   # a device fill: a step stays capturable
     return force_along(n, overlap, v, kp, kd, mu, v_slip)
 
 

@@ -108,6 +108,8 @@ class CheetahParams:
     kp: torch.Tensor     # contact normal stiffness (scalar)
     kd: torch.Tensor     # contact normal damping (scalar)
     mu: torch.Tensor     # friction coefficient (scalar)
+    bodies: torch.Tensor   # [7] int64, the contact points' bodies (_CONTACT_BODIES): made
+                           # with the params, a step indexes them without a host copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,14 +139,14 @@ def _ext_forces(params: CheetahParams):
     pts = _contact_points(params.kp.device)
 
     def fn(model, q, qd):
-        pos, vel = rb.point_state(model, q, qd, _CONTACT_BODIES, pts)
+        pos, vel = rb.point_state(model, q, qd, params.bodies, pts)
         depth = _CONTACT_R - pos[..., 2]             # penetration below z = r
         push = torch.clamp(params.kp * depth - params.kd * vel[..., 2], min=0.0)
         fn_mag = torch.where(depth > 0.0, push, torch.zeros_like(push))
         # saturated Coulomb friction opposing tangential slip
         ft = -params.mu * fn_mag * torch.tanh(vel[..., 0] / 0.1)
         f = torch.stack([ft, 0.0 * ft, fn_mag], -1)
-        return rb.point_force_to_generalized(model, q, _CONTACT_BODIES, pts, f)
+        return rb.point_force_to_generalized(model, q, params.bodies, pts, f)
 
     return fn
 
@@ -186,19 +188,35 @@ def build_rollout(params: CheetahParams) -> ChainExtRollout:
     return build_chain_ext_rollout(params.model, _FRAME_SKIP, task)
 
 
-def make(device="cuda") -> Env:
-    device = torch.device(device)
-    params = CheetahParams(model=build_model(device), kp=torch.tensor(6000.0, device=device),
-                           kd=torch.tensor(150.0, device=device),
-                           mu=torch.tensor(0.4, device=device))
+def _build_fused(params: CheetahParams) -> dict:
+    """Kernel #5 built from params: the model and the contact gains
+    (Env.build_fused)."""
     roll = build_rollout(params)
 
     def fused(p, state, mean, noise):
         return roll(state.qpos, state.qvel, pad_base(mean), pad_base(noise))
 
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    return dict(fused_rollout=fused)
+
+
+def make(device="cuda") -> Env:
+    device = torch.device(device)
+    params = CheetahParams(model=build_model(device), kp=torch.tensor(6000.0, device=device),
+                           kd=torch.tensor(150.0, device=device),
+                           mu=torch.tensor(0.4, device=device),
+                           bodies=rb.constant(_CONTACT_BODIES, device))
     return Env(
         name="HalfCheetah-v0", d_obs=D_OBS, d_action=6,
         action_lows=torch.full((6,), -1.0, device=device),
         action_highs=torch.full((6,), 1.0, device=device),
         params=params, init=_init, step=_step, observe=_observe, device=device,
-        max_episode_steps=500, fused_rollout=fused)
+        max_episode_steps=500, build_fused=_build_fused, **_build_fused(params))
+
+
+from .randomize import register_param_paths as _register_param_paths  # noqa: E402
+
+# the ground contact's friction coefficient is a params leaf, which the
+# geom_friction axis maps onto; kernel #5 bakes the contact gains, so a
+# perturbed env rebuilds it (Env.with_params)
+_register_param_paths("HalfCheetah-v0", {"geom_friction": {"floor": "mu", "ground": "mu"}})

@@ -39,6 +39,7 @@ on the tensors.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -80,13 +81,14 @@ class HammerParams:
     kp: torch.Tensor     # contact normal stiffness (scalar)
     kd: torch.Tensor     # contact normal damping (scalar)
     mu: torch.Tensor     # friction coefficient (scalar)
+    consts: "HammerConsts"   # the task's fixed geometry on the params' device
 
 
 @dataclasses.dataclass(frozen=True)
 class HammerState:
     qpos: torch.Tensor   # [..., 35] = 3 slides + 24 hinges + hammer (7) + nail
     qvel: torch.Tensor   # [..., 34]
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
 
 
 BODIES, DIGITS = adroit.arm_hand_bodies()
@@ -110,6 +112,21 @@ C_RADII = np.array([adroit.TIP_R, 0.008] * adroit.N_DIGITS, np.float32)
 CAP_A, CAP_B, HEAD, NAIL, PALM = range(N_TIPS, N_TIPS + 5)   # their point indices
 
 
+class HammerConsts(NamedTuple):
+    """The task's fixed geometry as tensors, made once with the params
+    (constants) so that a step copies nothing from the host."""
+    bodies: torch.Tensor       # [15] int64, C_BODIES
+    points: torch.Tensor       # [15, 3] C_POINTS
+    radii: torch.Tensor        # [10] C_RADII
+    palm_local: torch.Tensor   # [3] PALM_LOCAL
+    head_local: torch.Tensor   # [3] HEAD_LOCAL
+
+
+def constants(device) -> HammerConsts:
+    return HammerConsts(*(rb.constant(v, device)
+                          for v in (C_BODIES, C_POINTS, C_RADII, PALM_LOCAL, HEAD_LOCAL)))
+
+
 def build_model(device="cuda") -> rb.ChainModel:
     """The arm, hand, free-hammer and nail ChainModel on `device`."""
     return rb.build_chain(BODIES, dt=_DT, site_body=HAMMER_BODY, site_pos=tuple(HEAD_LOCAL),
@@ -121,11 +138,11 @@ def nail_friction(qd_nail):
     return -NAIL_RESIST * torch.tanh(qd_nail / NAIL_V_SLIP)
 
 
-def hammer_forces(pos, vel, kp, kd, mu):
+def hammer_forces(pos, vel, kp, kd, mu, c: HammerConsts):
     """World forces [..., 15, 3] at the contact points from their world
     positions and velocities [..., 15, 3] (the hammer task's force law,
     shared by the env's step and the forest rollout's plain version)."""
-    radii = torch.as_tensor(C_RADII, device=pos.device)
+    radii = c.radii
     cap_a, cap_b, head, nail, palm = (pos[..., k, :] for k in (CAP_A, CAP_B, HEAD, NAIL, PALM))
     vcap_a, vcap_b, vhead, vnail, vpalm = (vel[..., k, :]
                                            for k in (CAP_A, CAP_B, HEAD, NAIL, PALM))
@@ -155,12 +172,12 @@ def hammer_forces(pos, vel, kp, kd, mu):
 
 
 def _ext_forces(params: HammerParams):
-    points = torch.as_tensor(C_POINTS, device=params.kp.device)
+    c = params.consts
     weight = 9.81 * params.model.mass[:HAMMER_BODY].sum()
 
     def fn(model, q, qd):
-        pos, vel, apply = rb.points_frame(model, q, qd, C_BODIES, points)
-        tau = apply(hammer_forces(pos, vel, params.kp, params.kd, params.mu))
+        pos, vel, apply = rb.points_frame(model, q, qd, c.bodies, c.points)
+        tau = apply(hammer_forces(pos, vel, params.kp, params.kd, params.mu, c))
         # the nail's dry friction, and the z slide carrying the hand's weight
         return torch.cat([tau[..., :2], tau[..., 2:3] + weight, tau[..., 3:NAIL_V],
                           tau[..., NAIL_V:] + nail_friction(qd[..., NAIL_V:])], -1)
@@ -168,18 +185,17 @@ def _ext_forces(params: HammerParams):
     return fn
 
 
-def hammer_frames(rots, poss):
+def hammer_frames(rots, poss, c: HammerConsts):
     """(palm pad, hammer origin, head, nail head) world positions [..., 3]
     from the bodies' frames."""
-    local = lambda a: torch.as_tensor(a, device=poss.device)[:, None]
-    palm = poss[..., 2, :] + (rots[..., 2, :, :] @ local(PALM_LOCAL))[..., 0]
+    palm = poss[..., 2, :] + (rots[..., 2, :, :] @ c.palm_local[:, None])[..., 0]
     hammer = poss[..., HAMMER_BODY, :]
-    head = hammer + (rots[..., HAMMER_BODY, :, :] @ local(HEAD_LOCAL))[..., 0]
+    head = hammer + (rots[..., HAMMER_BODY, :, :] @ c.head_local[:, None])[..., 0]
     return palm, hammer, head, poss[..., NAIL_BODY, :]
 
 
 def _frames(params: HammerParams, qpos):
-    return hammer_frames(*rb.forward_kinematics(params.model, qpos))
+    return hammer_frames(*rb.forward_kinematics(params.model, qpos), params.consts)
 
 
 def hammer_reward(palm, hammer, head, nail, depth):
@@ -201,7 +217,7 @@ def _init(params: HammerParams, seed: int) -> HammerState:
     qpos[HAMMER_Q] = -0.02                          # the hammer flat on the table
     qpos[HAMMER_Q + 1] = hy
     qpos[HAMMER_Q + 2] = HANDLE_R + 0.001
-    return HammerState(qpos=qpos, qvel=torch.zeros(params.model.nv, device=device), timestep=0)
+    return HammerState(qpos=qpos, qvel=torch.zeros(params.model.nv, device=device), timestep=rng.step_tensor(0, device))
 
 
 def _observe(params: HammerParams, state: HammerState) -> torch.Tensor:
@@ -283,12 +299,9 @@ def hammer_extras(params: HammerParams) -> torch.Tensor:
     return torch.stack([params.kp, params.kd, params.mu])
 
 
-def make(device="cuda") -> Env:
-    device = torch.device(device)
-    model = build_model(device)
-    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-    params = HammerParams(model=model, kp=t(800.0), kd=t(2.0), mu=t(1.2))
-    roll = build_rollout(model)
+def _build_fused(params: HammerParams) -> dict:
+    """Kernel #6 built from params.model (Env.build_fused)."""
+    roll = build_rollout(params.model)
 
     def fused(p: HammerParams, state: HammerState, mean, noise):
         return roll(state.qpos, state.qvel, hammer_extras(p), mean, noise)
@@ -296,8 +309,26 @@ def make(device="cuda") -> Env:
     # the params the kernel reads at call time, through extras
     # (harness/episode.py _fused_mode)
     fused.dynamic_fields = ("kp", "kd", "mu")
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    return dict(fused_rollout=fused)
+
+
+def make(device="cuda") -> Env:
+    device = torch.device(device)
+    model = build_model(device)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    params = HammerParams(model=model, kp=t(800.0), kd=t(2.0), mu=t(1.2),
+                          consts=constants(device))
     return Env(name="hammer-v0", d_obs=2 * N_ACT + 19, d_action=N_ACT,
                action_lows=torch.full((N_ACT,), -1.0, device=device),
                action_highs=torch.full((N_ACT,), 1.0, device=device),
                params=params, init=_init, step=_step, observe=_observe, device=device,
-               success=_success, max_episode_steps=75, fused_rollout=fused)
+               success=_success, max_episode_steps=75, build_fused=_build_fused,
+               **_build_fused(params))
+
+
+from .randomize import register_names as _register_names  # noqa: E402
+
+_register_names("hammer-v0",
+                ["arm_x", "arm_y", "arm_z"] + adroit.hand_joint_names() + ["Object", "nail"],
+                extra={"hammer": HAMMER_BODY})

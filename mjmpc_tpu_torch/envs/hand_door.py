@@ -37,6 +37,7 @@ the tensors.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -79,13 +80,14 @@ class DoorParams:
     kp: torch.Tensor     # contact normal stiffness (scalar)
     kd: torch.Tensor     # contact normal damping (scalar)
     mu: torch.Tensor     # friction coefficient (scalar)
+    consts: "DoorConsts"   # the task's fixed geometry on the params' device
 
 
 @dataclasses.dataclass(frozen=True)
 class DoorState:
     qpos: torch.Tensor   # [..., 29] = 3 slides + 24 hinges + door + latch
     qvel: torch.Tensor   # [..., 29]
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
 
 
 BODIES, DIGITS = adroit.arm_hand_bodies()
@@ -108,6 +110,21 @@ C_RADII = np.array([adroit.TIP_R, 0.008] * adroit.N_DIGITS, np.float32)
 CAP_A, CAP_B, PALM = range(N_TIPS, N_TIPS + 3)   # their point indices
 
 
+class DoorConsts(NamedTuple):
+    """The task's fixed geometry as tensors, made once with the params
+    (constants) so that a step copies nothing from the host."""
+    bodies: torch.Tensor       # [13] int64, C_BODIES
+    points: torch.Tensor       # [13, 3] C_POINTS
+    radii: torch.Tensor        # [10] C_RADII
+    palm_local: torch.Tensor   # [3] PALM_LOCAL
+    handle_mid: torch.Tensor   # [3] HANDLE_MID
+
+
+def constants(device) -> DoorConsts:
+    return DoorConsts(*(rb.constant(v, device)
+                        for v in (C_BODIES, C_POINTS, C_RADII, PALM_LOCAL, HANDLE_MID)))
+
+
 def build_model(device="cuda") -> rb.ChainModel:
     """The arm, hand, door and latch ChainModel on `device`; the site is
     the handle's middle."""
@@ -115,11 +132,11 @@ def build_model(device="cuda") -> rb.ChainModel:
                           gravity=(0.0, 0.0, -9.81), device=device)
 
 
-def door_forces(pos, vel, kp, kd, mu):
+def door_forces(pos, vel, kp, kd, mu, c: DoorConsts):
     """World forces [..., 13, 3] at the contact points from their world
     positions and velocities [..., 13, 3] (the door task's force law,
     shared by the env step and the forest rollout's plain version)."""
-    radii = torch.as_tensor(C_RADII, device=pos.device)
+    radii = c.radii
     cap_a, cap_b, palm = (pos[..., k, :] for k in (CAP_A, CAP_B, PALM))
     vcap_a, vcap_b, vpalm = (vel[..., k, :] for k in (CAP_A, CAP_B, PALM))
     f_cap_a = torch.zeros_like(cap_a)
@@ -154,12 +171,12 @@ def door_torque(q_door, q_latch):
 
 
 def _ext_forces(params: DoorParams):
-    points = torch.as_tensor(C_POINTS, device=params.kp.device)
+    c = params.consts
     weight = 9.81 * params.model.mass[:DOOR_BODY].sum()
 
     def fn(model, q, qd):
-        pos, vel, apply = rb.points_frame(model, q, qd, C_BODIES, points)
-        tau = apply(door_forces(pos, vel, params.kp, params.kd, params.mu))
+        pos, vel, apply = rb.points_frame(model, q, qd, c.bodies, c.points)
+        tau = apply(door_forces(pos, vel, params.kp, params.kd, params.mu, c))
         q_door, q_latch = q[..., DOOR_BODY:DOOR_BODY + 1], q[..., LATCH_BODY:LATCH_BODY + 1]
         # the hand's weight on the z slide, the door's and the latch's springs
         return torch.cat([tau[..., :2], tau[..., 2:3] + weight, tau[..., 3:DOOR_BODY],
@@ -169,17 +186,17 @@ def _ext_forces(params: DoorParams):
     return fn
 
 
-def door_frames(rots, poss):
+def door_frames(rots, poss, c: DoorConsts):
     """(palm pad, handle middle) world positions [..., 3] from the bodies'
     frames."""
-    local = lambda a: torch.as_tensor(a, device=poss.device)[:, None]
-    palm = poss[..., 2, :] + (rots[..., 2, :, :] @ local(PALM_LOCAL))[..., 0]
-    handle = poss[..., LATCH_BODY, :] + (rots[..., LATCH_BODY, :, :] @ local(HANDLE_MID))[..., 0]
+    palm = poss[..., 2, :] + (rots[..., 2, :, :] @ c.palm_local[:, None])[..., 0]
+    handle = (poss[..., LATCH_BODY, :]
+              + (rots[..., LATCH_BODY, :, :] @ c.handle_mid[:, None])[..., 0])
     return palm, handle
 
 
 def _frames(params: DoorParams, qpos):
-    return door_frames(*rb.forward_kinematics(params.model, qpos))
+    return door_frames(*rb.forward_kinematics(params.model, qpos), params.consts)
 
 
 def door_reward(palm, handle, q_door, q_latch):
@@ -199,7 +216,7 @@ def _init(params: DoorParams, seed: int) -> DoorState:
     qpos = params.model.neutral_qpos().clone()
     qpos[2] = 0.10
     qpos[1] = 0.1 * torch.rand((), generator=gen, device=device) - 0.05
-    return DoorState(qpos=qpos, qvel=torch.zeros(params.model.nv, device=device), timestep=0)
+    return DoorState(qpos=qpos, qvel=torch.zeros(params.model.nv, device=device), timestep=rng.step_tensor(0, device))
 
 
 def _observe(params: DoorParams, state: DoorState) -> torch.Tensor:
@@ -238,7 +255,7 @@ def hook_qpos(model: rb.ChainModel, qpos: torch.Tensor, latch: float,
     q[..., N_ARM + 1] = -min(latch, 0.45)        # the wrist's deviation about y
     q[..., 0:3] = 0.0
     rots, poss = rb.forward_kinematics(model, q)
-    _, handle = door_frames(rots, poss)
+    _, handle = door_frames(rots, poss, constants(q.device))
     # the handle's up normal: the latch body's z axis
     up = rots[..., LATCH_BODY, :, 2]
     local = lambda a: torch.as_tensor(a, device=q.device)
@@ -263,13 +280,9 @@ def door_extras(params: DoorParams) -> torch.Tensor:
     return torch.stack([params.kp, params.kd, params.mu])
 
 
-def make(device="cuda") -> Env:
-    """door-v0 (max 150 steps)."""
-    device = torch.device(device)
-    model = build_model(device)
-    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-    params = DoorParams(model=model, kp=t(800.0), kd=t(2.0), mu=t(1.2))
-    roll = build_rollout(model)
+def _build_fused(params: DoorParams) -> dict:
+    """Kernel #6 built from params.model (Env.build_fused)."""
+    roll = build_rollout(params.model)
 
     def fused(p: DoorParams, state: DoorState, mean, noise):
         return roll(state.qpos, state.qvel, door_extras(p), mean, noise)
@@ -277,8 +290,27 @@ def make(device="cuda") -> Env:
     # the params the kernel reads at call time, through extras
     # (harness/episode.py _fused_mode)
     fused.dynamic_fields = ("kp", "kd", "mu")
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    return dict(fused_rollout=fused)
+
+
+def make(device="cuda") -> Env:
+    """door-v0 (max 150 steps)."""
+    device = torch.device(device)
+    model = build_model(device)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    params = DoorParams(model=model, kp=t(800.0), kd=t(2.0), mu=t(1.2),
+                        consts=constants(device))
     return Env(name="door-v0", d_obs=2 * N_ACT + 10, d_action=N_ACT,
                action_lows=torch.full((N_ACT,), -1.0, device=device),
                action_highs=torch.full((N_ACT,), 1.0, device=device),
                params=params, init=_init, step=_step, observe=_observe, device=device,
-               success=_success, max_episode_steps=150, fused_rollout=fused)
+               success=_success, max_episode_steps=150, build_fused=_build_fused,
+               **_build_fused(params))
+
+
+from .randomize import register_names as _register_names  # noqa: E402
+
+_register_names("door-v0",
+                ["arm_x", "arm_y", "arm_z"] + adroit.hand_joint_names() + ["frame", "latch"],
+                extra={"door_hinge": DOOR_BODY, "handle": LATCH_BODY})

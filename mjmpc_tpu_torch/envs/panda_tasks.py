@@ -72,7 +72,7 @@ class TrayGlassState:
     qpos: torch.Tensor     # [..., 9] = 7 arm + glass (tray-local x, y)
     qvel: torch.Tensor     # [..., 9]
     target: torch.Tensor   # [..., 3] the tray's goal position
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
 
 
 def build_model(device="cuda") -> rb.ChainModel:
@@ -112,7 +112,7 @@ def gravity_compensation(model: rb.ChainModel, q: torch.Tensor) -> torch.Tensor:
     # each row's gradient
     grad = torch.func.grad(lambda qq: torch.sum(rb.potential_energy(model, qq)))(q)
     mask = torch.zeros(q.shape[-1], device=q.device)
-    mask[:N_ARM] = 1.0
+    mask[:N_ARM].fill_(1.0)      # a device fill: a step stays capturable
     return grad * mask
 
 
@@ -138,7 +138,7 @@ def _init(params: TrayGlassParams, seed: int) -> TrayGlassState:
     device = params.fall_penalty.device
     gen = rng.generator(rng.derive_seed(seed, 0), device)
     return TrayGlassState(qpos=torch.zeros(9, device=device), qvel=torch.zeros(9, device=device),
-                          target=_draw_target(gen, device), timestep=0)
+                          target=_draw_target(gen, device), timestep=rng.step_tensor(0, device))
 
 
 def _init_v1(params: TrayGlassParams, seed: int) -> TrayGlassState:
@@ -149,7 +149,7 @@ def _init_v1(params: TrayGlassParams, seed: int) -> TrayGlassState:
     qpos = torch.zeros(9, device=device)
     qpos[GLASS_Q:] = 0.1 * torch.rand(2, generator=gen, device=device) - 0.05
     return TrayGlassState(qpos=qpos, qvel=torch.zeros(9, device=device), target=target,
-                          timestep=0)
+                          timestep=rng.step_tensor(0, device))
 
 
 def _observe(params: TrayGlassParams, state: TrayGlassState) -> torch.Tensor:
@@ -197,19 +197,26 @@ def build_rollout(model: rb.ChainModel) -> fr.ForestRollout:
     return fr.build_forest_rollout(model, _FRAME_SKIP, list(range(N_ARM)), fr.tray_task(model))
 
 
-def _make(model: rb.ChainModel, name: str, init, max_episode_steps: int) -> Env:
-    device = model.device
-    params = TrayGlassParams(model=model, fall_penalty=torch.tensor(5.0, device=device))
-    roll = build_rollout(model)
+def _build_fused(params: TrayGlassParams) -> dict:
+    """Kernel #6 built from params.model (Env.build_fused)."""
+    roll = build_rollout(params.model)
 
     def fused(p: TrayGlassParams, state: TrayGlassState, mean, noise):
         return roll(state.qpos, state.qvel, tray_extras(p, state), mean, noise)
 
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    return dict(fused_rollout=fused)
+
+
+def _make(model: rb.ChainModel, name: str, init, max_episode_steps: int) -> Env:
+    device = model.device
+    params = TrayGlassParams(model=model, fall_penalty=torch.tensor(5.0, device=device))
     return Env(name=name, d_obs=D_OBS, d_action=N_ARM,
                action_lows=torch.full((N_ARM,), -1.0, device=device),
                action_highs=torch.full((N_ARM,), 1.0, device=device),
                params=params, init=init, step=_step, observe=_observe, device=device,
-               success=_success, max_episode_steps=max_episode_steps, fused_rollout=fused)
+               success=_success, max_episode_steps=max_episode_steps,
+               build_fused=_build_fused, **_build_fused(params))
 
 
 def make(device="cuda") -> Env:
@@ -228,3 +235,16 @@ def make_fixed_v1(device="cuda") -> Env:
     to the tray; the same state type as v1, so that it plans for v1."""
     return _make(fixed_v1_model(torch.device(device)), "panda_tray_glass_fixed-v1", _init_v1,
                  75)
+
+
+# tray_collision / glass_collision are the reference's geom names
+# (dyn_randomize_configs/panda/tray_glass-v1.yml); geom friction maps onto
+# the glass slides' viscous damping rows of the chain.
+from .randomize import register_names as _register_names  # noqa: E402
+from .reacher_7dof import BODY_NAMES as _ARM_BODY_NAMES  # noqa: E402
+from .reacher_7dof import JOINT_NAMES as _ARM_JOINT_NAMES  # noqa: E402
+
+for _name in ("panda_tray_glass-v0", "panda_tray_glass-v1", "panda_tray_glass_fixed-v1"):
+    _register_names(_name, _ARM_BODY_NAMES + ["glass_x", "glass"],
+                    _ARM_JOINT_NAMES + ["glass_slide_x", "glass_slide_y"],
+                    extra={"tray_collision": N_ARM, "glass_collision": N_ARM + 1})

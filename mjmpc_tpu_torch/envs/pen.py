@@ -35,6 +35,7 @@ dimensions on the tensors.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,6 +70,7 @@ class PenParams:
     kd: torch.Tensor     # contact normal damping (scalar)
     mu: torch.Tensor     # friction coefficient (scalar)
     pen_r: torch.Tensor  # pen capsule radius (contact only; the inertia is baked)
+    consts: "PenConsts"  # the task's fixed geometry on the params' device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +78,7 @@ class PenState:
     qpos: torch.Tensor      # [..., 31] = 24 hand hinges + pen (pos 3, quat 4)
     qvel: torch.Tensor      # [..., 30]
     desired: torch.Tensor   # [..., 3] unit target of the pen's long axis
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
 
 
 BODIES, DIGITS = adroit.hand_bodies()
@@ -93,18 +95,33 @@ C_POINTS = np.concatenate(
 C_RADII = np.array([adroit.TIP_R, 0.008] * adroit.N_DIGITS, np.float32)
 
 
+class PenConsts(NamedTuple):
+    """The task's fixed geometry as tensors, made once with the params
+    (constants) so that a step copies nothing from the host."""
+    bodies: torch.Tensor        # [12] int64, C_BODIES
+    points: torch.Tensor        # [12, 3] C_POINTS
+    radii: torch.Tensor         # [10] C_RADII
+    ridge_a: torch.Tensor       # [3] RIDGE_A
+    ridge_b: torch.Tensor       # [3] RIDGE_B
+    desired_pos: torch.Tensor   # [3] DESIRED_POS
+
+
+def constants(device) -> PenConsts:
+    return PenConsts(*(rb.constant(v, device) for v in (C_BODIES, C_POINTS, C_RADII, RIDGE_A,
+                                                         RIDGE_B, DESIRED_POS)))
+
+
 def build_model(device="cuda") -> rb.ChainModel:
     """The hand and free-pen ChainModel on `device`."""
     return rb.build_chain(BODIES, dt=_DT, site_body=PEN_BODY, site_pos=(0.0, 0.0, 0.0),
                           gravity=(0.0, 0.0, -9.81), device=device)
 
 
-def pen_forces(pos, vel, kp, kd, mu, pen_r):
+def pen_forces(pos, vel, kp, kd, mu, pen_r, c: PenConsts):
     """World forces [..., 12, 3] at the contact points from their world
     positions and velocities [..., 12, 3] (the pen task's force law, shared
     by the env's step and the forest rollout's plain version)."""
-    ridge_a, ridge_b = (torch.as_tensor(r, device=pos.device) for r in (RIDGE_A, RIDGE_B))
-    radii = torch.as_tensor(C_RADII, device=pos.device)
+    ridge_a, ridge_b, radii = c.ridge_a, c.ridge_b, c.radii
     cap_a, cap_b = pos[..., N_TIPS, :], pos[..., N_TIPS + 1, :]
     vcap_a, vcap_b = vel[..., N_TIPS, :], vel[..., N_TIPS + 1, :]
     f_cap_a = contact.sphere_plane_force(cap_a, vcap_a, pen_r, kp, kd, mu)
@@ -130,11 +147,11 @@ def pen_forces(pos, vel, kp, kd, mu, pen_r):
 
 
 def _ext_forces(params: PenParams):
-    points = torch.as_tensor(C_POINTS, device=params.kp.device)
+    c = params.consts
 
     def fn(model, q, qd):
-        pos, vel, apply = rb.points_frame(model, q, qd, C_BODIES, points)
-        return apply(pen_forces(pos, vel, params.kp, params.kd, params.mu, params.pen_r))
+        pos, vel, apply = rb.points_frame(model, q, qd, c.bodies, c.points)
+        return apply(pen_forces(pos, vel, params.kp, params.kd, params.mu, params.pen_r, c))
 
     return fn
 
@@ -146,11 +163,11 @@ def _pen_frame(qpos, qvel):
             qvel[..., PEN_Q + 3:PEN_Q + 6])
 
 
-def pen_reward(pen_pos, axis, desired):
-    """The pen reward [...] from the pen's centre and long axis and the
-    desired axis (dense position and similarity terms, staged bonuses at
-    0.90 and 0.95 similarity, a drop penalty)."""
-    desired_pos = torch.as_tensor(DESIRED_POS, device=pen_pos.device)
+def pen_reward(pen_pos, axis, desired, desired_pos):
+    """The pen reward [...] from the pen's centre and long axis, the
+    desired axis and the rest position DESIRED_POS as a tensor (dense
+    position and similarity terms, staged bonuses at 0.90 and 0.95
+    similarity, a drop penalty)."""
     pos_err = torch.linalg.vector_norm(pen_pos - desired_pos, dim=-1)
     orien = torch.sum(axis * desired, -1)
     close = pos_err < 0.075
@@ -175,13 +192,13 @@ def _init(params: PenParams, seed: int) -> PenState:
     return PenState(qpos=qpos, qvel=torch.zeros(params.model.nv, device=device),
                     desired=sample_desired(rng.generator(rng.derive_seed(seed, 0), device),
                                            device),
-                    timestep=0)
+                    timestep=rng.step_tensor(0, device))
 
 
 def _observe(params: PenParams, state: PenState) -> torch.Tensor:
     pen_pos, axis, lin_vel, ang_vel = _pen_frame(state.qpos, state.qvel)
     n = adroit.N_HAND_DOF
-    desired_pos = torch.as_tensor(DESIRED_POS, device=pen_pos.device)
+    desired_pos = params.consts.desired_pos
     return torch.cat([state.qpos[..., :n], state.qvel[..., :n], pen_pos, lin_vel, axis,
                       ang_vel, state.desired, axis - state.desired, pen_pos - desired_pos], -1)
 
@@ -193,14 +210,14 @@ def _step(params: PenParams, state: PenState, action: torch.Tensor):
                          ext_force_fn=_ext_forces(params))
     new = dataclasses.replace(state, qpos=qpos, qvel=qvel, timestep=state.timestep + 1)
     pen_pos, axis, _, _ = _pen_frame(qpos, qvel)
-    reward = pen_reward(pen_pos, axis, state.desired)
+    reward = pen_reward(pen_pos, axis, state.desired, params.consts.desired_pos)
     return new, _observe(params, new), reward, torch.zeros_like(reward, dtype=torch.bool)
 
 
 def _success(params: PenParams, state: PenState) -> torch.Tensor:
     pen_pos, axis, _, _ = _pen_frame(state.qpos, state.qvel)
-    desired_pos = torch.as_tensor(DESIRED_POS, device=pen_pos.device)
-    close = torch.linalg.vector_norm(pen_pos - desired_pos, dim=-1) < 0.075
+    close = (torch.linalg.vector_norm(pen_pos - params.consts.desired_pos, dim=-1)
+             < 0.075)
     return (torch.sum(axis * state.desired, -1) > 0.90) & close
 
 
@@ -231,14 +248,9 @@ def pen_extras(params: PenParams, state: PenState) -> torch.Tensor:
                                                   params.pen_r])])
 
 
-def make(device="cuda") -> Env:
-    # kp and kd sized for the light distal links at dt = 0.002: the explicit
-    # contact damper needs kd dt / m_eff << 2
-    device = torch.device(device)
-    model = build_model(device)
-    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-    params = PenParams(model=model, kp=t(800.0), kd=t(2.0), mu=t(1.2), pen_r=t(PEN_R))
-    roll = build_rollout(model)
+def _build_fused(params: PenParams) -> dict:
+    """Kernel #6 built from params.model (Env.build_fused)."""
+    roll = build_rollout(params.model)
 
     def fused(p: PenParams, state: PenState, mean, noise):
         return roll(state.qpos, state.qvel, pen_extras(p, state), mean, noise)
@@ -247,9 +259,34 @@ def make(device="cuda") -> Env:
     # against params that differ from the env's only in these keeps the
     # fused path (harness/episode.py _fused_mode)
     fused.dynamic_fields = ("kp", "kd", "mu", "pen_r")
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    return dict(fused_rollout=fused)
+
+
+def make(device="cuda") -> Env:
+    # kp and kd sized for the light distal links at dt = 0.002: the explicit
+    # contact damper needs kd dt / m_eff << 2
+    device = torch.device(device)
+    model = build_model(device)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    params = PenParams(model=model, kp=t(800.0), kd=t(2.0), mu=t(1.2), pen_r=t(PEN_R),
+                       consts=constants(device))
     n = adroit.N_HAND_DOF
     return Env(name="pen-v0", d_obs=2 * n + 21, d_action=n,
                action_lows=torch.full((n,), -1.0, device=device),
                action_highs=torch.full((n,), 1.0, device=device),
                params=params, init=_init, step=_step, observe=_observe, device=device,
-               success=_success, max_episode_steps=75, fused_rollout=fused)
+               success=_success, max_episode_steps=75, build_fused=_build_fused,
+               **_build_fused(params))
+
+
+from .randomize import (register_names as _register_names,  # noqa: E402
+                        register_param_paths as _register_param_paths)
+
+# the reference dyn-randomize names (hand/pen-v0.yml): Object = the pen
+# body, pen = its geom
+_register_names("pen-v0", adroit.hand_joint_names() + ["Object"], extra={"pen": PEN_BODY})
+# geom_friction / geom_size perturb the contact model's own leaves; both
+# ride the kernel's extras (dynamic_fields)
+_register_param_paths("pen-v0", {"geom_friction": {"pen": "mu"},
+                                 "geom_size": {"pen": "pen_r"}})

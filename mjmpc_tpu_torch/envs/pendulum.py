@@ -61,6 +61,12 @@ def step(params: PendulumParams, state: PendulumState, action: torch.Tensor):
     return new, observe(params, new), -cost, torch.zeros_like(cost, dtype=torch.bool)
 
 
+def _build_fused(params: PendulumParams) -> dict:
+    """Kernel #7 reads every param at call time: the same rollout serves
+    any params (Env.build_fused)."""
+    return dict(fused_rollout=pendulum_rollout)
+
+
 def make(device="cuda", max_episode_steps: int = 200) -> Env:
     device = torch.device(device)
     return Env(name="SimplePendulum-v0", d_obs=3, d_action=1,
@@ -68,4 +74,4 @@ def make(device="cuda", max_episode_steps: int = 200) -> Env:
                action_highs=torch.full((1,), 2.0, device=device),
                params=default_params(device), init=init, step=step, observe=observe,
                device=device, max_episode_steps=max_episode_steps,
-               fused_rollout=pendulum_rollout)
+               fused_rollout=pendulum_rollout, build_fused=_build_fused)

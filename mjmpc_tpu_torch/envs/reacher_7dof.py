@@ -9,11 +9,15 @@ chain engine.
 - obs = [qpos(7), qvel(7), hand_xyz(3), hand - target(3)];
 - target drawn uniformly in the box [-.3, .3] x [-.2, .2] x [-.25, .25];
 - success: l2 < 0.025;
-- the continual variant redraws the target every 50 steps, from a seed
-  derived from (state seed, timestep).
+- the continual variant redraws the target every 50 steps: Philox4x32-10
+  (ops/noise.py) under the state's `seed` with the timestep as a counter
+  word, a device-side draw chosen by torch.where, so a step reads nothing
+  back to the host and can be captured in a CUDA graph (the maze keys its
+  goal the same way).
 
-State = (qpos, qvel, target, timestep, seed); timestep and seed are host
-integers, shared by every particle of a batched state.
+State = (qpos, qvel, target, timestep, seed); timestep is an int64 tensor
+on the device ([] or the batch's leading dims), as in the JAX package;
+seed is a host integer fixed at init, the key of the target redraws.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from .. import rng
 from ..engine import chain as rb
+from ..ops.noise import _key_words, _uniform01, philox4x32_10
 from ..ops.chain_rollout import (build_chain_cl_rollout, build_chain_obs_rollout,
                                  build_chain_rollout)
 from .base import Env
@@ -75,6 +80,8 @@ D_OBS = 20
 GOAL_RADIUS = 0.025
 _TARGET_LOW = np.array([-0.3, -0.2, -0.25], np.float32)
 _TARGET_HIGH = np.array([0.3, 0.2, 0.25], np.float32)
+_MASK32 = 0xFFFFFFFF
+_TARGET_WORD = 0x74617267   # the redraws' third counter word, apart from other streams'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +97,7 @@ class ReacherState:
     qpos: torch.Tensor     # [..., 7]
     qvel: torch.Tensor     # [..., 7]
     target: torch.Tensor   # [..., 3]
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
     seed: int              # seeds the continual target events
 
 
@@ -111,7 +118,19 @@ def _init(params: ReacherParams, seed: int) -> ReacherState:
         qpos=torch.zeros(N_JOINTS, device=device),
         qvel=torch.zeros(N_JOINTS, device=device),
         target=_sample_target(params, rng.derive_seed(seed, 0)),
-        timestep=0, seed=rng.derive_seed(seed, 1))
+        timestep=rng.step_tensor(0, device), seed=rng.derive_seed(seed, 1))
+
+
+def redrawn_target(params: ReacherParams, key: int, t: torch.Tensor) -> torch.Tensor:
+    """The continual variant's target [..., 3] drawn at timestep t (an
+    int64 tensor) under `key`: Philox counter (0, t, word, 0), three of its
+    four uniforms, scaled into the target box."""
+    zeros = torch.zeros_like(t)
+    words = philox4x32_10((zeros, t & _MASK32, torch.full_like(t, _TARGET_WORD), zeros),
+                          _key_words(key))
+    u = _uniform01(torch.stack(words[:3], -1))
+    lo, hi = params.target_low, params.target_high
+    return lo + (hi - lo) * u
 
 
 def _hand_pos(params: ReacherParams, qpos: torch.Tensor) -> torch.Tensor:
@@ -130,9 +149,9 @@ def _step(params: ReacherParams, state: ReacherState, action: torch.Tensor):
     t = state.timestep + 1
     target = state.target
     period = params.continual_period
-    if period > 0 and t % period == 0:   # continual variant: a new target
-        new = _sample_target(params, rng.derive_seed(state.seed, t))
-        target = new.expand(state.target.shape)
+    if period > 0:   # continual variant: a new target every `period` steps
+        fire = (t % period == 0)[..., None]
+        target = torch.where(fire, redrawn_target(params, state.seed, t), target)
     hand = _hand_pos(params, qpos)
     diff = hand - target
     reward = (-torch.sum(torch.abs(diff), -1)
@@ -149,39 +168,45 @@ def _success(params: ReacherParams, state: ReacherState) -> torch.Tensor:
     return dist < GOAL_RADIUS
 
 
+def _build_fused(params: ReacherParams) -> dict:
+    """The fused rollout kernels (#1, #3, #4) built from params.model, plain
+    reacher only: the continual variant's target can move within a
+    planning rollout, which the kernels do not model. The obs and
+    closed-loop kernels' observation is exactly _observe's [qpos, qvel,
+    hand, hand - target]."""
+    if params.continual_period:
+        return {}
+    roll = build_chain_rollout(params.model, n_substeps=_FRAME_SKIP)
+    roll_obs = build_chain_obs_rollout(params.model, n_substeps=_FRAME_SKIP)
+    roll_cl = build_chain_cl_rollout(params.model, n_substeps=_FRAME_SKIP)
+
+    def fused(p, state, mean, noise):
+        return roll(state.qpos, state.qvel, state.target, mean, noise)
+
+    def fused_obs(p, state, mean, noise):
+        return roll_obs(state.qpos, state.qvel, state.target, mean, noise)
+
+    def fused_cl(p, state, weights, noise):
+        return roll_cl(state.qpos, state.qvel, state.target, weights, noise)
+
+    # the wrappers, for checks against their plain versions
+    fused.kernel, fused_obs.kernel, fused_cl.kernel = roll, roll_obs, roll_cl
+    return dict(fused_rollout=fused, fused_obs_rollout=fused_obs, fused_cl_rollout=fused_cl)
+
+
 def _make(continual_period: int, name: str, device) -> Env:
     device = torch.device(device)
     params = ReacherParams(
         model=build_model(device), continual_period=int(continual_period),
         target_low=torch.as_tensor(_TARGET_LOW, device=device),
         target_high=torch.as_tensor(_TARGET_HIGH, device=device))
-
-    # Fused rollout kernels, plain reacher only: the continual variant's
-    # target can move within a planning rollout, which the kernels do not
-    # model. The obs and closed-loop kernels' observation is exactly
-    # _observe's [qpos, qvel, hand, hand - target].
-    fused = fused_obs = fused_cl = None
-    if continual_period == 0:
-        roll = build_chain_rollout(params.model, n_substeps=_FRAME_SKIP)
-        roll_obs = build_chain_obs_rollout(params.model, n_substeps=_FRAME_SKIP)
-        roll_cl = build_chain_cl_rollout(params.model, n_substeps=_FRAME_SKIP)
-
-        def fused(p, state, mean, noise):
-            return roll(state.qpos, state.qvel, state.target, mean, noise)
-
-        def fused_obs(p, state, mean, noise):
-            return roll_obs(state.qpos, state.qvel, state.target, mean, noise)
-
-        def fused_cl(p, state, weights, noise):
-            return roll_cl(state.qpos, state.qvel, state.target, weights, noise)
-
     return Env(
         name=name, d_obs=D_OBS, d_action=N_JOINTS,
         action_lows=torch.full((N_JOINTS,), -1.0, device=device),
         action_highs=torch.full((N_JOINTS,), 1.0, device=device),
         params=params, init=_init, step=_step, observe=_observe,
         device=device, success=_success, max_episode_steps=75,
-        fused_rollout=fused, fused_obs_rollout=fused_obs, fused_cl_rollout=fused_cl)
+        build_fused=_build_fused, **_build_fused(params))
 
 
 def make(device="cuda") -> Env:
@@ -192,3 +217,22 @@ def make(device="cuda") -> Env:
 def make_continual(device="cuda") -> Env:
     """continual_reacher-v0: the target moves every 50 steps."""
     return _make(50, "continual_reacher-v0", device)
+
+
+# Dynamics-randomization name tables (the reference's sawyer body and joint
+# names, JAX reacher_7dof.py BODY_NAMES / JOINT_NAMES).
+BODY_NAMES = [
+    "r_shoulder_pan_link", "r_shoulder_lift_link", "r_upper_arm_roll_link",
+    "r_elbow_flex_link", "r_forearm_roll_link", "r_wrist_flex_link",
+    "r_wrist_roll_link",
+]
+JOINT_NAMES = [
+    "r_shoulder_pan_joint", "r_shoulder_lift_joint", "r_upper_arm_roll_joint",
+    "r_elbow_flex_joint", "r_forearm_roll_joint", "r_wrist_flex_joint",
+    "r_wrist_roll_joint",
+]
+
+from .randomize import register_names as _register_names  # noqa: E402
+
+for _env_name in ("reacher_7dof-v0", "continual_reacher-v0"):
+    _register_names(_env_name, BODY_NAMES, JOINT_NAMES)

@@ -37,6 +37,7 @@ dimensions on the tensors.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,6 +68,7 @@ class RelocateParams:
     kd: torch.Tensor      # contact normal damping (scalar)
     mu: torch.Tensor      # friction coefficient (scalar)
     ball_r: torch.Tensor  # ball radius (contact only; the inertia is baked)
+    consts: "RelocateConsts"   # the task's fixed geometry on the params' device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +76,7 @@ class RelocateState:
     qpos: torch.Tensor    # [..., 34] = 3 slides + 24 hinges + ball (pos 3, quat 4)
     qvel: torch.Tensor    # [..., 33]
     target: torch.Tensor  # [..., 3] carry goal
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
 
 
 BODIES, DIGITS = adroit.arm_hand_bodies()
@@ -90,17 +92,31 @@ C_POINTS = np.concatenate(
 C_RADII = np.array([adroit.TIP_R, 0.008] * adroit.N_DIGITS, np.float32)
 
 
+class RelocateConsts(NamedTuple):
+    """The task's fixed geometry as tensors, made once with the params
+    (constants) so that a step copies nothing from the host."""
+    bodies: torch.Tensor       # [12] int64, C_BODIES
+    points: torch.Tensor       # [12, 3] C_POINTS
+    radii: torch.Tensor        # [10] C_RADII
+    palm_local: torch.Tensor   # [3] PALM_LOCAL
+
+
+def constants(device) -> RelocateConsts:
+    return RelocateConsts(*(rb.constant(v, device)
+                            for v in (C_BODIES, C_POINTS, C_RADII, PALM_LOCAL)))
+
+
 def build_model(device="cuda") -> rb.ChainModel:
     """The arm, hand and free-ball ChainModel on `device`."""
     return rb.build_chain(BODIES, dt=_DT, site_body=BALL_BODY, site_pos=(0.0, 0.0, 0.0),
                           gravity=(0.0, 0.0, -9.81), device=device)
 
 
-def relocate_forces(pos, vel, kp, kd, mu, ball_r):
+def relocate_forces(pos, vel, kp, kd, mu, ball_r, c: RelocateConsts):
     """World forces [..., 12, 3] at the contact points from their world
     positions and velocities [..., 12, 3] (the relocate task's force law,
     shared by the env's step and the forest rollout's plain version)."""
-    radii = torch.as_tensor(C_RADII, device=pos.device)
+    radii = c.radii
     ball_p, ball_v = pos[..., N_TIPS, :], vel[..., N_TIPS, :]
     palm_p, palm_v = pos[..., N_TIPS + 1, :], vel[..., N_TIPS + 1, :]
     # the ball on the table
@@ -122,27 +138,27 @@ def relocate_forces(pos, vel, kp, kd, mu, ball_r):
 
 
 def _ext_forces(params: RelocateParams):
-    points = torch.as_tensor(C_POINTS, device=params.kp.device)
+    c = params.consts
     weight = 9.81 * params.model.mass[:BALL_BODY].sum()
 
     def fn(model, q, qd):
-        pos, vel, apply = rb.points_frame(model, q, qd, C_BODIES, points)
-        tau = apply(relocate_forces(pos, vel, params.kp, params.kd, params.mu, params.ball_r))
+        pos, vel, apply = rb.points_frame(model, q, qd, c.bodies, c.points)
+        tau = apply(relocate_forces(pos, vel, params.kp, params.kd, params.mu, params.ball_r,
+                                    c))
         # the z slide carries the hand's weight
         return torch.cat([tau[..., :2], tau[..., 2:3] + weight, tau[..., 3:]], -1)
 
     return fn
 
 
-def palm_position(rots, poss):
+def palm_position(rots, poss, c: RelocateConsts):
     """The palm pad's world position [..., 3] from the bodies' frames."""
-    palm_local = torch.as_tensor(PALM_LOCAL, device=poss.device)
-    return poss[..., 2, :] + (rots[..., 2, :, :] @ palm_local[:, None])[..., 0]
+    return poss[..., 2, :] + (rots[..., 2, :, :] @ c.palm_local[:, None])[..., 0]
 
 
 def _palm_and_ball(params: RelocateParams, qpos):
     rots, poss = rb.forward_kinematics(params.model, qpos)
-    return palm_position(rots, poss), qpos[..., BALL_Q:BALL_Q + 3]
+    return palm_position(rots, poss, params.consts), qpos[..., BALL_Q:BALL_Q + 3]
 
 
 def relocate_reward(palm, ball, target):
@@ -170,7 +186,7 @@ def _init(params: RelocateParams, seed: int) -> RelocateState:
     qpos[BALL_Q:BALL_Q + 2] = ball_xy
     qpos[BALL_Q + 2] = BALL_R                       # the ball on the table
     return RelocateState(qpos=qpos, qvel=torch.zeros(params.model.nv, device=device),
-                         target=target, timestep=0)
+                         target=target, timestep=rng.step_tensor(0, device))
 
 
 def _observe(params: RelocateParams, state: RelocateState) -> torch.Tensor:
@@ -232,12 +248,9 @@ def relocate_extras(params: RelocateParams, state: RelocateState) -> torch.Tenso
                                                  params.ball_r])])
 
 
-def make(device="cuda") -> Env:
-    device = torch.device(device)
-    model = build_model(device)
-    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-    params = RelocateParams(model=model, kp=t(800.0), kd=t(2.0), mu=t(1.2), ball_r=t(BALL_R))
-    roll = build_rollout(model)
+def _build_fused(params: RelocateParams) -> dict:
+    """Kernel #6 built from params.model (Env.build_fused)."""
+    roll = build_rollout(params.model)
 
     def fused(p: RelocateParams, state: RelocateState, mean, noise):
         return roll(state.qpos, state.qvel, relocate_extras(p, state), mean, noise)
@@ -245,8 +258,31 @@ def make(device="cuda") -> Env:
     # the params the kernel reads at call time, through extras
     # (harness/episode.py _fused_mode)
     fused.dynamic_fields = ("kp", "kd", "mu", "ball_r")
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    return dict(fused_rollout=fused)
+
+
+def make(device="cuda") -> Env:
+    device = torch.device(device)
+    model = build_model(device)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    params = RelocateParams(model=model, kp=t(800.0), kd=t(2.0), mu=t(1.2), ball_r=t(BALL_R),
+                            consts=constants(device))
     return Env(name="relocate-v0", d_obs=2 * N_ACT + 15, d_action=N_ACT,
                action_lows=torch.full((N_ACT,), -1.0, device=device),
                action_highs=torch.full((N_ACT,), 1.0, device=device),
                params=params, init=_init, step=_step, observe=_observe, device=device,
-               success=_success, max_episode_steps=200, fused_rollout=fused)
+               success=_success, max_episode_steps=200, build_fused=_build_fused,
+               **_build_fused(params))
+
+
+from .randomize import (register_names as _register_names,  # noqa: E402
+                        register_param_paths as _register_param_paths)
+
+_register_names("relocate-v0",
+                ["arm_x", "arm_y", "arm_z"] + adroit.hand_joint_names() + ["Object"],
+                extra={"sphere": BALL_BODY})
+# the contact model's own leaves for the geom fields ('sphere' is the
+# mj_envs ball geom's name); both ride the kernel's extras
+_register_param_paths("relocate-v0", {"geom_friction": {"sphere": "mu"},
+                                      "geom_size": {"sphere": "ball_r"}})

@@ -75,7 +75,7 @@ class PegParams:
 class PegState:
     qpos: torch.Tensor   # [..., 7]
     qvel: torch.Tensor   # [..., 7]
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
 
 
 def _peg_model(device="cuda") -> rb.ChainModel:
@@ -86,7 +86,7 @@ def _peg_model(device="cuda") -> rb.ChainModel:
 def _peg_init(params: PegParams, seed: int) -> PegState:
     device = params.hole_entry.device
     return PegState(qpos=torch.zeros(_N_ARM, device=device),
-                    qvel=torch.zeros(_N_ARM, device=device), timestep=0)
+                    qvel=torch.zeros(_N_ARM, device=device), timestep=rng.step_tensor(0, device))
 
 
 def _peg_metrics(params: PegParams, q: torch.Tensor):
@@ -134,13 +134,10 @@ def build_rollout(model: rb.ChainModel) -> ForestRollout:
     return build_forest_rollout(model, _FRAME_SKIP, list(range(_N_ARM)), peg_task())
 
 
-def make_peg_insertion(device="cuda") -> Env:
-    """sawyer_peg_insertion-v0 (max 100 steps)."""
-    device = torch.device(device)
-    model = _peg_model(device)
-    t = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
-    params = PegParams(model=model, hole_entry=t(_HOLE_ENTRY), hole_axis=t(_HOLE_AXIS),
-                       hole_depth=t(_HOLE_DEPTH), sensor_bias=torch.zeros(3, device=device))
+def _build_peg_fused(params: PegParams) -> dict:
+    """Kernels #6, #3 and #4 built from params.model (Env.build_fused); the
+    hole and the sensor bias ride the extras."""
+    model = params.model
     roll_cl = build_chain_cl_rollout(model, n_substeps=_FRAME_SKIP, task="peg")
     roll_obs = build_chain_obs_rollout(model, n_substeps=_FRAME_SKIP, task="peg")
     roll = build_rollout(model)
@@ -154,14 +151,24 @@ def make_peg_insertion(device="cuda") -> Env:
     def fused_obs(p: PegParams, state: PegState, mean, noise):
         return roll_obs(state.qpos, state.qvel, peg_extras(p), mean, noise)
 
+    fused.kernel, fused_cl.kernel, fused_obs.kernel = roll, roll_cl, roll_obs
+    return dict(fused_rollout=fused, fused_cl_rollout=fused_cl, fused_obs_rollout=fused_obs)
+
+
+def make_peg_insertion(device="cuda") -> Env:
+    """sawyer_peg_insertion-v0 (max 100 steps)."""
+    device = torch.device(device)
+    model = _peg_model(device)
+    t = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
+    params = PegParams(model=model, hole_entry=t(_HOLE_ENTRY), hole_axis=t(_HOLE_AXIS),
+                       hole_depth=t(_HOLE_DEPTH), sensor_bias=torch.zeros(3, device=device))
     return Env(
         name="sawyer_peg_insertion-v0", d_obs=D_OBS, d_action=_N_ARM,
         action_lows=torch.full((_N_ARM,), -1.0, device=device),
         action_highs=torch.full((_N_ARM,), 1.0, device=device),
         params=params, init=_peg_init, step=_step, observe=_observe,
         device=device, success=_success, max_episode_steps=100,
-        fused_rollout=fused,
-        fused_cl_rollout=fused_cl, fused_obs_rollout=fused_obs)
+        build_fused=_build_peg_fused, **_build_peg_fused(params))
 
 
 def make_peg_insertion_v1(device="cuda", sensor_bias=V1_SENSOR_BIAS) -> Env:
@@ -198,6 +205,8 @@ _PUSHER_TARGET_HIGH = (0.25, 0.15)
 class PusherParams:
     model: rb.ChainModel
     k_contact: torch.Tensor     # [] hand-block penalty stiffness
+    bodies: torch.Tensor        # [2] int64 (HAND_BODY, BLOCK_BODY): made with the params,
+                                # a step's contact points index them without a host copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,7 +214,7 @@ class PusherState:
     qpos: torch.Tensor     # [..., 9] = 7 arm + block (x, y)
     qvel: torch.Tensor     # [..., 9]
     target: torch.Tensor   # [..., 2] the block's goal on the plane
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
 
 
 def pusher_model(device="cuda") -> rb.ChainModel:
@@ -243,7 +252,7 @@ def _pusher_ext_forces(params: PusherParams):
     points = torch.zeros(2, 3, device=params.k_contact.device)
 
     def fn(model, q, qd):
-        pos, _, apply = rb.points_frame(model, q, qd, (HAND_BODY, BLOCK_BODY), points)
+        pos, _, apply = rb.points_frame(model, q, qd, params.bodies, points)
         return apply(pusher_forces(pos, params.k_contact))
 
     return fn
@@ -256,7 +265,7 @@ def _pusher_init(params: PusherParams, seed: int) -> PusherState:
     hi = torch.tensor(_PUSHER_TARGET_HIGH, device=device)
     target = lo + (hi - lo) * torch.rand(2, generator=gen, device=device)
     return PusherState(qpos=torch.zeros(9, device=device), qvel=torch.zeros(9, device=device),
-                       target=target, timestep=0)
+                       target=target, timestep=rng.step_tensor(0, device))
 
 
 def _pusher_observe(params: PusherParams, state: PusherState) -> torch.Tensor:
@@ -304,22 +313,29 @@ def build_pusher_rollout(model: rb.ChainModel) -> ForestRollout:
     return build_forest_rollout(model, _FRAME_SKIP, list(range(_N_ARM)), pusher_task())
 
 
-def make_pusher(device="cuda") -> Env:
-    """sawyer_pusher-v0 (max 100 steps)."""
-    device = torch.device(device)
-    model = pusher_model(device)
-    params = PusherParams(model=model, k_contact=torch.tensor(500.0, device=device))
-    roll = build_pusher_rollout(model)
+def _build_pusher_fused(params: PusherParams) -> dict:
+    """Kernel #6 built from params.model (Env.build_fused)."""
+    roll = build_pusher_rollout(params.model)
 
     def fused(p: PusherParams, state: PusherState, mean, noise):
         return roll(state.qpos, state.qvel, pusher_extras(p, state), mean, noise)
 
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    return dict(fused_rollout=fused)
+
+
+def make_pusher(device="cuda") -> Env:
+    """sawyer_pusher-v0 (max 100 steps)."""
+    device = torch.device(device)
+    model = pusher_model(device)
+    params = PusherParams(model=model, k_contact=torch.tensor(500.0, device=device),
+                          bodies=rb.constant((HAND_BODY, BLOCK_BODY), device))
     return Env(name="sawyer_pusher-v0", d_obs=PUSHER_D_OBS, d_action=_N_ARM,
                action_lows=torch.full((_N_ARM,), -1.0, device=device),
                action_highs=torch.full((_N_ARM,), 1.0, device=device),
                params=params, init=_pusher_init, step=_pusher_step, observe=_pusher_observe,
                device=device, success=_pusher_success, max_episode_steps=100,
-               fused_rollout=fused)
+               build_fused=_build_pusher_fused, **_build_pusher_fused(params))
 
 
 # ---------------------------------------------------------------------------
@@ -342,13 +358,14 @@ class DoorParams:
     k_grab: torch.Tensor        # [] grab spring stiffness
     grab_radius: torch.Tensor   # [] the spring acts while |hand - handle| < it
     target_angle: torch.Tensor  # [] the door's goal angle
+    handle_local: torch.Tensor  # [3] HANDLE_LOCAL, made with the params (no host copy a step)
 
 
 @dataclasses.dataclass(frozen=True)
 class DoorState:
     qpos: torch.Tensor     # [..., 8] = 7 arm + door hinge
     qvel: torch.Tensor     # [..., 8]
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
 
 
 def door_model(device="cuda") -> rb.ChainModel:
@@ -356,10 +373,11 @@ def door_model(device="cuda") -> rb.ChainModel:
                           site_pos=(0.0, 0.0, 0.0), device=device)
 
 
-def handle_position(rots, poss):
-    """The handle's world position [..., 3] from the bodies' frames."""
-    local = torch.tensor(HANDLE_LOCAL, device=poss.device)
-    return poss[..., DOOR_BODY, :] + (rots[..., DOOR_BODY, :, :] @ local[:, None])[..., 0]
+def handle_position(rots, poss, handle_local):
+    """The handle's world position [..., 3] from the bodies' frames and
+    HANDLE_LOCAL as a tensor."""
+    return (poss[..., DOOR_BODY, :]
+            + (rots[..., DOOR_BODY, :, :] @ handle_local[:, None])[..., 0])
 
 
 def door_forces(pos, k_grab, grab_radius):
@@ -380,16 +398,16 @@ def door_reward(hand, handle, q_door, target_angle):
             - 0.5 * torch.linalg.vector_norm(hand - handle, dim=-1))
 
 
-def _door_points(model, q):
+def _door_points(model, q, handle_local):
     rots, poss = rb.forward_kinematics(model, q)
-    return poss[..., HAND_BODY, :], handle_position(rots, poss)
+    return poss[..., HAND_BODY, :], handle_position(rots, poss, handle_local)
 
 
 def _door_ext_forces(params: DoorParams):
-    handle = torch.tensor(HANDLE_LOCAL, device=params.k_grab.device)
+    handle = params.handle_local
 
     def fn(model, q, qd):
-        hand, handle_w = _door_points(model, q)
+        hand, handle_w = _door_points(model, q, handle)
         f = door_forces(torch.stack([hand, handle_w], -2), params.k_grab,
                         params.grab_radius)[..., 1, :]
         return rb.point_force_to_generalized(model, q, DOOR_BODY, handle, f)
@@ -400,11 +418,11 @@ def _door_ext_forces(params: DoorParams):
 def _door_init(params: DoorParams, seed: int) -> DoorState:
     device = params.k_grab.device
     return DoorState(qpos=torch.zeros(8, device=device), qvel=torch.zeros(8, device=device),
-                     timestep=0)
+                     timestep=rng.step_tensor(0, device))
 
 
 def _door_observe(params: DoorParams, state: DoorState) -> torch.Tensor:
-    hand, handle = _door_points(params.model, state.qpos)
+    hand, handle = _door_points(params.model, state.qpos, params.handle_local)
     return torch.cat([state.qpos, state.qvel, hand - handle,
                       (params.target_angle - state.qpos[..., DOOR_BODY])[..., None]], -1)
 
@@ -415,7 +433,7 @@ def _door_step(params: DoorParams, state: DoorState, action: torch.Tensor):
     qpos, qvel = rb.step(params.model, state.qpos, state.qvel, ctrl, n_substeps=_FRAME_SKIP,
                          ext_force_fn=_door_ext_forces(params))
     new = dataclasses.replace(state, qpos=qpos, qvel=qvel, timestep=state.timestep + 1)
-    hand, handle = _door_points(params.model, qpos)
+    hand, handle = _door_points(params.model, qpos, params.handle_local)
     reward = door_reward(hand, handle, qpos[..., DOOR_BODY], params.target_angle)
     return new, _door_observe(params, new), reward, torch.zeros_like(reward, dtype=torch.bool)
 
@@ -448,20 +466,47 @@ def build_door_rollout(model: rb.ChainModel) -> ForestRollout:
     return build_forest_rollout(model, _FRAME_SKIP, list(range(_N_ARM)), sawyer_door_task())
 
 
+def _build_door_fused(params: DoorParams) -> dict:
+    """Kernel #6 built from params.model (Env.build_fused)."""
+    roll = build_door_rollout(params.model)
+
+    def fused(p: DoorParams, state: DoorState, mean, noise):
+        return roll(state.qpos, state.qvel, door_extras(p), mean, noise)
+
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    return dict(fused_rollout=fused)
+
+
 def make_door(device="cuda") -> Env:
     """sawyer_door-v0 (max 100 steps)."""
     device = torch.device(device)
     model = door_model(device)
     t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-    params = DoorParams(model=model, k_grab=t(60.0), grab_radius=t(0.12), target_angle=t(1.2))
-    roll = build_door_rollout(model)
-
-    def fused(p: DoorParams, state: DoorState, mean, noise):
-        return roll(state.qpos, state.qvel, door_extras(p), mean, noise)
-
+    params = DoorParams(model=model, k_grab=t(60.0), grab_radius=t(0.12), target_angle=t(1.2),
+                        handle_local=rb.constant(HANDLE_LOCAL, device))
     return Env(name="sawyer_door-v0", d_obs=DOOR_D_OBS, d_action=_N_ARM,
                action_lows=torch.full((_N_ARM,), -1.0, device=device),
                action_highs=torch.full((_N_ARM,), 1.0, device=device),
                params=params, init=_door_init, step=_door_step, observe=_door_observe,
                device=device, success=_door_success, max_episode_steps=100,
-               fused_rollout=fused)
+               build_fused=_build_door_fused, **_build_door_fused(params))
+
+
+# Dynamics-randomization name tables: the names of the reference's
+# dyn_randomize_configs/sawyer/*.yml (body_mass: object/peg,
+# geom_friction: obj_cylinder/table, sensor_noise: target_pos).
+from .reacher_7dof import BODY_NAMES as _ARM_BODY_NAMES  # noqa: E402
+from .reacher_7dof import JOINT_NAMES as _ARM_JOINT_NAMES  # noqa: E402
+from .randomize import register_names as _register_names  # noqa: E402
+from .randomize import register_param_paths as _register_param_paths  # noqa: E402
+
+for _n in ("sawyer_pusher-v0", "pusher-v0"):
+    _register_names(_n, _ARM_BODY_NAMES + ["object_x", "object"],
+                    _ARM_JOINT_NAMES + ["obj_slide_x", "obj_slide_y"],
+                    extra={"obj_cylinder": _N_ARM + 1, "obj_sphere": _N_ARM + 1,
+                           "table": _N_ARM})
+for _n in ("sawyer_peg_insertion-v0", "sawyer_peg_insertion-v1"):
+    # the peg is welded to the wrist (body 6): its mass rides that row
+    _register_names(_n, _ARM_BODY_NAMES, _ARM_JOINT_NAMES, extra={"peg": 6})
+    # sensor_noise: target_pos scales the true-hole sensor offset
+    _register_param_paths(_n, {"sensor_noise": {"target_pos": "sensor_bias"}})

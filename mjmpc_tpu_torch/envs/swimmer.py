@@ -75,6 +75,8 @@ class SwimmerParams:
     drag_perp: torch.Tensor   # [5] per-link perpendicular drag coefficient
     drag_par: torch.Tensor    # [5] per-link parallel drag coefficient
     vel_limit: torch.Tensor   # [7] per-dof |qvel| ceiling
+    bodies: torch.Tensor      # [10] int64, the drag points' links (_POINT_BODIES): made
+                              # with the params, a step indexes them without a host copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +106,7 @@ def _sample_points(device: torch.device) -> torch.Tensor:
 def _ext_forces(params: SwimmerParams):
     """Generalized fluid-drag forces: two sample points per capsule, all ten
     through one jvp and one vjp of the points' world positions."""
-    bodies = _POINT_BODIES
+    bodies = params.bodies
     pts = _sample_points(params.drag_perp.device)
     c_perp = params.drag_perp.repeat_interleave(len(_SAMPLES))
     c_par = params.drag_par.repeat_interleave(len(_SAMPLES))
@@ -169,21 +171,28 @@ def pad_base(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x.new_zeros(x.shape[:-1] + (3,)), x], -1)
 
 
+def _build_fused(params: SwimmerParams) -> dict:
+    """Kernel #5 built from params: the model and the drag (Env.build_fused)."""
+    roll = build_rollout(params)
+
+    def fused(p, state, mean, noise):
+        return roll(state.qpos, state.qvel, pad_base(mean), pad_base(noise))
+
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    return dict(fused_rollout=fused)
+
+
 def make(device="cuda") -> Env:
     device = torch.device(device)
     per, par = _drag_coeffs()
     params = SwimmerParams(model=build_model(device),
                            drag_perp=torch.as_tensor(per, device=device),
                            drag_par=torch.as_tensor(par, device=device),
-                           vel_limit=torch.as_tensor(_VEL_LIMIT, device=device))
-    roll = build_rollout(params)
-
-    def fused(p, state, mean, noise):
-        return roll(state.qpos, state.qvel, pad_base(mean), pad_base(noise))
-
+                           vel_limit=torch.as_tensor(_VEL_LIMIT, device=device),
+                           bodies=rb.constant(_POINT_BODIES, device))
     return Env(
         name="Swimmer-v0", d_obs=D_OBS, d_action=4,
         action_lows=torch.full((4,), -1.0, device=device),
         action_highs=torch.full((4,), 1.0, device=device),
         params=params, init=_init, step=_step, observe=_observe, device=device,
-        max_episode_steps=500, fused_rollout=fused)
+        max_episode_steps=500, build_fused=_build_fused, **_build_fused(params))

@@ -9,7 +9,7 @@ clipped to [-1, 1]), the tip at the post-step state; obs = [cos q, sin q,
 qvel, tip, tip - target]; success: |tip - target| < 0.025.
 
 State = (qpos [..., 2], qvel [..., 2], target [..., 2], timestep); the
-timestep is a host integer shared by every particle of a batched state.
+timestep is an int64 tensor on the device, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ class TrajoptReacherState:
     qpos: torch.Tensor
     qvel: torch.Tensor
     target: torch.Tensor   # [..., 2] planar target
-    timestep: int
+    timestep: torch.Tensor   # int64, [] or the batch's leading dims
 
 
 def build_model(device="cuda") -> rb.ChainModel:
@@ -65,7 +65,7 @@ def _init(params: TrajoptReacherParams, seed: int) -> TrajoptReacherState:
     rad = 0.05 + 0.14 * u[3]
     return TrajoptReacherState(qpos=0.2 * u[:2] - 0.1, qvel=torch.zeros(2, device=device),
                                target=rad * torch.stack([torch.cos(ang), torch.sin(ang)]),
-                               timestep=0)
+                               timestep=rng.step_tensor(0, device))
 
 
 def _observe(params: TrajoptReacherParams, state: TrajoptReacherState) -> torch.Tensor:

@@ -1,18 +1,28 @@
-"""Episode runners: MPC in the loop, one episode after another.
+"""Episode runners: MPC in the loop.
 
 Counterpart of mjmpc_tpu/harness/episode.py. The reference's main loop
 alternates policy.get_action (a controller solve) and the real env.step.
-The JAX package runs a batch of episodes as one jitted program (a scan
-over steps, vmapped over episodes); here a host loop runs the episodes
-and their steps. Each solve stays free of host syncs; an episode's
-records stay on the device until it ends and are then read once. The
-solver plans against sim_params (through sim_env's dynamics when given:
-model-mismatch experiments) while the environment advances under its own
-params.
+The JAX package runs an episode as one jitted program (a scan over the
+control steps). Here, on a CUDA device, an episode is one captured device
+program too: the first control step runs eagerly (it builds the kernels
+and any library state), then one whole control step (the solve under
+guard_finite, the clip, the real env step, success, the writes of the
+step's records into preallocated [T, ...] device buffers and the copy of
+the new env and solver states into the step's static inputs) is captured
+as a torch.cuda.CUDAGraph and replayed for the other T - 1 steps. The
+records are read once, when the episode ends. A capture that fails
+raises; nothing carries on eagerly. On the CPU (and with replay=False on
+the card, the reference the replay is held against, bit for bit) the
+same step runs in a host loop.
+
+The solver plans against sim_params (through sim_env's dynamics when
+given: model-mismatch experiments, dynamics randomization) while the
+environment advances under its own params.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -31,7 +41,7 @@ def _build_step_fn(solver, env: Env, sim_env: Optional[Env] = None, guard: bool 
 
     guard=True (opt out with run_mpc --no_guard) wraps every solve in
     solvers.guard_finite: a solve with a non-finite result is discarded,
-    the control distribution re-initialises and a zero action is played."""
+    the solver's state is reset and a zero action is played."""
     plan_env = sim_env if sim_env is not None else env
     solve = solvers.make_solve_fn(solver, plan_env, fused=fused)
     if guard:
@@ -49,27 +59,159 @@ def _build_step_fn(solver, env: Env, sim_env: Optional[Env] = None, guard: bool 
     return step_fn
 
 
+def _stack_states(states):
+    """T states (dataclasses of tensors, nested dataclasses and host
+    values) as one state whose tensors are stacked on a leading [T] axis;
+    host values are taken from the first."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(states)
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: _stack_states([getattr(s, f.name) for s in states])
+            for f in dataclasses.fields(first)})
+    return first
+
+
+def _host_values(x) -> list:
+    """The values of a state that are not tensors (host integers such as a
+    solver's seed or the maze's key), in field order."""
+    if isinstance(x, torch.Tensor):
+        return []
+    if dataclasses.is_dataclass(x):
+        return [v for f in dataclasses.fields(x) for v in _host_values(getattr(x, f.name))]
+    if isinstance(x, (tuple, list)):
+        return [v for item in x for v in _host_values(item)]
+    return [x]
+
+
+def _eager_episode(step_fn, episode_length: int, real_params, sim_params, env_state,
+                   solver_state):
+    records, states = {k: [] for k in _RECORDS}, []
+    for _ in range(episode_length):
+        env_state, solver_state, out = step_fn(real_params, sim_params, env_state, solver_state)
+        for k, v in out.items():
+            records[k].append(v)
+        states.append(env_state)
+    return ({k: torch.stack(v) for k, v in records.items()}, _stack_states(states),
+            solver_state)
+
+
+def _replayed_episode(step_fn, episode_length: int, real_params, sim_params, env_state,
+                      solver_state, name: str):
+    """The episode with steps 1..T-1 replayed from one captured control
+    step (the module docstring)."""
+    device = _device(env_state)
+    stream = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):   # step 0, eager: builds the kernels and library state
+        env_1, solver_1, out = step_fn(real_params, sim_params, env_state, solver_state)
+    stream.wait_stream(side)
+    torch.cuda.synchronize(device)
+    if (_host_values(env_1) != _host_values(env_state)
+            or _host_values(solver_1) != _host_values(solver_state)):
+        raise RuntimeError(f"{name}: a host value of the env or solver state changes at every "
+                           "step, so the control step cannot be captured as a CUDA graph")
+    first_state = solvers.tensor_leaves(env_1)
+    records = {k: torch.empty((episode_length,) + v.shape, dtype=v.dtype, device=device)
+               for k, v in out.items()}
+    states = {k: torch.empty((episode_length,) + v.shape, dtype=v.dtype, device=device)
+              for k, v in first_state.items()}
+    for bufs, vals in ((records, out), (states, first_state)):
+        for k, v in vals.items():
+            bufs[k][0].copy_(v)
+    static = solvers.map_tensors(lambda v: v.clone(), (env_1, solver_1))
+    inputs = solvers.tensor_leaves(static)
+    t_index = torch.ones(1, dtype=torch.int64, device=device)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            env_n, solver_n, out_n = step_fn(real_params, sim_params, *static)
+            for bufs, vals in ((records, out_n), (states, solvers.tensor_leaves(env_n))):
+                for k, v in vals.items():
+                    bufs[k].index_copy_(0, t_index, v.reshape((1,) + v.shape))
+            new = solvers.tensor_leaves((env_n, solver_n))
+            if new.keys() != inputs.keys():
+                raise RuntimeError(f"the step changes the state's structure: "
+                                   f"{sorted(set(new) ^ set(inputs))}")
+            ptrs = {v.data_ptr() for v in inputs.values()}
+            # a new value that is another input's storage is read before it is overwritten
+            staged = {k: v.clone() if v.data_ptr() in ptrs and v is not inputs[k] else v
+                      for k, v in new.items()}
+            for k, v in inputs.items():
+                if staged[k] is not v:
+                    v.copy_(staged[k])
+            t_index.add_(1)
+    except Exception as e:
+        raise RuntimeError(f"{name}: capturing the control step as a CUDA graph failed: "
+                           f"{e}") from e
+    n = episode_length - 1
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    start.record(stream)
+    for _ in range(n):
+        graph.replay()   # on the current stream, the events' stream
+    end.record(stream)
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    replay_ms = start.elapsed_time(end) / n
+    # the events enclose the replays, and the host clock encloses the events
+    if not 0.0 < replay_ms <= host_ms:
+        raise RuntimeError(f"{name}: a replay's device time {replay_ms} ms is not within "
+                           f"(0, {host_ms}] ms, the synchronised host clock's over the same "
+                           "replays")
+    return records, _with_leaves(env_1, states), static[1], (replay_ms, host_ms)
+
+
+def _device(state) -> torch.device:
+    """The device of a state's tensors."""
+    return next(iter(solvers.tensor_leaves(state).values())).device
+
+
+def _with_leaves(state, leaves: Dict[str, torch.Tensor], prefix: str = ""):
+    """state with each tensor replaced by leaves[its dotted path]."""
+    if isinstance(state, torch.Tensor):
+        return leaves[prefix]
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **{
+            f.name: _with_leaves(getattr(state, f.name), leaves,
+                                 f"{prefix}.{f.name}" if prefix else f.name)
+            for f in dataclasses.fields(state)})
+    return state
+
+
 def build_episode_fn(solver, env: Env, episode_length: int, sim_env: Optional[Env] = None,
-                     guard: bool = True, fused: Any = "auto"):
-    """episode(real_params, sim_params, seed) -> (records, states,
-    final solver state): records maps reward, action, value, done and
-    success to [T, ...] tensors on the device, states is the list of the T
-    post-step env states. The env starts from env.init(real_params,
-    derive_seed(seed, 0)), the solver from init_state(derive_seed(seed, 1))."""
+                     guard: bool = True, fused: Any = "auto", replay: Optional[bool] = None):
+    """episode(real_params, sim_params, seed) -> (records, states, final
+    solver state): records maps reward, action, value, done and success to
+    [T, ...] tensors on the device, states is the env state with every
+    tensor stacked on a leading [T] axis (the T post-step states). The env
+    starts from env.init(real_params, derive_seed(seed, 0)), the solver
+    from init_state(derive_seed(seed, 1)).
+
+    replay: replay a captured control step (the module docstring); None
+    (the default) does so on a CUDA device, False runs the eager loop.
+    After a replayed episode, episode.replay_ms holds one replay's time on
+    the device (CUDA events around the replays) and episode.replay_host_ms
+    its time on the host's clock, synchronised before and after them: a
+    device time outside (0, host time] raises."""
     step_fn = _build_step_fn(solver, env, sim_env, guard, fused)
+    use_graph = (torch.device(env.device).type == "cuda") if replay is None else bool(replay)
 
     def episode(real_params, sim_params, seed: int):
         env_state = env.init(real_params, rng.derive_seed(seed, 0))
         solver_state = solver.init_state(rng.derive_seed(seed, 1))
-        records, states = {k: [] for k in _RECORDS}, []
-        for _ in range(episode_length):
-            env_state, solver_state, out = step_fn(real_params, sim_params, env_state,
-                                                   solver_state)
-            for k, v in out.items():
-                records[k].append(v)
-            states.append(env_state)
-        return {k: torch.stack(v) for k, v in records.items()}, states, solver_state
+        if use_graph and episode_length > 1:
+            *out, (episode.replay_ms, episode.replay_host_ms) = _replayed_episode(
+                step_fn, episode_length, real_params, sim_params, env_state, solver_state,
+                env.name)
+            return tuple(out)
+        return _eager_episode(step_fn, episode_length, real_params, sim_params, env_state,
+                              solver_state)
 
+    episode.replay_ms = episode.replay_host_ms = None
     return episode
 
 
@@ -80,7 +222,9 @@ def _fused_mode(plan_env: Env, sim_params):
     extras): planning against params that differ from the env's own only
     in those fields (pen's contact gains and radius) keeps the fused path
     ("auto"); any other difference (a perturbed model, other drag
-    coefficients) takes the general rollout (False)."""
+    coefficients) takes the general rollout (False). A perturbed env made
+    by randomize_dynamics carries kernels built from its own params, so
+    planning on it with its params keeps them."""
     base = plan_env.params
     if sim_params is base:
         return "auto"
@@ -94,30 +238,41 @@ def _fused_mode(plan_env: Env, sim_params):
     return "auto"
 
 
-def _stack_states(states):
-    """T env states (dataclasses of tensors and host integers) as one state
-    of numpy arrays [T, ...]."""
-    first = states[0]
-    fields = {}
-    for f in dataclasses.fields(first):
-        vals = [getattr(s, f.name) for s in states]
-        fields[f.name] = (torch.stack(vals).cpu().numpy() if isinstance(vals[0], torch.Tensor)
-                          else np.asarray(vals))
-    return dataclasses.replace(first, **fields)
+def _to_numpy(state):
+    """A stacked env state with its tensors as numpy arrays."""
+    if isinstance(state, torch.Tensor):
+        return state.cpu().numpy()
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **{f.name: _to_numpy(getattr(state, f.name))
+                                             for f in dataclasses.fields(state)})
+    return state
+
+
+def summarize(records: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """run_episodes' per-episode rewards and the aggregate metrics the
+    reference logs (AverageReward, StdReward, SuccessMetric = % of episodes
+    with more than 10 goal-achieved steps) from records [B, T, ...]."""
+    ep_rewards = records["reward"].sum(axis=1)
+    success_counts = records["success"].sum(axis=1)
+    return dict(
+        rewards=records["reward"], actions=records["action"], values=records["value"],
+        dones=records["done"], successes=records["success"], ep_rewards=ep_rewards,
+        average_reward=float(ep_rewards.mean()), reward_std=float(ep_rewards.std()),
+        success_metric=100.0 * float((success_counts > 10).mean()))
 
 
 def run_episodes(solver, env: Env, n_episodes: int, episode_length: int,
                  base_seed: int = 123, sim_params=None, sim_env: Optional[Env] = None,
                  guard: bool = True) -> Dict[str, Any]:
     """Episodes with the reference's per-episode seeding (episode seed =
-    base_seed + i * 12345).
+    base_seed + i * 12345), each one a replayed captured control step on a
+    CUDA device (build_episode_fn).
 
     Returns rewards [B, T], actions [B, T, dA], values, dones, success
-    flags, per-episode rewards and the aggregate metrics the reference
-    logs (AverageReward, StdReward, SuccessMetric = % of episodes with more
-    than 10 goal-achieved steps) as numpy, `states` (one env state of [T,
-    ...] arrays per episode) and `final_solver_states` (one solver state
-    per episode). sim_env / sim_params redirect planning to other dynamics.
+    flags, per-episode rewards and the aggregate metrics (summarize) as
+    numpy, `states` (one env state of [T, ...] arrays per episode) and
+    `final_solver_states` (one solver state per episode). sim_env /
+    sim_params redirect planning to other dynamics.
     """
     if sim_params is None:
         sim_params = sim_env.params if sim_env is not None else env.params
@@ -128,15 +283,7 @@ def run_episodes(solver, env: Env, n_episodes: int, episode_length: int,
     for i in range(n_episodes):
         records, ep_states, final = episode(env.params, sim_params, base_seed + i * 12345)
         per_episode.append({k: v.cpu().numpy() for k, v in records.items()})
-        states.append(_stack_states(ep_states))
+        states.append(_to_numpy(ep_states))
         finals.append(final)
-
-    out = {k: np.stack([r[k] for r in per_episode]) for k in _RECORDS}
-    ep_rewards = out["reward"].sum(axis=1)
-    success_counts = out["success"].sum(axis=1)
-    return dict(
-        rewards=out["reward"], actions=out["action"], values=out["value"],
-        dones=out["done"], successes=out["success"], ep_rewards=ep_rewards,
-        average_reward=float(ep_rewards.mean()), reward_std=float(ep_rewards.std()),
-        success_metric=100.0 * float((success_counts > 10).mean()),
-        states=states, final_solver_states=finals)
+    out = summarize({k: np.stack([r[k] for r in per_episode]) for k in _RECORDS})
+    return dict(out, states=states, final_solver_states=finals)

@@ -3,17 +3,23 @@ mjmpc_tpu/harness/run_mpc.py, reference examples/example_mpc.py).
 
 Usage:
     python -m mjmpc_tpu_torch.harness.run_mpc --config configs/Swimmer-v0.yml \
-        --controller mppi [--save_dir DIR] [--save_trajectories] [--checkpoint] \
-        [--device cuda]
+        --controller mppi [--dyn_randomize_config SPEC] [--save_dir DIR] \
+        [--save_trajectories] [--checkpoint] [--device cuda]
 
 The same flags and YAML schema as the JAX run_mpc, plus --device (the
-card unless the caller asks for the CPU). The config's episodes run one
-after another (harness/episode.py run_episodes); each controller's log
+card unless the caller asks for the CPU). With --dyn_randomize_config
+(a spec of configs/dyn_randomize/) only the planner's model is perturbed,
+from the config's seed (envs.randomize_dynamics): the real env stays
+nominal, and the perturbed env plans on kernels built from its own
+perturbed model. The config's episodes run one after another
+(harness/episode.py run_episodes, each a replayed captured control step
+on the card); each controller's log
 (.log and .csv) goes to <save_dir>/<env>/<date>/<controller>/, and with
 --checkpoint the final solver state of every episode to solver_state.npz
 and solver_state.manifest.json there (harness/checkpoint.py). Every
 controller's solver is built before the first episode runs, so a
-controller or flag the port lacks raises before anything runs.
+controller or flag the port lacks, or a spec that names an unknown
+field, raises before anything runs.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import tempfile
 from datetime import datetime
 
 import numpy as np
+import yaml
 
 from .. import envs
 from ..utils import get_logger, timeit
@@ -30,11 +37,9 @@ from . import checkpoint
 from . import config as cfg
 from .episode import run_episodes
 
-# Options of the JAX run_mpc whose modules are not ported yet, and the
-# ROADMAP slice that brings them.
+# Options of the JAX run_mpc whose modules are not ported yet.
 _NOT_PORTED = {
-    "dyn_randomize_config": "dynamics randomization needs envs/randomize.py (ROADMAP slice 8)",
-    "dump_vids": "videos need render/ (ROADMAP slice 8)",
+    "dump_vids": "videos need the JAX package's render/, which is not ported yet",
 }
 
 
@@ -44,7 +49,7 @@ def main(argv=None):
                         help="yaml file with experiment parameters")
     parser.add_argument("--dyn_randomize_config", type=str, default=None,
                         help="yaml file with dynamics randomization parameters "
-                             "(not ported yet: raises NotImplementedError)")
+                             "(perturbs the planner's model only)")
     parser.add_argument("--save_dir", type=str, default=tempfile.gettempdir(),
                         help="folder to save data in")
     parser.add_argument("--controller", type=str, default="mppi",
@@ -78,6 +83,12 @@ def main(argv=None):
 
     names = [c.strip() for c in args.controller.split(",")]
     built = {c: cfg.make_solver_for_env(exp_params, c, env) for c in names}
+    plan_env = sim_env
+    if args.dyn_randomize_config is not None:
+        with open(args.dyn_randomize_config) as f:
+            dyn_params = yaml.safe_load(f)
+        plan_env, defaults, randomized = envs.randomize_dynamics(
+            sim_env, dyn_params, base_seed=exp_params["seed"])
 
     date_time = datetime.now().strftime("%m_%d_%Y_%H_%M_%S")
     results = {}
@@ -88,13 +99,16 @@ def main(argv=None):
         logger = get_logger(f"{controller_name}_{exp_params['env_name']}", log_dir)
 
         solver = built[controller_name]
+        if plan_env is not sim_env:
+            logger.info("Default params = %s", defaults)
+            logger.info("Randomized params = %s", randomized)
         logger.info("%s", exp_params[controller_name])
 
         timeit.start("start_" + controller_name)
         out = run_episodes(
             solver, env, n_episodes=exp_params["n_episodes"],
             episode_length=exp_params["max_ep_length"], base_seed=exp_params["seed"],
-            sim_env=sim_env if sim_env.name != env.name else None, guard=not args.no_guard)
+            sim_env=plan_env if plan_env is not env else None, guard=not args.no_guard)
         timeit.stop("start_" + controller_name)
 
         logger.info("Avg. reward = %s, Std. Reward = %s, Success Metric = %s",
@@ -119,6 +133,8 @@ def main(argv=None):
                               n_episodes=exp_params["n_episodes"]))
             logger.info("saved solver-state checkpoint")
         out["log_dir"] = log_dir
+        out["sim_params"] = plan_env.params
+        out["real_params"] = env.params
         results[controller_name] = out
     return results
 

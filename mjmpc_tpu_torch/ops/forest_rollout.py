@@ -349,10 +349,12 @@ def pen_task() -> ForestTask:
     from ..envs import pen
 
     def forces(pos, vel, extras):
-        return pen.pen_forces(pos, vel, extras[3], extras[4], extras[5], extras[6])
+        return pen.pen_forces(pos, vel, extras[3], extras[4], extras[5], extras[6],
+                              pen.constants(pos.device))
 
     def cost(model, q, qd, rots, poss, extras):
-        return -pen.pen_reward(poss[:, pen.PEN_BODY], rots[:, pen.PEN_BODY, :, 0], extras[0:3])
+        return -pen.pen_reward(poss[:, pen.PEN_BODY], rots[:, pen.PEN_BODY, :, 0], extras[0:3],
+                               pen.constants(poss.device).desired_pos)
 
     header = (
         f"constexpr int PEN_BODY = {pen.PEN_BODY};",
@@ -414,14 +416,15 @@ def relocate_task(hand_weight: float) -> ForestTask:
     weight = float(np.float32(hand_weight))
 
     def forces(pos, vel, extras):
-        return rl.relocate_forces(pos, vel, extras[3], extras[4], extras[5], extras[6])
+        return rl.relocate_forces(pos, vel, extras[3], extras[4], extras[5], extras[6],
+                                  rl.constants(pos.device))
 
     def joint_torque(q, qd, extras, fk):
         return {2: weight}
 
     def cost(model, q, qd, rots, poss, extras):
-        return -rl.relocate_reward(rl.palm_position(rots, poss), poss[:, rl.BALL_BODY],
-                                   extras[0:3])
+        return -rl.relocate_reward(rl.palm_position(rots, poss, rl.constants(poss.device)),
+                                   poss[:, rl.BALL_BODY], extras[0:3])
 
     header = (
         f"constexpr int N_TIPS = {rl.N_TIPS};",
@@ -454,13 +457,15 @@ def hammer_task(hand_weight: float) -> ForestTask:
     weight = float(np.float32(hand_weight))
 
     def forces(pos, vel, extras):
-        return hm.hammer_forces(pos, vel, extras[0], extras[1], extras[2])
+        return hm.hammer_forces(pos, vel, extras[0], extras[1], extras[2],
+                                hm.constants(pos.device))
 
     def joint_torque(q, qd, extras, fk):
         return {2: weight, hm.NAIL_BODY: hm.nail_friction(qd[:, hm.NAIL_V])}
 
     def cost(model, q, qd, rots, poss, extras):
-        return -hm.hammer_reward(*hm.hammer_frames(rots, poss), -q[:, hm.NAIL_Q])
+        return -hm.hammer_reward(*hm.hammer_frames(rots, poss, hm.constants(poss.device)),
+                                 -q[:, hm.NAIL_Q])
 
     header = (
         f"constexpr int N_TIPS = {hm.N_TIPS};",
@@ -507,12 +512,14 @@ def sawyer_door_task() -> ForestTask:
         return st.door_forces(pos, extras[0], extras[1])
 
     def cost(model, q, qd, rots, poss, extras):
-        return -st.door_reward(poss[:, st.HAND_BODY], st.handle_position(rots, poss),
+        handle = st.handle_position(rots, poss, torch.as_tensor(handle_local, device=poss.device))
+        return -st.door_reward(poss[:, st.HAND_BODY], handle,
                                q[:, st.DOOR_BODY], extras[2])
 
     header = (f"constexpr int HAND_BODY = {st.HAND_BODY};",
               f"constexpr int DOOR_BODY = {st.DOOR_BODY};")
-    tables = (("handle_local", "float", np.asarray(st.HANDLE_LOCAL, _F32)),)
+    handle_local = np.asarray(st.HANDLE_LOCAL, _F32)
+    tables = (("handle_local", "float", handle_local),)
     points = ((st.HAND_BODY, (0.0, 0.0, 0.0)),
               (st.DOOR_BODY, tuple(float(x) for x in st.HANDLE_LOCAL)))
     # counted from forest_rollout.cuh as written: the difference, its norm
@@ -600,7 +607,8 @@ def door_task(hand_weight: float) -> ForestTask:
     weight = float(np.float32(hand_weight))
 
     def forces(pos, vel, extras):
-        return hd.door_forces(pos, vel, extras[0], extras[1], extras[2])
+        return hd.door_forces(pos, vel, extras[0], extras[1], extras[2],
+                              hd.constants(pos.device))
 
     def joint_torque(q, qd, extras, fk):
         q_door, q_latch = q[:, hd.DOOR_BODY], q[:, hd.LATCH_BODY]
@@ -608,7 +616,8 @@ def door_task(hand_weight: float) -> ForestTask:
                 hd.LATCH_BODY: hd.latch_torque(q_latch)}
 
     def cost(model, q, qd, rots, poss, extras):
-        return -hd.door_reward(*hd.door_frames(rots, poss), q[:, hd.DOOR_BODY],
+        return -hd.door_reward(*hd.door_frames(rots, poss, hd.constants(poss.device)),
+                               q[:, hd.DOOR_BODY],
                                q[:, hd.LATCH_BODY])
 
     header = (

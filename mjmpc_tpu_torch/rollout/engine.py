@@ -32,14 +32,14 @@ class Trajectories(NamedTuple):
 
 
 def _broadcast_state(state, n: int):
-    """Give every tensor field of a state dataclass a leading [n] axis."""
-    fields = {}
-    for f in dataclasses.fields(state):
-        v = getattr(state, f.name)
-        if isinstance(v, torch.Tensor):
-            v = v.expand((n,) + tuple(v.shape))
-        fields[f.name] = v
-    return dataclasses.replace(state, **fields)
+    """Give every tensor of a state dataclass, those of nested state
+    dataclasses too (a wrapped env's inner state), a leading [n] axis."""
+    if isinstance(state, torch.Tensor):
+        return state.expand((n,) + tuple(state.shape))
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **{f.name: _broadcast_state(getattr(state, f.name), n)
+                                             for f in dataclasses.fields(state)})
+    return state
 
 
 def _scan_rollout(env: Env, params, state0, noise: torch.Tensor, action_fn) -> Trajectories:

@@ -283,20 +283,25 @@ def guard_finite(solve, solver):
     """Failure-recovery wrapper (JAX base.py guard_finite): when a solve
     gives a non-finite action, value or state tensor (a diverged rollout, a
     collapsed covariance), play a zero action with value 0 and reset the
-    control distribution to init_state's; `step` advances in every case.
-    Tensors nested in the state (the learned-model solvers' parameters) are
-    checked and reset with the rest.
+    solver's state; `step` advances in every case. Tensors nested in the
+    state (the learned-model solvers' parameters) are checked and reset
+    with the rest.
 
     The check is one device-side boolean and the choice a torch.where per
     tensor, and the step advances by a device add, so the guard reads
     nothing back to the host and can be captured in a CUDA graph with the
-    solve (init_state builds the fresh tensors with device fills). The JAX
-    version draws the fresh state from fold_in(key, step); a host-integer
-    seed cannot be chosen on the device without a sync, so the reset state
-    keeps the solver state's `seed`. Noise streams are keyed by (seed, tag,
-    step) and step advances anyway, so the next solve's noise is still
-    fresh.
+    solve. The reset state is `solver.reset_state(seed, step)` where the
+    solver has one (SoftQMPC, RandomShootingNN: fresh parameters drawn on
+    the device from Philox at the state's step, so resets at different
+    steps draw different parameters, as the JAX guard's
+    init_state(fold_in(key, step)) does), else init_state(seed), which
+    builds the fresh tensors with device fills. A host-integer seed cannot
+    be chosen on the device without a sync, so the reset state keeps the
+    solver state's `seed`; noise streams are keyed by (seed, tag, step) and
+    step advances anyway, so the next solve's noise is still fresh.
     """
+    reset = getattr(solver, "reset_state", None)
+
     def guarded(env_params, env_state, solver_state):
         action, value, new_state = solve(env_params, env_state, solver_state)
         ok = torch.isfinite(action).all() & torch.isfinite(value).all()
@@ -305,7 +310,8 @@ def guard_finite(solve, solver):
             for x in tensor_leaves(getattr(new_state, name)).values():
                 if x.is_floating_point():
                     ok = ok & torch.isfinite(x).all()
-        fresh = solver.init_state(solver_state.seed)
+        fresh = (reset(solver_state.seed, solver_state.step) if reset is not None
+                 else solver.init_state(solver_state.seed))
         where = lambda good, bad: torch.where(ok, good, bad)
         recovered = dataclasses.replace(
             new_state, step=solver_state.step + 1,

@@ -12,13 +12,17 @@ normals, then colouring and the filter in tensor operations, one kernel
 launch) under rng.stream_key(seed, 40) at the state's step. The policy's
 initial weights come from a torch.Generator on the CPU seeded with the
 state's seed, once per seed: init_state keeps them (as SoftQMPC keeps its
-initial Q), so that guard_finite's reset inside a solve copies nothing
-from the host.
+initial Q). guard_finite's reset draws fresh Xavier-uniform weights on the
+device instead (reset_state: the uniforms kernel under
+rng.stream_key(seed, 41) at the state's step), so that resets at different
+steps give different policies, as JAX's fold_in(key, step) does, and the
+reset copies nothing from the host.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
@@ -30,6 +34,7 @@ from ..models.mlp import MLPLayerParams, MLPPolicy
 from ..rollout.engine import Trajectories, rollout_closed_loop_policy
 
 _TAG_ROLLOUT = 40
+_TAG_RESET = 41
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +98,22 @@ class RandomShootingNN:
         return RSNNState(mean=torch.zeros((self.horizon, self.d_action), device=self.device),
                          policy_params=self._initial_params[seed],
                          step=rng.step_tensor(0, self.device), seed=seed)
+
+    def reset_state(self, seed: int, step: torch.Tensor) -> RSNNState:
+        """guard_finite's reset: a zero mean and fresh Xavier-uniform
+        weights (zero biases) from one draw of uniforms on the device under
+        the stream (seed, 41) at `step`, which the state keeps."""
+        dims = self.policy._dims()
+        u = ops.uniforms(rng.stream_key(int(seed), _TAG_RESET), step,
+                         sum(n_in * n_out for n_in, n_out in dims))
+        params, off = [], 0
+        for n_in, n_out in dims:
+            lim = math.sqrt(6.0 / (n_in + n_out))
+            w = (2.0 * u[off:off + n_in * n_out] - 1.0).reshape(n_in, n_out) * lim
+            params.append(MLPLayerParams(weight=w, bias=torch.zeros_like(w[0])))
+            off += n_in * n_out
+        return RSNNState(mean=torch.zeros((self.horizon, self.d_action), device=self.device),
+                         policy_params=params, step=step, seed=int(seed))
 
     def sample_noise(self, state: RSNNState) -> torch.Tensor:
         """AR(2)-filtered N(0, init_cov I) noise [N, H, dA] from the stream

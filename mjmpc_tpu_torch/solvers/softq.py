@@ -26,9 +26,11 @@ ops.control.capturable_linalg.
 
 The initial Q parameters (L, J ~ N(0, 1)) come from a torch.Generator on
 the CPU seeded with the state's seed, once per seed: init_state keeps
-them, so that guard_finite's reset inside a solve copies nothing from the
-host (JAX draws a fresh Q from fold_in(key, step); here the reset Q is
-the seed's initial one).
+them. guard_finite's reset draws a fresh Q on the device instead
+(reset_state: L, J from the noise kernel's normals under
+rng.stream_key(seed, 32) at the state's step), so that resets at
+different steps give different Q's, as JAX's fold_in(key, step) does, and
+the reset copies nothing from the host.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from ..rollout.engine import Trajectories, _scan_rollout
 
 _TAG_ROLLOUT = 30
 _TAG_ACT = 31
+_TAG_RESET = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +128,16 @@ class SoftQMPC:
             self._initial_q[seed] = self.model.init_params(g, self.device)
         return SoftQState(q_params=self._initial_q[seed],
                           step=rng.step_tensor(0, self.device), seed=seed)
+
+    def reset_state(self, seed: int, step: torch.Tensor) -> SoftQState:
+        """guard_finite's reset: a fresh Q (L, J ~ N(0, 1), c = 0) drawn on
+        the device from the stream (seed, 32) at `step`, which the state
+        keeps."""
+        d = self.model.d_total
+        d_l = d * (d + 1) // 2          # L's packed lower triangle
+        z = ops.standard_normals(rng.stream_key(int(seed), _TAG_RESET), step, (d_l + d,))
+        q = QuadraticQParams(l_packed=z[:d_l], j=z[d_l:], c=torch.zeros_like(z[0]))
+        return SoftQState(q_params=q, step=step, seed=int(seed))
 
     # ---- policy from Q ----------------------------------------------------
     def _policy(self, params: QuadraticQParams):

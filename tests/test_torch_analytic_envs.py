@@ -81,7 +81,7 @@ def _trajopt(r):
         qpos=jnp.asarray(r.uniform(-2.5, 2.5, (B, 2)), jnp.float32),
         qvel=jnp.asarray(r.uniform(-1, 1, (B, 2)), jnp.float32),
         target=jnp.asarray(target, jnp.float32), timestep=jnp.full(B, 7, jnp.int32))
-    # the port's timestep is a host integer shared by the batch
+    # the port's timestep is an int64 tensor, here one shared by the batch
     port = convert.trajopt_reacher_state_from_reference(js._replace(timestep=7), DEVICE)
     return js, port, r.uniform(-1.5, 1.5, (B, 2))
 

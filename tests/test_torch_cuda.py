@@ -15,7 +15,11 @@ a CUDA graph and replayed against eager solves (chip_smoke.py graph_check),
 two replays drawing different noise; iLQR on LQR against the dynamic
 program (rtol 1e-3 on the action, 1e-4 on the cost), iLQR on cartpole and
 MPPI on the continual maze replayed as CUDA graphs, and their checkpoints
-restoring the next solve bit for bit.
+restoring the next solve bit for bit; an episode replayed from one captured
+control step against the eager episode bit for bit (the main path, and pen
+planning on a perturbed model's own kernel), guard_finite's reset of the
+learned solvers replayed in a graph, kernels built from perturbed models
+against their plain versions, and parallel/ on a mesh of one card.
 
 Needs a CUDA card and skips without one (the kernel has no CPU mode). This
 file imports no jax, so it also runs where jax is not installed:
@@ -940,3 +944,108 @@ def test_learned_solve_replays_as_a_cuda_graph(device, name):
     fields = _chip_smoke().graph_check(name, solve, env, es, solver.init_state(0))
     assert fields["identical"] and fields["steps"] == [1, 2, 3, 4, 5]
     assert fields["max_abs_diff_next_step"] > 0.0
+
+
+def _main_path_mppi(device, n=4096):
+    return solvers.MPPI(d_action=7, horizon=32, num_particles=n, lam=0.01, init_cov=3.0,
+                        step_size=0.55, filter_coeffs=(0.25, 0.8, 0.0), base_action="repeat",
+                        device=device)
+
+
+@pytest.mark.parametrize("name", ["reacher_7dof-v0", "pen-v0_perturbed"])
+def test_replayed_episode_equals_the_eager_episode(device, name):
+    """build_episode_fn replayed (one control step captured as a CUDA graph)
+    against the eager loop: the records, the stacked env states and the
+    final solver state bit for bit; the main path, and pen-v0's mppi
+    planning on the perturbed pen's own kernel #6 (hand_pen.yml)."""
+    from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.harness.episode import build_episode_fn
+    smoke = _chip_smoke()
+    if name == "reacher_7dof-v0":
+        env, sim, steps = envs.make(name, device=device), None, 6
+        solver = _main_path_mppi(device)
+    else:
+        env, sim, steps = envs.make("pen-v0", device=device), smoke.dyn_envs(device)["pen-v0"], 3
+        solver = hconfig.make_solver_for_env(hconfig.load_config("configs/hand/pen-v0.yml"),
+                                             "mppi", env)
+    sim_params = (sim or env).params
+    outs = [build_episode_fn(solver, env, steps, sim_env=sim, replay=replay)(
+        env.params, sim_params, 5) for replay in (False, True)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert smoke.tensors_equal(a, b)
+    assert outs[1][0]["reward"].shape == (steps,)
+
+
+@pytest.mark.parametrize("name", ["softqmpc", "random_shooting_nn"])
+def test_replayed_guard_reset_draws_fresh_parameters(device, name):
+    """guard_finite around a diverging solve, captured as a CUDA graph: two
+    replays at different steps reset to different, finite parameters, each
+    equal to the eager reset at its step (drawn on the device, nothing
+    copied from the host)."""
+    env = envs.make("SimplePendulum-v0", device=device)
+    if name == "softqmpc":
+        solver = solvers.SoftQMPC(d_obs=3, d_action=1, horizon=8, num_particles=16, device=device)
+        field = "q_params"
+    else:
+        solver = solvers.RandomShootingNN(d_obs=3, d_action=1, horizon=8, num_particles=16,
+                                          hidden=(16,), device=device)
+        field = "policy_params"
+    diverged = lambda p, es, s: (torch.full((1,), float("nan"), device=device),
+                                 torch.zeros((), device=device), s)
+    guarded = solvers.guard_finite(diverged, solver)
+    es = env.init(env.params, 0)
+    graph, out, feed = _chip_smoke().capture(guarded, env, es, solver.init_state(0))
+    resets = []
+    for _ in range(2):
+        step = int(feed.static.step)
+        graph.replay()
+        got = solvers.map_tensors(torch.clone, getattr(out[2], field))
+        want = getattr(solver.reset_state(0, rng.step_tensor(step, device)), field)
+        assert all(torch.equal(a, b) for a, b in zip(solvers.tensor_leaves(got).values(),
+                                                     solvers.tensor_leaves(want).values()))
+        resets.append(got)
+        feed()
+    a, b = (list(solvers.tensor_leaves(r).values()) for r in resets)
+    assert all(bool(torch.isfinite(x).all()) for x in a + b)
+    assert any(not torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_perturbed_models_kernels_match_their_plain_versions(device):
+    """Kernels built from perturbed models (chip_smoke.py dyn_envs): #1 for
+    the reacher at (37, 5) to 5e-5, #6 for pen and hammer at (37, 3) to
+    1e-4, their headers not the nominal models'."""
+    smoke = _chip_smoke()
+    dyn = smoke.dyn_envs(device)
+    for name, start in [(smoke.DYN_REACHER[0], None)] + [(k, v[1]) for k, v in
+                                                          smoke.DYN_FOREST.items()]:
+        e, r = dyn[name], dyn[name].fused_rollout.kernel
+        if name == smoke.DYN_REACHER[0]:
+            args, tol = smoke.reacher_inputs(37, 5, 3, device), 5e-5
+        else:
+            args, tol = smoke.forest_inputs(e, r, 37, 3, 3, device, start), 1e-4
+        torch.testing.assert_close(r(*args), r.plain(*args), rtol=0, atol=tol)
+        assert r.header != envs.make(name, device=device).fused_rollout.kernel.header
+
+
+def test_sharded_solve_and_batch_episode_on_a_mesh_of_one_card(device):
+    """parallel/ on the card alone: the sharded main-path solve equals the
+    plain solve bit for bit, #1 once a solve; the batched episodes equal
+    the single ones."""
+    from mjmpc_tpu_torch import parallel
+    from mjmpc_tpu_torch.harness.episode import build_episode_fn
+    smoke = _chip_smoke()
+    env = envs.make("reacher_7dof-v0", device=device)
+    solver = _main_path_mppi(device, 1024)
+    mesh = parallel.make_mesh()
+    es, state = env.init(env.params, 1), solver.init_state(0)
+    before = ChainRollout.launches
+    sharded = parallel.build_sharded_solve_fn(solver, env, mesh)(env.params, es, state)
+    assert ChainRollout.launches == before + 1
+    assert smoke.tensors_equal(sharded, solvers.make_solve_fn(solver, env)(env.params, es, state))
+    small = _main_path_mppi(device, 128)
+    batch = parallel.build_batch_episode_fn(small, env, 3, mesh)(env.params, [4, 9])
+    single = build_episode_fn(small, env, 3)
+    for i, seed in enumerate([4, 9]):
+        records = single(env.params, env.params, seed)[0]
+        assert all(torch.equal(batch[k][i], records[k]) for k in records)

@@ -24,6 +24,7 @@ from mjmpc_tpu import solvers as jsolvers
 from mjmpc_tpu.harness import config as jcfg
 from mjmpc_tpu_torch import convert, envs, rng, solvers
 from mjmpc_tpu_torch.harness import config as cfg
+from mjmpc_tpu_torch.envs import randomize
 from mjmpc_tpu_torch.harness import episode, run_mpc
 from mjmpc_tpu_torch.ops.chain_rollout import ChainExtRollout
 from mjmpc_tpu_torch.utils import TimeIt, get_logger
@@ -168,15 +169,55 @@ def test_run_mpc_runs_every_reacher_controller(tmp_path):
         assert out["rewards"].shape == (1, 2) and np.isfinite(out["rewards"]).all()
 
 
-@pytest.mark.parametrize("flag", [["--dyn_randomize_config", "d.yml"], ["--dump_vids"],
-                                  ["--checkpoint", "--dump_vids"]])
+@pytest.mark.parametrize("flag", [["--dump_vids"], ["--checkpoint", "--dump_vids"]])
 def test_run_mpc_flags_not_ported_raise(flag, tmp_path):
-    """The flags still to port raise before anything runs, --checkpoint
-    (ported) beside them too (its own test: tests/test_torch_drivers.py)."""
+    """The flag still to port (--dump_vids: render/) raises before anything
+    runs, --checkpoint (ported) beside it too (its own test:
+    tests/test_torch_drivers.py); --dyn_randomize_config runs (below)."""
     with pytest.raises(NotImplementedError):
         run_mpc.main(["--config", "configs/Swimmer-v0.yml", "--device", DEVICE,
                       "--save_dir", str(tmp_path), *flag])
     assert not list(tmp_path.iterdir())
+
+
+def test_run_mpc_dyn_randomize_perturbs_only_the_sim_params(tmp_path):
+    """run_mpc --dyn_randomize_config on the reacher spec at a tiny size:
+    the planner's params are the spec's draw from the config's seed, the
+    real env's are nominal, and both are logged."""
+    cfg_path = tmp_path / "reacher.yml"
+    with open("configs/reacher_7dof-v0.yml") as f:
+        exp = yaml.safe_load(f)
+    exp.update(n_episodes=1, max_ep_length=2)
+    exp["mppi"].update(num_particles=8, horizon=4)
+    cfg_path.write_text(yaml.safe_dump(exp))
+    spec_path = "configs/dyn_randomize/reacher_7dof.yml"
+    nominal = envs.make("reacher_7dof-v0", device=DEVICE)
+    out = run_mpc.main(["--config", str(cfg_path), "--controller", "mppi", "--device", DEVICE,
+                        "--dyn_randomize_config", spec_path,
+                        "--save_dir", str(tmp_path)])["mppi"]
+    with open(spec_path) as f:
+        spec = yaml.safe_load(f)
+    want, _, _ = randomize.perturbed_params(nominal, spec, base_seed=exp["seed"])
+    sim = out["sim_params"]
+    for f in ("mass", "inertia", "damping"):
+        np.testing.assert_array_equal(getattr(sim.model, f).numpy(),
+                                      getattr(want.model, f).numpy())
+    assert not torch.equal(sim.model.mass, nominal.params.model.mass)
+    # the real env that run_mpc stepped is nominal ...
+    real = solvers.tensor_leaves(out["real_params"])
+    for k, v in solvers.tensor_leaves(nominal.params).items():
+        assert torch.equal(real[k], v), k
+    # ... and its episode is the one of a nominal real env planned on the
+    # perturbed sim env from the same seed
+    exp_run = cfg.load_config(str(cfg_path))
+    sim_env = randomize.randomize_dynamics(nominal, spec, base_seed=exp["seed"])[0]
+    ref = episode.run_episodes(cfg.make_solver_for_env(exp_run, "mppi", nominal), nominal,
+                               n_episodes=1, episode_length=2, base_seed=exp["seed"],
+                               sim_env=sim_env)
+    np.testing.assert_array_equal(out["rewards"], ref["rewards"])
+    assert np.isfinite(out["rewards"]).all() and out["rewards"].shape == (1, 2)
+    log = "".join(p.read_text() for p in tmp_path.rglob("*.log"))
+    assert "Default params" in log and "Randomized params" in log
 
 
 def test_logger_tabular_round_trip_and_timer(tmp_path):

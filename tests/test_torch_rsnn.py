@@ -125,8 +125,9 @@ def test_rsnn_solve_runs_on_its_noise_stream():
 
 
 def test_rsnn_guard_resets_its_policy():
-    """guard_finite checks the policy's nested layers and resets them to
-    the seed's initial ones."""
+    """guard_finite checks the policy's nested layers and resets them to a
+    fresh policy drawn on the device at the state's step (reset_state),
+    not the seed's initial one."""
     env = envs.make("SimplePendulum-v0", device=DEVICE)
     solver = solvers.RandomShootingNN(d_obs=3, d_action=1, horizon=6, num_particles=8,
                                       hidden=(8,), device=DEVICE)
@@ -138,8 +139,11 @@ def test_rsnn_guard_resets_its_policy():
     a, v, s1 = guarded(env.params, env.init(env.params, 1),
                        dataclasses.replace(s0, policy_params=params))
     assert float(a.abs().max()) == 0.0 and int(s1.step) == 1
-    for got, want in zip(s1.policy_params, s0.policy_params):
+    fresh = solver.reset_state(2, rng.step_tensor(0, DEVICE)).policy_params
+    for got, want, first in zip(s1.policy_params, fresh, s0.policy_params):
+        torch.testing.assert_close(got.weight, want.weight, rtol=0, atol=0)
         torch.testing.assert_close(got.bias, want.bias, rtol=0, atol=0)
+        assert not torch.equal(got.weight, first.weight)
     leaves = solvers.tensor_leaves(s1)
     assert "policy_params.1.bias" in leaves and "step" in leaves
 

@@ -413,8 +413,10 @@ def test_softq_solve_runs_and_moves_q():
 
 
 def test_softq_init_state_is_kept_per_seed_and_guard_resets_it():
-    """init_state draws a seed's Q once; guard_finite puts it back when a
-    solve's Q goes non-finite, and the step advances."""
+    """init_state draws a seed's Q once; when a solve's Q goes non-finite,
+    guard_finite resets it to a fresh Q drawn on the device at the state's
+    step (reset_state, as the JAX guard draws from fold_in(key, step)), not
+    the seed's initial one, and the step advances."""
     env = envs.make("cartpole-v0", device=DEVICE)
     solver = solvers.SoftQMPC(d_obs=4, d_action=1, device=DEVICE, **SOFTQ_CARTPOLE)
     s0, again, other = solver.init_state(3), solver.init_state(3), solver.init_state(4)
@@ -425,7 +427,10 @@ def test_softq_init_state_is_kept_per_seed_and_guard_resets_it():
     solve = solvers.guard_finite(solvers.make_solve_fn(solver, env), solver)
     a, v, s1 = solve(env.params, env.init(env.params, 1), bad)
     assert float(a.abs().max()) == 0.0 and int(s1.step) == 1
-    torch.testing.assert_close(s1.q_params.j, s0.q_params.j, rtol=0, atol=0)
+    fresh = solver.reset_state(3, rng.step_tensor(0, DEVICE)).q_params
+    for got, want in zip(s1.q_params, fresh):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not torch.equal(s1.q_params.j, s0.q_params.j)
 
 
 def test_softq_state_converter():

@@ -69,7 +69,7 @@ def test_continual_reacher_moves_its_target_every_50_steps():
     assert env.fused_rollout is None
     state = env.init(env.params, 0)
     action = torch.zeros(7)
-    state = dataclasses.replace(state, timestep=48)
+    state = dataclasses.replace(state, timestep=rng.step_tensor(48, DEVICE))
     s49, *_ = env.step(env.params, state, action)
     s50, *_ = env.step(env.params, s49, action)
     torch.testing.assert_close(s49.target, state.target, rtol=0, atol=0)

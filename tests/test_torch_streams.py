@@ -194,3 +194,38 @@ def test_no_solve_creates_a_generator(env, name, monkeypatch):
     monkeypatch.setattr(torch, "Generator", refuse)
     action, _, state = solve(env.params, es, state)
     assert bool(torch.isfinite(action).all()) and int(state.step) == 1
+
+
+@pytest.mark.parametrize("name", ["softqmpc", "random_shooting_nn"])
+def test_guard_resets_draw_fresh_parameters_at_each_step(env, name):
+    """guard_finite's reset of a learned-model solver draws its parameters
+    on the device from Philox at the state's step (reset_state), as the JAX
+    guard's init_state(fold_in(key, step)) draws a fresh Q or MLP: resets
+    at different steps give different, finite parameters, neither the
+    seed's initial ones, and a reset is a function of (seed, step)."""
+    solver = SOLVERS[name]()
+    diverged = lambda p, es, s: (torch.full((DA,), float("nan")), torch.zeros(()), s)
+    guarded = solvers.guard_finite(diverged, solver)
+    es = env.init(env.params, 0)
+    start = solver.init_state(6)
+
+    def reset_at(step):
+        s = dataclasses.replace(start, step=rng.step_tensor(step, DEVICE))
+        action, value, out = guarded(env.params, es, s)
+        assert float(action.abs().max()) == 0.0 and float(value) == 0.0 and int(out.step) == step + 1
+        return out
+
+    field = "q_params" if name == "softqmpc" else "policy_params"
+    leaves = lambda s: solvers.tensor_leaves(getattr(s, field))
+    a, b, again = reset_at(3), reset_at(7), reset_at(3)
+    initial = leaves(start)
+    assert leaves(a).keys() == leaves(b).keys() == initial.keys()
+    for k in initial:
+        if not initial[k].abs().max() > 0:   # zero biases and c stay zero
+            continue
+        assert bool(torch.isfinite(leaves(a)[k]).all()) and bool(torch.isfinite(leaves(b)[k]).all())
+        assert not torch.equal(leaves(a)[k], leaves(b)[k]), k
+        assert not torch.equal(leaves(a)[k], initial[k]), k
+        torch.testing.assert_close(leaves(again)[k], leaves(a)[k], rtol=0, atol=0)
+    # the first draw is init_state's, kept for the seed
+    assert all(torch.equal(v, leaves(solver.init_state(6))[k]) for k, v in initial.items())
