@@ -279,7 +279,19 @@ exit and no final line:
                solves bit for bit (#1 once a solve each); the records of
                build_batch_episode_fn (the reacher config's mppi, seeds 1
                and 2, 4 steps) equal the single episodes' bit for bit.
-               Phases 24-27 run after phase 19, before the timing.
+28. render  -- run_mpc.main --dump_vids on configs/reacher_7dof-v0.yml and
+               configs/hand/door-v0.yml, each cut to 1 episode of
+               RENDER_STEPS steps (a replayed episode): one GIF in the log
+               dir whose image descriptors (render.gif.read_gif) number
+               RENDER_STEPS, the records equal to the same run without the
+               flag bit for bit, the launches of the run with the flag as
+               run_mpc's (zeroed just before it), and the frames drawn from
+               the states on the card equal to those drawn from the same
+               states on the CPU; render and GIF-encode ms per frame over
+               RENDER_TIMING_FRAMES frames; parallel.initialize_multihost
+               with NCCL at world size 1 and one all_reduce of a CUDA
+               tensor, then destroy_process_group.
+               Phases 24-28 run after phase 19, before the timing.
 20. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
@@ -503,6 +515,10 @@ DYN_FOREST = {"pen-v0": ("configs/dyn_randomize/hand_pen.yml", None),
               "hammer-v0": ("configs/dyn_randomize/hand_hammer.yml", "held")}
 DYN_CHECKS = ((37, 5), (1, 5))           # the reacher's kernel #1
 DYN_FOREST_CHECKS = ((37, 3), (1, 3))    # kernel #6, from the forest checks' starts
+# 28. render/: run_mpc --dump_vids on an arm and a hand config, a few steps
+RENDER_CONFIGS = ("configs/reacher_7dof-v0.yml", "configs/hand/door-v0.yml")
+RENDER_STEPS = 4
+RENDER_TIMING_FRAMES = 100
 KERNEL_ENGINE_ATOL = 5e-5                # a kernel against the general rollout
 DYN_STEPS = 3                            # run_mpc --dyn_randomize_config's episode
 EPISODE_STEPS = {"reacher_7dof-v0": 12, "pen-v0": 4, "reacher_7dof-v0 perturbed": 6}
@@ -1188,6 +1204,90 @@ def parallel_phase(device, counters, counts, expected, main_solver) -> dict:
         raise RuntimeError(f"parallel: sharded {same}, batch {batch_same}, launches {got}, "
                            f"expected {want}, batch launches {batch_launches}")
     return batch_launches
+
+
+def render_phase(device, counters, counts, smi: str) -> None:
+    """28. render/ and initialize_multihost on the card (see the module
+    docstring)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from mjmpc_tpu_torch import envs, parallel, render
+    from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.harness import run_mpc
+    from mjmpc_tpu_torch.render import gif
+    for config in RENDER_CONFIGS:
+        exp = dict(hconfig.load_config(config), n_episodes=1, max_ep_length=RENDER_STEPS)
+        env = envs.make(exp["env_name"], device=device)
+        s = hconfig.make_solver_for_env(exp, "mppi", env)
+        with tempfile.TemporaryDirectory() as out_dir:
+            path = cut_config(exp, out_dir, "render.yml")
+            runs, launches = {}, {}
+            for key, extra in (("with", ["--dump_vids"]), ("without", [])):
+                reset_counts(*counters)
+                runs[key] = run_mpc.main(["--config", path, "--controller", "mppi", "--device",
+                                          str(device), "--save_dir", f"{out_dir}/{key}",
+                                          *extra])["mppi"]
+                launches[key] = counts()
+            gifs = sorted(f for f in os.listdir(runs["with"]["log_dir"]) if f.endswith(".gif"))
+            info = [gif.read_gif(os.path.join(runs["with"]["log_dir"], f)) for f in gifs]
+        identical = all(np.array_equal(runs["with"][k], runs["without"][k])
+                        for k in ("rewards", "actions", "values", "dones", "successes"))
+        solves = episode_solves(RENDER_STEPS) * s.n_iters
+        kernel = "forest" if exp["env_name"] == "door-v0" else "chain"
+        launches_ok = (launches["with"] == launches["without"]
+                       and launches["with"][kernel] == solves)
+        host = runs["with"]["states"][0]
+        on_card = dataclasses.replace(host, **{
+            f.name: torch.as_tensor(getattr(host, f.name), device=device)
+            for f in dataclasses.fields(host) if isinstance(getattr(host, f.name), np.ndarray)})
+        frames_cpu = render.render_trajectory(env, [host])
+        frames_card = render.render_trajectory(env, [on_card])
+        same_frames = len(frames_cpu) == RENDER_STEPS and all(
+            np.array_equal(a, b) for a, b in zip(frames_cpu, frames_card))
+        # render and encode times over a longer episode: the states tiled
+        reps = -(-RENDER_TIMING_FRAMES // RENDER_STEPS)
+        long = dataclasses.replace(on_card, **{
+            f.name: getattr(on_card, f.name).repeat(reps, *[1] * (getattr(on_card, f.name).dim()
+                                                                  - 1))[:RENDER_TIMING_FRAMES]
+            for f in dataclasses.fields(on_card)
+            if isinstance(getattr(on_card, f.name), torch.Tensor)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = render.render_trajectory(env, [long])
+        render_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            gif.write_gif(f"{out_dir}/timing.gif", frames)
+            encode_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+            gif_bytes = os.path.getsize(f"{out_dir}/timing.gif")
+        emit("render", config=config, env=exp["env_name"], steps=RENDER_STEPS, gifs=gifs,
+             gif_frames=[len(i["delays"]) for i in info], records_identical=identical,
+             card_frames_equal_cpu=same_frames, launches=launches["with"],
+             timing_frames=len(frames), render_ms_per_frame=render_ms,
+             encode_ms_per_frame=encode_ms, gif_kb_per_frame=gif_bytes / 1e3 / len(frames),
+             card=smi)
+        if (gifs != ["vid_traj_0.gif"] or [len(i["delays"]) for i in info] != [RENDER_STEPS]
+                or not (identical and same_frames and launches_ok)
+                or not np.isfinite(runs["with"]["rewards"]).all()):
+            raise RuntimeError(f"render {config}: gifs {gifs}, records {identical}, frames "
+                               f"{same_frames}, launches {launches}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    parallel.initialize_multihost(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    try:
+        backend, world = dist.get_backend(), dist.get_world_size()
+        x = torch.arange(4.0, device=device)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        reduced = torch.equal(x, torch.arange(4.0, device=device))
+    finally:
+        dist.destroy_process_group()
+    emit("multihost", backend=backend, world_size=world, all_reduce_ok=reduced,
+         destroyed=not dist.is_initialized())
+    if backend != "nccl" or world != 1 or not reduced or dist.is_initialized():
+        raise RuntimeError(f"initialize_multihost: {backend}, world {world}, reduce {reduced}")
 
 
 def lqr_dp(params, h: int, x0):
@@ -2246,6 +2346,8 @@ def main() -> int:
     dyn_counts = {"reacher": replay_counts["reacher_7dof-v0 perturbed"]["eager"],
                   "pen": replay_counts["pen-v0"]["eager"]}
     parallel_phase(device, counters, counts, expected, solver)
+    # 28. render/ through run_mpc --dump_vids, initialize_multihost on NCCL
+    render_phase(device, counters, counts, smi)
 
     # 20. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)

@@ -4,7 +4,7 @@ mjmpc_tpu/harness/run_mpc.py, reference examples/example_mpc.py).
 Usage:
     python -m mjmpc_tpu_torch.harness.run_mpc --config configs/Swimmer-v0.yml \
         --controller mppi [--dyn_randomize_config SPEC] [--save_dir DIR] \
-        [--save_trajectories] [--checkpoint] [--device cuda]
+        [--save_trajectories] [--checkpoint] [--dump_vids] [--device cuda]
 
 The same flags and YAML schema as the JAX run_mpc, plus --device (the
 card unless the caller asks for the CPU). With --dyn_randomize_config
@@ -16,7 +16,10 @@ perturbed model. The config's episodes run one after another
 on the card); each controller's log
 (.log and .csv) goes to <save_dir>/<env>/<date>/<controller>/, and with
 --checkpoint the final solver state of every episode to solver_state.npz
-and solver_state.manifest.json there (harness/checkpoint.py). Every
+and solver_state.manifest.json there (harness/checkpoint.py), and with
+--dump_vids one GIF per episode, vid_traj_<i>.gif, drawn from the states
+the episodes already read to the host (render/), so the episodes' records
+are the same with the flag as without it. Every
 controller's solver is built before the first episode runs, so a
 controller or flag the port lacks, or a spec that names an unknown
 field, raises before anything runs.
@@ -31,16 +34,11 @@ from datetime import datetime
 import numpy as np
 import yaml
 
-from .. import envs
+from .. import envs, render
 from ..utils import get_logger, timeit
 from . import checkpoint
 from . import config as cfg
 from .episode import run_episodes
-
-# Options of the JAX run_mpc whose modules are not ported yet.
-_NOT_PORTED = {
-    "dump_vids": "videos need the JAX package's render/, which is not ported yet",
-}
 
 
 def main(argv=None):
@@ -59,8 +57,7 @@ def main(argv=None):
     parser.add_argument("--checkpoint", action="store_true",
                         help="save the final solver state of every episode")
     parser.add_argument("--dump_vids", action="store_true",
-                        help="render episode videos (not ported yet: raises "
-                             "NotImplementedError)")
+                        help="render episode videos (one GIF per episode)")
     parser.add_argument("--chunk_size", type=int, default=None,
                         help="accepted for the JAX run_mpc's command lines and has no "
                              "effect: it splits the JAX episode program into compile "
@@ -72,9 +69,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the envs and solvers")
     args = parser.parse_args(argv)
-    for flag, why in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {why}")
 
     exp_params = cfg.load_config(args.config)
     env = envs.make(exp_params["env_name"], device=args.device)
@@ -132,6 +126,12 @@ def main(argv=None):
                 metadata=dict(controller=controller_name, env=env.name,
                               n_episodes=exp_params["n_episodes"]))
             logger.info("saved solver-state checkpoint")
+        if args.dump_vids:
+            try:
+                paths = render.dump_videos(env, out["states"], log_dir)
+                logger.info("dumped videos: %s", paths)
+            except (ValueError, AttributeError) as e:
+                logger.warning("video dump skipped: %s", e)
         out["log_dir"] = log_dir
         out["sim_params"] = plan_env.params
         out["real_params"] = env.params

@@ -109,3 +109,26 @@ def episode_sharding(mesh: Mesh, rank: int = 1):
 def replicated(mesh: Mesh):
     """JAX's replicated as a placement: x -> a copy on every device."""
     return lambda x: [x.to(d) for row in mesh.devices for d in row]
+
+
+def initialize_multihost(coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None) -> None:
+    """The process group of a run over several hosts or processes:
+    counterpart of the JAX package's jax.distributed.initialize wrapper.
+
+    torch.distributed.init_process_group, with NCCL when CUDA is present
+    and gloo on the CPU, at tcp://{coordinator_address} when it is given
+    (then pass num_processes and process_id too), else from the environment
+    (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK); num_processes and
+    process_id, where given, are the world size and this process's rank. A
+    no-op when a group is already initialised."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return
+    sizes = {k: v for k, v in (("world_size", num_processes), ("rank", process_id))
+             if v is not None}
+    dist.init_process_group(
+        "nccl" if torch.cuda.is_available() else "gloo",
+        init_method=f"tcp://{coordinator_address}" if coordinator_address else "env://",
+        **sizes)

@@ -12,6 +12,7 @@ for its fused against its general swimmer solve
 """
 import dataclasses
 import math
+import os
 
 import jax
 import numpy as np
@@ -27,6 +28,7 @@ from mjmpc_tpu_torch.harness import config as cfg
 from mjmpc_tpu_torch.envs import randomize
 from mjmpc_tpu_torch.harness import episode, run_mpc
 from mjmpc_tpu_torch.ops.chain_rollout import ChainExtRollout
+from mjmpc_tpu_torch.render import gif
 from mjmpc_tpu_torch.utils import TimeIt, get_logger
 
 DEVICE = "cpu"   # the port defaults to the card; these tests run on the CPU
@@ -171,13 +173,33 @@ def test_run_mpc_runs_every_reacher_controller(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--dump_vids"], ["--checkpoint", "--dump_vids"]])
 def test_run_mpc_flags_not_ported_raise(flag, tmp_path):
-    """The flag still to port (--dump_vids: render/) raises before anything
-    runs, --checkpoint (ported) beside it too (its own test:
-    tests/test_torch_drivers.py); --dyn_randomize_config runs (below)."""
-    with pytest.raises(NotImplementedError):
-        run_mpc.main(["--config", "configs/Swimmer-v0.yml", "--device", DEVICE,
-                      "--save_dir", str(tmp_path), *flag])
-    assert not list(tmp_path.iterdir())
+    """--dump_vids, once the flag still to port (it raised
+    NotImplementedError), alone and beside --checkpoint, on the swimmer
+    config cut to 2 episodes x 3 steps at N=8, H=4: one GIF per episode
+    (3 frames each) in the controller's log dir, the checkpoint beside it,
+    and the episodes' records equal to a run without the flag, bit for bit
+    (rendering reads the states the episodes already read to the host)."""
+    with open("configs/Swimmer-v0.yml") as f:
+        exp = yaml.safe_load(f)
+    exp.update(n_episodes=2, max_ep_length=3)
+    exp["mppi"].update(horizon=4, num_cpu=1, particles_per_cpu=8)
+    cfg_path = tmp_path / "swimmer.yml"
+    cfg_path.write_text(yaml.safe_dump(exp))
+    runs = {}
+    for key, extra in (("with", flag), ("without", [])):
+        save = tmp_path / key
+        runs[key] = run_mpc.main(["--config", str(cfg_path), "--device", DEVICE,
+                                  "--save_dir", str(save), *extra])["mppi"]
+    log_dir = runs["with"]["log_dir"]
+    gifs = sorted(f for f in os.listdir(log_dir) if f.endswith(".gif"))
+    assert gifs == ["vid_traj_0.gif", "vid_traj_1.gif"]
+    for name in gifs:
+        assert len(gif.read_gif(os.path.join(log_dir, name))["delays"]) == 3
+    has_checkpoint = os.path.exists(os.path.join(log_dir, "solver_state.npz"))
+    assert has_checkpoint == ("--checkpoint" in flag)
+    assert not [f for f in os.listdir(runs["without"]["log_dir"]) if f.endswith(".gif")]
+    for k in ("rewards", "actions", "values", "dones", "successes"):
+        np.testing.assert_array_equal(runs["with"][k], runs["without"][k])
 
 
 def test_run_mpc_dyn_randomize_perturbs_only_the_sim_params(tmp_path):

@@ -11,11 +11,16 @@ version), with the general rollout (cartpole) and for PFMPC, whose
 action_samples stay sharded between solves. A batch of episodes equals
 the per-seed single episodes bit for bit, on one row and on two. Only a
 mesh of one card runs on a card (tests/test_torch_cuda.py,
-chip_smoke.py).
+chip_smoke.py). initialize_multihost makes a world of one process on
+gloo here (NCCL on the card, chip_smoke.py).
 """
+import inspect
+import socket
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import mjmpc_tpu.parallel as jparallel
 from mjmpc_tpu_torch import envs, parallel, solvers
@@ -27,9 +32,33 @@ ONE = parallel.make_mesh(devices=["cpu"])
 
 
 def test_exports_the_jax_names_but_initialize_multihost():
-    want = set(jparallel.__all__) - {"initialize_multihost"}
-    assert want <= set(parallel.__all__)
-    assert not hasattr(parallel, "initialize_multihost")
+    """Every name of the JAX package's parallel/, initialize_multihost
+    (once the one left out) among them, with the JAX signature."""
+    assert set(jparallel.__all__) <= set(parallel.__all__)
+    assert (inspect.signature(parallel.initialize_multihost).parameters.keys()
+            == inspect.signature(jparallel.initialize_multihost).parameters.keys())
+
+
+def test_initialize_multihost_on_gloo_at_world_size_one():
+    """A world of one process on gloo (this host has no card) at a free
+    tcp://127.0.0.1 port; a second call is a no-op; one all_reduce."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert not dist.is_initialized()
+    parallel.initialize_multihost(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    try:
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert (dist.get_world_size(), dist.get_rank()) == (1, 0)
+        group = dist.group.WORLD
+        parallel.initialize_multihost(f"127.0.0.1:{port}", num_processes=1, process_id=0)
+        assert dist.group.WORLD is group
+        x = torch.arange(3.0)
+        dist.all_reduce(x)
+        torch.testing.assert_close(x, torch.arange(3.0), rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
 
 
 def test_mesh_layout_padding_and_shardings():
