@@ -292,6 +292,27 @@ exit and no final line:
                with NCCL at world size 1 and one all_reduce of a CUDA
                tensor, then destroy_process_group.
                Phases 24-28 run after phase 19, before the timing.
+29. benchmark -- the batched entries of kernels #1 and #2 (ChainRollout.
+               batch, FilteredNoise.white_batch: B elements in one launch)
+               for the reacher at N=4096, H=32 and B = 1, 2, 4 and 8: the
+               outputs equal B single launches bit for bit and their plain
+               versions (the plain version per element) to atol 5e-5; the
+               checks' power at B=2: element 1's mean and noise zeroed in
+               the plain version, and element 1's noise at another step,
+               must miss by more than 10x; each timed against B single
+               launches in the same call (`kernel_batched_time`). Then
+               solvers.build_batched_solve_fn on the main path's MPPI
+               (kernel noise) at B=4 from means drawn away from zero: the
+               actions and new means within 2.3e-6 (the MPPI update's
+               tolerance: the vmapped reductions may sum in another order)
+               of four single solves; 10 chained sync-free batched solves,
+               exactly one launch of each batched entry a solve and no other
+               launch; the batched solve captured as a CUDA graph and
+               replayed 5 times, each replay equal to an eager solve bit for
+               bit. Then harness/benchmark.py's main(["--quick"]) and
+               harness/forest_perf.py's main([]) on the card, their rows
+               printed: no error row, no flops_error, every number finite.
+               Phase 29 runs after phase 28, before the timing.
 20. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
@@ -334,7 +355,8 @@ pendulum mppi block's N=24, #8 at the closed loop's N=1024, each size on a
 `kernel_pendulum` line, with #7's particles a block and #8's cluster
 size; then the two kernels built from perturbed models that the
 randomization and episode paths launch: #1 for the reacher, launched by phase 25, and #6 for pen,
-launched by phase 26's replayed episode), the nvidia-smi line and
+launched by phase 26's replayed episode; then the batched entries of #1 and #2 at phase 29's B=4,
+launched by its batched solve), the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -353,6 +375,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from mjmpc_tpu_torch.harness.benchmark import cuda_call_ms, cuda_ms, solves_per_s
 
 DEVICE = "cuda"
 HORIZON = 32
@@ -373,7 +397,6 @@ RF_REACHER = dict(horizon=HORIZON, num_particles=NUM_PARTICLES, lr=1.0, n_iters=
 PEG_CL = dict(horizon=32, gamma=1.0, n_iters=4, lr=1.0, beta=0.0, filter_coeffs=FILTER,
               num_particles=64, delta_kl=15.0, delta_reg=0.001, baseline_type="quadratic",
               init_cov=1.0)
-HOLD_CYCLES = 100_000_000   # about 50 ms of spinning at the H100's clock
 # Kernel #1's other timed sizes: the run_mpc reacher configs' N = num_cpu x
 # particles_per_cpu and H (configs/reacher_7dof-v0.yml; configs/panda/
 # reacher-v0.yml and configs/sawyer/sawyer_reacher-v0.yml).
@@ -523,6 +546,9 @@ KERNEL_ENGINE_ATOL = 5e-5                # a kernel against the general rollout
 DYN_STEPS = 3                            # run_mpc --dyn_randomize_config's episode
 EPISODE_STEPS = {"reacher_7dof-v0": 12, "pen-v0": 4, "reacher_7dof-v0 perturbed": 6}
 PARALLEL_STEPS = 4
+BATCHES = (1, 2, 4, 8)       # the batched entries' checks and times
+BATCH_SOLVE = 4              # the batched MPPI solve's B
+MPPI_UPDATE_ATOL = 2.3e-6    # the batched solve against single solves
 
 
 def emit(phase: str, **fields) -> None:
@@ -653,47 +679,6 @@ def pendulum_inputs(env, n: int, h: int, seed: int, device):
     return [env.params, state, mean, noise]
 
 
-def cuda_call_ms(fn, reps: int = 1):
-    """(fn()'s last result, the mean time of `reps` calls in ms by CUDA
-    events), with no warm-up. A spin kernel queued first holds the stream
-    while the host enqueues the calls, so a kernel shorter than its own
-    host-side launch is timed on the device, not at the host's enqueue
-    rate; a plain version that takes seconds a call is timed as it runs."""
-    import torch
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end) / reps
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` calls (cuda_call_ms) after one
-    warm-up call."""
-    fn()
-    return cuda_call_ms(fn, reps)[1]
-
-
-def solves_per_s(solve, env, env_state, state, k: int, windows: int):
-    """Median read-verified rate over `windows` windows of k chained
-    solves; each window ends by reading the last action."""
-    rates = []
-    for _ in range(windows):
-        t0 = time.perf_counter()
-        for _ in range(k):
-            action, _, state = solve(env.params, env_state, state)
-        value = float(action[0])
-        rates.append(k / (time.perf_counter() - t0))
-        if not np.isfinite(value):
-            raise RuntimeError("solve chain produced a non-finite action")
-    return statistics.median(rates), rates, state
-
-
 def device_time_us(event) -> float:
     """A profiler kernel event's device time (the attribute's name changed
     across PyTorch versions)."""
@@ -704,6 +689,8 @@ def device_time_us(event) -> float:
 def reset_counts(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
+        if hasattr(w, "batch_launches"):
+            w.batch_launches = 0
 
 
 def sync_free(solve, env, env_state, state, k: int):
@@ -1290,6 +1277,147 @@ def render_phase(device, counters, counts, smi: str) -> None:
         raise RuntimeError(f"initialize_multihost: {backend}, world {world}, reduce {reduced}")
 
 
+def batch_inputs(b: int, n: int, h: int, seed: int, device):
+    """B elements of reacher_inputs (seeds seed, seed + 1, ...) stacked:
+    q0, qd0 [B, 7], target [B, 3], mean [B, H, 7], noise [B, N, H, 7]."""
+    import torch
+    rows = [reacher_inputs(n, h, seed + i, device) for i in range(b)]
+    return [torch.stack(xs).contiguous() for xs in zip(*rows)]
+
+
+def benchmark_phase(device, counters, counts, expected, smi: str, env, roll, sampler) -> dict:
+    """29. the batched entries of kernels #1 and #2, the batched MPPI solve,
+    its graph, benchmark --quick and forest_perf (see the module
+    docstring). Returns the batched kernels' rows for the `kernels` line:
+    {name: (launches, max_abs_err, (ms, plain_ms), (bound_ms, bound_by))}."""
+    import torch
+    from mjmpc_tpu_torch import bounds, ops, rng, solvers
+    from mjmpc_tpu_torch.harness import benchmark, forest_perf
+    n, h, tol = NUM_PARTICLES, HORIZON, 5e-5
+    model = env.params.model
+    out, errs, times = {}, {}, {}
+    for b in BATCHES:
+        args = batch_inputs(b, n, h, 100 + 10 * b, device)
+        got = roll.batch(*args)
+        singles = torch.stack([roll(*(x[i] for x in args)) for i in range(b)])
+        want, plain_ms = cuda_call_ms(lambda: roll.batch_plain(*args))
+        keys = ops.key_tensor([rng.stream_key(7, 100 + i) for i in range(b)], device)
+        steps = torch.arange(5, 5 + b, dtype=torch.int64, device=device)
+        white = sampler.white_batch(keys, steps, n, h, D_ACTION, FILTER)
+        white_singles = torch.stack([sampler.white(rng.stream_key(7, 100 + i), steps[i], n, h,
+                                                   D_ACTION, FILTER) for i in range(b)])
+        white_want, white_plain_ms = cuda_call_ms(
+            lambda: sampler.white_batch_plain(keys, steps, n, h, D_ACTION, FILTER))
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        white_err = float((white - white_want).abs().max())
+        fields = dict(b=b, n=n, h=h, max_abs_err=err, noise_max_abs_err=white_err, atol=tol,
+                      identical_to_singles=torch.equal(got, singles),
+                      noise_identical_to_singles=torch.equal(white, white_singles),
+                      team=roll.team_for(b * n, device))
+        if b == 2:   # the checks' power: element 1 with zeroed actions, at another step
+            zeroed = [x.clone() for x in args]
+            zeroed[3][1], zeroed[4][1] = 0.0, 0.0
+            fields["zeroed_actions_err"] = float((got - roll.batch_plain(*zeroed)).abs().max())
+            other = sampler.white_batch_plain(keys, steps + torch.tensor([0, 1], device=device),
+                                              n, h, D_ACTION, FILTER)
+            fields["other_step_err"] = float((white - other).abs().max())
+            if not min(fields["zeroed_actions_err"], fields["other_step_err"]) > 10 * tol:
+                raise RuntimeError(f"batched checks too weak: {fields}")
+        emit("kernel_batched", **fields)
+        if got.shape != (b, n, h) or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"batched chain kernel output bad at B={b}")
+        if not (fields["identical_to_singles"] and fields["noise_identical_to_singles"]):
+            raise RuntimeError(f"batched kernels differ from {b} single launches: {fields}")
+        if not max(err, white_err) <= tol:
+            raise RuntimeError(f"batched kernels disagree with their plain versions at B={b}: "
+                               f"{err}, {white_err} > {tol}")
+        times[b] = dict(
+            chain=cuda_ms(lambda: roll.batch(*args), 20),
+            chain_singles=cuda_ms(lambda: [roll(*(x[i] for x in args)) for i in range(b)], 20),
+            chain_plain=plain_ms,
+            noise=cuda_ms(lambda: sampler.white_batch(keys, steps, n, h, D_ACTION, FILTER), 50),
+            noise_singles=cuda_ms(lambda: [sampler.white(rng.stream_key(7, 100 + i), steps[i], n,
+                                                         h, D_ACTION, FILTER)
+                                           for i in range(b)], 50),
+            noise_plain=white_plain_ms)
+        chain_work = [b * w for w in bounds.chain_work(model, n, h, "costs", n_substeps=2)]
+        noise_inst = bounds.noise_instance(n, h, D_ACTION)
+        bound = dict(chain=bounds.bound_ms(*chain_work),
+                     noise=bounds.bound_ms(b * noise_inst["bytes"], b * noise_inst["operations"]))
+        emit("kernel_batched_time", card=smi, b=b, n=n, h=h, **times[b],
+             chain_bound=bound["chain"], noise_bound=bound["noise"])
+        errs[b] = (err, white_err, bound)
+
+    # the batched MPPI solve (the main path's MPPI, kernel noise) against B
+    # single solves from the same states, mean drawn away from zero
+    solver = solvers.MPPI(d_action=env.d_action, horizon=h, num_particles=n, init_cov=3.0,
+                          filter_coeffs=FILTER, base_action="repeat", lam=0.01, step_size=0.55,
+                          gamma=1.0, noise_impl="kernel", device=device)
+    bsolve = solvers.build_batched_solve_fn(solver, env)
+    single = solvers.make_solve_fn(solver, env)
+    seeds = [rng.derive_seed(0, i) for i in range(BATCH_SOLVE)]
+    env_states = [env.init(env.params, rng.derive_seed(1, i)) for i in range(BATCH_SOLVE)]
+    es = solvers.stack_states(env_states)
+    start = solver.init_batch(seeds)
+    means = torch.as_tensor(np.asarray(np.random.default_rng(3).normal(
+        size=tuple(start.mean.shape)) * 0.3, np.float32), device=device)
+    start = dataclasses.replace(start, mean=means)
+    action, _, new = bsolve(env.params, es, start)
+    action_err = mean_err = 0.0
+    for i, st in enumerate(start.unstack()):
+        a_i, _, s_i = single(env.params, env_states[i], st)
+        action_err = max(action_err, float((a_i - action[i]).abs().max()))
+        mean_err = max(mean_err, float((s_i.mean - new.mean[i]).abs().max()))
+    reset_counts(*counters)
+    action_host, state = sync_free(bsolve, env, es, start, N_SOLVES)
+    launches = counts()
+    emit("batched_solve", b=BATCH_SOLVE, n=n, h=h, action_max_abs_diff=action_err,
+         mean_max_abs_diff=mean_err, atol=MPPI_UPDATE_ATOL, solves=N_SOLVES, launches=launches,
+         steps=state.step.tolist(), action=action_host.tolist())
+    if not max(action_err, mean_err) <= MPPI_UPDATE_ATOL:
+        raise RuntimeError(f"batched solve differs from single solves: {action_err}, {mean_err}")
+    if launches != expected(chain_batch=N_SOLVES, noise_batch=N_SOLVES):
+        raise RuntimeError(f"batched solve: launches {launches}")
+
+    # its CUDA graph: replays against eager solves, bit for bit
+    eager, s = [], start
+    for _ in range(GRAPH_REPLAYS):
+        a, v, s = bsolve(env.params, es, s)
+        eager.append([a.clone(), v.clone()] + list(state_tensors(s).values()))
+    graph, got_out, feed = capture(bsolve, env, es, start)
+    identical = True
+    for want in eager:
+        graph.replay()
+        got = [got_out[0], got_out[1]] + list(state_tensors(got_out[2]).values())
+        identical &= all(torch.equal(x, y) for x, y in zip(got, want))
+        feed()
+    torch.cuda.synchronize()
+    emit("graph", family="batched_mppi", b=BATCH_SOLVE, replays=GRAPH_REPLAYS, identical=identical)
+    if not identical:
+        raise RuntimeError("batched solve: graph replays differ from eager solves")
+
+    # the benchmark module and the forest accounting on the card
+    try:
+        bench_rows = benchmark.main(["--quick"])
+    except SystemExit as e:
+        raise RuntimeError(f"benchmark --quick: {e}") from None
+    forest_rows = forest_perf.main([])
+    for row in bench_rows + forest_rows:
+        numbers = [v for v in row.values() if isinstance(v, (int, float))]
+        if "flops_error" in row or not all(np.isfinite(numbers)):
+            raise RuntimeError(f"benchmark row bad: {row}")
+    emit("benchmark", rows=len(bench_rows), forest_rows=len(forest_rows), card=smi)
+
+    b = BATCH_SOLVE
+    return {"chain_rollout_batched": (launches["chain_batch"], errs[b][0],
+                                      (times[b]["chain"], times[b]["chain_plain"]),
+                                      errs[b][2]["chain"]),
+            "filtered_noise_batched": (launches["noise_batch"], errs[b][1],
+                                       (times[b]["noise"], times[b]["noise_plain"]),
+                                       errs[b][2]["noise"])}
+
+
 def lqr_dp(params, h: int, x0):
     """(first optimal action, optimal cost) of the finite-horizon LQR from
     x0 with zero terminal cost, in float64 numpy."""
@@ -1703,7 +1831,8 @@ def main() -> int:
                 PhiloxUniforms, ForestRollout, pend.PendulumRollout, pend.MppiPendulumSolve)
 
     def counts():
-        return {"chain": ChainRollout.launches, "obs": ChainObsRollout.launches,
+        return {"chain": ChainRollout.launches, "chain_batch": ChainRollout.batch_launches,
+                "noise_batch": FilteredNoise.batch_launches, "obs": ChainObsRollout.launches,
                 "cl": ChainClRollout.launches, "ext": ChainExtRollout.launches,
                 "noise": FilteredNoise.launches, "uniforms": PhiloxUniforms.launches,
                 "forest": ForestRollout.launches,
@@ -2348,6 +2477,8 @@ def main() -> int:
     parallel_phase(device, counters, counts, expected, solver)
     # 28. render/ through run_mpc --dump_vids, initialize_multihost on NCCL
     render_phase(device, counters, counts, smi)
+    # 29. the batched kernels and solve, benchmark --quick and forest_perf
+    batched = benchmark_phase(device, counters, counts, expected, smi, env, roll, sampler)
 
     # 20. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
@@ -2690,6 +2821,14 @@ def main() -> int:
               (bp["bound_ms"], bp["bound_by"]))]
     times["pendulum_rollout"] = pend_times[(7, mppi_n)]
     times["mppi_pendulum_solve"] = pend_times[(8, ONE_KERNEL["num_particles"])]
+    # the batched entries of #1 and #2, launched by phase 29's batched solve
+    for kname, (launches, err, kernel_times, bound) in batched.items():
+        source, replaces = (("mjmpc_tpu_torch/csrc/chain_rollout.cu",
+                             "mjmpc_tpu/ops/pallas_chain.py:381") if kname.startswith("chain")
+                            else ("mjmpc_tpu_torch/csrc/filtered_noise.cu",
+                                  "mjmpc_tpu/ops/pallas_kernels.py:73"))
+        rows.append((kname, source, replaces, launches, err, bound))
+        times[kname] = kernel_times
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times[kname][0],

@@ -3,7 +3,8 @@
 //
 // Replaces four TPU kernels of mjmpc_tpu/ops/pallas_chain.py:
 //   - `_chain_kernel` (built by `build_chain_rollout`; entry
-//     chain_rollout_launch): costs only, open loop;
+//     chain_rollout_launch): costs only, open loop; and B of them in one
+//     launch (chain_rollout_batch_launch, the kernel under jax.vmap);
 //   - `_chain_obs_kernel` (built by `build_chain_obs_rollout`; entry
 //     chain_obs_rollout_launch): also writes obs[b, t] of the state
 //     entering step t;
@@ -104,12 +105,16 @@ using chain_rollout::OBS;
 constexpr int kTeams = 32 / team::TEAM;
 constexpr int kWarp = 32;
 
+// n particles in all; (COSTS) per_elem of them to a batch element, whose
+// start, extras and mean are rows of q0, qd0, extras and ctrl (the other
+// modes pass per_elem = n: one element).
 template <int MODE>
 __global__ void __launch_bounds__(kWarp)
     chain_team_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
                       const float* __restrict__ extras, const float* __restrict__ ctrl,
                       const float* __restrict__ noise, float* __restrict__ costs,
-                      float* __restrict__ obs, float* __restrict__ acts, int n, int horizon) {
+                      float* __restrict__ obs, float* __restrict__ acts, int n, int horizon,
+                      int per_elem) {
     __shared__ chain_team::Particle particles[kTeams];
     const float* c = ctrl;
     if constexpr (MODE == CL) {  // W [D_OBS + 1, N], read by every lane as a broadcast
@@ -123,6 +128,13 @@ __global__ void __launch_bounds__(kWarp)
     const int lane = threadIdx.x % team::TEAM;
     const int b = blockIdx.x * kTeams + slot;
     if (b >= n) return;  // a ragged block's spare teams: their lanes leave together
+    if constexpr (MODE == COSTS) {  // the team's batch element
+        const int e = b / per_elem;
+        q0 += e * model::N;
+        qd0 += e * model::N;
+        extras += e * BuildTask::N_EXTRAS;
+        c += static_cast<size_t>(e) * horizon * model::N;
+    }
     const unsigned mask = team::TEAM == 32 ? 0xffffffffu
                                            : ((1u << team::TEAM) - 1u) << (slot * team::TEAM);
     const chain_team::Team tm{lane, mask, chain_team::own_of(lane)};
@@ -149,7 +161,7 @@ int chain_ext_rollout_launch(const float* q0, const float* qd0, const float* mea
                              const float* noise, float* costs, int n, int horizon,
                              void* stream) {
     chain_team_kernel<EXT><<<team_grid(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, nullptr, mean, noise, costs, nullptr, nullptr, n, horizon);
+        q0, qd0, nullptr, mean, noise, costs, nullptr, nullptr, n, horizon, n);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,7 +179,25 @@ int chain_rollout_launch(const float* q0, const float* qd0, const float* extras,
                          const float* mean, const float* noise, float* costs, int n,
                          int horizon, void* stream) {
     chain_team_kernel<COSTS><<<team_grid(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, extras, mean, noise, costs, nullptr, nullptr, n, horizon);
+        q0, qd0, extras, mean, noise, costs, nullptr, nullptr, n, horizon, n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// B = batch open-loop rollouts in one launch over batch * n particles: q0,
+// qd0 [B, N], extras [B, N_EXTRAS], mean [B, horizon, N], noise [B, n,
+// horizon, N] -> costs [B, n, horizon]; particle p of the launch is
+// particle p % n of element p / n, on that element's start, extras and
+// mean. The counterpart of `_chain_kernel` under jax.vmap, whose batching
+// rule lifts the batch into the grid. A team runs the single rollout's
+// arithmetic on its element's rows, so element b equals
+// chain_rollout_launch on element b's inputs bit for bit, whatever B (and
+// whatever the team size, which the launch picks from B n).
+int chain_rollout_batch_launch(const float* q0, const float* qd0, const float* extras,
+                               const float* mean, const float* noise, float* costs, int batch,
+                               int n, int horizon, void* stream) {
+    chain_team_kernel<COSTS><<<team_grid(batch * n), kWarp, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, extras, mean, noise, costs, nullptr, nullptr, batch * n, horizon, n);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -177,7 +207,7 @@ int chain_obs_rollout_launch(const float* q0, const float* qd0, const float* ext
                              const float* mean, const float* noise, float* costs, float* obs,
                              int n, int horizon, void* stream) {
     chain_team_kernel<OBS><<<team_grid(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, extras, mean, noise, costs, obs, nullptr, n, horizon);
+        q0, qd0, extras, mean, noise, costs, obs, nullptr, n, horizon, n);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -189,7 +219,7 @@ int chain_cl_rollout_launch(const float* q0, const float* qd0, const float* extr
                             const float* w, const float* noise, float* costs, float* obs,
                             float* acts, int n, int horizon, void* stream) {
     chain_team_kernel<CL><<<team_grid(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
-        q0, qd0, extras, w, noise, costs, obs, acts, n, horizon);
+        q0, qd0, extras, w, noise, costs, obs, acts, n, horizon, n);
     return static_cast<int>(cudaGetLastError());
 }
 

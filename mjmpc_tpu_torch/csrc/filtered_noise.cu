@@ -30,6 +30,16 @@
 // thread per item up to kBlock. Every element is computed alike whatever the partition, so two
 // partitions agree bit for bit.
 //
+// A batch of B draws (filtered_noise_batch_launch: B solver states, keys
+// [B] and steps [B] in device memory, out [B, N, H, dA]) is one launch of
+// the same kernel, the counterpart of the TPU kernel under jax.vmap, whose
+// batching rule lifts the batch into the grid: blocks_per_elem blocks per
+// element, block k drawing for element k / blocks_per_elem with that
+// element's key and step, its particles counted from 0 within the element.
+// A single draw is the batch of one, its key passed by value. So element b
+// of a batch is the single draw under (key_b, step_b) bit for bit: the same
+// Philox counters, the same filter, whatever B.
+//
 // What bounds it on an H100: it reads 8 bytes (the step) and writes N*H*dA
 // floats (3.67 MB at N=4096, H=32, dA=7: 1.1 us at 3.35 TB/s); per element
 // it does half a Philox call and one Box-Muller normal: 69 operations
@@ -52,19 +62,25 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kBlocksPerSM = 2;
 
+// keys [B] (nullptr: every element's key is `key`), steps [B]; n particles
+// an element, blocks_per_elem blocks an element.
 __global__ void __launch_bounds__(kBlock)
-    filtered_noise_kernel(unsigned long long key, const long long* __restrict__ step, float b0,
-                          float b1, float b2, int filter, int n, int horizon, int d_action,
-                          int per_block, float* __restrict__ out) {
+    filtered_noise_kernel(const unsigned long long* __restrict__ keys, unsigned long long key,
+                          const long long* __restrict__ steps, float b0, float b1, float b2,
+                          int filter, int n, int horizon, int d_action, int per_block,
+                          int blocks_per_elem, float* __restrict__ out) {
     extern __shared__ float4 tile4[];
     float* tile = reinterpret_cast<float*>(tile4);   // [count, horizon, d_action]
-    const int first = blockIdx.x * per_block;
+    const int elem = blockIdx.x / blocks_per_elem;
+    const int first = (blockIdx.x - elem * blocks_per_elem) * per_block;
     const int count = min(per_block, n - first);
     const int pairs = (horizon + 1) / 2;
     const int row = horizon * d_action;
+    if (keys != nullptr) key = keys[elem];
     const uint32_t k0 = static_cast<uint32_t>(key);
     const uint32_t k1 = static_cast<uint32_t>(key >> 32);
-    const uint32_t s = static_cast<uint32_t>(*step);
+    const uint32_t s = static_cast<uint32_t>(steps[elem]);
+    out += static_cast<size_t>(elem) * n * row;
 
     // 1. items (particle j, pair p, dim d), d fastest, so that neighbouring
     //    threads write neighbouring floats of the tile; a thread's item
@@ -178,6 +194,28 @@ int filtered_noise_per_block(int n, int horizon, int d_action, int smem_bytes, i
 
 int filtered_noise_max_smem() { return max_dynamic_smem(); }
 
+// B draws of n particles each in one launch (the kernel's comment).
+static int noise_launch(const unsigned long long* keys, unsigned long long key,
+                        const long long* steps, float b0, float b1, float b2, int filter,
+                        int batch, int n, int horizon, int d_action, int per_block, float* out,
+                        void* stream) {
+    const int smem_cap = max_dynamic_smem();
+    if (per_block < 1)
+        per_block = filtered_noise_per_block(batch * n, horizon, d_action, smem_cap, sm_count());
+    if (per_block > n) per_block = n;  // a block holds particles of one element
+    const size_t smem = static_cast<size_t>(per_block) * horizon * d_action * sizeof(float);
+    if (per_block < 1 || smem > static_cast<size_t>(smem_cap))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int blocks_per_elem = (n + per_block - 1) / per_block;
+    const long long items = static_cast<long long>(per_block) * ((horizon + 1) / 2) * d_action;
+    const int threads = items < kBlock ? static_cast<int>((items + 31) / 32 * 32) : kBlock;
+    filtered_noise_kernel<<<batch * blocks_per_elem, threads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+        keys, key, steps, b0, b1, b2, filter, n, horizon, d_action, per_block, blocks_per_elem,
+        out);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // Launch on `stream` (a cudaStream_t); `step` points at the int64 step on
 // the device; per_block particles a block (0: filtered_noise_per_block's).
 // Returns cudaGetLastError() after the launch (0 on success), or
@@ -186,18 +224,19 @@ int filtered_noise_max_smem() { return max_dynamic_smem(); }
 int filtered_noise_launch(unsigned long long key, const long long* step, float b0, float b1,
                           float b2, int filter, int n, int horizon, int d_action, int per_block,
                           float* out, void* stream) {
-    const int smem_cap = max_dynamic_smem();
-    if (per_block < 1)
-        per_block = filtered_noise_per_block(n, horizon, d_action, smem_cap, sm_count());
-    const size_t smem = static_cast<size_t>(per_block) * horizon * d_action * sizeof(float);
-    if (per_block < 1 || smem > static_cast<size_t>(smem_cap))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int grid = (n + per_block - 1) / per_block;
-    const long long items = static_cast<long long>(per_block) * ((horizon + 1) / 2) * d_action;
-    const int threads = items < kBlock ? static_cast<int>((items + 31) / 32 * 32) : kBlock;
-    filtered_noise_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        key, step, b0, b1, b2, filter, n, horizon, d_action, per_block, out);
-    return static_cast<int>(cudaGetLastError());
+    return noise_launch(nullptr, key, step, b0, b1, b2, filter, 1, n, horizon, d_action,
+                        per_block, out, stream);
+}
+
+// B = batch draws in one launch: keys [B] (uint64) and steps [B] (int64) in
+// device memory, out [B, n, horizon, d_action]; element b equals
+// filtered_noise_launch under (keys[b], steps[b]) bit for bit. per_block
+// as there, from the B n particles. Returns as filtered_noise_launch.
+int filtered_noise_batch_launch(const unsigned long long* keys, const long long* steps, float b0,
+                                float b1, float b2, int filter, int batch, int n, int horizon,
+                                int d_action, int per_block, float* out, void* stream) {
+    return noise_launch(keys, 0ull, steps, b0, b1, b2, filter, batch, n, horizon, d_action,
+                        per_block, out, stream);
 }
 
 int philox_uniforms_launch(unsigned long long key, const long long* step, int n, float* out,

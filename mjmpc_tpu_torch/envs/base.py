@@ -48,7 +48,10 @@ class Env:
     # constants are baked at build time, so planning against other params
     # must bypass it (build_solve_fn's `fused` flag), except params the
     # kernel lists in its `dynamic_fields` attribute, which it reads at
-    # call time (harness/episode.py _fused_mode).
+    # call time (harness/episode.py _fused_mode). Its `batched` attribute,
+    # where the kernel has a batched entry, takes B states (fields with a
+    # leading [B]), means [B, H, dA] and noise [B, N, H, dA] in one launch
+    # (solvers.build_batched_solve_fn).
     fused_rollout: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
                                      torch.Tensor]] = None
     # Optional fused rollout with observations: (params, state, mean [H, dA],

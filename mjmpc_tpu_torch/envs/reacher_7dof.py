@@ -189,8 +189,14 @@ def _build_fused(params: ReacherParams) -> dict:
     def fused_cl(p, state, weights, noise):
         return roll_cl(state.qpos, state.qvel, state.target, weights, noise)
 
+    def fused_batch(p, states, means, noises):
+        """B states (each field with a leading [B]), means [B, H, 7] and
+        noise [B, N, H, 7] -> costs [B, N, H] in one launch of #1."""
+        return roll.batch(states.qpos, states.qvel, states.target, means, noises)
+
     # the wrappers, for checks against their plain versions
     fused.kernel, fused_obs.kernel, fused_cl.kernel = roll, roll_obs, roll_cl
+    fused.batched = fused_batch
     return dict(fused_rollout=fused, fused_obs_rollout=fused_obs, fused_cl_rollout=fused_cl)
 
 

@@ -873,11 +873,18 @@ class ChainRollout:
     closed loop DEFAULT_TEAM. Each size has its library, built at its first
     launch; the size changes no bit of the result.
 
+    `batch` runs B such rollouts (B starts, extras and means, noise
+    [B, N, H, nv]) in one launch over B N particles, at team_for(B N)
+    lanes; element b equals the single rollout of element b's inputs bit
+    for bit (costs mode only).
+
     `ChainRollout.launches` counts kernel launches over all instances; it
     rises by one per launch and nowhere else (the plain version on CPU
-    tensors does not count).
+    tensors does not count); `ChainRollout.batch_launches` likewise counts
+    the batched entry's.
     """
     launches = 0
+    batch_launches = 0
     mode = "costs"
     nvcc_flags: Tuple[str, ...] = ()   # added to the build's (a measurement tool's hook)
 
@@ -919,6 +926,9 @@ class ChainRollout:
                                   ("chain_cl_rollout_launch", 8)):
                 getattr(lib.lib, entry).argtypes = [ctypes.c_void_p] * n_ptrs + tail
                 getattr(lib.lib, entry).restype = ctypes.c_int
+            batch_entry = lib.lib.chain_rollout_batch_launch
+            batch_entry.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + tail
+            batch_entry.restype = ctypes.c_int
             lib.lib.chain_rollout_error_string.argtypes = [ctypes.c_int]
             lib.lib.chain_rollout_error_string.restype = ctypes.c_char_p
             for entry in (lib.lib.chain_rollout_d_obs, lib.lib.chain_rollout_n_extras,
@@ -988,6 +998,59 @@ class ChainRollout:
                                + lib.chain_rollout_error_string(rc).decode())
         type(self).launches += 1
         return outs[0] if self.mode == "costs" else outs
+
+
+    def _check_batch(self, q0, qd0, extras, mean, noise):
+        if self.mode != "costs":
+            raise NotImplementedError(f"{type(self).__name__} has no batched entry "
+                                      f"(ROADMAP Queue 1 item 5)")
+        if not isinstance(noise, torch.Tensor) or noise.dim() != 4 or noise.shape[0] < 1:
+            raise ValueError("noise must be a [B>=1, N, H, nv] torch.Tensor")
+        nv, batch = self.model.nv, noise.shape[0]
+        args = {"q0": q0, "qd0": qd0, "extras": extras, "mean": mean,
+                "noise": noise.reshape(-1, *noise.shape[2:])}
+        _check_args(args, nv, lambda h: {"q0": (batch, nv), "qd0": (batch, nv),
+                                         "extras": (batch, self.task.n_extras),
+                                         "mean": (batch, h, nv)})
+        return dict(args, noise=noise)
+
+    def batch_plain(self, q0, qd0, extras, mean, noise):
+        """batch in plain PyTorch (any device): the plain rollout of
+        each element, stacked."""
+        self._check_batch(q0, qd0, extras, mean, noise)
+        return torch.stack([rollout_plain(self.model, self.n_substeps, self.ulow, self.uhigh,
+                                          q0[b], qd0[b], extras[b], mean[b], noise[b],
+                                          self.mode, self.task)
+                            for b in range(noise.shape[0])])
+
+    def batch(self, q0, qd0, extras, mean, noise, *, team=None):
+        """B rollouts: q0, qd0 [B, nv], extras [B, n_extras], mean
+        [B, H, nv], noise [B, N, H, nv] -> costs [B, N, H]; on a CUDA
+        device one launch of the kernel over the B N particles at `team`
+        lanes (default team_for(B N)), the plain version per element on
+        the CPU."""
+        args = self._check_batch(q0, qd0, extras, mean, noise)
+        device = noise.device
+        if device.type == "cpu":
+            return self.batch_plain(q0, qd0, extras, mean, noise)
+        if device.type != "cuda":
+            raise ValueError(f"no chain-rollout kernel for device {device}")
+        for name, x in args.items():
+            if not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        batch, n, horizon, _ = noise.shape
+        lib = self.library(self.team_for(batch * n, device) if team is None else team).lib
+        with torch.cuda.device(device):
+            costs = torch.empty((batch, n, horizon), dtype=torch.float32, device=device)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.chain_rollout_batch_launch(_vp(q0), _vp(qd0), _vp(extras), _vp(mean),
+                                                _vp(noise), _vp(costs), batch, n, horizon,
+                                                ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"{type(self).__name__} batched kernel launch failed: "
+                               + lib.chain_rollout_error_string(rc).decode())
+        ChainRollout.batch_launches += 1
+        return costs
 
 
 class ChainObsRollout(ChainRollout):

@@ -49,16 +49,19 @@ def ar_filter(eps: torch.Tensor, filter_coeffs: Sequence[float]) -> torch.Tensor
 
 
 def colour(white: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
-    """Colour white noise [..., dA] by chol(cov + 1e-6 I).
+    """Colour white noise [..., dA] by chol(cov + 1e-6 I); with B
+    covariances [B, dA, dA], element b of white [B, ..., dA] by cov[b].
 
     The jitter keeps the factorization defined when a covariance collapses
     toward singular (CEM/DMD adaptation can drive variances to ~0).
     `cholesky_ex` skips the info check, which would sync the host on CUDA.
     """
-    d_action = cov.shape[0]
+    d_action = cov.shape[-1]
     jitter = 1e-6 * torch.eye(d_action, dtype=cov.dtype, device=cov.device)
     chol = torch.linalg.cholesky_ex(cov + jitter).L
-    return white @ chol.T.to(white.dtype)
+    if cov.dim() == 3:   # B covariances, white [B, ..., dA]
+        chol = chol.reshape(cov.shape[:1] + (1,) * (white.dim() - 3) + chol.shape[1:])
+    return white @ chol.transpose(-1, -2).to(white.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +161,26 @@ def noise_flops(n: int, horizon: int, d_action: int) -> int:
     return n * horizon * d_action * (100 // 2 + 8 + 6 + 5)
 
 
+def check_batch(keys, steps) -> int:
+    """B, for the keys [B] (int64 holding each 64-bit key's bits,
+    key_tensor) and steps [B] (int64) of a batch of draws on one device."""
+    for name, x in (("keys", keys), ("steps", steps)):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.int64 or x.dim() != 1:
+            raise TypeError(f"{name} must be a 1-d int64 torch.Tensor")
+    if keys.shape != steps.shape or keys.shape[0] < 1 or keys.device != steps.device:
+        raise ValueError(f"keys {tuple(keys.shape)} on {keys.device} and steps "
+                         f"{tuple(steps.shape)} on {steps.device} must be [B>=1] on one device")
+    return keys.shape[0]
+
+
+def key_tensor(keys: Sequence[int], device) -> torch.Tensor:
+    """64-bit stream keys as an int64 tensor [B] on `device` (each key's
+    bits, two's complement), made once, outside any solve."""
+    words = [int(k) & 0xFFFFFFFFFFFFFFFF for k in keys]
+    return torch.tensor([w - (1 << 64) if w >= 1 << 63 else w for w in words],
+                        dtype=torch.int64, device=device)
+
+
 def _check_coeffs(filter_coeffs) -> Tuple[float, float, float]:
     coeffs = tuple(float(c) for c in filter_coeffs)
     if len(coeffs) != 3:
@@ -179,9 +202,12 @@ def library() -> build.KernelLibrary:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lib.filtered_noise_launch.argtypes = (
             [ctypes.c_ulonglong, p] + [ctypes.c_float] * 3 + [i] * 5 + [p, p])
+        lib.lib.filtered_noise_batch_launch.argtypes = (
+            [p, p] + [ctypes.c_float] * 3 + [i] * 6 + [p, p])
         lib.lib.philox_uniforms_launch.argtypes = [ctypes.c_ulonglong, p, i, p, p]
-        for fn in (lib.lib.filtered_noise_launch, lib.lib.philox_uniforms_launch,
-                   lib.lib.filtered_noise_setup, lib.lib.filtered_noise_max_smem):
+        for fn in (lib.lib.filtered_noise_launch, lib.lib.filtered_noise_batch_launch,
+                   lib.lib.philox_uniforms_launch, lib.lib.filtered_noise_setup,
+                   lib.lib.filtered_noise_max_smem):
             fn.restype = i
         lib.lib.filtered_noise_error_string.argtypes = [i]
         lib.lib.filtered_noise_error_string.restype = ctypes.c_char_p
@@ -210,11 +236,17 @@ class FilteredNoise:
     plain sampler's distribution: colour-then-filter there, filter-then-
     colour here, as the TPU kernel does it.
 
+    `white_batch` / `batch` draw for B solver states in one launch of the
+    same kernel (keys [B] and steps [B] on the device): element b is the
+    single draw under (keys[b], steps[b]) bit for bit.
+
     `FilteredNoise.launches` counts kernel launches over all instances; it
     rises by one per launch and nowhere else (the plain version on CPU
-    tensors does not count).
+    tensors does not count); `FilteredNoise.batch_launches` likewise counts
+    the batched entry's.
     """
     launches = 0
+    batch_launches = 0
 
     @staticmethod
     def library() -> build.KernelLibrary:
@@ -264,6 +296,49 @@ class FilteredNoise:
         _raise_on(lib, rc, "filtered_noise kernel launch")
         FilteredNoise.launches += 1
         return out
+
+    def white_batch_plain(self, keys: torch.Tensor, steps: torch.Tensor, n: int, horizon: int,
+                          d_action: int, filter_coeffs) -> torch.Tensor:
+        """white_batch in plain PyTorch: white_plain per element, stacked
+        (reads the keys to the host)."""
+        check_batch(keys, steps)
+        return torch.stack([self.white_plain(k, steps[b], n, horizon, d_action, filter_coeffs)
+                            for b, k in enumerate(keys.tolist())])
+
+    def white_batch(self, keys: torch.Tensor, steps: torch.Tensor, n: int, horizon: int,
+                    d_action: int, filter_coeffs) -> torch.Tensor:
+        """white for B draws, [B, n, horizon, d_action], on the keys'
+        device: keys [B] (key_tensor) and steps [B] int64, read by the
+        kernel from device memory, one launch for any B; the plain version
+        per element on the CPU."""
+        coeffs = _check_coeffs(filter_coeffs)
+        batch = check_batch(keys, steps)
+        if steps.device.type == "cpu":
+            return self.white_batch_plain(keys, steps, n, horizon, d_action, coeffs)
+        device = _cuda_device(steps)
+        for name, x in (("keys", keys), ("steps", steps)):
+            if not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        lib = self.library()
+        use_filter = coeffs != _NO_FILTER and horizon > 2
+        with torch.cuda.device(device):
+            out = torch.empty((batch, n, horizon, d_action), dtype=torch.float32, device=device)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.lib.filtered_noise_batch_launch(
+                keys.data_ptr(), steps.data_ptr(), *coeffs, int(use_filter), batch, n, horizon,
+                d_action, 0, out.data_ptr(), stream)
+        _raise_on(lib, rc, "filtered_noise batched kernel launch")
+        FilteredNoise.batch_launches += 1
+        return out
+
+    def batch(self, keys: torch.Tensor, steps: torch.Tensor, cov: torch.Tensor, shape,
+              filter_coeffs=_NO_FILTER) -> torch.Tensor:
+        """The sampler for B draws: white_batch [B, N, H, dA] coloured by
+        each element's chol(cov[b] + 1e-6 I), cov [B, dA, dA]."""
+        n, horizon, d_action = self._check(cov[0], shape)
+        if cov.shape != (keys.shape[0], d_action, d_action):
+            raise ValueError(f"cov must be [B, dA, dA], got {tuple(cov.shape)}")
+        return colour(self.white_batch(keys, steps, n, horizon, d_action, filter_coeffs), cov)
 
     def plain(self, key: int, step: torch.Tensor, cov: torch.Tensor, shape,
               filter_coeffs=_NO_FILTER) -> torch.Tensor:
@@ -317,6 +392,24 @@ def standard_normals(key: int, step: torch.Tensor, shape: Sequence[int]) -> torc
     shape = tuple(int(s) for s in shape)
     lead = int(np.prod(shape[:-1], dtype=np.int64))
     return _SAMPLER.white(key, step, lead, 1, shape[-1], _NO_FILTER).reshape(shape)
+
+
+def standard_normals_batch(keys: torch.Tensor, steps: torch.Tensor, d: int) -> torch.Tensor:
+    """standard_normals(keys[b], steps[b], (d,)) for B elements, [B, d], in
+    one batched launch of the noise kernel (its plain version on the CPU)."""
+    return _SAMPLER.white_batch(keys, steps, 1, 1, d, _NO_FILTER).reshape(keys.shape[0], d)
+
+
+def filtered_noise_batch(keys: torch.Tensor, steps: torch.Tensor, cov: torch.Tensor, shape,
+                         filter_coeffs: Sequence[float] = _NO_FILTER) -> torch.Tensor:
+    """The plain sampler for B draws, [B, N, H, dA]: the noise kernel's
+    normals with the filter off in one batched launch (white_batch), each
+    element coloured by its cov[b] ([B, dA, dA]), then the filter along H."""
+    n, horizon, d_action = FilteredNoise._check(cov[0], shape)
+    white = _SAMPLER.white_batch(keys, steps, n, horizon, d_action, _NO_FILTER)
+    batch = keys.shape[0]
+    coloured = colour(white, cov).reshape(batch * n, horizon, d_action)
+    return ar_filter(coloured, filter_coeffs).reshape(batch, n, horizon, d_action)
 
 
 def filtered_noise(key: int, step: torch.Tensor, cov: torch.Tensor, shape,

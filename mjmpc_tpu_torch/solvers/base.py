@@ -48,6 +48,39 @@ class GaussianState:
     seed: int            # base seed of the solver's streams
 
 
+_TAGS = (_TAG_ROLLOUT, _TAG_ACT, _TAG_SHIFT)
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianBatch:
+    """B GaussianStates stacked: the solver state of a batched solve
+    (build_batched_solve_fn), the counterpart of the JAX package's
+    jax.vmap(init_state) over B keys."""
+    mean: torch.Tensor   # [B, H, dA]
+    cov: torch.Tensor    # [B, dA, dA]
+    step: torch.Tensor   # [B] int64 on the device
+    # [3, B] int64 on the device: each element's stream keys, rows in _TAGS'
+    # order (ops.key_tensor); made once here, so that a solve copies none
+    keys: torch.Tensor
+    seeds: Tuple[int, ...]
+
+    @classmethod
+    def stack(cls, states) -> "GaussianBatch":
+        """The batch of `states` (GaussianStates of one solver)."""
+        device = states[0].mean.device
+        keys = torch.stack([ops.key_tensor([rng.stream_key(s.seed, tag) for s in states], device)
+                            for tag in _TAGS])
+        return cls(mean=torch.stack([s.mean for s in states]),
+                   cov=torch.stack([s.cov for s in states]),
+                   step=torch.stack([s.step for s in states]), keys=keys,
+                   seeds=tuple(s.seed for s in states))
+
+    def unstack(self) -> list:
+        """The B GaussianStates (views of the batch's tensors)."""
+        return [GaussianState(mean=self.mean[b], cov=self.cov[b], step=self.step[b], seed=seed)
+                for b, seed in enumerate(self.seeds)]
+
+
 NOISE_IMPLS = ("plain", "kernel")
 
 
@@ -126,6 +159,10 @@ class GaussianMPC:
             mean=torch.zeros((self.horizon, self.d_action), device=self.device),
             cov=torch.diag(diag), step=rng.step_tensor(0, self.device), seed=int(seed))
 
+    def init_batch(self, seeds) -> GaussianBatch:
+        """init_state of each seed, stacked."""
+        return GaussianBatch.stack([self.init_state(seed) for seed in seeds])
+
     # ---- sampling --------------------------------------------------------
     def sample_noise(self, state: GaussianState) -> torch.Tensor:
         """AR(2)-filtered Gaussian noise [N, H, dA] from the noise_impl's
@@ -136,6 +173,20 @@ class GaussianMPC:
         if self.use_zero_control_seq:
             # the last particle probes the zero-action sequence
             delta[-1] = -state.mean
+        return delta
+
+    def sample_noise_batch(self, batch: GaussianBatch) -> torch.Tensor:
+        """sample_noise of every element of `batch`, [B, N, H, dA], in one
+        launch of the noise kernel (either noise_impl)."""
+        keys, shape = batch.keys[_TAG_ROLLOUT], (self.num_particles, self.horizon)
+        if self.noise_impl == "kernel":
+            delta = self.noise_sampler.batch(keys, batch.step, batch.cov, shape,
+                                             self.filter_coeffs)
+        else:
+            delta = ops.filtered_noise_batch(keys, batch.step, batch.cov, shape,
+                                             self.filter_coeffs)
+        if self.use_zero_control_seq:
+            delta[:, -1] = -batch.mean
         return delta
 
     # ---- to override -----------------------------------------------------
@@ -157,22 +208,38 @@ class GaussianMPC:
             return state.mean[0] + delta.reshape(self.d_action)
         raise ValueError(f"unknown sample mode {mode!r}")
 
-    def shift(self, state: GaussianState) -> GaussianState:
+    def act_batch(self, batch: GaussianBatch) -> torch.Tensor:
+        """act of every element of `batch`, [B, dA]."""
+        if self.sample_mode == "mean":
+            return batch.mean[:, 0]
+        if self.sample_mode == "sample":
+            delta = ops.filtered_noise_batch(batch.keys[_TAG_ACT], batch.step, batch.cov, (1, 1),
+                                             self.filter_coeffs)
+            return batch.mean[:, 0] + delta.reshape(-1, self.d_action)
+        raise ValueError(f"unknown sample mode {self.sample_mode!r}")
+
+    def shift(self, state: GaussianState, last: Optional[torch.Tensor] = None) -> GaussianState:
         """Hotstart: roll the mean left one step and set the last row to
-        the base action ('repeat' repeats row -2 of the ROLLED mean)."""
+        the base action ('repeat' repeats row -2 of the ROLLED mean), or to
+        `last` where the caller drew it (the batched solve's random base
+        actions, one launch for every element)."""
         mean = torch.roll(state.mean, -1, 0)
-        if self.base_action == "random":
-            # as the reference does, init_cov (a variance) is the scale
-            last = self.init_cov * ops.standard_normals(
-                rng.stream_key(state.seed, _TAG_SHIFT), state.step, (self.d_action,))
-        elif self.base_action == "null":
-            last = torch.zeros(self.d_action, device=mean.device)
-        elif self.base_action == "repeat":
-            last = mean[-2]
-        else:
-            raise ValueError(f"invalid base_action {self.base_action!r}")
+        if last is None:
+            last = self._base_action(state, mean)
         mean[-1] = last
         return dataclasses.replace(state, mean=mean)
+
+    def _base_action(self, state: GaussianState, rolled: torch.Tensor) -> torch.Tensor:
+        """The shifted mean's last row: base_action's, of the rolled mean."""
+        if self.base_action == "random":
+            # as the reference does, init_cov (a variance) is the scale
+            return self.init_cov * ops.standard_normals(
+                rng.stream_key(state.seed, _TAG_SHIFT), state.step, (self.d_action,))
+        if self.base_action == "null":
+            return torch.zeros(self.d_action, device=rolled.device)
+        if self.base_action == "repeat":
+            return rolled[-2]
+        raise ValueError(f"invalid base_action {self.base_action!r}")
 
     # ---- shared update helpers -------------------------------------------
     def _interp_mean(self, mean, target):
@@ -241,6 +308,122 @@ def build_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False,
         return action, value, s
 
     return solve
+
+
+def _check_batchable(solver: GaussianMPC, env: Env):
+    """env's batched fused rollout, or NotImplementedError for a solver
+    outside the Gaussian open-loop family or an env without one."""
+    from .cem import CEM
+    from .dmd import DMDMPC
+    from .mppi import MPPI
+    from .mppiq import MPPIQ
+    from .random_shooting import RandomShooting
+    if not isinstance(solver, (MPPI, RandomShooting, CEM, DMDMPC)) or isinstance(solver, MPPIQ):
+        raise NotImplementedError(
+            f"no batched solve for {type(solver).__name__}: only MPPI, RandomShooting, CEM "
+            f"and DMDMPC have one (ROADMAP Queue 1 item 5)")
+    batched = getattr(env.fused_rollout, "batched", None)
+    if batched is None:
+        raise NotImplementedError(
+            f"env {env.name!r} has no batched fused rollout: only kernel #1 (the reacher) has "
+            f"a batched entry (ROADMAP Queue 1 item 5, batched entries for kernels #3-#7)")
+    return batched
+
+
+def build_batched_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False,
+                           hotstart: bool = True):
+    """B independent solves at once, the counterpart of the JAX package's
+    jax.vmap(build_solve_fn(solver, env), in_axes=(None, 0, 0)).
+
+    Returns solve(env_params, env_states, batch) -> (actions [B, dA],
+    values [B], new GaussianBatch): env_states is env states stacked
+    (stack_states), batch a GaussianBatch (solver.init_batch). On a CUDA
+    device each iteration draws the noise of every element in one launch of
+    the noise kernel (#2, sample_noise_batch) and rolls every element out
+    in one launch of the env's fused rollout (#1's batched entry), as the
+    JAX batching rule lifts the batch into the Pallas grid; the solver's own
+    update, value and shift run over the batch through torch.func.vmap, and
+    act, the random base action and the step on batched tensors. Nothing is
+    read to the host, so the solve can be captured in a CUDA graph. Element
+    b's kernels equal the single solve's bit for bit; the vmapped reductions
+    (softmax, weighted sums over N) may sum in another order, so its action
+    and mean agree with the single solve's to rounding. On the CPU each
+    element is the single solve (build_solve_fn), stacked.
+
+    solve.vectorised is the batched path on any device (tests run it on the
+    CPU against the JAX package). A solver outside MPPI, RandomShooting,
+    CEM and DMDMPC, or an env whose fused rollout has no batched entry,
+    raises NotImplementedError.
+    """
+    batched_rollout = _check_batchable(solver, env)
+    single = build_solve_fn(solver, env, calc_val=calc_val, hotstart=hotstart)
+    solver.build_constants()
+
+    def state(mean, cov, step):
+        return GaussianState(mean=mean, cov=cov, step=step, seed=0)
+
+    def traj(costs, actions):
+        return Trajectories(observations=None, actions=actions, costs=costs, dones=None,
+                            next_observations=None, successes=None)
+
+    def fields(s):
+        return s.mean, s.cov
+
+    update = torch.func.vmap(lambda m, c, st, costs, acts: fields(
+        solver.update(state(m, c, st), traj(costs, acts))))
+    value = torch.func.vmap(lambda m, c, st, costs, acts: solver.value(
+        state(m, c, st), traj(costs, acts)))
+    random_base = solver.base_action == "random"
+    shift = torch.func.vmap(lambda m, c, st, last: fields(solver.shift(state(m, c, st), last)),
+                            in_dims=(0, 0, 0, 0 if random_base else None))
+
+    def rollout(env_params, env_states, b: GaussianBatch):
+        noise = solver.sample_noise_batch(b)
+        costs = batched_rollout(env_params, env_states, b.mean, noise)
+        return costs, b.mean[:, None] + noise
+
+    def vectorised(env_params, env_states, b: GaussianBatch):
+        for _ in range(solver.n_iters):
+            costs, actions = rollout(env_params, env_states, b)
+            mean, cov = update(b.mean, b.cov, b.step, costs, actions)
+            b = dataclasses.replace(b, mean=mean, cov=cov)
+        action = solver.act_batch(b)
+        if calc_val:
+            costs, actions = rollout(env_params, env_states, b)
+            val = value(b.mean, b.cov, b.step, costs, actions)
+        else:
+            val = torch.zeros(b.mean.shape[:1], device=b.mean.device)
+        b = dataclasses.replace(b, step=b.step + 1)
+        if hotstart:
+            # a random base action as shift draws it (init_cov the scale),
+            # one launch for every element; the others shift computes
+            last = (solver.init_cov * ops.standard_normals_batch(
+                b.keys[_TAG_SHIFT], b.step, solver.d_action) if random_base else None)
+            mean, cov = shift(b.mean, b.cov, b.step, last)
+            b = dataclasses.replace(b, mean=mean, cov=cov)
+        return action, val, b
+
+    def solve(env_params, env_states, b: GaussianBatch):
+        if b.mean.device.type == "cpu":
+            outs = [single(env_params, map_tensors(lambda t: t[i], env_states), s)
+                    for i, s in enumerate(b.unstack())]
+            new = [o[2] for o in outs]
+            return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
+                    dataclasses.replace(b, mean=torch.stack([s.mean for s in new]),
+                                        cov=torch.stack([s.cov for s in new]),
+                                        step=torch.stack([s.step for s in new])))
+        with ops.control.capturable_linalg(b.mean.device):
+            return vectorised(env_params, env_states, b)
+
+    solve.vectorised = vectorised
+    return solve
+
+
+def stack_states(states):
+    """B states of one structure (env states, solver states) stacked: every
+    tensor leaf on a new leading axis; every other field the first
+    state's."""
+    return map_tensors(lambda *xs: torch.stack(xs), states[0], *states[1:])
 
 
 def tensor_leaves(x, prefix: str = "") -> dict:

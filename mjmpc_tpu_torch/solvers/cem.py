@@ -56,9 +56,9 @@ class CEM(GaussianMPC):
         new_mean = self._interp_mean(state.mean, torch.mean(elite_actions, dim=0))
         return dataclasses.replace(state, mean=new_mean, cov=new_cov)
 
-    def shift(self, state: GaussianState) -> GaussianState:
+    def shift(self, state: GaussianState, last=None) -> GaussianState:
         """Shift the mean and grow the covariance."""
-        state = super().shift(state)
+        state = super().shift(state, last)
         return dataclasses.replace(state, cov=state.cov + self.cov_growth)
 
     def value(self, state: GaussianState, traj: Trajectories) -> torch.Tensor:

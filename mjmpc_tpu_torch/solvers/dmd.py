@@ -55,9 +55,9 @@ class DMDMPC(GaussianMPC):
         return dataclasses.replace(state, mean=self._interp_mean(state.mean, weighted),
                                    cov=new_cov)
 
-    def shift(self, state: GaussianState) -> GaussianState:
+    def shift(self, state: GaussianState, last=None) -> GaussianState:
         """Shift the mean; grow the covariance by beta * I when adapting."""
-        state = super().shift(state)
+        state = super().shift(state, last)
         if self.update_cov:
             state = dataclasses.replace(state, cov=state.cov + self.cov_growth)
         return state

@@ -8,9 +8,11 @@ forest rollout for pen-v0, the sawyer peg, relocate-v0, hammer-v0 (its
 coupled free-body branch), the sawyer door, the pusher, the three
 tray-glass models and door-v0, the pendulum rollout (every particles-a-block
 size bit for bit) and the one-kernel pendulum MPPI solve, a thread-block
-cluster):
+cluster), and the batched entries of #1 and #2 (B elements in one launch,
+equal to B single launches bit for bit):
 each against its plain PyTorch version, their launch counts on sync-free
-solves, and the wrappers' checks; and one solve of each family captured as
+solves (the batched MPPI solve against single solves too), and the
+wrappers' checks; and one solve of each family captured as
 a CUDA graph and replayed against eager solves (chip_smoke.py graph_check),
 two replays drawing different noise; iLQR on LQR against the dynamic
 program (rtol 1e-3 on the action, 1e-4 on the cost), iLQR on cartpole and
@@ -115,6 +117,61 @@ def test_kernel_matches_plain(device, n, h, tol):
     got = roll(*args)
     assert ChainRollout.launches == before + 1
     torch.testing.assert_close(got, roll.plain(*args), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_batched_kernels_equal_single_launches(device, b):
+    """The batched entries of #1 and #2 (one launch for B elements) equal B
+    single launches bit for bit and their plain versions within 5e-5."""
+    roll = build_chain_rollout(envs.make("reacher_7dof-v0", device=device).params.model,
+                               n_substeps=2)
+    rows = [_inputs(37, 5, seed, device) for seed in range(b)]
+    args = [torch.stack(xs).contiguous() for xs in zip(*rows)]
+    before = ChainRollout.batch_launches
+    got = roll.batch(*args)
+    assert ChainRollout.batch_launches == before + 1
+    assert torch.equal(got, torch.stack([roll(*row) for row in rows]))
+    torch.testing.assert_close(got, roll.batch_plain(*args), rtol=0, atol=5e-5)
+    sampler = FilteredNoise()
+    keys = ops.key_tensor([rng.stream_key(7, i) for i in range(b)], device)
+    steps = torch.arange(3, 3 + b, device=device)
+    white = sampler.white_batch(keys, steps, 37, 5, 7, (0.25, 0.8, 0.0))
+    assert torch.equal(white, torch.stack([
+        sampler.white(rng.stream_key(7, i), steps[i], 37, 5, 7, (0.25, 0.8, 0.0))
+        for i in range(b)]))
+    torch.testing.assert_close(white, sampler.white_batch_plain(
+        keys, steps, 37, 5, 7, (0.25, 0.8, 0.0)), rtol=0, atol=5e-5)
+
+
+def test_batched_solve_matches_single_solves_without_host_syncs(device):
+    """build_batched_solve_fn at B=3 against three single solves (2.3e-6,
+    the MPPI update's tolerance), one launch of each batched entry a
+    solve and no host sync."""
+    env = envs.make("reacher_7dof-v0", device=device)
+    solver = solvers.MPPI(d_action=7, horizon=8, num_particles=256, lam=0.01, init_cov=3.0,
+                          step_size=0.55, filter_coeffs=(0.25, 0.8, 0.0), base_action="repeat",
+                          noise_impl="kernel", device=device)
+    states = [solver.init_state(seed) for seed in (1, 2, 3)]
+    env_states = [env.init(env.params, seed) for seed in (4, 5, 6)]
+    es = solvers.stack_states(env_states)
+    bsolve = solvers.build_batched_solve_fn(solver, env)
+    action, _, new = bsolve(env.params, es, solvers.GaussianBatch.stack(states))
+    single = solvers.make_solve_fn(solver, env)
+    for i, (s, e) in enumerate(zip(states, env_states)):
+        a, _, s = single(env.params, e, s)
+        torch.testing.assert_close(action[i], a, rtol=0, atol=2.3e-6)
+        torch.testing.assert_close(new.mean[i], s.mean, rtol=0, atol=2.3e-6)
+    before = (ChainRollout.batch_launches, FilteredNoise.batch_launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            action, _, new = bsolve(env.params, es, new)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (ChainRollout.batch_launches, FilteredNoise.batch_launches) == (before[0] + 3,
+                                                                           before[1] + 3)
+    assert bool(torch.isfinite(action).all()) and new.step.tolist() == [4, 4, 4]
 
 
 def test_wrapper_rejects_non_contiguous_noise(device):
@@ -668,8 +725,8 @@ def test_pendulum_solves_launch_the_kernels_without_host_syncs(device):
 
 
 def _chip_smoke():
-    """chip_smoke.py as a module (its top level imports only the standard
-    library and numpy)."""
+    """chip_smoke.py as a module (its top level imports the standard
+    library, numpy and the port's timers)."""
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)

@@ -217,6 +217,7 @@ def test_import_leaves_jax_out():
             "mjmpc_tpu_torch.harness.run_mpc_cl, mjmpc_tpu_torch.harness.jobs, "
             "mjmpc_tpu_torch.utils.helpers, mjmpc_tpu_torch.models, mjmpc_tpu_torch.rl, "
             "mjmpc_tpu_torch.solvers.softq, mjmpc_tpu_torch.solvers.random_shooting_nn, "
-            "mjmpc_tpu_torch.harness.sacq_eval, mjmpc_tpu_torch.harness.softq_diag; "
+            "mjmpc_tpu_torch.harness.sacq_eval, mjmpc_tpu_torch.harness.softq_diag, "
+            "mjmpc_tpu_torch.harness.benchmark, mjmpc_tpu_torch.harness.forest_perf; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], check=True)

@@ -66,6 +66,7 @@ def profile_heavy_runs(device, card: str) -> None:
     from mjmpc_tpu_torch.envs.lqr import LQRState
     from mjmpc_tpu_torch.harness import config as hconfig
     from mjmpc_tpu_torch.harness import run_mpc_cl
+    from mjmpc_tpu_torch.harness.benchmark import solves_per_s
     import torch
     runs = []
     for path, controllers in chip_smoke.ANALYTIC_CONFIGS.items():
@@ -88,7 +89,7 @@ def profile_heavy_runs(device, card: str) -> None:
                                      timestep=rng.step_tensor(chip_smoke.MAZE_START, device))))
     for path, c, s, e, es in runs:
         solve = solvers.make_solve_fn(s, e)
-        rate, windows, _ = chip_smoke.solves_per_s(solve, e, es, s.init_state(0), 2, 1)
+        rate, windows, _ = solves_per_s(solve, e, es, s.init_state(0), 2, 1)
         emit("profile_rate", card, config=path, env=e.name, controller=c,
              n=getattr(s, "num_particles", 1), h=s.horizon, n_iters=s.n_iters,
              solves_per_s=rate, windows=windows)

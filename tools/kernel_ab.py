@@ -7,9 +7,10 @@ that versions are compared on the same card in the same run.
 
 Each round runs every checkout once in order and once in reverse (A B B A
 for two), each in a process of its own from its root, importing that
-checkout's mjmpc_tpu_torch and this checkout's chip_smoke.py for the
-inputs and the timers, so that every version is timed the same way on the
-inputs that chip_smoke.py's gates hold. A family is the kernels of one
+checkout's mjmpc_tpu_torch, this checkout's chip_smoke.py for the inputs
+and this checkout's timers (mjmpc_tpu_torch/harness/benchmark.py, loaded
+from its file, load_timers), so that every version is timed the same way
+on the inputs that chip_smoke.py's gates hold. A family is the kernels of one
 source:
 
 - forest: kernel #6 (csrc/forest_rollout.cu), pen-v0 at N = 64, 256, 1024
@@ -39,9 +40,10 @@ step tensor (at step 0, which draws the same normals as the seed did).
 
 A run builds its family's libraries (one nvcc each, in parallel), prints
 their ptxas lines, nvcc seconds and SASS instructions (cuobjdump), times
-each kernel by CUDA events (chip_smoke.cuda_ms: the mean of 20 calls on a
-held stream), then each solve's read-verified solves/s
-(chip_smoke.solves_per_s, the median of 5 windows of 10) and device time
+each kernel by CUDA events (cuda_ms of this checkout's
+mjmpc_tpu_torch/harness/benchmark.py: the mean of 20 calls on a held
+stream), then each solve's read-verified solves/s (its solves_per_s, the
+median of 5 windows of 10) and device time
 and busy share per solve (chip_smoke.profile). It keeps the kernels'
 outputs, and the script prints each checkout's largest difference from the
 first checkout's. One JSON line per measurement and one per comparison;
@@ -146,9 +148,29 @@ PHASE_KINDS = {"forest": ("init", "fk", "points", "forces", "sums", "mass", "cho
 CLOCK_FLAGS = {"forest": "-DFOREST_PHASE_CLOCKS", "chain": "-DCHAIN_PHASE_CLOCKS"}
 
 
+TIMERS = "mjmpc_tpu_torch.harness.benchmark"
+
+
+def load_timers():
+    """This checkout's timers (mjmpc_tpu_torch/harness/benchmark.py), also
+    where the checkout under test has none: loaded from this checkout's
+    file under their module's name, so that chip_smoke.py's import of them
+    finds this copy (its package imports resolve in the checkout under
+    test)."""
+    if TIMERS not in sys.modules:
+        import mjmpc_tpu_torch.harness   # the checkout under test's package
+        spec = importlib.util.spec_from_file_location(
+            TIMERS, ROOT / "mjmpc_tpu_torch" / "harness" / "benchmark.py")
+        timers = importlib.util.module_from_spec(spec)
+        sys.modules[TIMERS] = timers
+        spec.loader.exec_module(timers)
+    return sys.modules[TIMERS]
+
+
 def load_smoke():
-    """This checkout's chip_smoke.py as a module (its top level imports
-    only the standard library and numpy)."""
+    """This checkout's chip_smoke.py as a module, with this checkout's
+    timers (load_timers)."""
+    load_timers()
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
@@ -273,6 +295,7 @@ def chain_inputs(smoke, made, rolls, key, n, h, device):
 
 
 def forest_timings(smoke, smi, device, outputs):
+    timers = load_timers()
     from mjmpc_tpu_torch import solvers
     from mjmpc_tpu_torch.harness import config as hconfig
     import torch
@@ -287,7 +310,7 @@ def forest_timings(smoke, smi, device, outputs):
         torch.cuda.synchronize()
         outputs[f"{name}_{n}_{h}"] = got.cpu().numpy()
         print(json.dumps({"env": name, "n": n, "h": h,
-                          "ms": smoke.cuda_ms(lambda: roll(*args), 20),
+                          "ms": timers.cuda_ms(lambda: roll(*args), 20),
                           "finite": bool(torch.isfinite(got).all())}), flush=True)
     for name, path in smoke.FOREST_CONFIGS.items():
         if name not in made:
@@ -299,6 +322,7 @@ def forest_timings(smoke, smi, device, outputs):
 
 
 def chain_timings(smoke, smi, device, outputs):
+    timers = load_timers()
     from mjmpc_tpu_torch import solvers
     from mjmpc_tpu_torch.harness import config as hconfig
     import torch
@@ -316,7 +340,7 @@ def chain_timings(smoke, smi, device, outputs):
         for k, x in enumerate(got if isinstance(got, tuple) else (got,)):
             outputs[f"{name}_{k}"] = x.cpu().numpy()
         print(json.dumps({"kernel": name, "n": n, "h": h, "team": team_of(roll, n),
-                          "ms": smoke.cuda_ms(lambda: roll(*args), 20)}), flush=True)
+                          "ms": timers.cuda_ms(lambda: roll(*args), 20)}), flush=True)
     e = made["reacher_7dof-v0"]     # the main path: MPPI with the kernel noise, #1
     s = solvers.MPPI(d_action=e.d_action, horizon=smoke.HORIZON,
                      num_particles=smoke.NUM_PARTICLES, init_cov=3.0,
@@ -342,9 +366,10 @@ def chain_timings(smoke, smi, device, outputs):
 
 def solve_rate(smoke, smi, solve, s, e, **labels):
     """A solve's read-verified solves/s and its profile line."""
+    timers = load_timers()
     es = e.init(e.params, 1)
     _, state = smoke.sync_free(solve, e, es, s.init_state(0), 3)
-    rate, windows, _ = smoke.solves_per_s(solve, e, es, state, 10, 5)
+    rate, windows, _ = timers.solves_per_s(solve, e, es, state, 10, 5)
     print(json.dumps({**labels, "n": s.num_particles, "h": s.horizon, "solves_per_s": rate,
                       "windows": windows}), flush=True)
     smoke.profile(solve, e, es, s.init_state(0), smi, **labels)
@@ -362,6 +387,7 @@ def _print_build(name, lib):
 
 
 def pendulum_timings(smoke, smi, device, outputs):
+    timers = load_timers()
     import torch
     from mjmpc_tpu_torch import envs
     from mjmpc_tpu_torch.ops import pendulum as pend
@@ -375,7 +401,7 @@ def pendulum_timings(smoke, smi, device, outputs):
         torch.cuda.synchronize()
         outputs[f"pendulum_rollout_{n}"] = got.cpu().numpy()
         print(json.dumps({"kernel": "pendulum_rollout", "n": n, "h": smoke.HORIZON, "card": smi,
-                          "ms": smoke.cuda_ms(lambda: pend.pendulum_rollout(*args), 50)}),
+                          "ms": timers.cuda_ms(lambda: pend.pendulum_rollout(*args), 50)}),
               flush=True)
     params, state, mean, _ = smoke.pendulum_inputs(pend_env, 1, smoke.HORIZON, 34, device)
     for n in PENDULUM_N:
@@ -387,11 +413,12 @@ def pendulum_timings(smoke, smi, device, outputs):
         ctas = pend.solve_cluster(pend.sampled_particles(n)) if keyed else 1
         print(json.dumps({"kernel": "mppi_pendulum_solve", "n": n, "h": smoke.HORIZON,
                           "ctas": ctas, "card": smi,
-                          "ms": smoke.cuda_ms(lambda: pend.mppi_pendulum_solve(*head, **cfg),
+                          "ms": timers.cuda_ms(lambda: pend.mppi_pendulum_solve(*head, **cfg),
                                               50)}), flush=True)
 
 
 def noise_timings(smoke, smi, device, outputs):
+    timers = load_timers()
     import torch
     from mjmpc_tpu_torch import envs, solvers
     from mjmpc_tpu_torch.ops.noise import FilteredNoise
@@ -406,7 +433,7 @@ def noise_timings(smoke, smi, device, outputs):
         torch.cuda.synchronize()
         outputs[f"filtered_noise_{n}_{h}_{d}"] = got.cpu().numpy()
         print(json.dumps({"kernel": "filtered_noise", "n": n, "h": h, "d_action": d,
-                          "card": smi, "ms": smoke.cuda_ms(lambda: sampler.white(*args), 50)}),
+                          "card": smi, "ms": timers.cuda_ms(lambda: sampler.white(*args), 50)}),
               flush=True)
     e = envs.make("reacher_7dof-v0", device=device)     # the main path, kernel noise
     s = solvers.MPPI(d_action=e.d_action, horizon=smoke.HORIZON,
@@ -437,6 +464,7 @@ def run_timings(out_path: str, smi: str, families) -> None:
 def run_phases(families) -> None:
     """This checkout's phase clocks: two calls (a warm-up and a timed one)
     after the counts are read once and so zeroed."""
+    timers = load_timers()
     import torch
     smoke, device = load_smoke(), torch.device("cuda")
     cases = []
@@ -456,7 +484,7 @@ def run_phases(families) -> None:
         roll(*args)
         torch.cuda.synchronize()
         read()
-        ms = smoke.cuda_ms(lambda: roll(*args), 1)
+        ms = timers.cuda_ms(lambda: roll(*args), 1)
         cycles = read()
         total = sum(cycles.values())
         substeps = 2 * h * base.n_substeps      # two calls
@@ -482,6 +510,7 @@ def run_phases(families) -> None:
 
 def run_sweep() -> None:
     """This checkout's costs and obs rollouts at every team size (SWEEP)."""
+    timers = load_timers()
     import torch
     smoke, device = load_smoke(), torch.device("cuda")
     from mjmpc_tpu_torch.ops.chain_rollout import TEAM_SIZES, open_loop_team
@@ -498,7 +527,7 @@ def run_sweep() -> None:
                 got = roll(*args, team=team)
                 torch.cuda.synchronize()
                 outs.append(got if isinstance(got, tuple) else (got,))
-                times[team] = smoke.cuda_ms(lambda: roll(*args, team=team), 20)
+                times[team] = timers.cuda_ms(lambda: roll(*args, team=team), 20)
                 print(json.dumps({"sweep": case, "n": n, "h": h, "team": team,
                                   "ms": times[team]}), flush=True)
             if not all(torch.equal(x, y) for other in outs[1:] for x, y in zip(outs[0], other)):
@@ -511,6 +540,7 @@ def run_sweep() -> None:
 
 def run_cluster_sweep() -> None:
     """This checkout's kernel #8 at every cluster size (CLUSTER_SIZES)."""
+    timers = load_timers()
     import torch
     from mjmpc_tpu_torch import envs, rng
     from mjmpc_tpu_torch.ops import pendulum as pend
@@ -541,7 +571,7 @@ def run_cluster_sweep() -> None:
             err = float((got - want).abs().max())
             if not err <= 1e-5:
                 raise RuntimeError(f"kernel #8 at {ctas} CTAs disagrees at N={n}: {err}")
-            times[ctas] = smoke.cuda_ms(lambda: pend.mppi_pendulum_solve(*args, **cfg,
+            times[ctas] = timers.cuda_ms(lambda: pend.mppi_pendulum_solve(*args, **cfg,
                                                                          ctas=ctas), 50)
             print(json.dumps({"cluster_sweep": n, "ctas": ctas, "threads": threads,
                               "smem_bytes": smem, "max_active_clusters": active,
@@ -552,6 +582,7 @@ def run_cluster_sweep() -> None:
 
 def run_pendulum_sweep() -> None:
     """This checkout's kernel #7 at every particles-a-block size."""
+    timers = load_timers()
     import torch
     from mjmpc_tpu_torch import envs
     from mjmpc_tpu_torch.ops import pendulum as pend
@@ -567,7 +598,7 @@ def run_pendulum_sweep() -> None:
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise RuntimeError(f"kernel #7 at {per_block} particles a block differs at N={n}")
-            times[per_block] = smoke.cuda_ms(
+            times[per_block] = timers.cuda_ms(
                 lambda: pend.pendulum_rollout(*args, per_block=per_block), 50)
             print(json.dumps({"pendulum_sweep": n, "h": smoke.HORIZON, "per_block": per_block,
                               "ms": times[per_block]}), flush=True)
@@ -579,6 +610,7 @@ def run_pendulum_sweep() -> None:
 
 def run_noise_sweep() -> None:
     """This checkout's kernel #2 at several particles per block."""
+    timers = load_timers()
     import torch
     from mjmpc_tpu_torch import rng
     from mjmpc_tpu_torch.ops.noise import FilteredNoise
@@ -596,7 +628,7 @@ def run_noise_sweep() -> None:
             if not torch.equal(got, want):
                 raise RuntimeError(f"kernel #2 at {per_block} particles a block differs at "
                                    f"{(n, h, d)}")
-            times[per_block] = smoke.cuda_ms(lambda: sampler.white(*args), 50)
+            times[per_block] = timers.cuda_ms(lambda: sampler.white(*args), 50)
             print(json.dumps({"noise_sweep": [n, h, d], "per_block": per_block,
                               "ms": times[per_block]}), flush=True)
         print(json.dumps({"noise_sweep": [n, h, d], "fastest": min(times, key=times.get),

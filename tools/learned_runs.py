@@ -57,6 +57,7 @@ def profile_softq_sawyer(device, card: str) -> None:
     import chip_smoke
     from mjmpc_tpu_torch import envs, solvers
     from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.harness.benchmark import solves_per_s
     path = chip_smoke.SOFTQ_CONFIGS["sawyer_reacher-v0"]
     exp = hconfig.load_config(str(ROOT / path))
     e = envs.make(exp["env_name"], device=device)
@@ -65,7 +66,7 @@ def profile_softq_sawyer(device, card: str) -> None:
     # a warm-up solve first: the noise kernel's build and torch.func's first
     # traces stay out of the rate
     float(solve(e.params, es, s.init_state(0))[0][0])
-    rate, windows, _ = chip_smoke.solves_per_s(solve, e, es, s.init_state(0), 2, 1)
+    rate, windows, _ = solves_per_s(solve, e, es, s.init_state(0), 2, 1)
     emit("profile_rate", card, config=path, env=e.name, controller="softq",
          n=s.num_particles, h=s.horizon, solves_per_s=rate, windows=windows)
     chip_smoke.profile(solve, e, es, s.init_state(0), card, 1, 1, solver="softq", env=e.name,
