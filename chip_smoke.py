@@ -204,11 +204,14 @@ exit and no final line:
                pusher, tray-glass v0, v1 and fixed-v1, door-v0 and
                tray-glass-v1-biased-model (planning on fixed-v1) configs at
                full size, one episode cut to 3 control steps: finite
-               rewards, kernel #6's count rising by exactly 2 times the
-               solver's iterations. Every episode here and below is a
-               captured control step replayed (harness/episode.py): the
-               host launches its first step, run eagerly, and the captured
-               one; the graph's replays launch the rest (episode_solves).
+               rewards, kernel #6's batched entry's count rising by exactly
+               2 times the solver's iterations and its single entry's by 0
+               (run_episodes runs the episodes of a solver and env that the
+               batched solve covers as one batched episode, here of one).
+               Every episode here and below is a captured control step
+               replayed (harness/episode.py): the host launches its first
+               step, run eagerly, and the captured one; the graph's replays
+               launch the rest (episode_solves).
 18. run_mpc_cl -- run_mpc_cl.main on configs/cartpole-v0_cl.yml and
                configs/sawyer/sawyer_peg_insertion-v0_cl.yml, one episode
                cut to 3 control steps: finite rewards and baseline fit
@@ -217,7 +220,8 @@ exit and no final line:
                replayed episode's host launches.
 19. jobs    -- jobs.main in tune mode on configs/tune/tray_glass-v0.yml
                cut to 2 cells (lam 0.02 and 0.05 at N=512, H=20) x 1
-               episode x 2 steps, kernel #6's count rising by 4; in sweep
+               episode x 2 steps, kernel #6's batched entry's count and
+               the batched noise draws' rising by 4; in sweep
                mode on configs/point_mass-v0.yml as it is (1 cell, 5
                episodes x 25 steps, the noise kernel's count rising by 2 an
                episode).
@@ -242,7 +246,9 @@ exit and no final line:
                first 10's; then harness/sacq_eval.main on the reacher (40
                training steps, one 20-step episode per arm, H=16, N=256,
                each replayed): #3 42 times (training and the mppiq+sacq
-               arm), #1 4 (the mppi and mppiq arms), the noise kernel 46.
+               arm), #1 2 (the mppiq arm) and #1's batched entry 2 (the
+               mppi arm, a batched episode of one), the noise kernel 44 and
+               its batched entry 2.
                Phases 21-23 run after phase 15, before the graph phase.
 24. dyn_kernel -- kernels built from perturbed models (envs.
                randomize_dynamics from seed 123, each env's kernels rebuilt
@@ -265,8 +271,9 @@ exit and no final line:
                configs/dyn_randomize/reacher_7dof.yml on the reacher config
                cut to one 3-step episode: the planner's params are the
                spec's draw from the config's seed, the real env's are
-               nominal, the perturbed model's #1 launched by every solve
-               the host launches (2) and nothing else but the noise kernel.
+               nominal, the perturbed model's #1 (its batched entry: a
+               batched episode of one) launched by every solve the host
+               launches (2) and nothing else but the batched noise draws.
 26. episode_replay -- build_episode_fn eager (replay=False) and replayed:
                the main path (reacher_7dof-v0, MPPI H=32 N=4096, 12 steps)
                and pen-v0's mppi (4 steps) planning on the perturbed pen:
@@ -278,10 +285,16 @@ exit and no final line:
                build_sharded_solve_fn on the main path equal the plain
                solves bit for bit (#1 once a solve each); the records of
                build_batch_episode_fn (the reacher config's mppi, seeds 1
-               and 2, 4 steps) equal the single episodes' bit for bit.
+               and 2, 4 steps: one batched episode on the row, #1's batched
+               entry once a solve the host launches) equal those of the
+               unsharded env's batched episode bit for bit, and each
+               episode's actions and rewards on the first 3 steps lie
+               within 1e-4 (phase 30's rule) of the single episode of its
+               seed.
 28. render  -- run_mpc.main --dump_vids on configs/reacher_7dof-v0.yml and
                configs/hand/door-v0.yml, each cut to 1 episode of
-               RENDER_STEPS steps (a replayed episode): one GIF in the log
+               RENDER_STEPS steps (a replayed batched episode of one): one
+               GIF in the log
                dir whose image descriptors (render.gif.read_gif) number
                RENDER_STEPS, the records equal to the same run without the
                flag bit for bit, the launches of the run with the flag as
@@ -313,6 +326,39 @@ exit and no final line:
                harness/forest_perf.py's main([]) on the card, their rows
                printed: no error row, no flops_error, every number finite.
                Phase 29 runs after phase 28, before the timing.
+30. batch_episodes -- the batched entries of kernels #5, #6 and #7
+               (ChainExtRollout.batch, ForestRollout.batch,
+               PendulumRollout.batch) at B = 1, 2 and 4 from the single
+               checks' inputs (BATCH_ENTRY_CHECKS: the swimmer and the
+               cheetah at (37, 5); pen from the pinch at (37, 5);
+               relocate, hammer, door-v0, the pusher and tray-glass v0 from
+               phase 10's starts at (37, 4); the pendulum from the crossing
+               start and B - 1 others at (37, 5)): equal to B single
+               launches bit for bit, exactly one batched launch each and no
+               single one; at B=2 to the plain version per element at the
+               single kernel's tolerance, and the check's power: element
+               1's actions zeroed in the plain version must miss by more
+               than 10x. The swimmer, the cheetah, pen and the pendulum
+               again at their configs' sizes (BATCH_TIMED) at B = 1, 2, 4:
+               equal to B single launches bit for bit, at B=2 to the plain
+               version at the single kernel's check at that size (the
+               `kernels` line's max_abs_err, ms and plain_ms all from this
+               B=2 run), and timed against B single launches
+               (`kernel_batched_entry_time`, with B x the single bound and
+               the ptxas lines). Then B = 3 episodes (BATCH_EPISODES, the
+               config's seeds) of each config's mppi block, cut to 10
+               steps, as one batched episode (build_batched_episode_fn) on
+               the reacher, Swimmer, pen-v0 and the pendulum: the replay
+               equal to the batched eager loop bit for bit (records, states
+               and the final batch), the env's batched entry and the
+               batched noise draws launched once a solve the host launches
+               and no single kernel, each element's actions and rewards on
+               the first 3 steps within 1e-4 (the closed loops' tolerance;
+               rewards of max(1, |reward|)) of its single episode; control
+               steps/s of the batch against B replayed single episodes
+               (one replay's device time each), with the card's name and
+               power limit.
+               Phase 30 runs after phase 29, before the timing.
 20. timing  -- read-verified solves/s (each window ends by reading a value
                that depends on every solve in it) for MPPI with the plain
                and with the kernel noise, for MPPI with the plain rollout,
@@ -356,7 +402,9 @@ pendulum mppi block's N=24, #8 at the closed loop's N=1024, each size on a
 size; then the two kernels built from perturbed models that the
 randomization and episode paths launch: #1 for the reacher, launched by phase 25, and #6 for pen,
 launched by phase 26's replayed episode; then the batched entries of #1 and #2 at phase 29's B=4,
-launched by its batched solve), the nvidia-smi line and
+launched by its batched solve, and of #5 (the swimmer), #6 (pen) and #7 at
+phase 30's B=2 and their configs' sizes, launched by its batched episodes),
+the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -546,13 +594,47 @@ KERNEL_ENGINE_ATOL = 5e-5                # a kernel against the general rollout
 DYN_STEPS = 3                            # run_mpc --dyn_randomize_config's episode
 EPISODE_STEPS = {"reacher_7dof-v0": 12, "pen-v0": 4, "reacher_7dof-v0 perturbed": 6}
 PARALLEL_STEPS = 4
+# 30. the batched entries of #5, #6 and #7: (N, H, atol) of each env's
+# check (the single kernel's size and tolerance; the cheetah's of max(1,
+# |cost|)), at B = 1, 2, 4; each timed at its config's size against B single
+# launches; the `kernels` line's rows (kernel name, batched count); the
+# batched episodes (B of them, T cut) at each config's mppi block, held to
+# each element's single episode on the first steps
+BATCH_ENTRY_CHECKS = {"Swimmer-v0": (37, 5, 5e-5), "HalfCheetah-v0": (37, 5, 5e-4),
+                      "pen-v0": (37, 5, 1e-4), "relocate-v0": (37, 4, 1e-4),
+                      "hammer-v0": (37, 4, 1e-4), "door-v0": (37, 4, 1e-4),
+                      "sawyer_pusher-v0": (37, 4, 1e-4), "panda_tray_glass-v0": (37, 4, 1e-4),
+                      "SimplePendulum-v0": (37, 5, 1e-5)}
+BATCH_ENTRY_SIZES = (1, 2, 4)
+BATCH_ROW_B = 2              # the `kernels` line's B (its plain version takes seconds a call)
+# the configs' sizes, each checked again at the single kernel's tolerance
+# there (LOCO_CHECKS, FOREST_CHECKS: None the gated-cost rule, the
+# pendulum's 1e-5) and timed
+BATCH_TIMED = {"Swimmer-v0": (512, 32, 1e-3), "HalfCheetah-v0": (512, 16, 1e-2),
+               "pen-v0": (256, 16, None), "SimplePendulum-v0": (24, 32, 1e-5)}
+BATCH_ROWS = {"Swimmer-v0": ("chain_ext_rollout_batched", "ext_batch"),
+              "pen-v0": ("forest_rollout_batched", "forest_batch"),
+              "SimplePendulum-v0": ("pendulum_rollout_batched", "pendulum_batch")}
+BATCH_EPISODE_CONFIGS = {"reacher_7dof-v0": "configs/reacher_7dof-v0.yml",
+                         "Swimmer-v0": "configs/Swimmer-v0.yml",
+                         "pen-v0": "configs/hand/pen-v0.yml",
+                         "SimplePendulum-v0": "configs/SimplePendulum-v0.yml"}
+BATCH_EPISODES = 3
+BATCH_EPISODE_STEPS = 10
+BATCH_AGREE_STEPS = 3
+BATCH_AGREE_ATOL = 1e-4      # the closed loops' tolerance (rewards of max(1, |reward|))
 BATCHES = (1, 2, 4, 8)       # the batched entries' checks and times
 BATCH_SOLVE = 4              # the batched MPPI solve's B
 MPPI_UPDATE_ATOL = 2.3e-6    # the batched solve against single solves
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; `t` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "t": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def reacher_inputs(n: int, h: int, seed: int, device):
@@ -686,6 +768,37 @@ def device_time_us(event) -> float:
     return float(event.cuda_time_total if t is None else t)
 
 
+def launch_counters():
+    """(counters, counts, expected): every kernel wrapper class; counts()
+    their launch counts by name (a batched entry's under <kernel>_batch);
+    expected(**nonzero) every count 0 but those given."""
+    from mjmpc_tpu_torch.ops import pendulum as pend
+    from mjmpc_tpu_torch.ops.chain_rollout import (ChainClRollout, ChainExtRollout,
+                                                   ChainObsRollout, ChainRollout)
+    from mjmpc_tpu_torch.ops.forest_rollout import ForestRollout
+    from mjmpc_tpu_torch.ops.noise import FilteredNoise, PhiloxUniforms
+    counters = (ChainRollout, ChainObsRollout, ChainClRollout, ChainExtRollout, FilteredNoise,
+                PhiloxUniforms, ForestRollout, pend.PendulumRollout, pend.MppiPendulumSolve)
+
+    def counts():
+        return {"chain": ChainRollout.launches, "chain_batch": ChainRollout.batch_launches,
+                "ext_batch": ChainExtRollout.batch_launches,
+                "forest_batch": ForestRollout.batch_launches,
+                "pendulum_batch": pend.PendulumRollout.batch_launches,
+                "noise_batch": FilteredNoise.batch_launches, "obs": ChainObsRollout.launches,
+                "cl": ChainClRollout.launches, "ext": ChainExtRollout.launches,
+                "noise": FilteredNoise.launches, "uniforms": PhiloxUniforms.launches,
+                "forest": ForestRollout.launches,
+                "pendulum": pend.PendulumRollout.launches,
+                "one_kernel_solve": pend.MppiPendulumSolve.launches}
+
+    def expected(**nonzero):
+        """Every count 0 but those given."""
+        return dict(dict.fromkeys(counts(), 0), **nonzero)
+
+    return counters, counts, expected
+
+
 def reset_counts(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
@@ -755,6 +868,14 @@ def noise_launches(s, solves: int) -> dict:
     if hasattr(s, "cov_shift"):          # PFMPC
         return dict(noise=solves * (1 + random_base), uniforms=solves * iters)
     return dict(noise=solves * (iters + random_base + sampled), uniforms=0)
+
+
+def batched_launches(s, solves: int, key: str) -> dict:
+    """The launches of `solves` batched solves of solver `s` (one batched
+    episode's host launches): the env's batched rollout (`key`'s count)
+    once an iteration and the batched noise draws noise_launches counts
+    (the plain sampler's too)."""
+    return {key: solves * s.n_iters, "noise_batch": noise_launches(s, solves)["noise"]}
 
 
 def state_tensors(state) -> dict:
@@ -1059,8 +1180,8 @@ def dyn_run_mpc_phase(device, counters, counts, expected) -> dict:
                             spec, "--save_dir", out_dir])["mppi"]
         seconds = time.perf_counter() - t0
         got = counts()
-    solves = episode_solves(DYN_STEPS)
-    want = expected(chain=solves * s.n_iters, **noise_launches(s, solves))
+    # one episode: a batched episode of one (the batched solve covers MPPI on #1)
+    want = expected(**batched_launches(s, episode_solves(DYN_STEPS), "chain_batch"))
     drawn = randomize.perturbed_params(real, load_yaml(spec), base_seed=exp["seed"])[0]
     sim = out["sim_params"]
     sim_ok = (all(torch.equal(getattr(sim.model, f), getattr(drawn.model, f))
@@ -1151,12 +1272,14 @@ def episode_replay_phase(device, counters, counts, smi: str, main_solver, dyn: d
 def parallel_phase(device, counters, counts, expected, main_solver) -> dict:
     """27. parallel/ on a mesh of one card: build_sharded_solve_fn's solves
     (the main path) against the plain solves bit for bit, #1 once a solve;
-    build_batch_episode_fn's records against the single episodes with the
-    same seeds bit for bit (the reacher config's mppi)."""
+    build_batch_episode_fn's records (the reacher config's mppi, one
+    batched episode on the row) against the batched episode of the
+    unsharded env with the same seeds bit for bit, #1's batched entry once
+    a solve the host launches."""
     import torch
     from mjmpc_tpu_torch import envs, parallel, solvers
     from mjmpc_tpu_torch.harness import config as hconfig
-    from mjmpc_tpu_torch.harness.episode import build_episode_fn
+    from mjmpc_tpu_torch.harness.episode import build_batched_episode_fn
     env = envs.make("reacher_7dof-v0", device=device)
     mesh = parallel.make_mesh()
     es = env.init(env.params, 1)
@@ -1179,17 +1302,21 @@ def parallel_phase(device, counters, counts, expected, main_solver) -> dict:
     reset_counts(*counters)
     batch = parallel.build_batch_episode_fn(s, env, PARALLEL_STEPS, mesh)(env.params, seeds)
     batch_launches = counts()
-    single = build_episode_fn(s, env, PARALLEL_STEPS)
-    batch_same = all(torch.equal(batch[k][i], single(env.params, env.params, seed)[0][k])
-                     for i, seed in enumerate(seeds) for k in batch)
-    batch_want = len(seeds) * episode_solves(PARALLEL_STEPS) * s.n_iters
+    unsharded = build_batched_episode_fn(s, env, PARALLEL_STEPS)(env.params, env.params, seeds)[0]
+    batch_same = all(torch.equal(batch[k], unsharded[k]) for k in unsharded)
+    # an independent path: each episode against the single episode of its seed
+    diffs = single_episode_diffs(s, env, batch, seeds)[0]
+    batch_want = episode_solves(PARALLEL_STEPS) * s.n_iters
     emit("parallel", mesh=[[str(d) for d in row] for row in mesh.devices],
          sharded_solves=ZOO_SOLVES, sharded_identical=same, launches=got,
          batch_shape={k: list(v.shape) for k, v in batch.items()}, batch_identical=batch_same,
+         first_steps=BATCH_AGREE_STEPS, single_episode_max_diff=diffs, atol=BATCH_AGREE_ATOL,
          batch_launches=batch_launches)
-    if not (same and batch_same) or got != want or batch_launches["chain"] != batch_want:
+    if (not (same and batch_same) or got != want or batch_launches["chain_batch"] != batch_want
+            or batch_launches["chain"] != 0 or not max(diffs.values()) <= BATCH_AGREE_ATOL):
         raise RuntimeError(f"parallel: sharded {same}, batch {batch_same}, launches {got}, "
-                           f"expected {want}, batch launches {batch_launches}")
+                           f"expected {want}, batch launches {batch_launches}, single-episode "
+                           f"differences {diffs}")
     return batch_launches
 
 
@@ -1220,8 +1347,8 @@ def render_phase(device, counters, counts, smi: str) -> None:
             info = [gif.read_gif(os.path.join(runs["with"]["log_dir"], f)) for f in gifs]
         identical = all(np.array_equal(runs["with"][k], runs["without"][k])
                         for k in ("rewards", "actions", "values", "dones", "successes"))
-        solves = episode_solves(RENDER_STEPS) * s.n_iters
-        kernel = "forest" if exp["env_name"] == "door-v0" else "chain"
+        solves = episode_solves(RENDER_STEPS) * s.n_iters   # a batched episode of one
+        kernel = "forest_batch" if exp["env_name"] == "door-v0" else "chain_batch"
         launches_ok = (launches["with"] == launches["without"]
                        and launches["with"][kernel] == solves)
         host = runs["with"]["states"][0]
@@ -1416,6 +1543,221 @@ def benchmark_phase(device, counters, counts, expected, smi: str, env, roll, sam
             "filtered_noise_batched": (launches["noise_batch"], errs[b][1],
                                        (times[b]["noise"], times[b]["noise_plain"]),
                                        errs[b][2]["noise"])}
+
+
+def _batched_entry_inputs(name, e, roll, n, h, b, device):
+    """The batched entry's arguments for B elements of one env: the forest
+    and locomotion checks' inputs (forest_inputs, loco_inputs) at seeds
+    60, 61, ..., stacked; for the pendulum B starts from the crossing one
+    (th0 - 0.4 b, thdot0 + 2 b) with per-element means and noise."""
+    import torch
+    from mjmpc_tpu_torch import solvers
+    if name == "SimplePendulum-v0":
+        rows = [pendulum_inputs(e, n, h, 60 + i, device) for i in range(b)]
+        states = solvers.stack_states([dataclasses.replace(
+            r[1], th=r[1].th - 0.4 * i, thdot=r[1].thdot + 2.0 * i) for i, r in enumerate(rows)])
+        return [e.params, states] + [torch.stack([r[k] for r in rows]).contiguous()
+                                     for k in (2, 3)]
+    if name in LOCO_CONFIGS:
+        rows = [loco_inputs(roll.model.nv, n, h, 60 + i, device) for i in range(b)]
+    else:
+        start = {c[0]: c[1] for c in reversed(FOREST_CHECKS)}.get(name)   # its first check's
+        rows = [forest_inputs(e, roll, n, h, 60 + i, device, start) for i in range(b)]
+    return [torch.stack(xs).contiguous() for xs in zip(*rows)]
+
+
+def _batched_entry_err(name, got, want) -> float:
+    """max |got - want|, for the cheetah of max(1, |want|) (its stiff
+    contact, as its single checks read it)."""
+    scale = want.abs().clamp(min=1.0) if name == "HalfCheetah-v0" else 1.0
+    return float(((got - want).abs() / scale).max())
+
+
+def _batched_entry_agree(name, got, want, tol):
+    """(passes, fields) of a batched entry against its plain version: its
+    error (_batched_entry_err) within tol, or for tol None the gated-cost
+    rule of pen's single check at the config's size (phase 10: entries
+    within 1e-3 but for ones a bonus step apart, 99% of them within)."""
+    from mjmpc_tpu_torch.ops import forest_rollout as fr
+    if tol is not None:
+        return _batched_entry_err(name, got, want) <= tol, dict(atol=tol)
+    agree = fr.gated_cost_agreement(got, want, 1e-3, fr.PEN_BONUS_STEPS)
+    return agree["share_within"] >= 0.99 and agree["other"] == 0, dict(
+        atol=1e-3, share_within=agree["share_within"],
+        entries_off_by_a_bonus_step=agree["bonus_steps"], entries_off_otherwise=agree["other"])
+
+
+def single_episode_diffs(solver, env, records, seeds, steps: int = BATCH_AGREE_STEPS):
+    """Each episode of a batch's records ([B, T, ...]) against the single
+    episode of its seed (build_episode_fn, replayed) on the first `steps`
+    steps: ({action, reward: the largest difference, a reward's over
+    max(1, |reward|)}, the single episodes' replay_ms)."""
+    from mjmpc_tpu_torch.harness.episode import build_episode_fn
+    diffs, single_ms = dict(action=0.0, reward=0.0), []
+    for i, seed in enumerate(seeds):
+        run = build_episode_fn(solver, env, records["action"].shape[1])
+        rec = run(env.params, env.params, seed)[0]
+        single_ms.append(run.replay_ms)
+        for k in diffs:
+            a, b = rec[k][:steps], records[k][i, :steps]
+            scale = b.abs().clamp(min=1.0) if k == "reward" else 1.0
+            diffs[k] = max(diffs[k], float(((a - b).abs() / scale).max()))
+    return diffs, single_ms
+
+
+def batch_episodes_phase(device, counters, counts, expected, smi: str) -> dict:
+    """30. The batched entries of kernels #5, #6 and #7 and the batched
+    episode (see the module docstring). Returns the batched entries' rows
+    for the `kernels` line: {name: (launches, max_abs_err, (ms, plain_ms),
+    (bound_ms, bound_by))}."""
+    import torch
+    from mjmpc_tpu_torch import bounds, envs
+    from mjmpc_tpu_torch.harness import config as hconfig
+    from mjmpc_tpu_torch.harness.episode import build_batched_episode_fn
+    from mjmpc_tpu_torch.ops.chain_rollout import ChainExtRollout
+    from mjmpc_tpu_torch.ops import pendulum as pend
+    from mjmpc_tpu_torch.ops.forest_rollout import ForestRollout
+    from mjmpc_tpu_torch.ops.pendulum import PendulumRollout
+    batch_count = {ChainExtRollout: "ext_batch", ForestRollout: "forest_batch",
+                   PendulumRollout: "pendulum_batch"}
+    errs, times, bound = {}, {}, {}
+    for name, (n, h, tol) in BATCH_ENTRY_CHECKS.items():
+        e = envs.make(name, device=device)
+        roll = getattr(e.fused_rollout, "kernel", e.fused_rollout)
+        cls = type(roll)
+        pend_like = name == "SimplePendulum-v0"
+        for b in BATCH_ENTRY_SIZES:
+            args = _batched_entry_inputs(name, e, roll, n, h, b, device)
+            reset_counts(*counters)
+            got = roll.batch(*args)
+            launched = counts()
+            if pend_like:
+                st = args[1]
+                singles = [roll(args[0], type(st)(th=st.th[i], thdot=st.thdot[i]), args[2][i],
+                                args[3][i]) for i in range(b)]
+            else:
+                singles = [roll(*(x[i] for x in args)) for i in range(b)]
+            identical = torch.equal(got, torch.stack(singles))
+            fields = dict(env=name, b=b, n=n, h=h, identical_to_singles=identical,
+                          launches=launched)
+            if b == 2:
+                # the plain version (each element's single plain rollout; B = 1
+                # and 4 equal B single launches, which phases 8, 10 and 3 hold
+                # to it), and the check's power: element 1's actions zeroed
+                err = _batched_entry_err(name, got, roll.batch_plain(*args))
+                fields.update(max_abs_err=err, atol=tol)
+                zeroed = list(args)
+                zeroed[-2], zeroed[-1] = args[-2].clone(), args[-1].clone()
+                zeroed[-2][1], zeroed[-1][1] = 0.0, 0.0
+                fields["zeroed_actions_err"] = _batched_entry_err(name, got,
+                                                                  roll.batch_plain(*zeroed))
+                if not fields["zeroed_actions_err"] > 10 * tol:
+                    raise RuntimeError(f"batched {name} check too weak: {fields}")
+            emit("kernel_batched_entry", **fields)
+            if got.shape != (b, n, h) or not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"batched {name} kernel output bad at B={b}")
+            if not identical:
+                raise RuntimeError(f"batched {name} kernel differs from {b} single launches")
+            if b == 2 and not err <= tol:
+                raise RuntimeError(f"batched {name} kernel disagrees with its plain version: "
+                                   f"{err} > {tol}")
+            if launched != expected(**{batch_count[cls]: 1}):
+                raise RuntimeError(f"batched {name} kernel: launches {launched}")
+        if name in BATCH_TIMED:       # at the config's size: checked again, and timed
+            n_c, h_c, tol_c = BATCH_TIMED[name]
+            inst = (bounds.pendulum_instance(7, n_c, h_c) if pend_like else
+                    bounds.ext_instance(roll, n_c, h_c) if name in LOCO_CONFIGS else
+                    bounds.forest_instance(roll, n_c, h_c))
+            lib = pend.library() if pend_like else roll.library()
+            for b in BATCH_ENTRY_SIZES:
+                args = _batched_entry_inputs(name, e, roll, n_c, h_c, b, device)
+                if pend_like:
+                    st = args[1]
+                    one = [(args[0], type(st)(th=st.th[i], thdot=st.thdot[i]), args[2][i],
+                            args[3][i]) for i in range(b)]
+                else:
+                    one = [[x[i] for x in args] for i in range(b)]
+                got = roll.batch(*args)
+                identical = torch.equal(got, torch.stack([roll(*a) for a in one]))
+                fields, ok, plain_ms = dict(identical_to_singles=identical), True, None
+                if b == BATCH_ROW_B:
+                    # the plain version (seconds a call on the forest): held to
+                    # the single kernel's check at this size, and timed
+                    want, plain_ms = cuda_call_ms(lambda: roll.batch_plain(*args))
+                    errs[name] = _batched_entry_err(name, got, want)
+                    ok, more = _batched_entry_agree(name, got, want, tol_c)
+                    fields.update(max_abs_err=errs[name], **more)
+                batched_ms = cuda_ms(lambda: roll.batch(*args), 10)
+                singles_ms = cuda_ms(lambda: [roll(*a) for a in one], 10)
+                bound[(name, b)] = bounds.bound_ms(b * inst["bytes"], b * inst["operations"])
+                times[(name, b)] = (batched_ms, plain_ms)
+                emit("kernel_batched_entry_time", env=name, card=smi, b=b, n=n_c, h=h_c,
+                     ms=batched_ms, singles_ms=singles_ms, plain_ms=plain_ms,
+                     bound_ms=bound[(name, b)][0], bound_by=bound[(name, b)][1],
+                     single_bound_ms=inst["bound_ms"],
+                     ptxas=[ln.strip() for ln in lib.ptxas.splitlines()
+                            if re.search(r"registers|spill|smem", ln)], **fields)
+                if got.shape != (b, n_c, h_c) or not bool(torch.isfinite(got).all()):
+                    raise RuntimeError(f"batched {name} kernel output bad at B={b} N={n_c}")
+                if not identical:
+                    raise RuntimeError(f"batched {name} kernel differs from {b} single launches "
+                                       f"at N={n_c} H={h_c}")
+                if not ok:
+                    raise RuntimeError(f"batched {name} kernel disagrees with its plain version "
+                                       f"at N={n_c} H={h_c}: {fields}")
+
+    # B episodes as one batched episode at each config's solver block
+    launches = {}
+    for name, config in BATCH_EPISODE_CONFIGS.items():
+        exp = hconfig.load_config(config)
+        e = envs.make(exp["env_name"], device=device)
+        s = hconfig.make_solver_for_env(exp, "mppi", e)
+        seeds = [exp["seed"] + i * 12345 for i in range(BATCH_EPISODES)]
+        kernel = getattr(e.fused_rollout, "kernel", e.fused_rollout)
+        key = batch_count.get(type(kernel), "chain_batch")
+        out, seconds = {}, {}
+        for mode, replay in (("eager", False), ("replayed", True)):
+            run = build_batched_episode_fn(s, e, BATCH_EPISODE_STEPS, replay=replay)
+            torch.cuda.synchronize()
+            reset_counts(*counters)
+            t0 = time.perf_counter()
+            out[mode] = run(e.params, e.params, seeds)
+            torch.cuda.synchronize()
+            seconds[mode] = time.perf_counter() - t0
+            got = counts()
+            if mode == "replayed":
+                batch_ms, batch_host_ms = run.replay_ms, run.replay_host_ms
+                hosted = episode_solves(BATCH_EPISODE_STEPS)
+                want = expected(**{key: hosted * s.n_iters,
+                                   "noise_batch": noise_launches(s, hosted)["noise"]})
+                launches[name] = got
+                if got != want:
+                    raise RuntimeError(f"batched episode {name}: launches {got}, expected {want}")
+        (rec_e, st_e, fin_e), (rec_r, st_r, fin_r) = out["eager"], out["replayed"]
+        identical = (tensors_equal(rec_e, rec_r) and tensors_equal(fin_e, fin_r)
+                     and all(tensors_equal(a, b) for a, b in zip(st_e, st_r)))
+        diffs, single_ms = single_episode_diffs(s, e, rec_r, seeds)
+        fields = dict(env=name, config=config, b=BATCH_EPISODES, n=s.num_particles, h=s.horizon,
+                      steps=BATCH_EPISODE_STEPS, replay_identical_to_eager=identical,
+                      first_steps=BATCH_AGREE_STEPS, single_episode_max_diff=diffs,
+                      atol=BATCH_AGREE_ATOL, launches=launches[name],
+                      ep_rewards=rec_r["reward"].sum(1).tolist(),
+                      batched_replay_ms=batch_ms, batched_replay_host_ms=batch_host_ms,
+                      single_replay_ms=single_ms,
+                      batched_episode_steps_per_s=BATCH_EPISODES * 1e3 / batch_ms,
+                      single_episode_steps_per_s=BATCH_EPISODES * 1e3 / sum(single_ms),
+                      eager_batched_s=seconds["eager"], replayed_batched_s=seconds["replayed"],
+                      card=smi)
+        emit("batch_episode", **fields)
+        if not identical or not bool(torch.isfinite(rec_r["reward"]).all()):
+            raise RuntimeError(f"batched episode {name}: the replay differs from the eager loop")
+        if not max(diffs.values()) <= BATCH_AGREE_ATOL:
+            raise RuntimeError(f"batched episode {name}: the elements differ from their single "
+                               f"episodes: {diffs}")
+
+    b = BATCH_ROW_B
+    return {kname: (launches[name][key], errs[name], times[(name, b)], bound[(name, b)])
+            for name, (kname, key) in BATCH_ROWS.items()}
 
 
 def lqr_dp(params, h: int, x0):
@@ -1627,8 +1969,8 @@ def driver_phases(device, counters, counts, expected):
         best, history = jobs.main(["--config", path, "--controller", "mppi", "--job_mode",
                                    "tune", "--save_dir", out_dir])["mppi"]
         got, cells = counts(), len(history)
-        solves = cells * episode_solves(JOBS_STEPS)
-        want = expected(forest=solves, noise=solves)
+        solves = cells * episode_solves(JOBS_STEPS)   # a batched episode of one a cell
+        want = expected(forest_batch=solves, noise_batch=solves)
         emit("jobs", mode="tune", config=JOBS_TUNE, cells=cells, steps=JOBS_STEPS, best=best,
              history=history, launches=got, seconds=time.perf_counter() - t0)
         if (cells != 2 or got != want
@@ -1738,9 +2080,11 @@ def learned_phases(device, counters, counts, expected, smi: str):
     got = counts()
     # training's control steps and the MPPIQ+SAC-Q arm on #3, the other two
     # arms on #1, one noise launch every solve the host launches (each arm's
-    # episode is replayed)
+    # episode is replayed; the mppi arm's a batched episode of one, on the
+    # batched entries)
     arm = episode_solves(SACQ_STEPS)
-    want = expected(obs=SACQ_TRAIN + arm, chain=2 * arm, noise=SACQ_TRAIN + 3 * arm)
+    want = expected(obs=SACQ_TRAIN + arm, chain=arm, chain_batch=arm, noise=SACQ_TRAIN + 2 * arm,
+                    noise_batch=arm)
     emit("sacq_eval", args=SACQ_EVAL, rows=rows, launches=got, seconds=time.perf_counter() - t0)
     if got != want or [r["arm"] for r in rows] != ["mppi", "mppiq", "mppiq+sacq"] or not all(
             np.isfinite(r["avg_reward"]) for r in rows):
@@ -1827,21 +2171,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 1
-    counters = (ChainRollout, ChainObsRollout, ChainClRollout, ChainExtRollout, FilteredNoise,
-                PhiloxUniforms, ForestRollout, pend.PendulumRollout, pend.MppiPendulumSolve)
-
-    def counts():
-        return {"chain": ChainRollout.launches, "chain_batch": ChainRollout.batch_launches,
-                "noise_batch": FilteredNoise.batch_launches, "obs": ChainObsRollout.launches,
-                "cl": ChainClRollout.launches, "ext": ChainExtRollout.launches,
-                "noise": FilteredNoise.launches, "uniforms": PhiloxUniforms.launches,
-                "forest": ForestRollout.launches,
-                "pendulum": pend.PendulumRollout.launches,
-                "one_kernel_solve": pend.MppiPendulumSolve.launches}
-
-    def expected(**nonzero):
-        """Every count 0 but those given."""
-        return dict(dict.fromkeys(counts(), 0), **nonzero)
+    counters, counts, expected = launch_counters()
 
     # 1. device
     card_name = torch.cuda.get_device_name(0)
@@ -2456,8 +2786,9 @@ def main() -> int:
                  n=exp["mppi"]["num_cpu"] * exp["mppi"]["particles_per_cpu"],
                  h=exp["mppi"]["horizon"], steps=RUN_MPC_STEPS, rewards=rewards[0].tolist(),
                  launches=counts(), seconds=time.perf_counter() - t0)
-            # a replayed episode launches its first step and the captured one
-            if counts()["forest"] != episode_solves(RUN_MPC_STEPS) * exp["mppi"]["n_iters"]:
+            # a replayed batched episode of one launches its first step and the captured one
+            if (counts()["forest_batch"] != episode_solves(RUN_MPC_STEPS) * exp["mppi"]["n_iters"]
+                    or counts()["forest"] != 0):
                 raise RuntimeError(f"run_mpc {name}: launches {counts()}")
             if rewards.shape != (1, RUN_MPC_STEPS) or not np.isfinite(rewards).all():
                 raise RuntimeError(f"run_mpc {name}: rewards not finite")
@@ -2479,6 +2810,8 @@ def main() -> int:
     render_phase(device, counters, counts, smi)
     # 29. the batched kernels and solve, benchmark --quick and forest_perf
     batched = benchmark_phase(device, counters, counts, expected, smi, env, roll, sampler)
+    # 30. the batched entries of #5, #6 and #7 and the batched episode
+    batched.update(batch_episodes_phase(device, counters, counts, expected, smi))
 
     # 20. timing (printed, not asserted)
     args = reacher_inputs(NUM_PARTICLES, HORIZON, 0, device)
@@ -2821,13 +3154,17 @@ def main() -> int:
               (bp["bound_ms"], bp["bound_by"]))]
     times["pendulum_rollout"] = pend_times[(7, mppi_n)]
     times["mppi_pendulum_solve"] = pend_times[(8, ONE_KERNEL["num_particles"])]
-    # the batched entries of #1 and #2, launched by phase 29's batched solve
+    # the batched entries of #1 and #2, launched by phase 29's batched solve,
+    # and of #5, #6 and #7, launched by phase 30's batched episodes
+    sources = {"chain_rollout_batched": ("chain_rollout.cu", "pallas_chain.py:381"),
+               "filtered_noise_batched": ("filtered_noise.cu", "pallas_kernels.py:73"),
+               "chain_ext_rollout_batched": ("chain_rollout.cu", "pallas_chain.py:872"),
+               "forest_rollout_batched": ("forest_rollout.cu", "pallas_forest.py:667"),
+               "pendulum_rollout_batched": ("pendulum.cu", "pallas_kernels.py:130")}
     for kname, (launches, err, kernel_times, bound) in batched.items():
-        source, replaces = (("mjmpc_tpu_torch/csrc/chain_rollout.cu",
-                             "mjmpc_tpu/ops/pallas_chain.py:381") if kname.startswith("chain")
-                            else ("mjmpc_tpu_torch/csrc/filtered_noise.cu",
-                                  "mjmpc_tpu/ops/pallas_kernels.py:73"))
-        rows.append((kname, source, replaces, launches, err, bound))
+        source, replaces = sources[kname]
+        rows.append((kname, "mjmpc_tpu_torch/csrc/" + source, "mjmpc_tpu/ops/" + replaces,
+                     launches, err, bound))
         times[kname] = kernel_times
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,

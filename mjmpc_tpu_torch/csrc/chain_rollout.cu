@@ -15,7 +15,8 @@
 //     obs, actions and costs;
 //   - `_chain_ext_kernel` (built by `build_chain_ext_rollout`, with
 //     `make_capsule_drag` or `make_ground_contact`; entry
-//     chain_ext_rollout_launch): the locomotion rollout. Every substep
+//     chain_ext_rollout_launch; B of them in one launch,
+//     chain_ext_rollout_batch_launch): the locomotion rollout. Every substep
 //     adds the task's external generalized forces (the swimmer's capsule
 //     drag or the cheetah's ground contact, through analytic point
 //     Jacobians) to the right-hand side; after a control step's substeps
@@ -105,9 +106,9 @@ using chain_rollout::OBS;
 constexpr int kTeams = 32 / team::TEAM;
 constexpr int kWarp = 32;
 
-// n particles in all; (COSTS) per_elem of them to a batch element, whose
-// start, extras and mean are rows of q0, qd0, extras and ctrl (the other
-// modes pass per_elem = n: one element).
+// n particles in all; (COSTS, EXT) per_elem of them to a batch element,
+// whose start, extras and mean are rows of q0, qd0, extras and ctrl (a
+// single launch passes per_elem = n: one element; EXT has no extras).
 template <int MODE>
 __global__ void __launch_bounds__(kWarp)
     chain_team_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
@@ -128,7 +129,7 @@ __global__ void __launch_bounds__(kWarp)
     const int lane = threadIdx.x % team::TEAM;
     const int b = blockIdx.x * kTeams + slot;
     if (b >= n) return;  // a ragged block's spare teams: their lanes leave together
-    if constexpr (MODE == COSTS) {  // the team's batch element
+    if constexpr (MODE == COSTS || MODE == EXT) {  // the team's batch element
         const int e = b / per_elem;
         q0 += e * model::N;
         qd0 += e * model::N;
@@ -162,6 +163,22 @@ int chain_ext_rollout_launch(const float* q0, const float* qd0, const float* mea
                              void* stream) {
     chain_team_kernel<EXT><<<team_grid(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
         q0, qd0, nullptr, mean, noise, costs, nullptr, nullptr, n, horizon, n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// B = batch locomotion rollouts in one launch over batch * n particles: q0,
+// qd0 [B, N], mean [B, horizon, N], noise [B, n, horizon, N] -> costs
+// [B, n, horizon]; particle p of the launch is particle p % n of element
+// p / n, on that element's start and mean. The counterpart of
+// `_chain_ext_kernel` under jax.vmap. A team runs the single rollout's
+// arithmetic on its element's rows, so element b equals
+// chain_ext_rollout_launch on element b's inputs bit for bit, whatever B.
+int chain_ext_rollout_batch_launch(const float* q0, const float* qd0, const float* mean,
+                                   const float* noise, float* costs, int batch, int n,
+                                   int horizon, void* stream) {
+    chain_team_kernel<EXT><<<team_grid(batch * n), kWarp, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        q0, qd0, nullptr, mean, noise, costs, nullptr, nullptr, batch * n, horizon, n);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,8 @@
 // and H control steps, one team of forest::TEAM lanes per particle.
 //
 // Replaces the TPU kernel `kernel` of `build_forest_rollout` in
-// mjmpc_tpu/ops/pallas_forest.py (its `pl.pallas_call`), the hand suite's
+// mjmpc_tpu/ops/pallas_forest.py (its `pl.pallas_call`; B of them in one
+// launch, forest_rollout_batch_launch, as under jax.vmap), the hand suite's
 // and the sawyer peg's open-loop rollout: scalar-joint trees plus free
 // quaternion bodies, the task's contact forces through the point
 // Jacobians, one ancestor-sparse Cholesky solve per tree and the Euler
@@ -81,24 +82,30 @@ constexpr int kTeams = 32 / forest::TEAM;
 constexpr int kBlock = 32 * forest_rollout::GROUPS;
 constexpr size_t kParticleBytes = kTeams * sizeof(forest_rollout::Particle);
 
+// n particles in all, per_elem of them to a batch element, whose start,
+// extras and mean are rows of q0, qd0, extras and mean (a single launch
+// passes per_elem = n: one element).
 __global__ void __launch_bounds__(kBlock)
     forest_rollout_kernel(const float* __restrict__ q0, const float* __restrict__ qd0,
                           const float* __restrict__ extras, const float* __restrict__ mean,
                           const float* __restrict__ noise, float* __restrict__ costs, int n,
-                          int horizon) {
+                          int horizon, int per_elem) {
     extern __shared__ float4 particle_smem[];
     auto* particles = reinterpret_cast<forest_rollout::Particle*>(particle_smem);
     forest::load_tables(threadIdx.x, kBlock);
     __syncthreads();
     const int in_warp = threadIdx.x % 32;
     const int team = in_warp / forest::TEAM;
-    const int b = blockIdx.x * kTeams + team;
+    // a ragged last block's spare teams roll out a copy of the last
+    // particle, unwritten, since the block syncs together
+    const int b = min(blockIdx.x * kTeams + team, n - 1);
+    const bool live = blockIdx.x * kTeams + team < n;
     const int lane = threadIdx.x / 32 * forest::TEAM + in_warp % forest::TEAM;
-    // a ragged block's spare teams roll out a copy of the last particle,
-    // unwritten, since the block syncs together
+    const int e = b / per_elem;   // the team's batch element
     forest_rollout::rollout_team<forest_rollout::BuildTask>(
-        particles[team], forest_rollout::Team{lane}, q0, qd0, extras, mean, noise, costs,
-        b < n ? b : n - 1, horizon, b < n);
+        particles[team], forest_rollout::Team{lane}, q0 + e * forest::NQ, qd0 + e * forest::NV,
+        extras + e * forest::N_EXTRAS, mean + static_cast<size_t>(e) * horizon * forest::D_ACT,
+        noise, costs, b, horizon, live);
 }
 
 }  // namespace
@@ -114,7 +121,27 @@ int forest_rollout_launch(const float* q0, const float* qd0, const float* extras
                           int horizon, void* stream) {
     forest_rollout_kernel<<<(n + kTeams - 1) / kTeams, kBlock, kParticleBytes,
                             static_cast<cudaStream_t>(stream)>>>(q0, qd0, extras, mean, noise,
-                                                                 costs, n, horizon);
+                                                                 costs, n, horizon, n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// B = batch rollouts in one launch over batch * n particles: q0 [B, NQ],
+// qd0 [B, NV], extras [B, N_EXTRAS], mean [B, horizon, D_ACT], noise
+// [B, n, horizon, D_ACT] -> costs [B, n, horizon]; particle p of the launch
+// is particle p % n of element p / n, on that element's start, extras and
+// mean (the counterpart of the Pallas kernel under jax.vmap, whose batching
+// rule lifts the batch into the grid). The tables and each block's shared
+// memory are the single launch's; only the grid grows, and only the last
+// block can be ragged. A team runs the single rollout's arithmetic on its
+// element's rows, so element b equals forest_rollout_launch on element b's
+// inputs bit for bit, whatever B.
+int forest_rollout_batch_launch(const float* q0, const float* qd0, const float* extras,
+                                const float* mean, const float* noise, float* costs, int batch,
+                                int n, int horizon, void* stream) {
+    const int total = batch * n;
+    forest_rollout_kernel<<<(total + kTeams - 1) / kTeams, kBlock, kParticleBytes,
+                            static_cast<cudaStream_t>(stream)>>>(q0, qd0, extras, mean, noise,
+                                                                 costs, total, horizon, n);
     return static_cast<int>(cudaGetLastError());
 }
 

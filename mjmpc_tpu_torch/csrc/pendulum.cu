@@ -3,7 +3,9 @@
 // Kernel #7, pendulum_rollout_kernel, replaces the TPU kernel
 // mjmpc_tpu/ops/pallas_kernels.py `_pendulum_kernel` (built by
 // `pendulum_rollout_pallas`): the open-loop rollout of N particles over H
-// steps, costs [N, H] taken at each step's pre-step state. The TPU kernel's
+// steps, costs [N, H] taken at each step's pre-step state; B of them in one
+// launch (pendulum_rollout_batch_launch, the kernel under jax.vmap), each
+// element on blocks of its own. The TPU kernel's
 // [H, N] lane panels padded to 256 particles become the [N, H] layout the
 // port's rollouts use, with no padding. A block owns `per_block` whole
 // particles, whose noise and costs are each one contiguous per_block * H
@@ -117,21 +119,29 @@ __host__ __device__ constexpr size_t rollout_smem_floats(int per_block, int hori
     return 3 * static_cast<size_t>(per_block) * rollout_stride(horizon);
 }
 
+// n particles an element, blocks_per_elem blocks to an element (a single
+// launch passes the whole grid: one element): block k owns particles
+// [j per_block, (j + 1) per_block) of element k / blocks_per_elem, j = k %
+// blocks_per_elem, whose scalars and mean are rows of `scalars` and `mean`.
+// No block straddles two elements: a block reads one Model and one mean.
 __global__ void __launch_bounds__(kRolloutMaxBlock)
     pendulum_rollout_kernel(const float* __restrict__ scalars, const float* __restrict__ mean,
                             const float* __restrict__ noise, float* __restrict__ costs, int n,
-                            int horizon, int per_block) {
+                            int horizon, int per_block, int blocks_per_elem) {
     extern __shared__ float smem[];
     const int stride = rollout_stride(horizon);
     float* u = smem;
     float* th = u + static_cast<size_t>(per_block) * stride;
     float* thdot = th + static_cast<size_t>(per_block) * stride;
-    const int first = blockIdx.x * per_block;
+    const int elem = blockIdx.x / blocks_per_elem;
+    const int first = (blockIdx.x - elem * blocks_per_elem) * per_block;
     const int count = min(per_block, n - first);
     const int items = count * horizon;
-    const size_t run = static_cast<size_t>(first) * horizon;
+    const size_t run = (static_cast<size_t>(elem) * n + first) * horizon;
     const float* __restrict__ nz = noise + run;
     float* __restrict__ out = costs + run;
+    scalars += elem * pendulum::N_SCALARS;
+    mean += static_cast<size_t>(elem) * horizon;
     const pendulum::Model m = pendulum::model(scalars);
     const int tid = threadIdx.x;
 
@@ -313,7 +323,33 @@ int pendulum_rollout_launch(const float* scalars, const float* mean, const float
                                                      : (per_block + kWarp - 1) / kWarp * kWarp;
     const int grid = (n + per_block - 1) / per_block;
     pendulum_rollout_kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-        scalars, mean, noise, costs, n, horizon, per_block);
+        scalars, mean, noise, costs, n, horizon, per_block, grid);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// B = batch rollouts in one launch: scalars [B, N_SCALARS], mean [B,
+// horizon, 1], noise [B, n, horizon, 1] -> costs [B, n, horizon] (the
+// counterpart of `_pendulum_kernel` under jax.vmap). Each element takes
+// ceil(n / per_block) blocks of its own (per_block 0: the rule's at batch
+// * n particles), so that a block reads one element's Model and mean. A
+// particle's arithmetic is the single launch's, whatever the partition, so
+// element b equals pendulum_rollout_launch on element b's inputs bit for
+// bit, whatever B. Returns cudaErrorInvalidValue, without launching, where
+// pendulum_rollout_launch would.
+int pendulum_rollout_batch_launch(const float* scalars, const float* mean, const float* noise,
+                                  float* costs, int batch, int n, int horizon, int per_block,
+                                  void* stream) {
+    if (per_block < 1) per_block = pendulum_rollout_per_block(batch * n, horizon);
+    const size_t bytes = rollout_smem_floats(per_block, horizon) * sizeof(float);
+    if (batch < 1 || per_block < 1 || per_block > kRolloutMaxBlock ||
+        bytes > static_cast<size_t>(max_dynamic_smem()))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = per_block < kRolloutMinBlock ? kRolloutMinBlock
+                                                     : (per_block + kWarp - 1) / kWarp * kWarp;
+    const int blocks_per_elem = (n + per_block - 1) / per_block;
+    pendulum_rollout_kernel<<<batch * blocks_per_elem, threads, bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+        scalars, mean, noise, costs, n, horizon, per_block, blocks_per_elem);
     return static_cast<int>(cudaGetLastError());
 }
 

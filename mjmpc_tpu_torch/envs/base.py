@@ -51,7 +51,9 @@ class Env:
     # call time (harness/episode.py _fused_mode). Its `batched` attribute,
     # where the kernel has a batched entry, takes B states (fields with a
     # leading [B]), means [B, H, dA] and noise [B, N, H, dA] in one launch
-    # (solvers.build_batched_solve_fn).
+    # (solvers.build_batched_solve_fn): every env with a fused rollout has
+    # one (kernels #1, #5, #6 and #7) but the continual reacher, which has
+    # no fused rollout.
     fused_rollout: Optional[Callable[[Any, Any, torch.Tensor, torch.Tensor],
                                      torch.Tensor]] = None
     # Optional fused rollout with observations: (params, state, mean [H, dA],
@@ -87,3 +89,28 @@ class Env:
 
     def clip_action(self, action: torch.Tensor) -> torch.Tensor:
         return torch.clamp(action, self.action_lows, self.action_highs)
+
+
+def forest_fused(roll, extras: Callable[[Any, Any], torch.Tensor],
+                 dynamic_fields: Tuple[str, ...] = ()):
+    """A forest env's fused rollout on kernel #6 (ops/forest_rollout.py
+    ForestRollout `roll`) and its batched hook, from the env's
+    extras(params, state) -> the kernel's extras ([n_extras]; [B, n_extras]
+    for B stacked states where they read the state). The hook gives each
+    of the B states its row of extras, contiguous. dynamic_fields: the
+    params the kernel reads at call time, through the extras
+    (harness/episode.py _fused_mode)."""
+    def fused(p, state, mean, noise):
+        return roll(state.qpos, state.qvel, extras(p, state), mean, noise)
+
+    def batched(p, states, means, noises):
+        """B states (each field with a leading [B]), means [B, H, dA] and
+        noise [B, N, H, dA] -> costs [B, N, H] in one launch of #6."""
+        x = extras(p, states)
+        rows = x.expand(states.qpos.shape[:-1] + x.shape[-1:]).contiguous()
+        return roll.batch(states.qpos, states.qvel, rows, means, noises)
+
+    fused.dynamic_fields = tuple(dynamic_fields)
+    fused.kernel = roll   # the wrapper, for checks against its plain version
+    fused.batched = batched
+    return fused

@@ -196,7 +196,13 @@ def _build_fused(params: CheetahParams) -> dict:
     def fused(p, state, mean, noise):
         return roll(state.qpos, state.qvel, pad_base(mean), pad_base(noise))
 
+    def fused_batch(p, states, means, noises):
+        """B states (each field with a leading [B]), means [B, H, 6] and
+        noise [B, N, H, 6] -> costs [B, N, H] in one launch of #5."""
+        return roll.batch(states.qpos, states.qvel, pad_base(means), pad_base(noises))
+
     fused.kernel = roll   # the wrapper, for checks against its plain version
+    fused.batched = fused_batch
     return dict(fused_rollout=fused)
 
 

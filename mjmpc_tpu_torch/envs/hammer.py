@@ -48,7 +48,7 @@ from .. import rng
 from ..engine import chain as rb
 from ..ops import forest_rollout as fr
 from . import adroit, contact
-from .base import Env
+from .base import Env, forest_fused
 
 _DT = 0.002
 _FRAME_SKIP = 5
@@ -301,16 +301,9 @@ def hammer_extras(params: HammerParams) -> torch.Tensor:
 
 def _build_fused(params: HammerParams) -> dict:
     """Kernel #6 built from params.model (Env.build_fused)."""
-    roll = build_rollout(params.model)
-
-    def fused(p: HammerParams, state: HammerState, mean, noise):
-        return roll(state.qpos, state.qvel, hammer_extras(p), mean, noise)
-
-    # the params the kernel reads at call time, through extras
-    # (harness/episode.py _fused_mode)
-    fused.dynamic_fields = ("kp", "kd", "mu")
-    fused.kernel = roll   # the wrapper, for checks against its plain version
-    return dict(fused_rollout=fused)
+    return dict(fused_rollout=forest_fused(build_rollout(params.model),
+                                           lambda p, state: hammer_extras(p),
+                                           dynamic_fields=("kp", "kd", "mu")))
 
 
 def make(device="cuda") -> Env:

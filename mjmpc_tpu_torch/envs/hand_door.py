@@ -46,7 +46,7 @@ from .. import rng
 from ..engine import chain as rb
 from ..ops import forest_rollout as fr
 from . import adroit, contact
-from .base import Env
+from .base import Env, forest_fused
 
 _DT = 0.002
 _FRAME_SKIP = 5
@@ -282,16 +282,9 @@ def door_extras(params: DoorParams) -> torch.Tensor:
 
 def _build_fused(params: DoorParams) -> dict:
     """Kernel #6 built from params.model (Env.build_fused)."""
-    roll = build_rollout(params.model)
-
-    def fused(p: DoorParams, state: DoorState, mean, noise):
-        return roll(state.qpos, state.qvel, door_extras(p), mean, noise)
-
-    # the params the kernel reads at call time, through extras
-    # (harness/episode.py _fused_mode)
-    fused.dynamic_fields = ("kp", "kd", "mu")
-    fused.kernel = roll   # the wrapper, for checks against its plain version
-    return dict(fused_rollout=fused)
+    return dict(fused_rollout=forest_fused(build_rollout(params.model),
+                                           lambda p, state: door_extras(p),
+                                           dynamic_fields=("kp", "kd", "mu")))
 
 
 def make(device="cuda") -> Env:

@@ -38,7 +38,7 @@ import torch
 from .. import rng
 from ..engine import chain as rb
 from ..ops import forest_rollout as fr
-from .base import Env
+from .base import Env, forest_fused
 from .reacher_7dof import _BODIES as _ARM_BODIES
 from .reacher_7dof import _DT, _FRAME_SKIP
 
@@ -186,8 +186,9 @@ def fallen_qpos(qpos: torch.Tensor) -> torch.Tensor:
 
 
 def tray_extras(params: TrayGlassParams, state: TrayGlassState) -> torch.Tensor:
-    """The kernel's extras [target 3, fall_penalty]."""
-    return torch.cat([state.target, params.fall_penalty[None]])
+    """The kernel's extras [target 3, fall_penalty] ([B, 4] for B states)."""
+    penalty = params.fall_penalty.expand(state.target.shape[:-1] + (1,))
+    return torch.cat([state.target, penalty], -1)
 
 
 def build_rollout(model: rb.ChainModel) -> fr.ForestRollout:
@@ -199,13 +200,7 @@ def build_rollout(model: rb.ChainModel) -> fr.ForestRollout:
 
 def _build_fused(params: TrayGlassParams) -> dict:
     """Kernel #6 built from params.model (Env.build_fused)."""
-    roll = build_rollout(params.model)
-
-    def fused(p: TrayGlassParams, state: TrayGlassState, mean, noise):
-        return roll(state.qpos, state.qvel, tray_extras(p, state), mean, noise)
-
-    fused.kernel = roll   # the wrapper, for checks against its plain version
-    return dict(fused_rollout=fused)
+    return dict(fused_rollout=forest_fused(build_rollout(params.model), tray_extras))
 
 
 def _make(model: rb.ChainModel, name: str, init, max_episode_steps: int) -> Env:

@@ -44,7 +44,7 @@ from .. import rng
 from ..engine import chain as rb
 from ..ops import forest_rollout as fr
 from . import adroit, contact
-from .base import Env
+from .base import Env, forest_fused
 
 _DT = 0.002
 _FRAME_SKIP = 5              # control dt 10 ms
@@ -243,24 +243,19 @@ def build_rollout(model: rb.ChainModel) -> fr.ForestRollout:
 
 
 def pen_extras(params: PenParams, state: PenState) -> torch.Tensor:
-    """The kernel's extras [desired 3, kp, kd, mu, pen_r]."""
-    return torch.cat([state.desired, torch.stack([params.kp, params.kd, params.mu,
-                                                  params.pen_r])])
+    """The kernel's extras [desired 3, kp, kd, mu, pen_r] ([B, 7] for B
+    states)."""
+    gains = torch.stack([params.kp, params.kd, params.mu, params.pen_r])
+    return torch.cat([state.desired, gains.expand(state.desired.shape[:-1] + gains.shape)], -1)
 
 
 def _build_fused(params: PenParams) -> dict:
     """Kernel #6 built from params.model (Env.build_fused)."""
-    roll = build_rollout(params.model)
-
-    def fused(p: PenParams, state: PenState, mean, noise):
-        return roll(state.qpos, state.qvel, pen_extras(p, state), mean, noise)
-
-    # the params the kernel reads at call time, through extras: planning
+    # kp, kd, mu and pen_r are read at call time, through extras: planning
     # against params that differ from the env's only in these keeps the
-    # fused path (harness/episode.py _fused_mode)
-    fused.dynamic_fields = ("kp", "kd", "mu", "pen_r")
-    fused.kernel = roll   # the wrapper, for checks against its plain version
-    return dict(fused_rollout=fused)
+    # fused path
+    return dict(fused_rollout=forest_fused(build_rollout(params.model), pen_extras,
+                                           dynamic_fields=("kp", "kd", "mu", "pen_r")))
 
 
 def make(device="cuda") -> Env:

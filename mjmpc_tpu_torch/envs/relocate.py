@@ -46,7 +46,7 @@ from .. import rng
 from ..engine import chain as rb
 from ..ops import forest_rollout as fr
 from . import adroit, contact
-from .base import Env
+from .base import Env, forest_fused
 
 _DT = 0.002
 _FRAME_SKIP = 5
@@ -243,23 +243,16 @@ def build_rollout(model: rb.ChainModel) -> fr.ForestRollout:
 
 
 def relocate_extras(params: RelocateParams, state: RelocateState) -> torch.Tensor:
-    """The kernel's extras [target 3, kp, kd, mu, ball_r]."""
-    return torch.cat([state.target, torch.stack([params.kp, params.kd, params.mu,
-                                                 params.ball_r])])
+    """The kernel's extras [target 3, kp, kd, mu, ball_r] ([B, 7] for B
+    states)."""
+    gains = torch.stack([params.kp, params.kd, params.mu, params.ball_r])
+    return torch.cat([state.target, gains.expand(state.target.shape[:-1] + gains.shape)], -1)
 
 
 def _build_fused(params: RelocateParams) -> dict:
     """Kernel #6 built from params.model (Env.build_fused)."""
-    roll = build_rollout(params.model)
-
-    def fused(p: RelocateParams, state: RelocateState, mean, noise):
-        return roll(state.qpos, state.qvel, relocate_extras(p, state), mean, noise)
-
-    # the params the kernel reads at call time, through extras
-    # (harness/episode.py _fused_mode)
-    fused.dynamic_fields = ("kp", "kd", "mu", "ball_r")
-    fused.kernel = roll   # the wrapper, for checks against its plain version
-    return dict(fused_rollout=fused)
+    return dict(fused_rollout=forest_fused(build_rollout(params.model), relocate_extras,
+                                           dynamic_fields=("kp", "kd", "mu", "ball_r")))
 
 
 def make(device="cuda") -> Env:

@@ -50,7 +50,7 @@ from ..engine import chain as rb
 from ..ops.chain_rollout import build_chain_cl_rollout, build_chain_obs_rollout
 from ..ops.forest_rollout import (ForestRollout, build_forest_rollout, peg_task, pusher_task,
                                   sawyer_door_task)
-from .base import Env
+from .base import Env, forest_fused
 from .reacher_7dof import _BODIES as _ARM_BODIES
 from .reacher_7dof import _DT, _FRAME_SKIP
 
@@ -140,10 +140,7 @@ def _build_peg_fused(params: PegParams) -> dict:
     model = params.model
     roll_cl = build_chain_cl_rollout(model, n_substeps=_FRAME_SKIP, task="peg")
     roll_obs = build_chain_obs_rollout(model, n_substeps=_FRAME_SKIP, task="peg")
-    roll = build_rollout(model)
-
-    def fused(p: PegParams, state: PegState, mean, noise):
-        return roll(state.qpos, state.qvel, peg_extras(p), mean, noise)
+    fused = forest_fused(build_rollout(model), lambda p, state: peg_extras(p))
 
     def fused_cl(p: PegParams, state: PegState, weights, noise):
         return roll_cl(state.qpos, state.qvel, peg_extras(p), weights, noise)
@@ -151,7 +148,7 @@ def _build_peg_fused(params: PegParams) -> dict:
     def fused_obs(p: PegParams, state: PegState, mean, noise):
         return roll_obs(state.qpos, state.qvel, peg_extras(p), mean, noise)
 
-    fused.kernel, fused_cl.kernel, fused_obs.kernel = roll, roll_cl, roll_obs
+    fused_cl.kernel, fused_obs.kernel = roll_cl, roll_obs
     return dict(fused_rollout=fused, fused_cl_rollout=fused_cl, fused_obs_rollout=fused_obs)
 
 
@@ -302,8 +299,9 @@ def pusher_contact_qpos(model: rb.ChainModel, qpos: torch.Tensor) -> torch.Tenso
 
 
 def pusher_extras(params: PusherParams, state: PusherState) -> torch.Tensor:
-    """The kernel's extras [target 2, k_contact]."""
-    return torch.cat([state.target, params.k_contact[None]])
+    """The kernel's extras [target 2, k_contact] ([B, 3] for B states)."""
+    gain = params.k_contact.expand(state.target.shape[:-1] + (1,))
+    return torch.cat([state.target, gain], -1)
 
 
 def build_pusher_rollout(model: rb.ChainModel) -> ForestRollout:
@@ -315,13 +313,7 @@ def build_pusher_rollout(model: rb.ChainModel) -> ForestRollout:
 
 def _build_pusher_fused(params: PusherParams) -> dict:
     """Kernel #6 built from params.model (Env.build_fused)."""
-    roll = build_pusher_rollout(params.model)
-
-    def fused(p: PusherParams, state: PusherState, mean, noise):
-        return roll(state.qpos, state.qvel, pusher_extras(p, state), mean, noise)
-
-    fused.kernel = roll   # the wrapper, for checks against its plain version
-    return dict(fused_rollout=fused)
+    return dict(fused_rollout=forest_fused(build_pusher_rollout(params.model), pusher_extras))
 
 
 def make_pusher(device="cuda") -> Env:
@@ -468,13 +460,8 @@ def build_door_rollout(model: rb.ChainModel) -> ForestRollout:
 
 def _build_door_fused(params: DoorParams) -> dict:
     """Kernel #6 built from params.model (Env.build_fused)."""
-    roll = build_door_rollout(params.model)
-
-    def fused(p: DoorParams, state: DoorState, mean, noise):
-        return roll(state.qpos, state.qvel, door_extras(p), mean, noise)
-
-    fused.kernel = roll   # the wrapper, for checks against its plain version
-    return dict(fused_rollout=fused)
+    return dict(fused_rollout=forest_fused(build_door_rollout(params.model),
+                                           lambda p, state: door_extras(p)))
 
 
 def make_door(device="cuda") -> Env:

@@ -15,6 +15,17 @@ raises; nothing carries on eagerly. On the CPU (and with replay=False on
 the card, the reference the replay is held against, bit for bit) the
 same step runs in a host loop.
 
+B episodes of one solver run as one batched episode where the batched
+solve covers the solver and the planning env (run_episodes, the
+counterpart of the JAX package's jax.vmap over the episode keys): one
+control step advances every episode (solvers.build_batched_solve_fn under
+the batched guard, the clip and the real env step on the stacked [B] env
+state), captured once as one CUDA graph on the card and replayed, its
+records written into [B, T, ...] device buffers. The CPU runs the same
+batched step on the plain batched kernels; its vmapped reductions may sum
+in another order than a single solve's, so a batched episode agrees with
+the loop's to rounding.
+
 The solver plans against sim_params (through sim_env's dynamics when
 given: model-mismatch experiments, dynamics randomization) while the
 environment advances under its own params.
@@ -28,7 +39,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .. import rng, solvers
+from .. import ops, rng, solvers
 from ..envs.base import Env
 
 _RECORDS = ("reward", "action", "value", "done", "success")
@@ -59,16 +70,50 @@ def _build_step_fn(solver, env: Env, sim_env: Optional[Env] = None, guard: bool 
     return step_fn
 
 
-def _stack_states(states):
+def _build_batched_step_fn(solver, env: Env, sim_env: Optional[Env] = None,
+                           guard: bool = True):
+    """One control step of B episodes at once: (real_params, sim_params,
+    env_states, batch) -> (env_states, batch, records), env_states the B
+    env states stacked (solvers.stack_states), batch a GaussianBatch and
+    every record [B, ...].
+
+    It runs one batched solve (build_batched_solve_fn's vectorised path,
+    its linear algebra capturable) and one real env step on the stacked
+    state, on every device: on the CPU through the plain batched kernels.
+    guard wraps the solve in solvers.guard_finite, which checks and resets
+    each episode on its own. A solver or planning env the batched solve
+    does not cover raises NotImplementedError."""
+    plan_env = sim_env if sim_env is not None else env
+    vectorised = solvers.build_batched_solve_fn(solver, plan_env).vectorised
+
+    def solve(env_params, env_states, batch):
+        with ops.control.capturable_linalg(batch.mean.device):
+            return vectorised(env_params, env_states, batch)
+    if guard:
+        solve = solvers.guard_finite(solve, solver)
+
+    def step_fn(real_params, sim_params, env_states, batch):
+        action, value, batch = solve(sim_params, env_states, batch)
+        action = env.clip_action(action)
+        env_states, _, reward, done = env.step(real_params, env_states, action)
+        succ = (env.success(real_params, env_states) if env.success is not None
+                else torch.zeros(action.shape[:-1], dtype=torch.bool, device=env.device))
+        return env_states, batch, dict(reward=reward, action=action, value=value, done=done,
+                                       success=succ)
+
+    return step_fn
+
+
+def _stack_states(states, dim: int = 0):
     """T states (dataclasses of tensors, nested dataclasses and host
-    values) as one state whose tensors are stacked on a leading [T] axis;
+    values) as one state whose tensors are stacked on a new axis `dim`;
     host values are taken from the first."""
     first = states[0]
     if isinstance(first, torch.Tensor):
-        return torch.stack(states)
+        return torch.stack(states, dim)
     if dataclasses.is_dataclass(first):
         return dataclasses.replace(first, **{
-            f.name: _stack_states([getattr(s, f.name) for s in states])
+            f.name: _stack_states([getattr(s, f.name) for s in states], dim)
             for f in dataclasses.fields(first)})
     return first
 
@@ -86,21 +131,24 @@ def _host_values(x) -> list:
 
 
 def _eager_episode(step_fn, episode_length: int, real_params, sim_params, env_state,
-                   solver_state):
+                   solver_state, time_dim: int = 0):
+    """The episode as a host loop; records and states stacked on a new
+    axis time_dim (1 for a batched episode: [B, T, ...])."""
     records, states = {k: [] for k in _RECORDS}, []
     for _ in range(episode_length):
         env_state, solver_state, out = step_fn(real_params, sim_params, env_state, solver_state)
         for k, v in out.items():
             records[k].append(v)
         states.append(env_state)
-    return ({k: torch.stack(v) for k, v in records.items()}, _stack_states(states),
-            solver_state)
+    return ({k: torch.stack(v, time_dim) for k, v in records.items()},
+            _stack_states(states, time_dim), solver_state)
 
 
 def _replayed_episode(step_fn, episode_length: int, real_params, sim_params, env_state,
-                      solver_state, name: str):
+                      solver_state, name: str, time_dim: int = 0):
     """The episode with steps 1..T-1 replayed from one captured control
-    step (the module docstring)."""
+    step (the module docstring); records and states written on the axis
+    time_dim of their buffers (1 for a batched episode: [B, T, ...])."""
     device = _device(env_state)
     stream = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -114,13 +162,16 @@ def _replayed_episode(step_fn, episode_length: int, real_params, sim_params, env
         raise RuntimeError(f"{name}: a host value of the env or solver state changes at every "
                            "step, so the control step cannot be captured as a CUDA graph")
     first_state = solvers.tensor_leaves(env_1)
-    records = {k: torch.empty((episode_length,) + v.shape, dtype=v.dtype, device=device)
-               for k, v in out.items()}
-    states = {k: torch.empty((episode_length,) + v.shape, dtype=v.dtype, device=device)
-              for k, v in first_state.items()}
+
+    def buffer(v):
+        shape = v.shape[:time_dim] + (episode_length,) + v.shape[time_dim:]
+        return torch.empty(shape, dtype=v.dtype, device=device)
+
+    records = {k: buffer(v) for k, v in out.items()}
+    states = {k: buffer(v) for k, v in first_state.items()}
     for bufs, vals in ((records, out), (states, first_state)):
         for k, v in vals.items():
-            bufs[k][0].copy_(v)
+            bufs[k].select(time_dim, 0).copy_(v)
     static = solvers.map_tensors(lambda v: v.clone(), (env_1, solver_1))
     inputs = solvers.tensor_leaves(static)
     t_index = torch.ones(1, dtype=torch.int64, device=device)
@@ -130,7 +181,7 @@ def _replayed_episode(step_fn, episode_length: int, real_params, sim_params, env
             env_n, solver_n, out_n = step_fn(real_params, sim_params, *static)
             for bufs, vals in ((records, out_n), (states, solvers.tensor_leaves(env_n))):
                 for k, v in vals.items():
-                    bufs[k].index_copy_(0, t_index, v.reshape((1,) + v.shape))
+                    bufs[k].index_copy_(time_dim, t_index, v.unsqueeze(time_dim))
             new = solvers.tensor_leaves((env_n, solver_n))
             if new.keys() != inputs.keys():
                 raise RuntimeError(f"the step changes the state's structure: "
@@ -215,6 +266,65 @@ def build_episode_fn(solver, env: Env, episode_length: int, sim_env: Optional[En
     return episode
 
 
+def build_batched_episode_fn(solver, env: Env, episode_length: int,
+                             sim_env: Optional[Env] = None, guard: bool = True,
+                             replay: Optional[bool] = None):
+    """B episodes as one batched episode: episode(real_params, sim_params,
+    seeds) -> (records, states, final batch): records maps reward, action,
+    value, done and success to [B, T, ...] tensors on the device, states is
+    a list of B env states, each with its tensors stacked on a leading [T]
+    axis (the T post-step states, each episode's own host values), the
+    final batch a solvers.GaussianBatch. Episode b starts as
+    build_episode_fn's episode of seed seeds[b] does: the env from
+    env.init(real_params, derive_seed(seed, 0)), the solver from
+    init_state(derive_seed(seed, 1)). The batched step runs the env's step
+    on the stacked state, whose host values are the first episode's (no
+    batched env reads one in its step).
+
+    replay: the first control step eager, then one batched control step
+    captured as a CUDA graph and replayed T - 1 times (the module
+    docstring); None (the default) does so on a CUDA device, False runs
+    the eager loop. episode.replay_ms and episode.replay_host_ms are
+    build_episode_fn's. A solver or planning env the batched solve does
+    not cover raises NotImplementedError here, before anything runs."""
+    device = torch.device(env.device)
+    step_fn = _build_batched_step_fn(solver, env, sim_env, guard)
+    use_graph = device.type == "cuda" if replay is None else bool(replay)
+
+    def episode(real_params, sim_params, seeds):
+        starts = [env.init(real_params, rng.derive_seed(seed, 0)) for seed in seeds]
+        env_states = solvers.stack_states(starts)
+        batch = solver.init_batch([rng.derive_seed(seed, 1) for seed in seeds])
+        if use_graph and episode_length > 1:
+            records, states, final, (episode.replay_ms, episode.replay_host_ms) = (
+                _replayed_episode(step_fn, episode_length, real_params, sim_params, env_states,
+                                  batch, env.name, time_dim=1))
+        else:
+            records, states, final = _eager_episode(step_fn, episode_length, real_params,
+                                                    sim_params, env_states, batch, time_dim=1)
+        per_episode = [solvers.map_tensors(lambda _, t: t[b], start, states)
+                       for b, start in enumerate(starts)]
+        return records, per_episode, final
+
+    episode.replay_ms = episode.replay_host_ms = None
+    return episode
+
+
+def batch_coverage(solver, plan_env: Env, fused: Any = "auto") -> Optional[str]:
+    """None where run_episodes can run its episodes as one batched episode
+    (the batched solve covers the solver and the planning env's fused
+    rollout, and the planning params keep that rollout: `fused`, as
+    _fused_mode gives it), else why not."""
+    if fused is False:
+        return (f"planning on params that {plan_env.name!r}'s fused rollout does not read "
+                f"takes the general rollout, which has no batched entry")
+    try:
+        solvers.check_batchable(solver, plan_env)
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
 def _fused_mode(plan_env: Env, sim_params):
     """Whether the fused rollout may plan against `sim_params`. A kernel
     bakes the env's build-time model constants, but the params a kernel
@@ -263,27 +373,51 @@ def summarize(records: Dict[str, np.ndarray]) -> Dict[str, Any]:
 
 def run_episodes(solver, env: Env, n_episodes: int, episode_length: int,
                  base_seed: int = 123, sim_params=None, sim_env: Optional[Env] = None,
-                 guard: bool = True) -> Dict[str, Any]:
+                 guard: bool = True, batched: Optional[bool] = None) -> Dict[str, Any]:
     """Episodes with the reference's per-episode seeding (episode seed =
-    base_seed + i * 12345), each one a replayed captured control step on a
-    CUDA device (build_episode_fn).
+    base_seed + i * 12345), on a CUDA device replayed captured control
+    steps.
+
+    batched: run the episodes as one batched episode
+    (build_batched_episode_fn: one batched control step for all of them,
+    the JAX package's jax.vmap over the episode keys); None (the default)
+    does so where batch_coverage finds the solver and the planning env
+    covered and runs them one after another (build_episode_fn) where not,
+    a choice made before anything runs; True raises NotImplementedError
+    where they are not covered; False runs them one after another.
 
     Returns rewards [B, T], actions [B, T, dA], values, dones, success
     flags, per-episode rewards and the aggregate metrics (summarize) as
-    numpy, `states` (one env state of [T, ...] arrays per episode) and
-    `final_solver_states` (one solver state per episode). sim_env /
-    sim_params redirect planning to other dynamics.
+    numpy, `states` (one env state of [T, ...] arrays per episode),
+    `final_solver_states` (one solver state per episode) and `batched`
+    (whether they ran batched). sim_env / sim_params redirect planning to
+    other dynamics.
     """
     if sim_params is None:
         sim_params = sim_env.params if sim_env is not None else env.params
     plan_env = sim_env if sim_env is not None else env
-    episode = build_episode_fn(solver, env, episode_length, sim_env=sim_env, guard=guard,
-                               fused=_fused_mode(plan_env, sim_params))
-    per_episode, states, finals = [], [], []
-    for i in range(n_episodes):
-        records, ep_states, final = episode(env.params, sim_params, base_seed + i * 12345)
-        per_episode.append({k: v.cpu().numpy() for k, v in records.items()})
-        states.append(_to_numpy(ep_states))
-        finals.append(final)
-    out = summarize({k: np.stack([r[k] for r in per_episode]) for k in _RECORDS})
-    return dict(out, states=states, final_solver_states=finals)
+    fused = _fused_mode(plan_env, sim_params)
+    seeds = [base_seed + i * 12345 for i in range(n_episodes)]
+    missing = batch_coverage(solver, plan_env, fused)
+    if batched and missing is not None:
+        raise NotImplementedError(f"run_episodes(batched=True): {missing}")
+    batched = missing is None if batched is None else bool(batched)
+    if batched:
+        episode = build_batched_episode_fn(solver, env, episode_length, sim_env=sim_env,
+                                           guard=guard)
+        records, ep_states, final = episode(env.params, sim_params, seeds)
+        records = {k: v.cpu().numpy() for k, v in records.items()}
+        states = [_to_numpy(st) for st in ep_states]
+        finals = [solvers.map_tensors(torch.clone, s) for s in final.unstack()]
+    else:
+        episode = build_episode_fn(solver, env, episode_length, sim_env=sim_env, guard=guard,
+                                   fused=fused)
+        per_episode, states, finals = [], [], []
+        for seed in seeds:
+            recs, ep_states, final = episode(env.params, sim_params, seed)
+            per_episode.append({k: v.cpu().numpy() for k, v in recs.items()})
+            states.append(_to_numpy(ep_states))
+            finals.append(final)
+        records = {k: np.stack([r[k] for r in per_episode]) for k in _RECORDS}
+    return dict(summarize(records), states=states, final_solver_states=finals,
+                batched=batched)

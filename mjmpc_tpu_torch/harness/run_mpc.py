@@ -11,9 +11,10 @@ card unless the caller asks for the CPU). With --dyn_randomize_config
 (a spec of configs/dyn_randomize/) only the planner's model is perturbed,
 from the config's seed (envs.randomize_dynamics): the real env stays
 nominal, and the perturbed env plans on kernels built from its own
-perturbed model. The config's episodes run one after another
-(harness/episode.py run_episodes, each a replayed captured control step
-on the card); each controller's log
+perturbed model. The config's episodes run as one batched episode where
+the batched solve covers the controller and the planning env, else one
+after another (harness/episode.py run_episodes, on the card a replayed
+captured control step; the log says which); each controller's log
 (.log and .csv) goes to <save_dir>/<env>/<date>/<controller>/, and with
 --checkpoint the final solver state of every episode to solver_state.npz
 and solver_state.manifest.json there (harness/checkpoint.py), and with
@@ -105,6 +106,8 @@ def main(argv=None):
             sim_env=plan_env if plan_env is not env else None, guard=not args.no_guard)
         timeit.stop("start_" + controller_name)
 
+        logger.info("%d episodes %s", exp_params["n_episodes"],
+                    "as one batched episode" if out["batched"] else "one after another")
         logger.info("Avg. reward = %s, Std. Reward = %s, Success Metric = %s",
                     out["average_reward"], out["reward_std"], out["success_metric"])
         logger.record_tabular("EpisodeReward", out["ep_rewards"].tolist())

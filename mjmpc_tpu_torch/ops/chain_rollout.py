@@ -1108,11 +1108,17 @@ class ChainExtRollout:
     [N, H], all float32 on one device: the locomotion rollout of an ExtTask
     (external forces every substep, the velocity limit, the step cost).
 
+    `batch` runs B such rollouts (B starts and means, noise [B, N, H, nv])
+    in one launch over B N particles; element b equals the single rollout
+    of element b's inputs bit for bit.
+
     `ChainExtRollout.launches` counts kernel launches over all instances;
     it rises by one per launch and nowhere else (the plain version on CPU
-    tensors does not count).
+    tensors does not count); `ChainExtRollout.batch_launches` likewise
+    counts the batched entry's.
     """
     launches = 0
+    batch_launches = 0
     nvcc_flags: Tuple[str, ...] = ()   # added to the build's (a measurement tool's hook)
 
     def __init__(self, model: ChainModel, n_substeps: int, task: ExtTask, vel_limit=None,
@@ -1137,6 +1143,9 @@ class ChainExtRollout:
             entry = lib.lib.chain_ext_rollout_launch
             entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                                       ctypes.c_void_p]
+            entry.restype = ctypes.c_int
+            entry = lib.lib.chain_ext_rollout_batch_launch
+            entry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             entry.restype = ctypes.c_int
             lib.lib.chain_rollout_error_string.argtypes = [ctypes.c_int]
             lib.lib.chain_rollout_error_string.restype = ctypes.c_char_p
@@ -1182,6 +1191,51 @@ class ChainExtRollout:
             raise RuntimeError("ChainExtRollout kernel launch failed: "
                                + lib.chain_rollout_error_string(rc).decode())
         type(self).launches += 1
+        return costs
+
+    def _check_batch(self, q0, qd0, mean, noise):
+        if not isinstance(noise, torch.Tensor) or noise.dim() != 4 or noise.shape[0] < 1:
+            raise ValueError("noise must be a [B>=1, N, H, nv] torch.Tensor")
+        nv, batch = self.model.nv, noise.shape[0]
+        args = {"q0": q0, "qd0": qd0, "mean": mean, "noise": noise.reshape(-1, *noise.shape[2:])}
+        _check_args(args, nv, lambda h: {"q0": (batch, nv), "qd0": (batch, nv),
+                                         "mean": (batch, h, nv)})
+        return dict(args, noise=noise)
+
+    def batch_plain(self, q0, qd0, mean, noise):
+        """batch in plain PyTorch (any device): the plain rollout of each
+        element, stacked."""
+        self._check_batch(q0, qd0, mean, noise)
+        return torch.stack([rollout_ext_plain(self.model, self.n_substeps, self.task,
+                                              self.vel_limit, self.ulow, self.uhigh, q0[b],
+                                              qd0[b], mean[b], noise[b])
+                            for b in range(noise.shape[0])])
+
+    def batch(self, q0, qd0, mean, noise):
+        """B rollouts: q0, qd0 [B, nv], mean [B, H, nv], noise [B, N, H, nv]
+        -> costs [B, N, H]; on a CUDA device one launch of the kernel over
+        the B N particles, the plain version per element on the CPU."""
+        args = self._check_batch(q0, qd0, mean, noise)
+        device = noise.device
+        if device.type == "cpu":
+            return self.batch_plain(q0, qd0, mean, noise)
+        if device.type != "cuda":
+            raise ValueError(f"no chain-rollout kernel for device {device}")
+        for name, x in args.items():
+            if not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        batch, n, horizon, _ = noise.shape
+        lib = self.library().lib
+        with torch.cuda.device(device):
+            costs = torch.empty((batch, n, horizon), dtype=torch.float32, device=device)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.chain_ext_rollout_batch_launch(_vp(q0), _vp(qd0), _vp(mean), _vp(noise),
+                                                    _vp(costs), batch, n, horizon,
+                                                    ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError("ChainExtRollout batched kernel launch failed: "
+                               + lib.chain_rollout_error_string(rc).decode())
+        ChainExtRollout.batch_launches += 1
         return costs
 
 

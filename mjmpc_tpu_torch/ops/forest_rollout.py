@@ -1265,11 +1265,17 @@ class ForestRollout:
     [N, H, dA]) -> costs [N, H], all float32 on one device; extras is the
     task's.
 
+    `batch` runs B such rollouts (B starts, extras and means, noise
+    [B, N, H, dA]) in one launch over B N particles; element b equals the
+    single rollout of element b's inputs bit for bit.
+
     `ForestRollout.launches` counts kernel launches over all instances; it
     rises by one per launch and nowhere else (the plain version on CPU
-    tensors does not count).
+    tensors does not count); `ForestRollout.batch_launches` likewise counts
+    the batched entry's.
     """
     launches = 0
+    batch_launches = 0
     # nvcc flags beyond build.NVCC_FLAGS (a measurement build sets its own)
     nvcc_flags: Tuple[str, ...] = ()
 
@@ -1299,6 +1305,9 @@ class ForestRollout:
             entry = lib.lib.forest_rollout_launch
             entry.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                                       ctypes.c_void_p]
+            entry.restype = ctypes.c_int
+            entry = lib.lib.forest_rollout_batch_launch
+            entry.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             entry.restype = ctypes.c_int
             lib.lib.forest_rollout_error_string.argtypes = [ctypes.c_int]
             lib.lib.forest_rollout_error_string.restype = ctypes.c_char_p
@@ -1358,6 +1367,54 @@ class ForestRollout:
             raise RuntimeError("ForestRollout kernel launch failed: "
                                + lib.forest_rollout_error_string(rc).decode())
         type(self).launches += 1
+        return costs
+
+    def _check_batch(self, q0, qd0, extras, mean, noise):
+        if not isinstance(noise, torch.Tensor) or noise.dim() != 4 or noise.shape[0] < 1:
+            raise ValueError("noise must be a [B>=1, N, H, dA] torch.Tensor")
+        c, batch, d = self.consts, noise.shape[0], len(self.act_bodies)
+        args = {"q0": q0, "qd0": qd0, "extras": extras, "mean": mean,
+                "noise": noise.reshape(-1, *noise.shape[2:])}
+        _check_args(args, d, lambda h: {"q0": (batch, c["nq"]), "qd0": (batch, c["nv"]),
+                                        "extras": (batch, self.task.n_extras),
+                                        "mean": (batch, h, d)})
+        return dict(args, noise=noise)
+
+    def batch_plain(self, q0, qd0, extras, mean, noise):
+        """batch in plain PyTorch (any device): the plain rollout of each
+        element, stacked."""
+        self._check_batch(q0, qd0, extras, mean, noise)
+        return torch.stack([rollout_forest_plain(self.model, self.n_substeps, self.act_bodies,
+                                                 self.task, self.ulow, self.uhigh, q0[b], qd0[b],
+                                                 extras[b], mean[b], noise[b], self.consts)
+                            for b in range(noise.shape[0])])
+
+    def batch(self, q0, qd0, extras, mean, noise):
+        """B rollouts: q0 [B, nq], qd0 [B, nv], extras [B, n_extras], mean
+        [B, H, dA], noise [B, N, H, dA] -> costs [B, N, H]; on a CUDA device
+        one launch of the kernel over the B N particles, the plain version
+        per element on the CPU."""
+        args = self._check_batch(q0, qd0, extras, mean, noise)
+        device = noise.device
+        if device.type == "cpu":
+            return self.batch_plain(q0, qd0, extras, mean, noise)
+        if device.type != "cuda":
+            raise ValueError(f"no forest-rollout kernel for device {device}")
+        for name, x in args.items():
+            if not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        batch, n, horizon, _ = noise.shape
+        lib = self.library().lib
+        with torch.cuda.device(device):
+            costs = torch.empty((batch, n, horizon), dtype=torch.float32, device=device)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.forest_rollout_batch_launch(_vp(q0), _vp(qd0), _vp(extras), _vp(mean),
+                                                 _vp(noise), _vp(costs), batch, n, horizon,
+                                                 ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError("ForestRollout batched kernel launch failed: "
+                               + lib.forest_rollout_error_string(rc).decode())
+        ForestRollout.batch_launches += 1
         return costs
 
 

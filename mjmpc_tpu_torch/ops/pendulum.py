@@ -192,13 +192,15 @@ def library() -> build.KernelLibrary:
         lib = build.load("pendulum", "pendulum.cu", {}, flags=("-fmad=false",))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lib.pendulum_rollout_launch.argtypes = [p, p, p, p, i, i, i, p]
+        lib.lib.pendulum_rollout_batch_launch.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.lib.pendulum_rollout_per_block.argtypes = [i, i]
         lib.lib.mppi_pendulum_solve_launch.argtypes = (
             [ctypes.c_ulonglong, p, p, p, p, i, i, i] + [ctypes.c_float] * 3 + [i]
             + [ctypes.c_float] * 5 + [p])
         lib.lib.mppi_pendulum_solve_shape.argtypes = [i, i, i, p, p]
         lib.lib.mppi_pendulum_solve_max_clusters.argtypes = [i, i, i, p]
-        for fn in (lib.lib.pendulum_rollout_launch, lib.lib.pendulum_rollout_per_block,
+        for fn in (lib.lib.pendulum_rollout_launch, lib.lib.pendulum_rollout_batch_launch,
+                   lib.lib.pendulum_rollout_per_block,
                    lib.lib.mppi_pendulum_solve_launch, lib.lib.pendulum_setup,
                    lib.lib.mppi_pendulum_solve_shape, lib.lib.mppi_pendulum_solve_max_clusters):
             fn.restype = i
@@ -286,11 +288,19 @@ class PendulumRollout:
     kernel's rule, rollout_per_block); it changes no bit of the costs,
     since each particle's arithmetic is the same in every partition.
 
+    `batch` runs B such rollouts (B states, each param 0-d or [B], means
+    [B, H, 1], noise [B, N, H, 1]) in one launch, each element on blocks
+    of its own; element b equals the single rollout of element b's inputs
+    bit for bit. `batched` is the same call: the env's batched fused
+    rollout (Env.fused_rollout's `batched`).
+
     `PendulumRollout.launches` counts kernel launches; it rises by one per
     launch and nowhere else (the plain version on CPU tensors does not
-    count).
+    count); `PendulumRollout.batch_launches` likewise counts the batched
+    entry's.
     """
     launches = 0
+    batch_launches = 0
     dynamic_fields = PARAM_FIELDS
     plain = staticmethod(pendulum_rollout_plain)
 
@@ -316,6 +326,70 @@ class PendulumRollout:
         _raise_on(rc, "pendulum-rollout")
         PendulumRollout.launches += 1
         return costs
+
+    @staticmethod
+    def _check_batch(params, states, mean, noise):
+        """The batch's scalars [B, 8] (th, thdot, then the six params, each
+        0-d or [B]); raises on a bad shape, dtype or device."""
+        if not isinstance(noise, torch.Tensor) or noise.dtype != torch.float32:
+            raise TypeError("noise must be a float32 torch.Tensor")
+        if noise.dim() != 4 or noise.shape[3] != 1 or min(noise.shape[:3]) < 1:
+            raise ValueError(f"noise must be [B>=1, N>=1, H>=1, 1], got {tuple(noise.shape)}")
+        batch, horizon = noise.shape[0], noise.shape[2]
+        if not isinstance(mean, torch.Tensor) or mean.dtype != torch.float32:
+            raise TypeError("mean must be a float32 torch.Tensor")
+        if tuple(mean.shape) != (batch, horizon, 1):
+            raise ValueError(f"mean must be [B, H, 1] = {(batch, horizon, 1)}, got "
+                             f"{tuple(mean.shape)}")
+        if mean.device != noise.device:
+            raise ValueError(f"mean is on {mean.device}, expected {noise.device}")
+        parts = [states.th, states.thdot] + [getattr(params, f) for f in PARAM_FIELDS]
+        for name, x in zip(("th", "thdot") + PARAM_FIELDS, parts):
+            if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
+                raise TypeError(f"{name} must be a float32 tensor")
+            if x.shape not in ((batch,), ()) or (name in ("th", "thdot") and x.dim() != 1):
+                raise ValueError(f"{name} must be [{batch}]" + ("" if name in ("th", "thdot")
+                                                                 else " or 0-d"))
+            if x.device != noise.device:
+                raise ValueError(f"{name} is on {x.device}, expected {noise.device}")
+        return torch.stack([x.expand(batch) for x in parts], 1)
+
+    @staticmethod
+    def batch_plain(params, states, mean, noise):
+        """batch in plain PyTorch (any device): the plain rollout of each
+        element, stacked."""
+        PendulumRollout._check_batch(params, states, mean, noise)
+        rows = []
+        for b in range(noise.shape[0]):
+            p = type(params)(**{f: getattr(params, f) if getattr(params, f).dim() == 0
+                                else getattr(params, f)[b] for f in PARAM_FIELDS})
+            st = type(states)(th=states.th[b], thdot=states.thdot[b])
+            rows.append(pendulum_rollout_plain(p, st, mean[b], noise[b]))
+        return torch.stack(rows)
+
+    def batch(self, params, states, mean, noise, per_block: int = 0):
+        """B rollouts -> costs [B, N, H]: on a CUDA device one launch of
+        the kernel, ceil(N / per_block) blocks an element (per_block 0:
+        the rule's at B N particles), the plain version per element on the
+        CPU."""
+        scalars = self._check_batch(params, states, mean, noise)
+        if noise.device.type == "cpu":
+            return self.batch_plain(params, states, mean, noise)
+        lib = _cuda_launch_setup(noise.device, "pendulum-rollout")
+        if not (mean.is_contiguous() and noise.is_contiguous()):
+            raise ValueError("mean and noise must be contiguous")
+        batch, n, horizon = noise.shape[:3]
+        with torch.cuda.device(noise.device):
+            costs = torch.empty((batch, n, horizon), dtype=torch.float32, device=noise.device)
+            stream = torch.cuda.current_stream(noise.device).cuda_stream
+            rc = lib.pendulum_rollout_batch_launch(
+                scalars.data_ptr(), mean.data_ptr(), noise.data_ptr(), costs.data_ptr(), batch,
+                n, horizon, int(per_block), stream)
+        _raise_on(rc, "batched pendulum-rollout")
+        PendulumRollout.batch_launches += 1
+        return costs
+
+    batched = batch
 
 
 class MppiPendulumSolve:

@@ -19,7 +19,10 @@ mesh row (parallel/mesh.py), and the kernels stay on:
 - `build_sharded_episode_fn` and `build_batch_episode_fn`: episodes on the
   sharded env, each a replayed captured control step on a CUDA device
   (harness/episode.py); a batch of B episodes gives [B, T, ...] records,
-  equal to B runs of the single episode with the same seeds.
+  each episode row's contiguous slice of them one batched episode (the
+  sharded kernels' `batched` split the particles, axis 1 of the noise,
+  over the row), equal to B runs of the single episode with the same
+  seeds.
 
 Only a mesh of one card has run on a card; a mesh of several devices runs
 on the CPU (every shard a CPU device).
@@ -118,6 +121,17 @@ def shard_env(env: Env, mesh: Mesh, num_particles: int) -> Env:
         base = getattr(env, field)
         if hasattr(base, "dynamic_fields"):
             fused.dynamic_fields = base.dynamic_fields
+        batched = {d: getattr(k, "batched", None) for d, k in kernels.items()}
+        if all(k is not None for k in batched.values()):
+            def fused_batch(params, states, means, noises):
+                """B states' rollouts, each shard's particles (axis 1 of the
+                noise) on its device's batched kernel, gathered on axis 1."""
+                outs = [batched[d](on(params, d), _to(states, d), means.to(d),
+                                   noises[:, sl].to(d).contiguous())
+                        for d, sl in shards]
+                return torch.cat([o.to(first) for o in outs], 1)
+
+            fused.batched = fused_batch
         return fused
 
     return dataclasses.replace(env, step=step, observe=observe, success=success,
@@ -178,24 +192,52 @@ def build_sharded_episode_fn(solver, env: Env, episode_length: int,
     return episode
 
 
+def _batch_rows(n: int, rows: int):
+    """The contiguous slices of n episodes over `rows` episode rows, the
+    first rows one episode longer where n does not divide."""
+    per, extra = divmod(n, rows)
+    bounds = [0]
+    for e in range(rows):
+        bounds.append(bounds[-1] + per + (e < extra))
+    return [slice(bounds[e], bounds[e + 1]) for e in range(rows)]
+
+
 def build_batch_episode_fn(solver, env: Env, episode_length: int,
                            mesh: Optional[Mesh] = None):
     """B independent episodes: batch(env_params, seeds [B]) -> records
     {reward, action, value, done, success: [B, T, ...]} on the mesh's first
-    device. Episode b runs on episode row b % rows, its solves' particles
-    split over that row; each is the single episode of
-    build_sharded_episode_fn with seed seeds[b]."""
+    device (the JAX package's jax.vmap over the episode keys, the batch
+    split over the mesh's episodes axis). Episode row e takes a contiguous
+    slice of the seeds and runs it as one batched episode
+    (harness/episode.py build_batched_episode_fn), its solves' particles
+    split over the row's devices; where the batched solve does not cover
+    the solver and env (episode.batch_coverage) the row runs its single
+    episodes one after another, as build_sharded_episode_fn's. Either way
+    episode b agrees with the single episode of seed seeds[b] (the batched
+    solve's reductions may sum in another order)."""
     mesh = mesh or make_mesh()
-    rows = [build_sharded_episode_fn(solver, _env_on(env, mesh.devices[e][0]), episode_length,
-                                     mesh.row(e))
-            for e in range(mesh.shape["episodes"])]
+    n = _check_particles(solver, mesh)
+    row_envs = [_env_on(env, mesh.devices[e][0]) for e in range(mesh.shape["episodes"])]
+    sharded = [shard_env(e, mesh.row(i), n) for i, e in enumerate(row_envs)]
     first = mesh.devices[0][0]
+
+    def row_episode(e, env_params, seeds):
+        fused = ep._fused_mode(row_envs[e], env_params)
+        seeds = [int(s) for s in seeds]
+        if ep.batch_coverage(solver, sharded[e], fused) is None:
+            run = ep.build_batched_episode_fn(solver, row_envs[e], episode_length,
+                                              sim_env=sharded[e])
+            return run(env_params, env_params, seeds)[0]
+        run = ep.build_episode_fn(solver, row_envs[e], episode_length, sim_env=sharded[e],
+                                  fused=fused)
+        outs = [run(env_params, env_params, seed)[0] for seed in seeds]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def batch(env_params, seeds):
         outs = []
-        for b, seed in enumerate(seeds):
-            e = b % len(rows)
-            outs.append(rows[e](_to(env_params, mesh.devices[e][0]), int(seed)))
-        return {k: torch.stack([o[k].to(first) for o in outs]) for k in outs[0]}
+        for e, sl in enumerate(_batch_rows(len(seeds), len(row_envs))):
+            if sl.stop > sl.start:
+                outs.append(row_episode(e, _to(env_params, mesh.devices[e][0]), seeds[sl]))
+        return {k: torch.cat([o[k].to(first) for o in outs]) for k in outs[0]}
 
     return batch

@@ -3,8 +3,8 @@ CEM, DMD), PFMPC, the closed-loop Reinforce and iLQR, and the learned-model
 family (SoftQMPC, RandomShootingNN), with the registry of
 mjmpc_tpu/solvers/__init__.py."""
 from .base import (GaussianBatch, GaussianMPC, GaussianState, build_batched_solve_fn,
-                   build_optimal_value_fn, build_solve_fn, evaluate_episode, guard_finite,
-                   map_tensors, stack_states, tensor_leaves)
+                   build_optimal_value_fn, build_solve_fn, check_batchable, evaluate_episode,
+                   guard_finite, map_tensors, stack_states, tensor_leaves)
 from .cem import CEM
 from .dmd import DMDMPC
 from .ilqr import ILQR, ILQRState
@@ -82,7 +82,7 @@ def make_solve_fn(solver, env, **kwargs):
 
 __all__ = [
     "GaussianMPC", "GaussianState", "GaussianBatch", "build_solve_fn",
-    "build_batched_solve_fn", "stack_states", "evaluate_episode",
+    "build_batched_solve_fn", "check_batchable", "stack_states", "evaluate_episode",
     "build_optimal_value_fn", "guard_finite", "MPPI", "MPPIQ", "RandomShooting",
     "CEM", "DMDMPC", "PFMPC", "PFState", "Reinforce", "ReinforceState", "ILQR",
     "ILQRState", "SoftQMPC", "SoftQState", "RandomShootingNN", "RSNNState",

@@ -310,7 +310,7 @@ def build_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False,
     return solve
 
 
-def _check_batchable(solver: GaussianMPC, env: Env):
+def check_batchable(solver: GaussianMPC, env: Env):
     """env's batched fused rollout, or NotImplementedError for a solver
     outside the Gaussian open-loop family or an env without one."""
     from .cem import CEM
@@ -321,12 +321,15 @@ def _check_batchable(solver: GaussianMPC, env: Env):
     if not isinstance(solver, (MPPI, RandomShooting, CEM, DMDMPC)) or isinstance(solver, MPPIQ):
         raise NotImplementedError(
             f"no batched solve for {type(solver).__name__}: only MPPI, RandomShooting, CEM "
-            f"and DMDMPC have one (ROADMAP Queue 1 item 5)")
+            f"and DMDMPC have one; MPPIQ (with a Q, on kernel #3's batched entry), Reinforce "
+            f"(on #4's), PFMPC, iLQR and the learned family, a batched update each, are still "
+            f"to port (ROADMAP Queue 1 item 5)")
     batched = getattr(env.fused_rollout, "batched", None)
     if batched is None:
         raise NotImplementedError(
-            f"env {env.name!r} has no batched fused rollout: only kernel #1 (the reacher) has "
-            f"a batched entry (ROADMAP Queue 1 item 5, batched entries for kernels #3-#7)")
+            f"env {env.name!r} has no batched fused rollout: kernels #1, #5, #6 and #7 have "
+            f"batched entries; an env without a fused rollout (the general rollout: the "
+            f"analytic envs, the continual reacher) has none (ROADMAP Queue 1 item 5)")
     return batched
 
 
@@ -340,9 +343,10 @@ def build_batched_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False
     (stack_states), batch a GaussianBatch (solver.init_batch). On a CUDA
     device each iteration draws the noise of every element in one launch of
     the noise kernel (#2, sample_noise_batch) and rolls every element out
-    in one launch of the env's fused rollout (#1's batched entry), as the
-    JAX batching rule lifts the batch into the Pallas grid; the solver's own
-    update, value and shift run over the batch through torch.func.vmap, and
+    in one launch of the env's fused rollout (the batched entry of #1, #5,
+    #6 or #7), as the JAX batching rule lifts the batch into the Pallas
+    grid; the solver's own update, value and shift run over the batch
+    through torch.func.vmap, and
     act, the random base action and the step on batched tensors. Nothing is
     read to the host, so the solve can be captured in a CUDA graph. Element
     b's kernels equal the single solve's bit for bit; the vmapped reductions
@@ -355,7 +359,7 @@ def build_batched_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False
     CEM and DMDMPC, or an env whose fused rollout has no batched entry,
     raises NotImplementedError.
     """
-    batched_rollout = _check_batchable(solver, env)
+    batched_rollout = check_batchable(solver, env)
     single = build_solve_fn(solver, env, calc_val=calc_val, hotstart=hotstart)
     solver.build_constants()
 
@@ -478,7 +482,9 @@ def guard_finite(solve, solver):
     the device from Philox at the state's step, so resets at different
     steps draw different parameters, as the JAX guard's
     init_state(fold_in(key, step)) does), else init_state(seed), which
-    builds the fresh tensors with device fills. A host-integer seed cannot
+    builds the fresh tensors with device fills. Over a GaussianBatch (a
+    batched solve, build_batched_solve_fn) each element is checked and
+    reset on its own (_guarded_batch). A host-integer seed cannot
     be chosen on the device without a sync, so the reset state keeps the
     solver state's `seed`; noise streams are keyed by (seed, tag, step) and
     step advances anyway, so the next solve's noise is still fresh.
@@ -486,6 +492,8 @@ def guard_finite(solve, solver):
     reset = getattr(solver, "reset_state", None)
 
     def guarded(env_params, env_state, solver_state):
+        if isinstance(solver_state, GaussianBatch):
+            return _guarded_batch(solve, solver, env_params, env_state, solver_state)
         action, value, new_state = solve(env_params, env_state, solver_state)
         ok = torch.isfinite(action).all() & torch.isfinite(value).all()
         names = [f.name for f in dataclasses.fields(new_state) if f.name != "step"]
@@ -503,6 +511,25 @@ def guard_finite(solve, solver):
                 torch.where(ok, value, torch.zeros_like(value)), recovered)
 
     return guarded
+
+
+def _guarded_batch(solve, solver: GaussianMPC, env_params, env_states, batch: GaussianBatch):
+    """guard_finite over a batched solve (build_batched_solve_fn): each
+    element is checked on its own ([B] booleans on the device), and only
+    the elements that failed play a zero action with value 0 and take their
+    solver's init_state (a zero mean, init_cov on the diagonal; their seeds
+    and stream keys kept); every element's step advances. Element b's
+    result is guard_finite's on element b's single solve."""
+    action, value, new = solve(env_params, env_states, batch)
+    dims = lambda x: tuple(range(1, x.dim()))
+    ok = (torch.isfinite(action).all(-1) & torch.isfinite(value)
+          & torch.isfinite(new.mean).all(dims(new.mean)) & torch.isfinite(new.cov).all(dims(new.cov)))
+    fresh = solver.init_state(batch.seeds[0])
+    where = lambda good, bad: torch.where(ok.reshape((-1,) + (1,) * (good.dim() - 1)), good, bad)
+    recovered = dataclasses.replace(new, mean=where(new.mean, fresh.mean),
+                                    cov=where(new.cov, fresh.cov), step=batch.step + 1)
+    return (where(action, torch.zeros_like(action)), where(value, torch.zeros_like(value)),
+            recovered)
 
 
 def build_optimal_value_fn(solver: GaussianMPC, env: Env):

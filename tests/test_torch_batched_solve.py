@@ -175,7 +175,7 @@ def test_batched_solve_raises_without_a_batched_path(env):
                    solvers.MPPIQ(**cfg)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
             solvers.build_batched_solve_fn(solver, env)
-    for name in ("SimplePendulum-v0", "continual_reacher-v0"):
+    for name in ("point_mass-v0", "continual_reacher-v0"):
         other = envs.make(name, device=DEVICE)
         solver = solvers.MPPI(**dict(cfg, d_action=other.d_action))
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):

@@ -8,8 +8,9 @@ forest rollout for pen-v0, the sawyer peg, relocate-v0, hammer-v0 (its
 coupled free-body branch), the sawyer door, the pusher, the three
 tray-glass models and door-v0, the pendulum rollout (every particles-a-block
 size bit for bit) and the one-kernel pendulum MPPI solve, a thread-block
-cluster), and the batched entries of #1 and #2 (B elements in one launch,
-equal to B single launches bit for bit):
+cluster), and the batched entries of #1, #2, #5, #6 and #7 (B elements in
+one launch, equal to B single launches bit for bit; a strided argument
+raising), and a batched episode replayed against its eager loop:
 each against its plain PyTorch version, their launch counts on sync-free
 solves (the batched MPPI solve against single solves too), and the
 wrappers' checks; and one solve of each family captured as
@@ -141,6 +142,60 @@ def test_batched_kernels_equal_single_launches(device, b):
         for i in range(b)]))
     torch.testing.assert_close(white, sampler.white_batch_plain(
         keys, steps, 37, 5, 7, (0.25, 0.8, 0.0)), rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("name", ["Swimmer-v0", "pen-v0", "SimplePendulum-v0"])
+def test_new_batched_entries_equal_single_launches(device, name, b):
+    """The batched entries of #5, #6 and #7 (chip_smoke.py's inputs of
+    phase 30) equal B single launches bit for bit and their plain versions
+    within the single checks' tolerances, one batched launch each."""
+    smoke = _chip_smoke()
+    env = envs.make(name, device=device)
+    roll = getattr(env.fused_rollout, "kernel", env.fused_rollout)
+    n, h, tol = smoke.BATCH_ENTRY_CHECKS[name]
+    args = smoke._batched_entry_inputs(name, env, roll, n, h, b, device)
+    before = type(roll).batch_launches
+    got = roll.batch(*args)
+    assert type(roll).batch_launches == before + 1
+    if name == "SimplePendulum-v0":
+        st = args[1]
+        singles = [roll(args[0], type(st)(th=st.th[i], thdot=st.thdot[i]), args[2][i],
+                        args[3][i]) for i in range(b)]
+    else:
+        singles = [roll(*(x[i] for x in args)) for i in range(b)]
+    assert torch.equal(got, torch.stack(singles))
+    torch.testing.assert_close(got, roll.batch_plain(*args), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["Swimmer-v0", "pen-v0", "SimplePendulum-v0"])
+def test_new_batched_entries_raise_on_non_contiguous_inputs(device, name):
+    smoke = _chip_smoke()
+    env = envs.make(name, device=device)
+    roll = getattr(env.fused_rollout, "kernel", env.fused_rollout)
+    n, h, _ = smoke.BATCH_ENTRY_CHECKS[name]
+    args = smoke._batched_entry_inputs(name, env, roll, n, h, 2, device)
+    args[-1] = args[-1].transpose(0, 1).contiguous().transpose(0, 1)   # noise, strided
+    with pytest.raises(ValueError, match="contiguous"):
+        roll.batch(*args)
+
+
+def test_batched_episode_replays_the_eager_loop(device):
+    """Two pendulum episodes as one batched episode, replayed, equal the
+    batched eager loop bit for bit and launch #7's batched entry alone."""
+    from mjmpc_tpu_torch.harness.episode import build_batched_episode_fn
+    smoke = _chip_smoke()
+    env = envs.make("SimplePendulum-v0", device=device)
+    solver = solvers.MPPI(d_action=1, horizon=16, num_particles=64, lam=0.01, init_cov=3.5,
+                          step_size=0.55, filter_coeffs=(0.25, 0.8, 0.0), device=device)
+    before = (PendulumRollout.launches, PendulumRollout.batch_launches)
+    replayed = build_batched_episode_fn(solver, env, 6)(env.params, env.params, [1, 2])
+    assert (PendulumRollout.launches, PendulumRollout.batch_launches) == (before[0],
+                                                                          before[1] + 2)
+    eager = build_batched_episode_fn(solver, env, 6, replay=False)(env.params, env.params,
+                                                                   [1, 2])
+    assert smoke.tensors_equal(replayed[0], eager[0]) and smoke.tensors_equal(replayed[2],
+                                                                               eager[2])
 
 
 def test_batched_solve_matches_single_solves_without_host_syncs(device):
@@ -1087,10 +1142,13 @@ def test_perturbed_models_kernels_match_their_plain_versions(device):
 
 def test_sharded_solve_and_batch_episode_on_a_mesh_of_one_card(device):
     """parallel/ on the card alone: the sharded main-path solve equals the
-    plain solve bit for bit, #1 once a solve; the batched episodes equal
-    the single ones."""
+    plain solve bit for bit, #1 once a solve; the batch of episodes (one
+    batched episode on the row) equals the unsharded env's batched
+    episode, and each episode agrees with the single episode of its seed
+    on the first steps (chip_smoke's rule: 1e-4, rewards of
+    max(1, |reward|))."""
     from mjmpc_tpu_torch import parallel
-    from mjmpc_tpu_torch.harness.episode import build_episode_fn
+    from mjmpc_tpu_torch.harness.episode import build_batched_episode_fn
     smoke = _chip_smoke()
     env = envs.make("reacher_7dof-v0", device=device)
     solver = _main_path_mppi(device, 1024)
@@ -1102,7 +1160,7 @@ def test_sharded_solve_and_batch_episode_on_a_mesh_of_one_card(device):
     assert smoke.tensors_equal(sharded, solvers.make_solve_fn(solver, env)(env.params, es, state))
     small = _main_path_mppi(device, 128)
     batch = parallel.build_batch_episode_fn(small, env, 3, mesh)(env.params, [4, 9])
-    single = build_episode_fn(small, env, 3)
-    for i, seed in enumerate([4, 9]):
-        records = single(env.params, env.params, seed)[0]
-        assert all(torch.equal(batch[k][i], records[k]) for k in records)
+    records = build_batched_episode_fn(small, env, 3)(env.params, env.params, [4, 9])[0]
+    assert all(torch.equal(batch[k], records[k]) for k in records)
+    diffs = smoke.single_episode_diffs(small, env, batch, [4, 9])[0]
+    assert max(diffs.values()) <= smoke.BATCH_AGREE_ATOL, diffs

@@ -102,11 +102,14 @@ def _swimmer_solver(env, **kw):
 
 
 def test_run_episodes_matches_a_hand_loop():
-    """run_episodes at N=16, H=4, 3 steps, 2 episodes gives the rewards of
-    guarded solves and env steps run by hand from the same seeds."""
+    """run_episodes' episodes one after another (batched=False; the batched
+    episode is held to this loop in test_torch_batched_episode.py) at N=16,
+    H=4, 3 steps, 2 episodes give the rewards of guarded solves and env
+    steps run by hand from the same seeds."""
     env = envs.make("Swimmer-v0", device=DEVICE)
     solver = _swimmer_solver(env)
-    out = episode.run_episodes(solver, env, n_episodes=2, episode_length=3, base_seed=7)
+    out = episode.run_episodes(solver, env, n_episodes=2, episode_length=3, base_seed=7,
+                               batched=False)
     solve = solvers.guard_finite(solvers.make_solve_fn(solver, env), solver)
     for i in range(2):
         seed = 7 + i * 12345
